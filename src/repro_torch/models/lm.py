@@ -1,0 +1,133 @@
+"""The decoder LM of the port (counterpart of ``repro.models.lm``), dense
+attention-only family.
+
+The JAX package scans stacked superblock params; here the layers are an
+``nn.ModuleList`` walked by a plain loop, with the same per-layer dropout
+seed offset ``i * 1000003``. Serving caches are a list of per-layer dicts.
+
+Public entry points:
+  init_params(cfg, seed=, device=)                 → LM (random weights)
+  forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches)
+  init_cache / prefill / decode_step               → contiguous KV serving
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers
+from repro_torch.models.layers import Ctx
+
+
+class Block(nn.Module):
+    """One pre-norm attention + gated-MLP block (JAX ``_init_block``'s leaves)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.norm1 = layers._param((cfg.d_model,), dtype, device)
+        self.mixer = layers.Attention(cfg, dtype, device)
+        self.norm2 = layers._param((cfg.d_model,), dtype, device)
+        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class LM(nn.Module):
+    """Parameters of the decoder: ``embed [Vpad, d]``, ``blocks``,
+    ``final_norm [d]`` and ``lm_head [d, Vpad]``, allocated uninitialised
+    on ``device``; :func:`init_params` or ``convert.convert_params`` fill them."""
+
+    def __init__(self, cfg, vocab_padded: int, *, device, dtype=None):
+        super().__init__()
+        if (cfg.family != "dense" or cfg.moe is not None
+                or cfg.frontend is not None or cfg.mlp_type != "gated_silu"
+                or set(cfg.block_pattern) != {"attn"}):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is not yet ported to "
+                f"repro_torch (dense attention-only archs only)")
+        dtype = dtype or cfg.dtype
+        self.embed = layers._param((vocab_padded, cfg.d_model), dtype, device)
+        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = layers._param((cfg.d_model,), dtype, device)
+        self.lm_head = layers._param((cfg.d_model, vocab_padded), dtype, device)
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
+    """Random weights with the JAX package's shapes and scales (normal ·
+    d_in**-0.5 matrices, 0.02 embedding, unit norms), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. The draws differ
+    from JAX's; ``convert.convert_params`` carries JAX weights over."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = LM(cfg, cfg.vocab_size, device=device)
+    for blk in model.blocks:
+        blk.norm1.fill_(1.0)
+        blk.norm2.fill_(1.0)
+        blk.mixer = layers.init_attention(gen, cfg, cfg.dtype)
+        blk.mlp = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
+                                        cfg.dtype, scale=0.02))
+    model.final_norm.fill_(1.0)
+    model.lm_head.copy_(layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                          cfg.dtype))
+    return model
+
+
+def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed):
+    h = layers.rms_norm(x, p.norm1)
+    mixed, new_cache = layers.apply_attention(
+        p.mixer, h, ctx, cfg, positions=positions, cache=cache,
+        layer_seed=layer_seed)
+    x = x + mixed
+    return x + layers.apply_mlp(p.mlp, layers.rms_norm(x, p.norm2)), new_cache
+
+
+def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
+            positions=None):
+    """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None).
+
+    positions: [B, S] or [S] RoPE positions (default ``arange(S)``). Packed
+    batches (``segment_ids``) come with the training slice; the kernels
+    already take them.
+    """
+    x = params.embed[tokens]
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    new_caches: Optional[List[dict]] = None if caches is None else []
+    for i, blk in enumerate(params.blocks):
+        x, nc = _apply_block(blk, x, ctx, cfg, positions=positions,
+                             cache=None if caches is None else caches[i],
+                             layer_seed=i * 1000003)
+        if new_caches is not None:
+            new_caches.append(nc)
+    x = layers.rms_norm(x, params.final_norm)
+    return x @ params.lm_head, new_caches
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
+    """Per-layer contiguous KV caches (sliding-window archs keep only
+    ``window`` slots)."""
+    dtype = dtype or cfg.dtype
+    eff = max_len if cfg.attn_window is None else min(max_len, cfg.attn_window)
+    return [layers.init_attn_cache(cfg, batch, eff, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def prefill(cfg, params: LM, ctx: Ctx, tokens, caches):
+    """Run the full prompt, filling the caches in place. Returns
+    (last-position logits [B, Vpad], caches)."""
+    logits, caches = forward(cfg, params, ctx, tokens=tokens, caches=caches)
+    return logits[:, -1], caches
+
+
+def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
+    """One autoregressive step. token [B] int → (logits [B, Vpad], caches);
+    the caches are updated in place."""
+    ctx = dataclasses.replace(ctx, decode=True)
+    positions = torch.full((token.shape[0], 1), position, dtype=torch.int32,
+                           device=token.device)
+    logits, caches = forward(cfg, params, ctx, tokens=token[:, None],
+                             caches=caches, positions=positions)
+    return logits[:, 0], caches
