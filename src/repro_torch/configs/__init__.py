@@ -46,8 +46,8 @@ class ArchConfig:
     """One architecture; fields as in ``repro.configs.ArchConfig``.
 
     The sharding fields of the JAX config (fsdp, sharding profile, context
-    parallelism, remat, scan) have no counterpart on one device and are
-    left out; ``dtype`` is a torch dtype.
+    parallelism, scan) have no counterpart on one device and are left out;
+    ``remat`` checkpoints each layer in training; ``dtype`` is a torch dtype.
     """
     name: str
     family: str                      # dense | moe | hybrid | ssm | encoder | vlm
@@ -68,6 +68,7 @@ class ArchConfig:
     frontend: Optional[str] = None
     mlp_type: str = "gated_silu"
     dropout_rate: float = 0.0
+    remat: bool = True               # checkpoint each layer in training
     dtype: Any = torch.bfloat16
     notes: str = ""
 

@@ -8,8 +8,8 @@ One entry point, three interchangeable execution paths:
   plain torch; O(chunk) memory (the counterpart of ``impl="xla"``).
 * ``impl="naive"``  — the unfused baseline; O(N²) memory.
 
-All paths are numerically interchangeable (the tests assert it). Forward
-only in this slice.
+All paths are numerically interchangeable and differentiable (the tests
+assert it).
 """
 
 from __future__ import annotations
@@ -31,17 +31,20 @@ def spark_attention(q, k, v, *, impl: str = "kernel", seed=0,
                     causal: bool = False, window: Optional[int] = None,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
                     segment_ids=None, acc_dtype=torch.float32,
-                    torch_chunk: int = 1024):
+                    bwd_acc_dtype=torch.float32, torch_chunk: int = 1024):
     """Fused MHA. q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] → [B,Hq,Sq,D].
 
     segment_ids: optional [B, Skv] int32 per-token segment ids for packed
     batches — attention never crosses a segment boundary, negative ids mark
-    padding tokens that attend to nothing.
+    padding tokens that attend to nothing. ``acc_dtype`` / ``bwd_acc_dtype``
+    (bf16-ACC) reach the kernels' forward and backward; the plain paths
+    compute in f32, as JAX's.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     cfg = AttnConfig(causal=causal, window=window, scale=scale,
-                     dropout_rate=dropout_rate, acc_dtype=acc_dtype)
+                     dropout_rate=dropout_rate, acc_dtype=acc_dtype,
+                     bwd_acc_dtype=bwd_acc_dtype)
     if impl == "kernel":
         return ops.mha(q, k, v, seed=seed, segment_ids=segment_ids, config=cfg)
     if impl == "torch":

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_fwd", "flash_decode")
+KERNELS = ("flash_fwd", "flash_decode", "flash_bwd")
 
 #: name → ptxas's "registers / smem" lines from the build in this process
 ptxas_report: Dict[str, str] = {}

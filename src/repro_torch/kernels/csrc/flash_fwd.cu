@@ -22,6 +22,11 @@
 // Products run as f32 FMAs from shared memory on a 4x8 register tile per
 // thread (S) and 4 x D/8 (P.V). This is the simple first kernel: tensor-core
 // products (mma.sync / wgmma) and TMA-fed K/V pipelines are later work.
+//
+// bf16-ACC (template flag ACC16, JAX's acc_dtype=bfloat16, paper §3.1): the
+// score tile is rounded to bf16 after the D loop, before the scale, and each
+// tile's P.V is summed in scratch registers, rounded to bf16 and only then
+// folded into the f32 accumulator (flash_fwd.py:89, common.py:76-78).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +55,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
   x *= M1;
@@ -71,7 +80,7 @@ struct FwdParams {
   int dropout; uint32_t seed, threshold; float keep_div;    // keep_div = 1 - rate
 };
 
-template <typename T, int D>
+template <typename T, int D, bool ACC16>
 __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
   constexpr int DPT = D / CG;                 // output columns per thread
   extern __shared__ float smem[];
@@ -168,7 +177,8 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
         if (p.causal) ok &= kp <= qp;
         if (p.window > 0) ok &= kp > qp - p.window;
         if (segments) ok &= (sQseg[r] == sKseg[c]) && (sQseg[r] >= 0);
-        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
+        const float sv = ACC16 ? round_bf16(s[i][j]) : s[i][j];
+        s[i][j] = ok ? sv * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 8 lanes sharing a row are lanes 8k..8k+7 of one warp
@@ -203,11 +213,15 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
     }
     __syncthreads();
 
-    // ---- acc = acc * alpha + P V ----
+    // ---- acc = acc * alpha + P V (ACC16: the tile's P V rounded to bf16) ----
+    float pv[RPT][DPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha[i];
+      for (int c = 0; c < DPT; ++c) {
+        if (ACC16) pv[i][c] = 0.f;
+        else acc[i][c] *= alpha[i];
+      }
 #pragma unroll 4
     for (int j = 0; j < BKV; ++j) {
       float vv[DPT];
@@ -217,8 +231,17 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
       for (int i = 0; i < RPT; ++i) {
         const float pj = sP[(rg + RG * i) * (BKV + 1) + j];
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
+        for (int c = 0; c < DPT; ++c) {
+          if (ACC16) pv[i][c] = fmaf(pj, vv[c], pv[i][c]);
+          else acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
+        }
       }
+    }
+    if (ACC16) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) acc[i][c] = acc[i][c] * alpha[i] + round_bf16(pv[i][c]);
     }
   }
 
@@ -236,25 +259,25 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ACC16>
 int launch(const FwdParams& p, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) *
       (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<T, D, ACC16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.nq, p.Hq, p.B);
-  fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(p);
+  fwd_kernel<T, D, ACC16><<<grid, NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ACC16>
 int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16, ACC16>(p, stream);
+    case 32: return launch<T, 32, ACC16>(p, stream);
+    case 64: return launch<T, 64, ACC16>(p, stream);
+    case 128: return launch<T, 128, ACC16>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -263,13 +286,15 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Segment pointers are all null or all set.
+// dtype: 0 = float32, 1 = bfloat16; acc_bf16: round each tile product to
+// bf16 (bf16-ACC). Segment pointers are all null or all set.
 // Returns the cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      float* lse, const int* q_seg, const int* kv_seg,
                      const int* qs_min, const int* qs_max, const int* ks_min,
                      const int* ks_max, int B, int Hq, int Hkv, int Sq, int Skv,
-                     int D, int dtype, float scale, int causal, int window,
+                     int D, int dtype, int acc_bf16, float scale, int causal,
+                     int window,
                      int dropout, int seed, unsigned int threshold,
                      float keep_div, void* stream) {
   FwdParams p;
@@ -283,8 +308,11 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   p.dropout = dropout; p.seed = (uint32_t)seed; p.threshold = threshold;
   p.keep_div = keep_div;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(p, D, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(p, D, s);
+  if (dtype == 0)
+    return acc_bf16 ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);
+  if (dtype == 1)
+    return acc_bf16 ? launch_d<__nv_bfloat16, true>(p, D, s)
+                    : launch_d<__nv_bfloat16, false>(p, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

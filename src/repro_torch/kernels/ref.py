@@ -4,7 +4,13 @@
   numerical oracle every kernel is held against.
 * :func:`online_mha` — the fused *algorithm* as a chunked loop over KV
   (O(chunk) memory, online softmax, GQA folded into rows): the ``impl="torch"``
-  path. Forward only in this slice.
+  path. It is a ``torch.autograd.Function`` whose backward recomputes S and P
+  per chunk from the saved ``(o, lse)``, as ``repro.kernels.ref._online_bwd``
+  does: autograd through the chunk loop would keep every chunk's f32 state.
+
+Both take ``acc_dtype``: with bfloat16 every product (S, P·V and, in the
+backward, dV, dP, dQ, dK) is rounded to bf16 before it is used or summed in
+f32 (``common.round_acc``), JAX's ``preferred_element_type``.
 
 Conventions (shared by every implementation in this package):
   q: [B, Hq, Sq, D]   k/v: [B, Hkv, Skv, D]   with Hq % Hkv == 0 (GQA)
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize
 from repro_torch.kernels import rng
+from repro_torch.kernels.common import round_acc
 
 
 def _expand_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
@@ -52,8 +59,9 @@ def mask_bias(sq: int, skv: int, *, causal: bool, window: Optional[int],
 def naive_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
               scale: Optional[float] = None, dropout_rate: float = 0.0,
               dropout_seed: int = 0, segment_ids=None,
-              return_residuals: bool = False):
-    """Unfused attention oracle; softmax math and products in f32.
+              acc_dtype=torch.float32, return_residuals: bool = False):
+    """Unfused attention oracle; softmax math in f32, products in f32
+    rounded to ``acc_dtype``. Differentiable by plain autograd.
 
     Fully-masked rows produce o == 0 and lse == NEG_INF (matching the fused
     kernels' l == 0 finalize path), never NaN or a uniform average.
@@ -63,7 +71,8 @@ def naive_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
     scale = (d ** -0.5) if scale is None else scale
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = round_acc(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()),
+                  acc_dtype) * scale
     bias = mask_bias(sq, skv, causal=causal, window=window, device=q.device)
     if bias is not None:
         s = s + bias
@@ -88,8 +97,8 @@ def naive_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
         kp = torch.arange(skv, device=dev)[None, None, None, :]
         keep = rng.dropout_keep_mask(dropout_rate, dropout_seed, bi, hi, qp, kp)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(),
-                     v.float()).to(q.dtype)
+    o = round_acc(torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(),
+                               v.float()), acc_dtype).to(q.dtype)
     if return_residuals:
         return o, lse
     return o
@@ -141,25 +150,23 @@ def _block_masks(b, hkv, g, sq, lo, hi, *, q_offset, causal, window,
     return allowed, keep
 
 
-def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
-               scale: Optional[float] = None, dropout_rate: float = 0.0,
-               dropout_seed: int = 0, segment_ids=None, chunk: int = 1024,
-               return_residuals: bool = False):
-    """Chunked online-softmax attention in plain torch (the kernel's algorithm).
+def _seg_rows(segment_ids, q_offset, g):
+    """(kv ids [B, Skv] int32, q ids repeated over the group [B, Sq·G]) in
+    the sq-major row order of :func:`_fold_gqa`; (None, None) without ids."""
+    if segment_ids is None:
+        return None, None
+    seg = segment_ids.to(torch.int32)
+    return seg, seg[:, q_offset:].repeat_interleave(g, dim=1)
 
-    Scans KV chunks carrying (m, l, acc) in f32; GQA folds the q-head group
-    into rows instead of expanding K/V. A ragged last chunk is folded as it
-    is. Returns o (and lse with ``return_residuals``).
-    """
+
+def _online_fwd(q, k, v, segment_ids, *, causal, window, scale, dropout_rate,
+                dropout_seed, chunk, acc_dtype):
+    """The chunked forward: returns (o [B,Hq,Sq,D] in q.dtype, lse f32)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    scale = (d ** -0.5) if scale is None else scale
     q_offset = skv - sq
     qf, g = _fold_gqa(q.float(), hkv)
-    q_seg_rows = seg = None
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32)
-        q_seg_rows = seg[:, q_offset:].repeat_interleave(g, dim=1)
+    seg, q_seg_rows = _seg_rows(segment_ids, q_offset, g)
     rows = g * sq
     dev = q.device
     state = SoftmaxState(
@@ -168,7 +175,8 @@ def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
         acc=torch.zeros((b, hkv, rows, d), dtype=torch.float32, device=dev))
     for lo in range(0, skv, chunk):
         hi = min(lo + chunk, skv)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, k[:, :, lo:hi].float()) * scale
+        s = round_acc(torch.einsum("bhqd,bhkd->bhqk", qf,
+                                   k[:, :, lo:hi].float()), acc_dtype) * scale
         allowed, keep = _block_masks(
             b, hkv, g, sq, lo, hi, q_offset=q_offset, causal=causal,
             window=window, dropout_rate=dropout_rate,
@@ -183,10 +191,94 @@ def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
         l_new = state.l * alpha + p.sum(dim=-1)
         if keep is not None:
             p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-        acc = state.acc * alpha[..., None] + p @ v[:, :, lo:hi].float()
+        acc = state.acc * alpha[..., None] + round_acc(
+            p @ v[:, :, lo:hi].float(), acc_dtype)
         state = SoftmaxState(m_new, l_new, acc)
     o, lse = finalize(state, out_dtype=q.dtype)
-    o = _unfold_gqa(o, hq, sq)
+    return _unfold_gqa(o, hq, sq), _unfold_gqa(lse, hq, sq)
+
+
+def _online_bwd(q, k, v, o, lse, do, segment_ids, *, causal, window, scale,
+                dropout_rate, dropout_seed, chunk, acc_dtype):
+    """Chunked recompute backward (``repro.kernels.ref._online_bwd``): S and
+    P are recomputed per KV chunk from the saved lse, so memory stays
+    O(chunk). Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    q_offset = skv - sq
+    qf, g = _fold_gqa(q.float(), hkv)
+    dof = _fold_gqa(do.float(), hkv)[0]
+    lsef = _fold_gqa(lse[..., None], hkv)[0][..., 0]
+    delta = (do.float() * o.float()).sum(dim=-1)
+    deltaf = _fold_gqa(delta[..., None], hkv)[0][..., 0]
+    # fully-masked rows store lse == NEG_INF; shift so recomputed p == 0 there
+    lsef_safe = torch.where(lsef == NEG_INF, torch.zeros_like(lsef), lsef)
+    seg, q_seg_rows = _seg_rows(segment_ids, q_offset, g)
+    dev = q.device
+    dq_acc = torch.zeros((b, hkv, g * sq, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, hkv, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    for lo in range(0, skv, chunk):
+        hi = min(lo + chunk, skv)
+        kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        s = round_acc(torch.einsum("bhqd,bhkd->bhqk", qf, kc), acc_dtype) * scale
+        allowed, keep = _block_masks(
+            b, hkv, g, sq, lo, hi, q_offset=q_offset, causal=causal,
+            window=window, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, q_seg_rows=q_seg_rows,
+            seg_blk=None if seg is None else seg[:, lo:hi], device=dev)
+        if allowed is not None:
+            s = torch.where(allowed, s, NEG_INF)
+        p = torch.exp(s - lsef_safe[..., None])           # recomputed probs
+        p_kept = p if keep is None else \
+            torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        dv[:, :, lo:hi] = round_acc(
+            torch.einsum("bhqk,bhqd->bhkd", p_kept, dof), acc_dtype)
+        dp = round_acc(torch.einsum("bhqd,bhkd->bhqk", dof, vc), acc_dtype)
+        if keep is not None:
+            dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
+        ds = p * (dp - deltaf[..., None]) * scale
+        dq_acc += round_acc(ds @ kc, acc_dtype)
+        dk[:, :, lo:hi] = round_acc(
+            torch.einsum("bhqk,bhqd->bhkd", ds, qf), acc_dtype)
+    dq = _unfold_gqa(dq_acc, hq, sq).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _OnlineMHA(torch.autograd.Function):
+    """online_mha with the chunked recompute backward (saves q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, statics):
+        o, lse = _online_fwd(q, k, v, segment_ids, **statics)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.statics = statics
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = _online_bwd(q, k, v, o, lse, do, segment_ids,
+                                 **ctx.statics)
+        return dq, dk, dv, None, None
+
+
+def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
+               scale: Optional[float] = None, dropout_rate: float = 0.0,
+               dropout_seed: int = 0, segment_ids=None, chunk: int = 1024,
+               acc_dtype=torch.float32, return_residuals: bool = False):
+    """Chunked online-softmax attention in plain torch (the kernel's algorithm).
+
+    Scans KV chunks carrying (m, l, acc) in f32; GQA folds the q-head group
+    into rows instead of expanding K/V. A ragged last chunk is folded as it
+    is. Returns o (and lse with ``return_residuals``, which bypasses the
+    custom backward). O(chunk) memory in both directions.
+    """
+    d = q.shape[-1]
+    statics = dict(causal=causal, window=window,
+                   scale=(d ** -0.5) if scale is None else scale,
+                   dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                   chunk=chunk, acc_dtype=acc_dtype)
     if return_residuals:
-        return o, _unfold_gqa(lse, hq, sq)
-    return o
+        return _online_fwd(q, k, v, segment_ids, **statics)
+    return _OnlineMHA.apply(q, k, v, segment_ids, statics)

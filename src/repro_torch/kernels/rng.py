@@ -20,6 +20,11 @@ _GOLDEN = 0x9E3779B9
 _MASK = 0xFFFFFFFF
 
 
+def int32(x: int) -> int:
+    """A Python int wrapped to int32, as JAX's int32 seed arithmetic wraps."""
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
 def _u32(x) -> torch.Tensor:
     """Any int (tensor or scalar, negative int32 included) → its uint32 bits."""
     return torch.as_tensor(x, dtype=torch.int64) & _MASK

@@ -4,18 +4,22 @@ Parameters live in ``nn.Module``s as plain ``nn.Parameter``s in the JAX
 orientation ``[d_in, d_out]``, applied as ``x @ w``, so weights carry over
 from the JAX package by a plain unstack. The ``apply_*`` functions take the
 module holding the parameters, as the JAX functions take the param pytree.
+Parameters are trainable (``requires_grad``); the initialisers fill them
+under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.attention import spark_attention, spark_decode
+from repro_torch.core.online_softmax import NEG_INF
+from repro_torch.kernels import rng
 
 
 @dataclasses.dataclass
@@ -23,10 +27,12 @@ class Ctx:
     """Per-call context: attention impl, mode flags and dropout seed."""
     impl: str = "kernel"             # attention impl (core.attention.IMPLS)
     deterministic: bool = True       # disables dropout
-    seed: int = 0                    # dropout seed
+    seed: int = 0                    # dropout seed (an int32 value)
     decode: bool = False             # single-token decode step
     torch_chunk: int = 1024          # KV chunk of impl="torch"
     num_splits: int = 1              # split-KV decode slices per (B, Hkv) row
+    acc_dtype: Any = torch.float32   # forward product rounding (bf16-ACC)
+    bwd_acc_dtype: Any = torch.float32   # backward product rounding
 
 
 # ---------------------------------------------------------------------------
@@ -44,10 +50,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+@torch.no_grad()
 def init_dense_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Fill every parameter in place: norm weights (1-D) with ones, matrices
     ``[d_in, d_out]`` with :func:`dense_init`."""
@@ -83,6 +89,25 @@ def rope(x, positions, *, base: float = 10000.0):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_cross_entropy(logits, labels, vocab_size: int, weights=None):
+    """Mean CE over positions. logits [B,S,V] (V may be padded), labels [B,S].
+
+    Vocab padding (columns ≥ ``vocab_size``) is masked to ``NEG_INF``.
+    weights: optional [B,S] per-position weights — a weighted mean over
+    positions (packed batches mask segment boundaries)."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab_size:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = lse - gold
+    if weights is None:
+        return ce.mean()
+    w = weights.float()
+    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +171,12 @@ def init_attn_cache(cfg, batch: int, max_len: int, dtype, device):
 
 
 def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
-                    cache=None, layer_seed: int = 0):
+                    cache=None, layer_seed: int = 0, segment_ids=None):
     """x: [B, S, d]. Returns (out, new_cache).
+
+    segment_ids [B, S]: packed-batch ids (training and prefill without a
+    cache) — attention stays within a segment; pair them with per-segment
+    ``positions`` so RoPE restarts at each packed sequence.
 
     cache: a contiguous cache dict (k/v [B, Hkv, S_max, D], int ``index``).
     Unlike the JAX version, which returns new arrays, the cache's k/v tensors
@@ -177,8 +206,9 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
 
     new_cache = None
     if ctx.decode:
-        if s != 1 or cache is None:
-            raise ValueError("decode takes one token per row and a cache")
+        if s != 1 or cache is None or segment_ids is not None:
+            raise ValueError("decode takes one token per row, a cache and "
+                             "no segment ids")
         idx = cache["index"]
         cap = cache["k"].shape[2]
         slot = idx % cap if cfg.attn_window is not None else idx
@@ -194,6 +224,9 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
         new_cache = {"k": ck, "v": cv, "index": idx + 1}
     else:
         if cache is not None:
+            if segment_ids is not None:
+                raise ValueError("the contiguous cache stores no segments: "
+                                 "packed prefill needs a paged cache")
             ck, cv = cache["k"], cache["v"]
             cap = ck.shape[2]
             if s >= cap:       # windowed ring: keep the last `cap` tokens, by slot
@@ -205,9 +238,13 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                 cv[:, :, :s] = v
             new_cache = {"k": ck, "v": cv, "index": cache["index"] + s}
         drop = 0.0 if ctx.deterministic else cfg.dropout_rate
-        o = spark_attention(q, k, v, impl=ctx.impl, seed=ctx.seed + layer_seed,
+        o = spark_attention(q, k, v, impl=ctx.impl,
+                            seed=rng.int32(ctx.seed + layer_seed),
                             causal=cfg.causal, window=cfg.attn_window,
-                            dropout_rate=drop, torch_chunk=ctx.torch_chunk)
+                            dropout_rate=drop, segment_ids=segment_ids,
+                            acc_dtype=ctx.acc_dtype,
+                            bwd_acc_dtype=ctx.bwd_acc_dtype,
+                            torch_chunk=ctx.torch_chunk)
 
     out = o.transpose(1, 2).reshape(b, s, hq * hd) @ p.wo
     return out, new_cache

@@ -3,11 +3,17 @@ attention-only family.
 
 The JAX package scans stacked superblock params; here the layers are an
 ``nn.ModuleList`` walked by a plain loop, with the same per-layer dropout
-seed offset ``i * 1000003``. Serving caches are a list of per-layer dicts.
+seed offset ``i * 1000003`` (the sum wraps to int32, as JAX's does). With
+``cfg.remat`` and autograd on, each layer runs under
+``torch.utils.checkpoint`` (JAX remats per superblock, and a superblock of
+an attention-only arch is one layer): only the layer inputs are kept, and
+the backward recomputes the layer, attention kernel included. Serving caches
+are a list of per-layer dicts.
 
 Public entry points:
   init_params(cfg, seed=, device=)                 → LM (random weights)
   forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches)
+  loss_fn(cfg, params, batch, ctx)                 → (loss, metrics)
   init_cache / prefill / decode_step               → contiguous KV serving
 """
 
@@ -18,6 +24,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
@@ -55,6 +62,7 @@ class LM(nn.Module):
         self.lm_head = layers._param((cfg.d_model, vocab_padded), dtype, device)
 
 
+@torch.no_grad()
 def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
     """Random weights with the JAX package's shapes and scales (normal ·
     d_in**-0.5 matrices, 0.02 embedding, unit norms), drawn from a
@@ -75,35 +83,70 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
     return model
 
 
-def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed):
+def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
+                 segment_ids=None):
     h = layers.rms_norm(x, p.norm1)
     mixed, new_cache = layers.apply_attention(
         p.mixer, h, ctx, cfg, positions=positions, cache=cache,
-        layer_seed=layer_seed)
+        layer_seed=layer_seed, segment_ids=segment_ids)
     x = x + mixed
     return x + layers.apply_mlp(p.mlp, layers.rms_norm(x, p.norm2)), new_cache
 
 
+def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
+                 layer_seed: int):
+    """One layer without a cache: what ``checkpoint`` recomputes."""
+    return _apply_block(p, x, ctx, cfg, positions=positions, cache=None,
+                        layer_seed=layer_seed, segment_ids=segment_ids)[0]
+
+
 def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
-            positions=None):
+            positions=None, segment_ids=None):
     """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None).
 
-    positions: [B, S] or [S] RoPE positions (default ``arange(S)``). Packed
-    batches (``segment_ids``) come with the training slice; the kernels
-    already take them.
+    positions: [B, S] or [S] RoPE positions (default ``arange(S)``).
+    segment_ids [B, S]: packed-batch ids (int32); attention masks
+    cross-segment pairs — pass per-segment ``positions`` alongside.
     """
     x = params.embed[tokens]
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches: Optional[List[dict]] = None if caches is None else []
     for i, blk in enumerate(params.blocks):
+        if remat:
+            x = checkpoint(_train_block, blk, x, ctx, cfg, positions,
+                           segment_ids, i * 1000003, use_reentrant=False)
+            continue
         x, nc = _apply_block(blk, x, ctx, cfg, positions=positions,
                              cache=None if caches is None else caches[i],
-                             layer_seed=i * 1000003)
+                             layer_seed=i * 1000003, segment_ids=segment_ids)
         if new_caches is not None:
             new_caches.append(nc)
     x = layers.rms_norm(x, params.final_norm)
     return x @ params.lm_head, new_caches
+
+
+def loss_fn(cfg, params: LM, batch, ctx: Ctx):
+    """batch: {"tokens", "labels"} [B, S] (+ optional "segment_ids",
+    "positions" for packed batches), tensors on the params' device.
+    Next-token CE for causal LMs, per-position CE for encoders; a packed
+    batch gives no weight to a segment's last token (it must not predict
+    the next segment) or to padding. Returns (loss, {"ce", "loss"})."""
+    seg = batch.get("segment_ids")
+    logits, _ = forward(cfg, params, ctx, tokens=batch["tokens"],
+                        positions=batch.get("positions"), segment_ids=seg)
+    labels = batch["labels"]
+    weights = None
+    if cfg.causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+        if seg is not None:
+            weights = ((seg[:, :-1] == seg[:, 1:]) & (seg[:, 1:] >= 0)).float()
+    elif seg is not None:
+        weights = (seg >= 0).float()
+    ce = layers.softmax_cross_entropy(logits, labels, cfg.vocab_size,
+                                      weights=weights)
+    return ce, {"ce": ce, "loss": ce}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):

@@ -1,1 +1,1 @@
-"""Serving steps of the port."""
+"""Train and serving steps of the port, and the training loop."""

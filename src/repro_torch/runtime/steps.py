@@ -1,6 +1,8 @@
-"""Prefill / decode steps for the contiguous cache on one device
-(counterpart of ``repro.runtime.steps.make_serve_steps`` without a mesh or a
-paged cache). PyTorch runs eagerly: there is no jit; the steps run under
+"""Train, prefill and decode steps on one device (counterpart of
+``repro.runtime.steps`` without a mesh or a paged cache).
+
+PyTorch runs eagerly: there is no jit. The train step updates the params and
+the optimizer state in place; the serving steps run under
 ``torch.inference_mode`` and update the caches in place, where the JAX steps
 donate them and return new ones.
 """
@@ -8,12 +10,97 @@ donate them and return new ones.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.kernels.rng import int32
 from repro_torch.models.layers import Ctx
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.schedule import cosine_schedule
+
+
+@dataclasses.dataclass
+class TrainArtifacts:
+    """The train step and its state's initialiser.
+
+    step_fn(params, opt_state, batch, step: int) → (params, opt_state,
+        metrics {"ce", "loss", "grad_norm", "lr"}); params and opt_state are
+        updated in place and returned.
+    init_fn(seed=0) → (params :class:`~repro_torch.models.lm.LM`,
+        opt_state :class:`~repro_torch.optim.AdamWState`) on ``device``.
+    """
+    step_fn: Any
+    init_fn: Any
+    device: Any
+
+
+def step_seed(step: int) -> int:
+    """The per-step dropout seed, ``uint32(step) · 2654435761`` read as an
+    int32, as the JAX step computes it."""
+    return int32((int(step) % 2**32) * 2654435761 % 2**32)
+
+
+def place_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy arrays from ``data.make_batch``) as tensors on
+    ``device``: ids stay int32 (the kernels take int32 segment ids), floats
+    stay f32."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+
+
+def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
+                    impl: str = "kernel", total_steps: int = 10000,
+                    warmup_steps: int = 100, microbatch: Optional[int] = None,
+                    torch_chunk: int = 1024, device="cuda") -> TrainArtifacts:
+    """The single-device training step of ``cfg`` with attention ``impl``.
+
+    microbatch: split the batch into rows of this size and accumulate:
+    grads and loss are the means over microbatches, the other metrics those
+    of the last one (as JAX's scan). ``lr`` follows ``cosine_schedule`` and
+    is reported in the metrics but not applied: the update uses ``opt.lr``,
+    exactly as the JAX step does (it calls ``adamw_update`` without the
+    scheduled rate).
+    """
+    def init_fn(seed: int = 0):
+        params = lm.init_params(cfg, seed=seed, device=device)
+        return params, adamw_init(params, opt)
+
+    def loss_and_grads(params, batch, seed):
+        ctx = Ctx(impl=impl, deterministic=(cfg.dropout_rate == 0.0),
+                  seed=seed, torch_chunk=torch_chunk)
+        loss, metrics = lm.loss_fn(cfg, params, batch, ctx)
+        loss.backward()
+        grads = {}
+        for n, p in params.named_parameters():
+            grads[n], p.grad = p.grad, None
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def step_fn(params, opt_state, batch, step: int):
+        seed = step_seed(step)
+        if microbatch is None:
+            loss, metrics, grads = loss_and_grads(params, batch, seed)
+        else:
+            n_micro = batch["labels"].shape[0] // microbatch
+            grads, loss = {}, torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(n_micro):
+                mb = {k: v[i * microbatch:(i + 1) * microbatch]
+                      for k, v in batch.items()}
+                l, metrics, g = loss_and_grads(params, mb, seed)
+                loss = loss + l
+                for n, gi in g.items():          # summed in f32, as JAX's scan
+                    gi = gi.float()
+                    grads[n] = gi if n not in grads else grads[n].add_(gi)
+            for g in grads.values():
+                g.div_(n_micro)
+            loss = loss / n_micro
+        lr = cosine_schedule(step, warmup_steps, total_steps, opt.lr)
+        params, opt_state, om = adamw_update(grads, opt_state, params, opt)
+        metrics = dict(metrics, **om, lr=lr, loss=loss)
+        return params, opt_state, metrics
+
+    return TrainArtifacts(step_fn=step_fn, init_fn=init_fn, device=device)
 
 
 @dataclasses.dataclass

@@ -3,7 +3,8 @@
 Marked ``gpu``; the ``cuda`` fixture skips them where no card is present
 (this is decided when a test runs, never at import or collection). On the
 card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
-The same checks, at the serving path's full shapes, are in ``chip_smoke.py``.
+The same checks, at the serving and training paths' full shapes, are in
+``chip_smoke.py``.
 """
 
 import dataclasses
@@ -14,17 +15,28 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import decode as kdecode  # noqa: E402
+from repro_torch.kernels import flash_bwd as kbwd  # noqa: E402
 from repro_torch.kernels import flash_fwd as kfwd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.serve import greedy_generate  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.runtime.steps import make_serve_steps  # noqa: E402
+from repro_torch.models.layers import Ctx  # noqa: E402
+from repro_torch.data import DataConfig, make_batch  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime.steps import (make_serve_steps, make_train_step,  # noqa: E402
+                                       place_batch)
 
 pytestmark = pytest.mark.gpu
 
 # kernel vs plain version: f32 sums in another order (the JAX suite's f32
 # tolerance); bf16: two bf16 ulps at |o| <= 1 (P and o rounded on both sides)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+# backward kernels vs plain version, relative to max(1, max|plain|): f32 the
+# JAX suite's gradient tolerance (dK/dV sum over every q row and the group);
+# bf16 inputs or bf16-ACC two bf16 ulps (P~, dS, the tile products and the
+# outputs are rounded to bf16 on both sides, and an f32 sum in another order
+# can land a product on the other side of a rounding boundary)
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6}
 
 
 @pytest.fixture
@@ -144,3 +156,97 @@ def test_serve_slice_kernel_matches_torch(cuda):
     for lk, lt in zip(rk.logits, rt.logits):
         assert _err(lk, lt) <= 1e-4
     assert torch.equal(rk.tokens, rt.tokens)
+
+
+def _bwd_inputs(gen, b, hq, hkv, sq, skv, d, dtype):
+    return (_rand(gen, (b, hq, sq, d), dtype), _rand(gen, (b, hkv, skv, d), dtype),
+            _rand(gen, (b, hkv, skv, d), dtype), _rand(gen, (b, hq, sq, d), dtype))
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FWD))
+def test_flash_bwd_kernels_match_plain(cuda, name, dtype, acc):
+    b, hq, hkv, sq, skv, d, kw = FWD[name]
+    kw = dict(kw)
+    q, k, v, do = _bwd_inputs(cuda, b, hq, hkv, sq, skv, d, dtype)
+    if kw.pop("segments", False):
+        seg = torch.arange(skv, device="cuda", dtype=torch.int32) // 50
+        seg = seg.repeat(b, 1)
+        seg[:, -9:] = -1
+        kw["segment_ids"] = seg
+    o, lse = kfwd.flash_fwd(q, k, v, acc_dtype=acc, **kw)
+    before = (kbwd.launches_dkv, kbwd.launches_dq)
+    grads = kbwd.flash_bwd(q, k, v, o, lse, do, acc_dtype=acc, **kw)
+    torch.cuda.synchronize()
+    assert (kbwd.launches_dkv, kbwd.launches_dq) == (before[0] + 1, before[1] + 1)
+    plain = kbwd.flash_bwd_torch(q, k, v, lse, do, kbwd.row_delta(o, do),
+                                 acc_dtype=acc, **kw)
+    for g, gp, x in zip(grads, plain, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert bool(torch.isfinite(g).all())
+        tol = BWD_TOL[torch.bfloat16 if torch.bfloat16 in (dtype, acc) else dtype]
+        assert _err(g, gp) <= tol * max(1.0, float(gp.abs().max()))
+    if "segment_ids" in kw:                    # padding: exact zero gradient
+        assert float(grads[0][:, :, -9:].abs().max()) == 0.0
+        assert float(grads[1][:, :, -9:].abs().max()) == 0.0
+
+
+def test_flash_fwd_bf16_acc_kernel_matches_plain(cuda):
+    q, k, v, _ = _bwd_inputs(cuda, 2, 8, 2, 200, 200, 64, torch.bfloat16)
+    o, lse = kfwd.flash_fwd(q, k, v, causal=True, acc_dtype=torch.bfloat16)
+    o_ref, lse_ref = kfwd.flash_fwd_torch(q, k, v, causal=True,
+                                          acc_dtype=torch.bfloat16)
+    assert _err(o, o_ref) <= TOL[torch.bfloat16]
+    assert _err(lse, lse_ref) <= 2e-3          # scores rounded to bf16
+
+
+def test_mha_autograd_on_cuda_matches_naive(cuda):
+    """ops.mha's backward launches both kernels and matches autograd of the
+    naive oracle (f32, causal GQA with dropout and a q suffix)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 96, 160, 64, torch.float32)
+    cfg = ops.AttnConfig(causal=True, dropout_rate=0.1)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (kfwd.launches, kbwd.launches_dkv, kbwd.launches_dq)
+    ops.mha(*xs, seed=-7, config=cfg).backward(do)
+    torch.cuda.synchronize()
+    assert (kfwd.launches, kbwd.launches_dkv, kbwd.launches_dq) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref.naive_mha(*ys, causal=True, dropout_rate=0.1, dropout_seed=-7).backward(do)
+    for x, y in zip(xs, ys):
+        assert _err(x.grad, y.grad) <= 5e-5 * max(1.0, float(y.grad.abs().max()))
+
+
+def test_train_step_kernel_matches_torch(cuda):
+    """A SMOKE training step (packed batch, dropout 0.1, remat) through the
+    kernels against impl="torch" from one state: loss, grad norm and every
+    gradient leaf agree, and the kernels launch once a layer forward, once
+    more in the recompute, and each backward kernel once a layer."""
+    cfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                              dtype=torch.float32, dropout_rate=0.1)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=96, global_batch=4,
+                    seed=3, pack=True)
+    batch = place_batch(make_batch(dc, 0), "cuda")
+    n = cfg.num_layers
+    out = {}
+    for impl in ("kernel", "torch"):
+        arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-3), impl=impl,
+                               torch_chunk=32, device="cuda")
+        params, opt = arts.init_fn(5)
+        ctx = Ctx(impl=impl, deterministic=False, seed=-99, torch_chunk=32)
+        before = (kfwd.launches, kbwd.launches_dkv, kbwd.launches_dq)
+        lm.loss_fn(cfg, params, batch, ctx)[0].backward()
+        grads = [p.grad.clone() for p in params.parameters()]
+        params.zero_grad(set_to_none=True)
+        _, _, m = arts.step_fn(params, opt, batch, 4)
+        torch.cuda.synchronize()
+        after = (kfwd.launches, kbwd.launches_dkv, kbwd.launches_dq)
+        want = (4 * n, 2 * n, 2 * n) if impl == "kernel" else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]), grads)
+    (lk, gk, dk), (lt, gt, dt) = out["kernel"], out["torch"]
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    assert abs(gk - gt) <= 1e-4 * gt
+    for a, b in zip(dk, dt):
+        assert _err(a, b) <= 1e-4 * float(b.abs().max())

@@ -204,8 +204,10 @@ def test_flash_fwd_wrapper_dispatch():
     before = tfwd.launches
     tfwd.flash_fwd(q, k, v, causal=True)        # CPU → plain version
     assert tfwd.launches == before              # the plain version never counts
-    with pytest.raises(NotImplementedError):
-        tfwd.flash_fwd(q, k, v, acc_dtype=torch.bfloat16)
+    o16, _ = tfwd.flash_fwd(q, k, v, acc_dtype=torch.bfloat16)   # bf16-ACC
+    assert o16.dtype == q.dtype and bool(torch.isfinite(o16).all())
+    with pytest.raises(ValueError):
+        tfwd.flash_fwd(q, k, v, acc_dtype=torch.float16)       # no fp16 ACC
     with pytest.raises(ValueError):
         tfwd.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
     with pytest.raises(ValueError):
