@@ -19,14 +19,26 @@ Phases, each of which exits non-zero on failure:
              training shape (B 4, 32/8 heads, S 2048, D 64, causal), plus
              window, segments, dropout, ragged, q-suffix, head-dim-128 /
              GQA-5 and bf16-ACC cases, and against the naive oracle (autograd
-             of it for the backward) on a small input;
-4. serve   — the port's serving path (``launch/serve.py``:
+             of it for the backward) on a small input; the paged decode at
+             page sizes 4, 16 and 32, groups 4 and 5, ragged lengths with 0,
+             a 1e6-poisoned trash page past each allocation and out of the
+             window, 1 and 3 splits and 256 chunk-prefill token rows, and
+             bit for bit against the contiguous kernel on the gathered pages;
+4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
              seed), batch 8, prompt 512, 32 generated tokens, once with
              ``impl="kernel"`` and once with ``impl="torch"`` fed the kernel
              run's tokens; the launch counters must read 40 ``flash_fwd`` and
-             40 × 31 ``flash_decode`` launches;
+             40 × 31 ``flash_decode`` launches; (b) the paged path
+             (``serving.ServingEngine``, page 16, 8 slots) at the same size
+             on 16 seeded requests in four modes (eager; lazy on half the
+             pool, which must preempt; shared 256-token system prompt with
+             256-token chunked prefill; speculation k 4 on motif prompts),
+             each with ``impl="kernel"`` and ``impl="torch"``: every request
+             completes, ``flash_fwd`` launches 40 × prefill calls and the
+             paged kernel 40 × (decode + chunk + verify calls), and the
+             tokens equal the torch run's up to a printed near-tie;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -41,8 +53,9 @@ Phases, each of which exits non-zero on failure:
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its backward for
-             the two backward kernels: a yardstick the port never calls) and
-             its bound, printed as one JSON line.
+             the two backward kernels; on the contiguous equivalent for the
+             paged decode, gather excluded: a yardstick the port never calls)
+             and its bound, printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -148,10 +161,12 @@ def main() -> None:
 
     # ---------------- phase 3: kernels vs plain versions ----------------
     errs = kernel_phase(torch, kfwd, kdecode)
+    errs.update(paged_kernel_phase(torch, kdecode))
     errs.update(bwd_kernel_phase(torch, kfwd, kbwd))
 
-    # ---------------- phase 4: the serving path ----------------
+    # ---------------- phase 4: the serving paths ----------------
     launches = serve_phase(torch, kfwd, kdecode)
+    paged_launches = paged_serve_phase(torch, kfwd, kdecode)
 
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
@@ -159,6 +174,8 @@ def main() -> None:
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
     rows += bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0])
+    rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
+    rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -180,7 +197,8 @@ def build_report(_build) -> None:
                 m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
                               r"(?:Lb([01]))?", line)
                 entry = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
-                         f"D{m.group(3)}{', acc bf16' if m.group(4) == '1' else ''}>"
+                         f"D{m.group(3)}{', acc bf16' if m.group(4) == '1' else ''}"
+                         f"{', paged' if 'PagedCache' in line else ''}>"
                          if m else line.split("'")[1][:60])
                 continue
             if "spill" in line:
@@ -309,6 +327,74 @@ def kernel_phase(torch, kfwd, kdecode):
           f"flash_decode {ed:.3e} (tol {TOL['float32']:.0e})")
     if max(e, ed) > TOL["float32"]:
         fail("a kernel disagrees with the naive oracle")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t, dtype, window=None):
+    """q [B,Hq,D] and a pool whose rows own exactly the pages their kv_len
+    (and, with a window, the window) reaches; every other table entry is the
+    trash page 0, filled with 1e6 as the engine's poison hook fills it."""
+    b = kv_len.shape[0]
+    n_pages = 1 + b * t
+    q = _rand(torch, gen, (b, hq, d), dtype)
+    kp = _rand(torch, gen, (hkv, n_pages, ps, d), dtype)
+    vp = _rand(torch, gen, (hkv, n_pages, ps, d), dtype)
+    kp[:, 0], vp[:, 0] = 1e6, 1e6
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    bt = perm.view(b, t).to(torch.int32)
+    block = torch.arange(t, device="cuda")[None, :]
+    owned = block < (kv_len[:, None] + ps - 1) // ps
+    if window is not None:      # reclaimed: every position out of the window
+        owned &= (block + 1) * ps - 1 > kv_len[:, None] - 1 - window
+    bt = torch.where(owned, bt, 0).to(torch.int32).contiguous()
+    return q, kp, vp, bt
+
+
+def paged_kernel_phase(torch, kdecode):
+    """The paged decode kernel against its plain version, f32 and bf16, and
+    bit for bit against the contiguous kernel on the gathered pages."""
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    cases = [
+        # name, kv_len, hq, hkv, d, page size, table width, window
+        ("ps16_g4", [576, 0, 528, 1, 300, 129, 555, 17], 32, 8, 64, 16, 37, None),
+        ("ps4_g5_d128", [592, 40, 0, 333], 40, 8, 128, 4, 148, None),
+        ("ps32_g4_window", [600, 0, 256, 31, 500, 64, 449, 2], 32, 8, 64, 32, 19, 100),
+        ("chunk_256_rows", [0] * 16 + list(range(301, 541)), 32, 8, 64, 16, 37, None),
+    ]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for name, lens, hq, hkv, d, ps, t, window in cases:
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t,
+                                        dtype, window)
+            if name == "chunk_256_rows":     # every token row reads one table
+                bt = bt[-1:].expand(len(lens), t).contiguous()
+            kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
+            zero = kv_len == 0
+            for ns in (1, 3):
+                o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len,
+                                               window=window, num_splits=ns)
+                torch.cuda.synchronize()
+                o_ref = kdecode.flash_paged_decode_torch(
+                    q, kp, vp, bt, kv_len=kv_len, window=window, num_splits=ns)
+                o_contig = kdecode.flash_decode(q, kc, vc, kv_len=kv_len,
+                                                window=window, num_splits=ns)
+                e, ec = _maxerr(o, o_ref), _maxerr(o, o_contig)
+                zero_ok = float(o[zero].abs().max()) == 0.0 if bool(zero.any()) else True
+                ok = (e <= TOL[dn] and ec == 0.0 and zero_ok
+                      and bool(torch.isfinite(o).all()))
+                print(f"[kernels] flash_paged_decode {name} splits={ns} {dn}: "
+                      f"max|o - plain| {e:.3e} (tol {TOL[dn]:.1e}), max|o - "
+                      f"contiguous kernel on gathered pages| {ec:.1e} (must be "
+                      f"0), kv_len=0 rows zero: {zero_ok}, trash page 1e6 "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"flash_paged_decode {name} splits={ns} {dn} disagrees "
+                         f"with its plain version or the contiguous kernel")
+                errs[f"flash_paged_decode/{name}/ns{ns}/{dn}"] = e
+            del q, kp, vp, bt, kc, vc
     torch.cuda.empty_cache()
     return errs
 
@@ -474,6 +560,202 @@ def serve_phase(torch, kfwd, kdecode):
     del params, run_k, run_t
     torch.cuda.empty_cache()
     return launches
+
+
+PAGED_REQUESTS, PAGED_PROMPT, PAGED_GEN = 16, 512, 64
+PAGED_MODES = {
+    # name: engine kwargs (beyond page 16, 8 slots, prefill rows of 512)
+    "eager": {},
+    "lazy": {"lazy": True},
+    "prefix_chunk": {"share_prefix": True, "prefill_chunk": 256},
+    "speculate_4": {"speculate_k": 4},
+}
+
+
+class StepRecorder:
+    """Wraps an engine's four step callables: counts their calls and keeps,
+    for every generated token (request id, index in its generation), the
+    top-2 logit margin and max |logit| of the row that produced it. The
+    engine is not changed; the wrappers read its scheduler to name rows."""
+
+    def __init__(self, torch, eng, vocab):
+        self.torch, self.eng, self.vocab = torch, eng, vocab
+        self.calls = dict.fromkeys(("prefill", "decode", "chunk", "verify"), 0)
+        self.margin = {}
+        for attr, kind in (("prefill_fn", "prefill"), ("decode_fn", "decode"),
+                           ("chunk_prefill_fn", "chunk"), ("verify_fn", "verify")):
+            setattr(eng, attr, self._wrap(getattr(eng, attr), kind))
+
+    def _wrap(self, fn, kind):
+        def step(params, *args):
+            keys = getattr(self, "_" + kind)(*args)   # before the engine appends
+            logits, caches = fn(params, *args)
+            self.calls[kind] += 1
+            self._record(logits, keys)
+            return logits, caches
+        return step
+
+    def _key(self, slot, ahead=0):
+        seq = self.eng.scheduler.active[int(slot)]
+        return seq.request.rid, len(seq.all_generated) + ahead
+
+    def _prefill(self, tokens, seg, pos, dest, slots, caches):
+        seg, slots = seg[0].cpu().numpy(), slots[0].cpu().numpy()
+        return [(self._key(slots[idx]), (0, int(idx)))
+                for idx in (int((seg == i).nonzero()[0][-1])
+                            for i in range(int(seg.max()) + 1))]
+
+    def _chunk(self, tokens, pos, dest, ttab, kvl, slots, local, caches):
+        pos, slots = pos[0].cpu().numpy(), slots[0].cpu().numpy()
+        keys = []
+        for slot in set(slots[slots >= 0].tolist()):
+            idx = int((slots == slot).nonzero()[0][-1])
+            if pos[idx] + 1 == self.eng.scheduler.active[slot].request.prompt_len:
+                keys.append((self._key(slot), (0, idx)))
+        return keys
+
+    def _decode(self, tok, caches, bt, kvl):
+        return [(self._key(slot), (slot,))
+                for slot, seq in self.eng.scheduler.active.items()
+                if not seq.prefilling]
+
+    def _verify(self, tok, pos, dest, ttab, kvl, caches):
+        live = (kvl > 0).sum(dim=1).cpu().numpy()
+        return [(self._key(slot, j), (slot, j))
+                for slot, seq in self.eng.scheduler.active.items()
+                if not seq.prefilling for j in range(int(live[slot]))]
+
+    def _record(self, logits, keys):
+        if not keys:
+            return
+        rows = self.torch.stack([logits[ix][:self.vocab] for _, ix in keys]).float()
+        top = rows.topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).cpu().tolist()
+        peak = rows.abs().amax(dim=-1).cpu().tolist()
+        for (key, _), m, p in zip(keys, margin, peak):
+            self.margin[key] = (m, p)
+
+
+def _paged_requests(np, vocab, mode, max_prompt):
+    """16 seeded requests, prompts 128-512 tokens and 16-64 generated;
+    prefix_chunk opens each with one 256-token system prompt (cut to the
+    pool's reach, as launch/serve.py cuts it); speculate_4 tiles an 8-token
+    motif, as launch/serve.py builds its --speculate prompts."""
+    rs = np.random.RandomState(0)
+    system = (rs.randint(0, vocab, size=256) if mode == "prefix_chunk"
+              else np.zeros(0, np.int64))
+    reqs = []
+    for _ in range(PAGED_REQUESTS):
+        plen = int(rs.randint(PAGED_PROMPT // 4, PAGED_PROMPT + 1))
+        gen = int(rs.randint(PAGED_GEN // 4, PAGED_GEN + 1))
+        if mode == "speculate_4":
+            tail = np.tile(rs.randint(0, vocab, size=8), -(-plen // 8))[:plen]
+        else:
+            tail = rs.randint(0, vocab, size=plen)
+        reqs.append((np.concatenate([system, tail])[:max_prompt], gen))
+    return reqs
+
+
+def paged_serve_phase(torch, kfwd, kdecode):
+    """granite-3-2b, full width and depth, through the port's paged serving
+    engine in four modes, kernel impl against torch impl. Returns the launch
+    counts of the kernel runs."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import PagedCacheConfig, ServingEngine
+
+    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    n = cfg.num_layers
+    ps, slots = 16, 8
+    budget = PAGED_PROMPT + PAGED_GEN
+    pages_per_seq = -(-budget // ps) + 1                       # 37
+    full_pool = 1 + slots * pages_per_seq                      # 297
+    print(f"[paged] {cfg.name}, {n} layers f32 (random, seed 0): page {ps}, "
+          f"{slots} slots, {pages_per_seq} pages a sequence, pool {full_pool} "
+          f"pages ({(full_pool - 1) // 2 + 1} in lazy mode); {PAGED_REQUESTS} "
+          f"requests, prompts {PAGED_PROMPT // 4}-{PAGED_PROMPT} tokens, "
+          f"{PAGED_GEN // 4}-{PAGED_GEN} generated; near-tie tolerance: top-2 "
+          f"margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
+    counts = {"flash_fwd": 0, "flash_paged_decode": 0, "by_mode": {}}
+    for mode, kw in PAGED_MODES.items():
+        lazy = kw.get("lazy", False)
+        pcfg = PagedCacheConfig(
+            page_size=ps, max_batch=slots, max_pages_per_seq=pages_per_seq,
+            num_pages=(full_pool - 1) // 2 + 1 if lazy else full_pool)
+        # lazy: a preempted row re-prefills prompt + generated, so a row
+        # holds a full budget (launch/serve.py's rule)
+        prefill_len = budget if lazy else PAGED_PROMPT
+        reqs = _paged_requests(np, cfg.vocab_size, mode,
+                               pcfg.max_seq_len - PAGED_GEN - 1)
+        runs = {}
+        for impl in ("kernel", "torch"):
+            eng = ServingEngine(cfg, pcfg, params, impl=impl, device="cuda",
+                                prefill_len=prefill_len,
+                                torch_chunk=PAGED_PROMPT, **kw)
+            rec = StepRecorder(torch, eng, cfg.vocab_size)
+            torch.cuda.reset_peak_memory_stats()
+            kfwd.launches = kdecode.launches = kdecode.launches_paged = 0
+            out, stats = eng.run([(t, g) for t, g in reqs])
+            torch.cuda.synchronize()
+            got = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches,
+                   "flash_paged_decode": kdecode.launches_paged}
+            c = rec.calls
+            print(f"[paged] {mode} impl={impl}: {stats['generated_tokens']:.0f} "
+                  f"tokens in {stats['wall_s']:.3f} s = "
+                  f"{stats['tokens_per_s']:.1f} tokens/s; "
+                  f"{stats['decode_steps']:.0f} decode steps; calls prefill "
+                  f"{c['prefill']} / decode {c['decode']} / chunk {c['chunk']} "
+                  f"/ verify {c['verify']}; preemptions "
+                  f"{stats['preemptions']:.0f}; page utilization "
+                  f"{stats['mean_utilization']:.3f}, pool fraction "
+                  f"{stats['mean_pool_fraction']:.3f}; prefill tokens "
+                  f"{stats['prefill_tokens']:.0f} ({stats['prefill_tokens_skipped']:.0f} "
+                  f"skipped), cow {stats['cow_copies']:.0f}, drafted "
+                  f"{stats['drafted_tokens']:.0f} / accepted "
+                  f"{stats['accepted_tokens']:.0f}; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"launches {got}", flush=True)
+            if stats["outcomes"]["completed"] != len(reqs):
+                fail(f"paged {mode} {impl}: outcomes {stats['outcomes']}")
+            if impl == "kernel":
+                want = {"flash_fwd": n * c["prefill"], "flash_decode": 0,
+                        "flash_paged_decode": n * (c["decode"] + c["chunk"]
+                                                   + c["verify"])}
+                if got != want or want["flash_paged_decode"] == 0:
+                    fail(f"paged {mode}: the path did not go through the "
+                         f"kernels: {got}, expected {want}")
+                counts["flash_fwd"] += got["flash_fwd"]
+                counts["flash_paged_decode"] += got["flash_paged_decode"]
+                counts["by_mode"][mode] = got["flash_paged_decode"]
+            elif any(got.values()):
+                fail(f"paged {mode}: impl='torch' launched a CUDA kernel: {got}")
+            runs[impl] = (out, rec)
+        if lazy and stats["preemptions"] == 0:
+            fail("paged lazy: the half pool forced no preemption")
+        (out_k, rec_k), (out_t, _) = runs["kernel"], runs["torch"]
+        same, ties = 0, []
+        for rid, toks in out_k.items():
+            diff = np.nonzero(toks != out_t[rid])[0]
+            if diff.size == 0:
+                same += 1
+                continue
+            i = int(diff[0])
+            margin, peak = rec_k.margin[(rid, i)]
+            ties.append(f"request {rid} token {i}: kernel {toks[i]} vs torch "
+                        f"{out_t[rid][i]}, margin {margin:.3e} of max|logit| "
+                        f"{peak:.3e}")
+            if margin > LOGIT_REL_TOL * peak:
+                fail(f"paged {mode}: {ties[-1]}: not a near-tie")
+        print(f"[paged] {mode}: kernel vs torch tokens identical for {same} of "
+              f"{len(out_k)} requests"
+              + ("".join(f"; near-tie {t}" for t in ties)), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def train_phase(torch, kfwd, kbwd):
@@ -846,6 +1128,74 @@ def bwd_times_phase(torch, kfwd, kbwd, train_launches, fwd_row):
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return rows
+
+
+def paged_times_phase(torch, kdecode, paged_launches, errs):
+    """The paged decode kernel at the engine's decode shape (B 8, 32/8
+    heads, D 64, page 16, T 37, kv_len 528-576) and at a 256-token chunk's
+    shape (256 token rows reading one table up to positions 301-556), f32,
+    beside its plain version, SDPA on the contiguous equivalent (ragged
+    lengths as a boolean mask; the page gather excluded) and its bound: the
+    K/V rows the rows read (each distinct row once), q and o, the tables."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    f32 = torch.float32
+    peak = PEAK_FLOPS["float32"]
+    hq, hkv, d, ps, t = 32, 8, 64, 16, 37
+    shapes = {
+        "decode": torch.randint(528, 577, (8,), generator=gen, device="cuda",
+                                dtype=torch.int32),
+        "chunk": torch.arange(301, 557, device="cuda", dtype=torch.int32),
+    }
+    out = {}
+    for shape, kv_len in shapes.items():
+        q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t, f32)
+        if shape == "chunk":
+            bt = bt[-1:].expand(kv_len.shape[0], t).contiguous()
+        b = kv_len.shape[0]
+        o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len)
+        err = _maxerr(o, kdecode.flash_paged_decode_torch(q, kp, vp, bt,
+                                                          kv_len=kv_len))
+        pos = torch.arange(t * ps, device="cuda")
+        read = pos[None, :] < kv_len[:, None]                       # [B, S]
+        slots = (bt.long()[:, pos // ps] * ps + pos % ps)[read]
+        rows = int(torch.unique(slots).numel())                     # distinct K/V rows
+        nbytes = 4 * (2 * rows * hkv * d + 2 * b * hq * d) + 4 * (b * t + b)
+        flops = 4 * hq * d * int(kv_len.sum())
+        kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
+        mask = read[:, None, None, :]
+        iters = 50 if shape == "decode" else 20
+        out[shape] = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
+                q, kp, vp, bt, kv_len), iters),
+            "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
+                q, kp, vp, bt, kv_len=kv_len), 5),
+            "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), iters),
+        }
+        print(f"[times] flash_paged_decode at the {shape} shape (B {b}, {hq}/{hkv} "
+              f"heads, D {d}, page {ps}, T {t}, kv_len {int(kv_len.min())}-"
+              f"{int(kv_len.max())}, {rows} distinct K/V rows, f32): kernel "
+              f"{out[shape]['ms']:.5f} ms, plain {out[shape]['plain_ms']:.4f} ms, "
+              f"sdpa on the contiguous equivalent (gather excluded) "
+              f"{out[shape]['library_ms']:.5f} ms, bound "
+              f"{out[shape]['bound_ms']:.5f} ms ({out[shape]['bound_by']})")
+        del q, kp, vp, bt, kc, vc, o
+    row = {"name": "flash_paged_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:136",
+           "launches": paged_launches["flash_paged_decode"], **out["decode"],
+           "launches_by_path": {"paged_serve": paged_launches["by_mode"]},
+           "library_note": "sdpa on the gathered contiguous cache, gather excluded"}
+    row.update({f"chunk_shape_{k}": v for k, v in out["chunk"].items()})
+    worst = max(v for k, v in errs.items() if k.startswith("flash_paged_decode"))
+    print(f"[times] worst paged kernel-vs-plain error over the kernel phase {worst:.3e}")
+    torch.cuda.empty_cache()
+    return row
 
 
 if __name__ == "__main__":

@@ -81,6 +81,32 @@ def spark_decode(q, k, v, *, impl: str = "kernel", kv_len=None,
                                 scale=scale)
 
 
+def spark_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
+                       impl: str = "kernel", window: Optional[int] = None,
+                       scale: Optional[float] = None, num_splits: int = 1):
+    """Single-token decode against a paged KV cache (the serving engine's
+    attention). q [B,Hq,D]; k_pages/v_pages [Hkv,P,page_size,D], a pool
+    shared by all rows; block_tables [B,T] int32, the physical page of each
+    logical block (entries past a row's allocation hold the trash page 0);
+    kv_len [B] int32. → [B,Hq,D].
+
+    ``impl="kernel"`` reads the pages through the table inside the CUDA
+    kernel; the plain impls gather the pages into a contiguous cache and run
+    :func:`spark_decode`'s masked decode (JAX's XLA path), split-KV over the
+    gathered length when ``num_splits > 1``.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel":
+        return ops.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
+                                window=window, scale=scale,
+                                num_splits=num_splits)
+    return spark_decode(q, ops.gather_pages(k_pages, block_tables),
+                        ops.gather_pages(v_pages, block_tables), impl=impl,
+                        kv_len=kv_len, window=window, scale=scale,
+                        num_splits=num_splits)
+
+
 def _torch_masked_decode(q, k, v, *, kv_len=None, window=None, scale=None):
     acc, m, l = _torch_masked_decode_partials(q, k, v, kv_len=kv_len,
                                               window=window, scale=scale)

@@ -6,7 +6,9 @@
 kernels on a CUDA tensor, their plain versions on a CPU tensor.
 ``mha_reference`` is the unfused oracle and ``mha_torch`` the chunked
 plain-torch algorithm (the counterpart of ``mha_xla``); both differentiate
-too. ``decode`` and ``decode_reference`` are the single-token pair.
+too. ``decode`` and ``decode_reference`` are the single-token pair over a
+contiguous cache, ``paged_decode`` and ``paged_decode_reference`` the pair
+over a page pool.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode import flash_decode
+from repro_torch.kernels.decode import (flash_decode, flash_paged_decode,
+                                       gather_pages)
 from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
 
@@ -118,3 +121,22 @@ def decode_reference(q, k, v, *, kv_len=None, window=None, scale=None):
                                   v[i:i + 1, :, :n], causal=True,
                                   window=window, scale=scale)[:, :, 0, :])
     return torch.cat(outs, dim=0)
+
+
+def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *, window=None,
+                 scale=None, num_splits: int = 1):
+    """Single-token flash-decode over a paged KV cache. q [B, Hq, D];
+    k_pages/v_pages [Hkv, P, page_size, D]; block_tables [B, T] int32 (the
+    trash page past each row's allocation); kv_len [B] int32."""
+    return flash_paged_decode(q.contiguous(), k_pages.contiguous(),
+                              v_pages.contiguous(), block_tables.contiguous(),
+                              kv_len.contiguous(), window=window, scale=scale,
+                              num_splits=num_splits)
+
+
+def paged_decode_reference(q, k_pages, v_pages, block_tables, kv_len, *,
+                           window=None, scale=None):
+    """Oracle: gather the pages contiguously, then the contiguous oracle."""
+    return decode_reference(q, gather_pages(k_pages, block_tables),
+                            gather_pages(v_pages, block_tables),
+                            kv_len=kv_len, window=window, scale=scale)

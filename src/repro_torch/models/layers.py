@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.attention import spark_attention, spark_decode
+from repro_torch.core.attention import (spark_attention, spark_decode,
+                                       spark_paged_decode)
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.kernels import rng
 
@@ -156,6 +157,16 @@ class Attention(nn.Module):
             self.k_norm = _param((hd,), dtype, device)
 
 
+def paged_decode_window(cfg) -> Optional[int]:
+    """The sliding window the *paged* attention masks with (None = full
+    attention). One source for the attention below and the serving engine's
+    out-of-window page reclamation: the engine frees exactly the pages whose
+    every position this mask excludes, so the two must agree. (The
+    contiguous decode keeps a ring of ``window`` slots instead and needs no
+    mask.)"""
+    return cfg.attn_window
+
+
 def init_attention(gen, cfg, dtype) -> Attention:
     """An :class:`Attention` with ``dense_init`` weights and unit norms."""
     return init_dense_(Attention(cfg, dtype, gen.device), gen)
@@ -170,17 +181,47 @@ def init_attn_cache(cfg, batch: int, max_len: int, dtype, device):
             "index": 0}
 
 
+def init_paged_attn_cache(cfg, paged_cfg, dtype, device):
+    """One layer's page pool: k_pages/v_pages [Hkv, num_pages, page_size, D]
+    zeros, shared by all sequences (page 0 is the trash page, see
+    ``serving/paged_cache.py``)."""
+    shape = (cfg.num_kv_heads, paged_cfg.num_pages, paged_cfg.page_size,
+             cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _scatter_pages(pages, dest, vals):
+    """Write token rows into the page pool in place. pages [Hkv, P, ps, D];
+    dest [N] flat token slots ``page * ps + offset`` (duplicates only ever
+    target the trash page); vals [Hkv, N, D]."""
+    hkv, n_pages, ps, d = pages.shape
+    pages.view(hkv, n_pages * ps, d)[:, dest.long()] = vals.to(pages.dtype)
+
+
 def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
-                    cache=None, layer_seed: int = 0, segment_ids=None):
+                    cache=None, layer_seed: int = 0, segment_ids=None,
+                    paged=None):
     """x: [B, S, d]. Returns (out, new_cache).
 
-    segment_ids [B, S]: packed-batch ids (training and prefill without a
-    cache) — attention stays within a segment; pair them with per-segment
-    ``positions`` so RoPE restarts at each packed sequence.
+    segment_ids [B, S]: packed-batch ids (training, and packed prefill into a
+    paged cache) — attention stays within a segment; pair them with
+    per-segment ``positions`` so RoPE restarts at each packed sequence.
 
-    cache: a contiguous cache dict (k/v [B, Hkv, S_max, D], int ``index``).
-    Unlike the JAX version, which returns new arrays, the cache's k/v tensors
-    are updated **in place** and the returned dict shares them.
+    cache: a contiguous cache dict (k/v [B, Hkv, S_max, D], int ``index``) or
+    a paged one (k_pages/v_pages [Hkv, P, page_size, D], a pool shared by
+    all sequences). Unlike the JAX version, which returns new arrays, the
+    cache's tensors are updated **in place** and the returned dict shares
+    them.
+
+    paged: the routing of a paged cache —
+      decode: {"block_tables": [B, T], "kv_len": [B]};
+      packed prefill: {"dest": [B, S]} flat pool slots per token (padding →
+      the trash page);
+      chunked/suffix prefill and speculative verify add {"token_tables":
+      [B, S, T], "token_kv_len": [B, S]}: each token then attends through
+      its own block-table row (history pages and same-row predecessors)
+      instead of the in-row segment mask; positions are global per token.
 
     * decode (``ctx.decode``): append this token at slot ``index`` (sliding-
       window archs use the cache as a ring of ``window`` slots, so no window
@@ -205,6 +246,8 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     v = v.transpose(1, 2)
 
     new_cache = None
+    if cache is not None and "k_pages" in cache:
+        return _apply_paged(p, q, k, v, ctx, cfg, cache, paged, segment_ids)
     if ctx.decode:
         if s != 1 or cache is None or segment_ids is not None:
             raise ValueError("decode takes one token per row, a cache and "
@@ -248,3 +291,61 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
 
     out = o.transpose(1, 2).reshape(b, s, hq * hd) @ p.wo
     return out, new_cache
+
+
+def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
+                 segment_ids):
+    """The paged branches of :func:`apply_attention` (q [B,Hq,S,D], k/v
+    [B,Hkv,S,D] after RoPE), mirroring JAX's single-device arms.
+
+    * decode: append this token's K/V at position ``kv_len`` (the slot the
+      row's table names), then paged flash-decode over ``kv_len + 1``.
+      Inactive slots carry the trash table and kv_len 0: their write lands
+      in the trash page and their output is ignored by the engine.
+    * packed prefill: scatter every token's K/V to its ``dest`` slot, then
+      fused attention inside each segment.
+    * chunked prefill / verify: scatter first, then each token is a decode
+      row of its own (``token_tables``, ``token_kv_len`` = position + 1, 0
+      for padding, which gives exact zeros): one paged-decode launch over
+      B·S rows.
+    """
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    ck, cv = cache["k_pages"], cache["v_pages"]
+    window = paged_decode_window(cfg)
+    if paged is None:
+        raise ValueError("a paged cache needs its routing (paged=)")
+    if ctx.decode:
+        if s != 1 or segment_ids is not None:
+            raise ValueError("decode takes one token per row and no segment ids")
+        bt, kvl = paged["block_tables"], paged["kv_len"]
+        ps = ck.shape[2]
+        page = bt.gather(1, (kvl // ps)[:, None].long())[:, 0]
+        dest = page * ps + kvl % ps                           # [B] token slots
+        _scatter_pages(ck, dest, k[:, :, 0].transpose(0, 1))
+        _scatter_pages(cv, dest, v[:, :, 0].transpose(0, 1))
+        # no ring buffer: a sliding window masks inside the kernel, and the
+        # engine frees pages wholly out of it (their entries revert to the
+        # trash page, which the same gate never reads)
+        o = spark_paged_decode(q[:, :, 0], ck, cv, bt, kvl + 1, impl=ctx.impl,
+                               window=window, num_splits=ctx.num_splits)
+        o = o[:, None]                                        # [B, 1, Hq, D]
+    else:
+        if "dest" not in paged:
+            raise ValueError("prefill onto a paged cache needs dest token slots")
+        dest = paged["dest"].reshape(-1)                      # [B*S]
+        _scatter_pages(ck, dest, k.transpose(0, 1).reshape(hkv, b * s, hd))
+        _scatter_pages(cv, dest, v.transpose(0, 1).reshape(hkv, b * s, hd))
+        if "token_tables" in paged:
+            q_tok = q.transpose(1, 2).reshape(b * s, hq, hd)
+            o = spark_paged_decode(
+                q_tok, ck, cv, paged["token_tables"].reshape(b * s, -1),
+                paged["token_kv_len"].reshape(b * s), impl=ctx.impl,
+                window=window, num_splits=ctx.num_splits).view(b, s, hq, hd)
+        else:
+            o = spark_attention(q, k, v, impl=ctx.impl, causal=cfg.causal,
+                                window=cfg.attn_window, segment_ids=segment_ids,
+                                acc_dtype=ctx.acc_dtype,
+                                torch_chunk=ctx.torch_chunk).transpose(1, 2)
+    out = o.reshape(b, s, hq * hd) @ p.wo
+    return out, {"k_pages": ck, "v_pages": cv}

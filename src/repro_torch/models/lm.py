@@ -15,6 +15,8 @@ Public entry points:
   forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches)
   loss_fn(cfg, params, batch, ctx)                 → (loss, metrics)
   init_cache / prefill / decode_step               → contiguous KV serving
+  init_paged_cache / paged_prefill / paged_chunk_prefill /
+  paged_verify_step / paged_decode_step            → paged KV serving
 """
 
 from __future__ import annotations
@@ -84,11 +86,11 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
 
 
 def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
-                 segment_ids=None):
+                 segment_ids=None, paged=None):
     h = layers.rms_norm(x, p.norm1)
     mixed, new_cache = layers.apply_attention(
         p.mixer, h, ctx, cfg, positions=positions, cache=cache,
-        layer_seed=layer_seed, segment_ids=segment_ids)
+        layer_seed=layer_seed, segment_ids=segment_ids, paged=paged)
     x = x + mixed
     return x + layers.apply_mlp(p.mlp, layers.rms_norm(x, p.norm2)), new_cache
 
@@ -101,12 +103,14 @@ def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
 
 
 def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
-            positions=None, segment_ids=None):
+            positions=None, segment_ids=None, paged=None):
     """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None).
 
     positions: [B, S] or [S] RoPE positions (default ``arange(S)``).
     segment_ids [B, S]: packed-batch ids (int32); attention masks
     cross-segment pairs — pass per-segment ``positions`` alongside.
+    paged: the routing of paged caches, passed to every attention layer
+    (``layers.apply_attention``).
     """
     x = params.embed[tokens]
     if positions is None:
@@ -120,7 +124,8 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
             continue
         x, nc = _apply_block(blk, x, ctx, cfg, positions=positions,
                              cache=None if caches is None else caches[i],
-                             layer_seed=i * 1000003, segment_ids=segment_ids)
+                             layer_seed=i * 1000003, segment_ids=segment_ids,
+                             paged=paged)
         if new_caches is not None:
             new_caches.append(nc)
     x = layers.rms_norm(x, params.final_norm)
@@ -173,4 +178,84 @@ def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
                            device=token.device)
     logits, caches = forward(cfg, params, ctx, tokens=token[:, None],
                              caches=caches, positions=positions)
+    return logits[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# paged serving: page-pool cache / packed prefill / block-table decode
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda"):
+    """Per-layer page pools ``{"k_pages", "v_pages"}`` [Hkv, num_pages,
+    page_size, D] (no batch dim: sequences share the pool through block
+    tables; host-side page lifecycle in ``serving/paged_cache.py``). The
+    recurrent families' per-slot state rows are not yet ported."""
+    if set(cfg.block_pattern) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: paged serving of recurrent blocks is not yet ported")
+    dtype = dtype or cfg.dtype
+    return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
+                  dest, caches, state_slots=None):
+    """Segment-aware packed prefill: many prompts in one forward.
+
+    tokens/segment_ids/positions [B, S] (prompts packed along S, -1 = pad,
+    per-prompt positions from 0); dest [B, S] flat page-pool token slots
+    (``BlockTables.prefill_dest``). Fills the pools in place. Returns
+    (logits [B, S, Vpad], caches); the engine reads each prompt's last row.
+    state_slots (the recurrent families' per-slot routing, JAX's signature)
+    is unused by the attention-only archs.
+    """
+    return forward(cfg, params, ctx, tokens=tokens, caches=caches,
+                   positions=positions, segment_ids=segment_ids,
+                   paged={"dest": dest})
+
+
+def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
+                        token_tables, token_kv_len, caches, state_slots=None,
+                        state_local=None):
+    """Chunked / suffix packed prefill: prompt spans whose earlier tokens
+    already live in pages (prefix-cache hits, earlier chunks).
+
+    tokens/positions [B, S] with global per-token positions; dest [B, S]
+    flat pool slots (``BlockTables.span_dest``, padding → trash);
+    token_tables [B, S, T] each token's block-table row; token_kv_len
+    [B, S] = position + 1 for real tokens, 0 for padding. Each layer
+    scatters the span's K/V first, then every token attends through its own
+    table row. Returns (logits [B, S, Vpad], caches). state_slots /
+    state_local are unused by the attention-only archs, as in
+    :func:`paged_prefill`.
+    """
+    return forward(cfg, params, ctx, tokens=tokens, caches=caches,
+                   positions=positions,
+                   paged={"dest": dest, "token_tables": token_tables,
+                          "token_kv_len": token_kv_len})
+
+
+def paged_verify_step(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
+                      token_tables, token_kv_len, caches):
+    """Speculative verify: score ``k + 1`` tokens per decode row in one
+    forward (the row's last token and its ``k`` drafts), through the same
+    per-token paged attention as :func:`paged_chunk_prefill` with
+    ``[B = max_batch, W = k + 1]`` rows. Rejected drafts' K/V stay at
+    positions ``>= kv_len``, which every read gates out, until the next
+    verify rewrites them. Returns (logits [B, W, Vpad], caches)."""
+    return paged_chunk_prefill(cfg, params, ctx, tokens, positions, dest,
+                               token_tables, token_kv_len, caches)
+
+
+def paged_decode_step(cfg, params: LM, ctx: Ctx, token, caches, block_tables,
+                      kv_len):
+    """One decode step over the paged cache. token [B], block_tables
+    [B, T], kv_len [B] int32 (current lengths: the new token lands at
+    position kv_len; the engine increments it host-side).
+    → (logits [B, Vpad], caches)."""
+    ctx = dataclasses.replace(ctx, decode=True)
+    logits, caches = forward(
+        cfg, params, ctx, tokens=token[:, None], caches=caches,
+        positions=kv_len[:, None],
+        paged={"block_tables": block_tables, "kv_len": kv_len})
     return logits[:, 0], caches

@@ -1,5 +1,5 @@
 """Train, prefill and decode steps on one device (counterpart of
-``repro.runtime.steps`` without a mesh or a paged cache).
+``repro.runtime.steps`` without a mesh).
 
 PyTorch runs eagerly: there is no jit. The train step updates the params and
 the optimizer state in place; the serving steps run under
@@ -105,26 +105,54 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
 
 @dataclasses.dataclass
 class ServeArtifacts:
-    """The three serving callables.
+    """The serving callables (see :func:`make_serve_steps` for the paged
+    signatures).
 
     prefill_fn(params, tokens [B,S], caches) → (logits [B,Vpad], caches)
     decode_fn(params, token [B], caches, position: int)
         → (logits [B,Vpad], caches)
     cache_init_fn() → fresh per-layer caches
+    chunk_prefill_fn, verify_fn: paged only (chunked/suffix prefill,
+        speculative verify)
     """
     prefill_fn: Any
     decode_fn: Any
     cache_init_fn: Any
+    chunk_prefill_fn: Any = None
+    verify_fn: Any = None
 
 
 def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
                      batch: int = 1, torch_chunk: int = 1024,
-                     num_splits: int = 1, device="cuda") -> ServeArtifacts:
+                     num_splits: int = 1, device="cuda",
+                     paged=None) -> ServeArtifacts:
     """Serving steps of ``cfg`` with attention ``impl`` on ``device``.
 
-    num_splits: split-KV slices per (batch, kv head) row of the decode step.
-    torch_chunk: KV chunk of ``impl="torch"``'s prefill.
+    num_splits: split-KV slices per (batch, kv head) row of the decode step
+    (and, paged, of the verify step). torch_chunk: KV chunk of
+    ``impl="torch"``'s prefill.
+
+    paged: a ``serving.PagedCacheConfig`` switches the cache to a page pool
+    shared by all sequences. The signatures are then JAX's, with the caches
+    updated in place:
+
+      prefill_fn(params, tokens, segment_ids, positions, dest, state_slots,
+                 caches) → (logits [B,S,Vpad], caches)   # packed prompts
+      decode_fn(params, token, caches, block_tables, kv_len)
+          → (logits [B,Vpad], caches)                    # B = max_batch
+      chunk_prefill_fn(params, tokens, positions, dest, token_tables,
+                       token_kv_len, state_slots, state_local, caches)
+          → (logits [B,S,Vpad], caches)                  # global positions
+      verify_fn(params, tokens, positions, dest, token_tables, token_kv_len,
+                caches) → (logits [B,W,Vpad], caches)    # W = k + 1
+
+    ``state_slots``/``state_local`` carry the recurrent families' per-slot
+    state rows; the attention-only archs take and ignore them.
     """
+    if paged is not None:
+        return _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits,
+                                  device)
+
     def cache_init():
         with torch.inference_mode():
             return lm.init_cache(cfg, batch, max_len, device=device)
@@ -141,3 +169,44 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
 
     return ServeArtifacts(prefill_fn=prefill_fn, decode_fn=decode_fn,
                           cache_init_fn=cache_init)
+
+
+def _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits, device):
+    def cache_init():
+        with torch.inference_mode():
+            return lm.init_paged_cache(cfg, paged, device=device)
+
+    @torch.inference_mode()
+    def prefill_fn(params, tokens, segment_ids, positions, dest, state_slots,
+                   caches):
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
+        return lm.paged_prefill(cfg, params, ctx, tokens, segment_ids,
+                                positions, dest, caches, state_slots)
+
+    @torch.inference_mode()
+    def decode_fn(params, token, caches, block_tables, kv_len):
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits)
+        return lm.paged_decode_step(cfg, params, ctx, token, caches,
+                                    block_tables, kv_len)
+
+    @torch.inference_mode()
+    def chunk_prefill_fn(params, tokens, positions, dest, token_tables,
+                         token_kv_len, state_slots, state_local, caches):
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
+        return lm.paged_chunk_prefill(cfg, params, ctx, tokens, positions,
+                                      dest, token_tables, token_kv_len, caches,
+                                      state_slots, state_local)
+
+    @torch.inference_mode()
+    def verify_fn(params, tokens, positions, dest, token_tables, token_kv_len,
+                  caches):
+        # the latency-bound step it replaces, k + 1 tokens wide: the decode
+        # step's split-KV launch parameter
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits)
+        return lm.paged_verify_step(cfg, params, ctx, tokens, positions, dest,
+                                    token_tables, token_kv_len, caches)
+
+    return ServeArtifacts(prefill_fn=prefill_fn, decode_fn=decode_fn,
+                          cache_init_fn=cache_init,
+                          chunk_prefill_fn=chunk_prefill_fn,
+                          verify_fn=verify_fn)

@@ -9,6 +9,7 @@ The same checks, at the serving and training paths' full shapes, are in
 
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,6 +26,8 @@ from repro_torch.data import DataConfig, make_batch  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime.steps import (make_serve_steps, make_train_step,  # noqa: E402
                                        place_batch)
+from repro_torch.serving import (PagedCacheConfig, ServingEngine,  # noqa: E402
+                                 TRASH_PAGE)
 
 pytestmark = pytest.mark.gpu
 
@@ -119,6 +122,115 @@ def test_flash_decode_kernel_matches_plain(cuda, hq, d, window, num_splits,
         assert _err(o, o_naive) <= TOL[dtype]
 
 
+def _paged(gen, b, hq, hkv, d, ps, t, dtype, extra=3):
+    """q, a pool of 1 + b*t + extra pages and shuffled int32 tables."""
+    n_pages = 1 + b * t + extra
+    q = _rand(gen, (b, hq, d), dtype)
+    kp = _rand(gen, (hkv, n_pages, ps, d), dtype)
+    vp = _rand(gen, (hkv, n_pages, ps, d), dtype)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    bt = perm[:b * t].view(b, t).to(torch.int32).contiguous()
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("hq,ps,window", [(8, 16, None), (10, 4, 45),
+                                          (8, 32, 200), (8, 64, None)])
+def test_flash_paged_decode_kernel_matches_plain(cuda, hq, ps, window,
+                                                 num_splits, dtype):
+    b, hkv, d, t = 4, 2, 64, 640 // ps
+    q, kp, vp, bt = _paged(cuda, b, hq, hkv, d, ps, t, dtype)
+    kv_len = torch.tensor([t * ps, 0, 129, 333], dtype=torch.int32,
+                          device="cuda")
+    before = kdecode.launches_paged
+    o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window,
+                                   num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert kdecode.launches_paged == before + 1
+    o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len,
+                                             window=window,
+                                             num_splits=num_splits)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert float(o[1].abs().max()) == 0.0
+    # the contiguous kernel on the gathered pages walks the same tiles
+    o_contig = kdecode.flash_decode(q, kdecode.gather_pages(kp, bt),
+                                    kdecode.gather_pages(vp, bt), kv_len=kv_len,
+                                    window=window, num_splits=num_splits)
+    assert _err(o, o_contig) == 0.0
+    if dtype == torch.float32:
+        o_naive = ops.paged_decode_reference(q, kp, vp, bt, kv_len,
+                                             window=window)
+        assert _err(o, o_naive) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_paged_decode_poisoned_trash_is_inert(cuda, window):
+    b, hq, hkv, d, ps, t = 3, 8, 2, 64, 16, 12
+    q, kp, vp, bt = _paged(cuda, b, hq, hkv, d, ps, t, torch.float32)
+    kv_len = torch.tensor([19, 100, 0], dtype=torch.int32, device="cuda")
+    bt[0, 2:] = TRASH_PAGE                   # past each row's allocation
+    bt[1, 7:] = TRASH_PAGE
+    bt[2] = TRASH_PAGE
+    if window is not None:
+        bt[1, :3] = TRASH_PAGE               # reclaimed: out of the window
+    clean = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window)
+    kp[:, TRASH_PAGE] = 1e6
+    vp[:, TRASH_PAGE] = 1e6
+    poisoned = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window)
+    torch.cuda.synchronize()
+    assert _err(clean, poisoned) == 0.0
+    assert float(poisoned[2].abs().max()) == 0.0
+
+
+def test_flash_paged_decode_token_rows(cuda):
+    """Chunked prefill's shape: B·S token rows through one launch, padding
+    rows with kv_len 0 exact zeros."""
+    hq, hkv, d, ps, t = 8, 2, 64, 16, 40
+    q1, kp, vp, bt = _paged(cuda, 1, hq, hkv, d, ps, t, torch.float32)
+    n = 300
+    q = _rand(cuda, (n, hq, d), torch.float32)
+    tables = bt.expand(n, t).contiguous()
+    kv_len = (torch.arange(n, device="cuda", dtype=torch.int32) + 200)
+    kv_len[250:] = 0
+    o = kdecode.flash_paged_decode(q, kp, vp, tables, kv_len, num_splits=2)
+    o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, tables, kv_len=kv_len,
+                                             num_splits=2)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert float(o[250:].abs().max()) == 0.0
+
+
+def test_paged_engine_kernel_matches_torch(cuda):
+    """A SMOKE paged engine (lazy, chunked prefill, speculation) with
+    impl="kernel" generates what impl="torch" does, and its paged attention
+    went through the kernel once a layer per decode / chunk / verify call."""
+    cfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=n), g)
+            for n, g in ((40, 12), (25, 20), (33, 8), (50, 16), (12, 10))]
+    pcfg = PagedCacheConfig(page_size=8, num_pages=24, max_batch=3,
+                            max_pages_per_seq=10)
+    outs = {}
+    for impl in ("kernel", "torch"):
+        eng = ServingEngine(cfg, pcfg, params, impl=impl, device="cuda",
+                            prefill_len=64, lazy=True, prefill_chunk=32,
+                            speculate_k=2)
+        before = (kfwd.launches, kdecode.launches_paged)
+        outs[impl], stats = eng.run(list(reqs))
+        torch.cuda.synchronize()
+        launched = (kfwd.launches - before[0],
+                    kdecode.launches_paged - before[1])
+        if impl == "kernel":
+            assert launched[1] > 0 and launched[1] % cfg.num_layers == 0
+        else:
+            assert launched == (0, 0)
+        assert stats["outcomes"]["completed"] == len(reqs)
+    for rid in outs["torch"]:
+        assert (outs["kernel"][rid] == outs["torch"][rid]).all(), rid
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _rand(cuda, (1, 4, 64, 64), torch.float32)
     k = _rand(cuda, (1, 2, 64, 64), torch.float32)
@@ -134,6 +246,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              kv_len=torch.tensor([3], device="cuda"))  # int64
     with pytest.raises(ValueError):
         kdecode.flash_decode(_rand(cuda, (1, 18, 64), torch.float32), k, k)
+    pool = _rand(cuda, (2, 5, 16, 64), torch.float32)
+    kv_len = torch.tensor([3], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):                        # int64 table
+        kdecode.flash_paged_decode(q[:, :, 0].contiguous(), pool, pool,
+                                   torch.tensor([[1, 2]], device="cuda"), kv_len)
+    odd = torch.zeros(pool.numel() + 1, device="cuda")[1:].view(pool.shape)
+    with pytest.raises(ValueError, match="aligned"):      # 4-byte offset, D 64
+        kdecode.flash_paged_decode(q[:, :, 0].contiguous(), odd, odd,
+                                   torch.tensor([[1, 2]], dtype=torch.int32,
+                                                device="cuda"), kv_len)
 
 
 def test_serve_slice_kernel_matches_torch(cuda):
