@@ -24,6 +24,11 @@ Phases, each of which exits non-zero on failure:
              a 1e6-poisoned trash page past each allocation and out of the
              window, 1 and 3 splits and 256 chunk-prefill token rows, and
              bit for bit against the contiguous kernel on the gathered pages;
+             the gated paged decode (one shard of a sharded pool, raw
+             partials) at the same cases with about half the table entries
+             foreign and their pages 1e6, and two shards' partials (local
+             pools, tables remapped to local ids, local trash pages 1e6)
+             merged against the ungated kernel on the whole pool;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -38,7 +43,16 @@ Phases, each of which exits non-zero on failure:
              each with ``impl="kernel"`` and ``impl="torch"``: every request
              completes, ``flash_fwd`` launches 40 × prefill calls and the
              paged kernel 40 × (decode + chunk + verify calls), and the
-             tokens equal the torch run's up to a printed near-tie;
+             tokens equal the torch run's up to a printed near-tie; (c) the
+             distributed paged engine (``ServingEngine(mesh=)``): two ranks
+             spawned on the one card with gloo (NCCL refuses two ranks on a
+             device), each with the whole model and half of every layer's
+             page pool (``--dist-ranks``, ``--dist-backend`` change that), first probing gloo's CUDA all_reduce (MAX, SUM) and
+             a page copy across shards, then three of (b)'s modes (eager,
+             lazy, prefix + chunk): tokens equal on both ranks and to (b)'s
+             kernel run up to a printed near-tie, the gated kernel launched
+             40 × (decode + chunk + verify calls) on each rank and the
+             ungated one never; host time in the merge collectives;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -54,11 +68,17 @@ Phases, each of which exits non-zero on failure:
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its backward for
              the two backward kernels; on the contiguous equivalent for the
-             paged decode, gather excluded: a yardstick the port never calls)
-             and its bound, printed as one JSON line.
+             paged decode, gather excluded; aten's memory-efficient attention
+             with its log-sum-exp on the owned rows for the gated kernel: a
+             yardstick the port never calls) and its bound, printed as one
+             JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
+
+``python3 chip_smoke.py --dist-ranks 4 --dist-backend nccl`` on a machine
+with four cards gives phase 4c a card a rank and NCCL; every other phase
+runs on ``cuda:0`` as without the flags.
 """
 
 from __future__ import annotations
@@ -123,7 +143,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dist-ranks", type=int, default=DIST_RANKS,
+                    help="ranks of phase 4c (rank r on cuda:(r %% cards))")
+    ap.add_argument("--dist-backend", default="gloo", choices=("gloo", "nccl"),
+                    help="phase 4c's backend: gloo for ranks sharing a card, "
+                         "nccl for a card a rank")
+    args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py: run it from "
              "the root of a checkout")
@@ -162,11 +190,14 @@ def main() -> None:
     # ---------------- phase 3: kernels vs plain versions ----------------
     errs = kernel_phase(torch, kfwd, kdecode)
     errs.update(paged_kernel_phase(torch, kdecode))
+    errs.update(gated_kernel_phase(torch, kdecode))
     errs.update(bwd_kernel_phase(torch, kfwd, kbwd))
 
     # ---------------- phase 4: the serving paths ----------------
     launches = serve_phase(torch, kfwd, kdecode)
-    paged_launches = paged_serve_phase(torch, kfwd, kdecode)
+    paged_launches, paged_tokens = paged_serve_phase(torch, kfwd, kdecode)
+    dist_launches = dist_serve_phase(torch, paged_tokens, args.dist_ranks,
+                                     args.dist_backend)
 
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
@@ -175,6 +206,7 @@ def main() -> None:
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
     rows += bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0])
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
+    rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     print(json.dumps({"kernels": rows}))
     print(smi)
@@ -395,6 +427,129 @@ def paged_kernel_phase(torch, kdecode):
                          f"with its plain version or the contiguous kernel")
                 errs[f"flash_paged_decode/{name}/ns{ns}/{dn}"] = e
             del q, kp, vp, bt, kc, vc
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _sharded_case(torch, gen, kv_len, hq, hkv, d, ps, t, dtype, window=None):
+    """q and a pool of two shards of ``n_local`` pages (trash pages 0 and
+    n_local) whose rows own the pages their kv_len (and window) reach, the
+    other entries naming the trash page 0; every trash page holds 1e6."""
+    b = kv_len.shape[0]
+    n_local = 1 + -(-b * t // 2)
+    q = _rand(torch, gen, (b, hq, d), dtype)
+    kp = _rand(torch, gen, (hkv, 2 * n_local, ps, d), dtype)
+    vp = _rand(torch, gen, (hkv, 2 * n_local, ps, d), dtype)
+    for pool in (kp, vp):
+        pool[:, 0], pool[:, n_local] = 1e6, 1e6
+    usable = torch.tensor([p for p in range(2 * n_local) if p % n_local],
+                          device="cuda")
+    perm = torch.randperm(usable.numel(), generator=gen, device="cuda")[:b * t]
+    bt = usable[perm].view(b, t)
+    block = torch.arange(t, device="cuda")[None, :]
+    owned = block < (kv_len[:, None] + ps - 1) // ps
+    if window is not None:      # reclaimed: every position out of the window
+        owned &= (block + 1) * ps - 1 > kv_len[:, None] - 1 - window
+    bt = torch.where(owned, bt, 0).to(torch.int32).contiguous()
+    return q, kp, vp, bt, n_local
+
+
+def _state_out(torch, acc, m, l):
+    """A partial state's normalised output and log-sum-exp."""
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def gated_kernel_phase(torch, kdecode):
+    """The gated paged kernel (one shard of a page-sharded pool) against its
+    plain version, f32 and bf16: (a) a random half of the table entries
+    not owned, their pages and the trash page filled with 1e6; (b) the pool
+    cut into two shards (local pools, tables remapped to local ids, local
+    trash pages 1e6), the shards' partials merged against the ungated paged
+    kernel on the whole pool."""
+    from repro_torch.core import online_softmax as osm
+    from repro_torch.distributed.paged import _local_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    cases = [
+        # name, kv_len, hq, hkv, d, page size, table width, window
+        ("ps16_g4", [576, 0, 528, 1, 300, 129, 555, 17], 32, 8, 64, 16, 37, None),
+        ("ps4_g5_d128", [592, 40, 0, 333], 40, 8, 128, 4, 148, None),
+        ("ps32_g4_window", [600, 0, 256, 31, 500, 64, 449, 2], 32, 8, 64, 32, 19, 100),
+        ("chunk_256_rows", [0] * 16 + list(range(301, 541)), 32, 8, 64, 16, 37, None),
+    ]
+    errs, worst = {}, {"gate": 0.0, "lse": 0.0, "shards": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for name, lens, hq, hkv, d, ps, t, window in cases:
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q, kp, vp, bt, n_local = _sharded_case(torch, gen, kv_len, hq, hkv,
+                                                   d, ps, t, dtype, window)
+            if name == "chunk_256_rows":     # every token row reads one table
+                bt = bt[-1:].expand(len(lens), t).contiguous()
+            b = len(lens)
+            for ns in (1, 3):
+                # (a) the gate alone, on the whole pool
+                valid = (torch.rand((b, t), generator=gen, device="cuda") < 0.5
+                         ).to(torch.int32)
+                if name == "chunk_256_rows":  # one table: one ownership
+                    valid = valid[-1:].expand(b, t).contiguous()
+                kpa, vpa = kp.clone(), vp.clone()
+                foreign = bt[valid == 0].long()
+                kpa[:, foreign], vpa[:, foreign] = 1e6, 1e6
+                part = kdecode.flash_paged_decode_partials(
+                    q, kpa, vpa, bt, kv_len, block_valid=valid, window=window,
+                    num_splits=ns)
+                torch.cuda.synchronize()
+                ref = kdecode.flash_paged_decode_partials_torch(
+                    q, kpa, vpa, bt, kv_len=kv_len, block_valid=valid,
+                    window=window, num_splits=ns)
+                (o, lse), (o_ref, lse_ref) = (_state_out(torch, *part),
+                                              _state_out(torch, *ref))
+                read = ref[2] > 0                       # rows that read something
+                e = _maxerr(o, o_ref)
+                el = _maxerr(lse[read], lse_ref[read]) if bool(read.any()) else 0.0
+                empty_ok = (float(part[0][~read].abs().max()) == 0.0
+                            and bool((part[1][~read] == -1e30).all())
+                            ) if bool((~read).any()) else True
+                ok_a = (e <= TOL[dn] and el <= LSE_TOL and empty_ok
+                        and bool(torch.isfinite(o).all()))
+                del kpa, vpa
+                # (b) two shards merged against the ungated kernel, whole pool
+                whole = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len,
+                                                   window=window, num_splits=ns)
+                states = []
+                for shard in range(2):
+                    lo = shard * n_local
+                    bt_l, valid_l = _local_ids(bt, n_local, shard)
+                    acc, m, l = kdecode.flash_paged_decode_partials(
+                        q, kp[:, lo:lo + n_local].contiguous(),
+                        vp[:, lo:lo + n_local].contiguous(), bt_l.contiguous(),
+                        kv_len, block_valid=valid_l.contiguous(),
+                        window=window, num_splits=ns)
+                    states.append(osm.SoftmaxState(m=m, l=l, acc=acc))
+                merged, _ = osm.finalize(osm.merge(*states), out_dtype=dtype)
+                torch.cuda.synchronize()
+                es = _maxerr(merged, whole)
+                ok = ok_a and es <= TOL[dn]
+                worst["gate"] = max(worst["gate"], e / TOL[dn])
+                worst["lse"] = max(worst["lse"], el)
+                worst["shards"] = max(worst["shards"], es / TOL[dn])
+                print(f"[kernels] flash_paged_decode_partials {name} splits={ns} "
+                      f"{dn}: ~half the entries foreign (1e6): max|o - plain| "
+                      f"{e:.3e} (tol {TOL[dn]:.1e}), max|lse - plain| {el:.3e} "
+                      f"(tol {LSE_TOL:.0e}), empty rows exact: {empty_ok}; two "
+                      f"shards merged vs the paged kernel on the whole pool "
+                      f"{es:.3e} (tol {TOL[dn]:.1e}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"flash_paged_decode_partials {name} splits={ns} {dn} "
+                         f"disagrees with its plain version or the paged kernel")
+                errs[f"flash_paged_decode_partials/{name}/ns{ns}/{dn}"] = e
+                errs[f"flash_paged_decode_partials/shards/{name}/ns{ns}/{dn}"] = es
+            del q, kp, vp, bt
+    print(f"[kernels] flash_paged_decode_partials worst: gate {worst['gate']:.3f} "
+          f"x tol, lse {worst['lse']:.3e}, two shards {worst['shards']:.3f} x tol")
     torch.cuda.empty_cache()
     return errs
 
@@ -659,7 +814,7 @@ def _paged_requests(np, vocab, mode, max_prompt):
 def paged_serve_phase(torch, kfwd, kdecode):
     """granite-3-2b, full width and depth, through the port's paged serving
     engine in four modes, kernel impl against torch impl. Returns the launch
-    counts of the kernel runs."""
+    counts of the kernel runs, and their tokens and top-2 margins by mode."""
     import numpy as np
 
     from repro_torch import configs
@@ -681,6 +836,7 @@ def paged_serve_phase(torch, kfwd, kdecode):
           f"{PAGED_GEN // 4}-{PAGED_GEN} generated; near-tie tolerance: top-2 "
           f"margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
     counts = {"flash_fwd": 0, "flash_paged_decode": 0, "by_mode": {}}
+    tokens = {}
     for mode, kw in PAGED_MODES.items():
         lazy = kw.get("lazy", False)
         pcfg = PagedCacheConfig(
@@ -736,7 +892,9 @@ def paged_serve_phase(torch, kfwd, kdecode):
             runs[impl] = (out, rec)
         if lazy and stats["preemptions"] == 0:
             fail("paged lazy: the half pool forced no preemption")
-        (out_k, rec_k), (out_t, _) = runs["kernel"], runs["torch"]
+        out_k, rec_k = runs["kernel"]
+        tokens[mode] = (out_k, rec_k.margin)
+        out_t = runs["torch"][0]
         same, ties = 0, []
         for rid, toks in out_k.items():
             diff = np.nonzero(toks != out_t[rid])[0]
@@ -755,7 +913,210 @@ def paged_serve_phase(torch, kfwd, kdecode):
               + ("".join(f"; near-tie {t}" for t in ties)), flush=True)
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, tokens
+
+
+DIST_RANKS = 2
+DIST_MODES = ("eager", "lazy", "prefix_chunk")
+
+
+def _dist_pool(lazy: bool, n_shards: int, ps: int = 16, slots: int = 8):
+    """Phase 4b's pool with one trash page a shard: the same usable pages
+    (296, or 148 lazy), so the scheduler takes the same decisions."""
+    pages_per_seq = -(-(PAGED_PROMPT + PAGED_GEN) // ps) + 1
+    usable = slots * pages_per_seq // (2 if lazy else 1)
+    return pages_per_seq, n_shards + usable
+
+
+def _record_copies(eng, pairs):
+    """Keep the engine's copy-on-write (src, dst) pairs in ``pairs`` as its
+    scheduler hands them out."""
+    drain = eng.scheduler.tables.drain_copies
+
+    def spy():
+        got = drain()
+        pairs.extend(got)
+        return got
+
+    eng.scheduler.tables.drain_copies = spy
+
+
+def _dist_rank(mesh, device):
+    """One rank of phase 4c: probe the collectives on CUDA tensors, then
+    serve granite-3-2b at full size on this rank's shard of the pool in
+    each of ``DIST_MODES``. Returns per mode what the parent checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import paged as dpaged
+    from repro_torch.kernels import decode as kdecode
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.models import lm
+    from repro_torch.serving import PagedCacheConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo's all_reduce on CUDA tensors, MAX and SUM, and the cross-shard
+    # page copy (copy-on-write) on the card
+    x = torch.full((4,), float(mesh.rank + 1), device=device)
+    mx, sm = x.clone(), x.clone()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(sm, op=dist.ReduceOp.SUM, group=mesh.group)
+    n = mesh.size
+    if not (bool((mx == n).all()) and bool((sm == n * (n + 1) / 2).all())):
+        raise RuntimeError(f"{dist.get_backend(mesh.group)} all_reduce on CUDA "
+                           f"tensors is wrong: MAX {mx.tolist()}, SUM {sm.tolist()}")
+    base = torch.arange(24, dtype=torch.float32, device=device).view(1, 2, 3, 4)
+    pool = base + 100 * mesh.rank           # two pages a shard: 2r and 2r + 1
+    last = 2 * n - 1                        # swap page 1 (rank 0) and the last
+    dpaged.copy_pages_sharded([pool], [1, last], [last, 1], mesh)
+    peer = {0: n - 1, n - 1: 0}.get(mesh.rank, mesh.rank)
+    if n < 2 or not torch.equal(pool[:, 0], base[:, 0] + 100 * mesh.rank) \
+            or not torch.equal(pool[:, 1], base[:, 1] + 100 * peer):
+        raise RuntimeError("copy_pages_sharded across shards is wrong on the card")
+    # the merge's two collectives alone, at the decode step's shape, on an
+    # idle stream: what a layer pays for the merge without waiting for work
+    m = torch.zeros((8, 32), device=device)
+    buf = torch.zeros((8, 32, 65), device=device)
+    for i in range(110):
+        if i == 10:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    torch.cuda.synchronize(device)
+    merge_ms = (time.perf_counter() - t0) / 100 * 1e3
+    probe = (f"all_reduce MAX/SUM on {device} ok, cross-shard page copy ok; "
+             f"the merge's two collectives alone (m [8, 32], [acc | l] "
+             f"[8, 32, 65] f32, idle stream): {merge_ms:.3f} ms a merge")
+
+    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device=device)
+    results = {"probe": probe, "num_layers": cfg.num_layers}
+    for mode in DIST_MODES:
+        kw = PAGED_MODES[mode]
+        lazy = kw.get("lazy", False)
+        pages_per_seq, num_pages = _dist_pool(lazy, mesh.size)
+        pcfg = PagedCacheConfig(page_size=16, max_batch=8,
+                                max_pages_per_seq=pages_per_seq,
+                                num_pages=num_pages, num_shards=mesh.size)
+        reqs = _paged_requests(np, cfg.vocab_size, mode,
+                               pcfg.max_seq_len - PAGED_GEN - 1)
+        eng = ServingEngine(cfg, pcfg, params, impl="kernel", device=device,
+                            mesh=mesh, prefill_len=(PAGED_PROMPT + PAGED_GEN
+                                                    if lazy else PAGED_PROMPT),
+                            torch_chunk=PAGED_PROMPT, **kw)
+        rec = StepRecorder(torch, eng, cfg.vocab_size)
+        pairs = []
+        _record_copies(eng, pairs)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        kfwd.launches = kdecode.launches = 0
+        kdecode.launches_paged = kdecode.launches_paged_valid = 0
+        dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+        out, stats = eng.run([(t, g) for t, g in reqs])
+        torch.cuda.synchronize(device)
+        n_local = num_pages // mesh.size
+        results[mode] = {
+            "out": out, "stats": stats, "calls": dict(rec.calls),
+            "margin": rec.margin, "pool": (num_pages, n_local),
+            "launches": {"flash_fwd": kfwd.launches,
+                         "flash_decode": kdecode.launches,
+                         "flash_paged_decode": kdecode.launches_paged,
+                         "flash_paged_decode_partials": kdecode.launches_paged_valid},
+            "merge_calls": dpaged.merge_calls, "merge_s": dpaged.merge_s,
+            "cow_pairs": len(pairs),
+            "cow_across": sum(s // n_local != d // n_local for s, d in pairs),
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        del eng
+        torch.cuda.empty_cache()
+    return results
+
+
+def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
+    """granite-3-2b at full width and depth through the port's distributed
+    paged engine: ``n_ranks`` ranks (by default two sharing the card, gloo),
+    each holding 1/n of every layer's page pool and all the weights, in
+    three modes. Tokens equal on every rank and equal to phase 4b's
+    single-device kernel run (or a printed near-tie); the gated kernel
+    launched 40 × (decode + chunk + verify calls) on each rank, the ungated
+    one never. Returns rank 0's gated launches by mode."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import rank_device, run_ranks
+
+    devices = [str(rank_device(r, "cuda")) for r in range(n_ranks)]
+    how = ("gloo through host memory on one card, not NVLink; NCCL refuses "
+           "two ranks on one card" if backend == "gloo" else
+           f"{backend}, a card a rank")
+    print(f"[dist] {n_ranks} ranks on {', '.join(devices)} ({how}), each with "
+          f"granite-3-2b f32 (random, seed 0) and 1/{n_ranks} of every layer's "
+          f"page pool; modes {', '.join(DIST_MODES)}", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dist_rank, n_ranks, backend=backend,
+                      device_type="cuda", timeout_s=900)
+    print(f"[dist] {ranks[0]['probe']}; ranks done in "
+          f"{time.perf_counter() - t0:.1f} s (spawn, weights, three modes)")
+    n_layers = ranks[0]["num_layers"]
+    launches = {"total": 0, "by_mode": {}}
+    for mode in DIST_MODES:
+        r0 = ranks[0][mode]
+        ref_out, ref_margin = paged_tokens[mode]
+        for rank, res in enumerate(ranks):
+            res = res[mode]
+            st, c, got = res["stats"], res["calls"], res["launches"]
+            steps = c["decode"] + c["chunk"] + c["verify"]
+            want = {"flash_fwd": n_layers * c["prefill"], "flash_decode": 0,
+                    "flash_paged_decode": 0,
+                    "flash_paged_decode_partials": n_layers * steps}
+            per_step = res["merge_s"] / max(st["decode_steps"], 1)
+            print(f"[dist] {mode} rank {rank}: {st['generated_tokens']:.0f} "
+                  f"tokens in {st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} "
+                  f"tokens/s; {st['decode_steps']:.0f} decode steps; calls "
+                  f"prefill {c['prefill']} / decode {c['decode']} / chunk "
+                  f"{c['chunk']} / verify {c['verify']}; preemptions "
+                  f"{st['preemptions']:.0f}; pool {res['pool'][0]} pages "
+                  f"({res['pool'][1]} a shard); cow {res['cow_pairs']} "
+                  f"({res['cow_across']} across shards); max_memory_allocated "
+                  f"{res['peak_gib']:.2f} GiB; merges {res['merge_calls']}, host "
+                  f"time in their collectives {res['merge_s']:.3f} s = "
+                  f"{per_step * 1e3:.2f} ms a step ({how}); launches {got}",
+                  flush=True)
+            if got != want or steps == 0:
+                fail(f"dist {mode} rank {rank}: the path did not go through the "
+                     f"gated kernel: {got}, expected {want}")
+            if st["outcomes"]["completed"] != PAGED_REQUESTS:
+                fail(f"dist {mode} rank {rank}: outcomes {st['outcomes']}")
+            if set(res["out"]) != set(r0["out"]) or any(
+                    not np.array_equal(res["out"][k], r0["out"][k]) for k in r0["out"]):
+                fail(f"dist {mode}: rank {rank}'s tokens differ from rank 0's")
+        if mode == "lazy" and r0["stats"]["preemptions"] == 0:
+            fail("dist lazy: the half pool forced no preemption")
+        if mode == "prefix_chunk" and r0["calls"]["chunk"] == 0:
+            fail("dist prefix_chunk: no chunked prefill ran")
+        same, ties = 0, []
+        for rid, toks in ref_out.items():
+            diff = np.nonzero(r0["out"][rid] != toks)[0]
+            if diff.size == 0:
+                same += 1
+                continue
+            i = int(diff[0])
+            margin, peak = ref_margin[(rid, i)]
+            ties.append(f"request {rid} token {i}: sharded {r0['out'][rid][i]} "
+                        f"vs one device {toks[i]}, margin {margin:.3e} of "
+                        f"max|logit| {peak:.3e}")
+            if margin > LOGIT_REL_TOL * peak:
+                fail(f"dist {mode}: {ties[-1]}: not a near-tie")
+        print(f"[dist] {mode}: tokens equal on every rank; equal to the "
+              f"single-device kernel engine for {same} of {len(ref_out)} "
+              f"requests" + "".join(f"; near-tie {t}" for t in ties), flush=True)
+        n = r0["launches"]["flash_paged_decode_partials"]
+        launches["by_mode"][mode] = n
+        launches["total"] += n
+    return launches
 
 
 def train_phase(torch, kfwd, kbwd):
@@ -1192,10 +1553,108 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
            "launches_by_path": {"paged_serve": paged_launches["by_mode"]},
            "library_note": "sdpa on the gathered contiguous cache, gather excluded"}
     row.update({f"chunk_shape_{k}": v for k, v in out["chunk"].items()})
-    worst = max(v for k, v in errs.items() if k.startswith("flash_paged_decode"))
+    worst = max(v for k, v in errs.items() if k.startswith("flash_paged_decode/"))
     print(f"[times] worst paged kernel-vs-plain error over the kernel phase {worst:.3e}")
     torch.cuda.empty_cache()
     return row
+
+
+def gated_times_phase(torch, kdecode, dist_launches, errs):
+    """The gated paged kernel for one shard of two, at the distributed
+    engine's decode shape (B 8, 32/8 heads, D 64, page 16, T 37, kv_len
+    528-576) and chunk shape (256 token rows reading one table up to
+    positions 301-556), f32, beside its plain version, its bound (the K/V
+    rows this shard owns, each once; q, the partial outputs, the tables)
+    and, as the library yardstick, aten's memory-efficient attention with
+    its log-sum-exp (the same state, normalised) on the owned rows, gathered
+    and head-expanded outside the timing."""
+    from repro_torch.distributed.paged import _local_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    f32 = torch.float32
+    peak = PEAK_FLOPS["float32"]
+    hq, hkv, d, ps, t = 32, 8, 64, 16, 37
+    shapes = {
+        "decode": torch.randint(528, 577, (8,), generator=gen, device="cuda",
+                                dtype=torch.int32),
+        "chunk": torch.arange(301, 557, device="cuda", dtype=torch.int32),
+    }
+    out = {}
+    for shape, kv_len in shapes.items():
+        b = kv_len.shape[0]
+        # the chunk's rows share one table, built for its longest row
+        table_len = kv_len if shape == "decode" else kv_len[-1:]
+        q, kp, vp, bt, n_local = _sharded_case(torch, gen, table_len, hq, hkv,
+                                               d, ps, t, f32)
+        if shape == "chunk":
+            q = _rand(torch, gen, (b, hq, d), f32)
+            bt = bt.expand(b, t).contiguous()
+        bt_l, valid = (x.contiguous() for x in _local_ids(bt, n_local, 0))
+        kl = kp[:, :n_local].contiguous()
+        vl = vp[:, :n_local].contiguous()
+        del kp, vp
+        call = lambda: kdecode.flash_paged_decode_partials(      # noqa: E731
+            q, kl, vl, bt_l, kv_len, block_valid=valid)
+        part = call()
+        ref = kdecode.flash_paged_decode_partials_torch(
+            q, kl, vl, bt_l, kv_len=kv_len, block_valid=valid)
+        err = _maxerr(_state_out(torch, *part)[0], _state_out(torch, *ref)[0])
+        pos = torch.arange(t * ps, device="cuda")
+        read = (pos[None, :] < kv_len[:, None]) & (valid[:, pos // ps] != 0)
+        slots = (bt_l.long()[:, pos // ps] * ps + pos % ps)[read]
+        rows = int(torch.unique(slots).numel())              # owned K/V rows
+        nbytes = (4 * (2 * rows * hkv * d + b * hq * d)      # K/V rows, q
+                  + 4 * (b * hq * d + 2 * b * hq)            # acc, m, l
+                  + 4 * (2 * b * t + b))                     # tables, kv_len
+        flops = 4 * hq * d * int(read.sum())
+        iters = 50 if shape == "decode" else 20
+        row = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, call, iters),
+            "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_partials_torch(
+                q, kl, vl, bt_l, kv_len=kv_len, block_valid=valid), 5),
+            "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+            "library_ms": None,
+        }
+        try:   # the yardstick: (o, lse) over the owned rows, gather excluded
+            kc = kdecode.gather_pages(kl, bt_l).repeat_interleave(hq // hkv, dim=1)
+            vc = kdecode.gather_pages(vl, bt_l).repeat_interleave(hq // hkv, dim=1)
+            bias = torch.zeros((b, hq, 1, t * ps), device="cuda", dtype=f32)
+            bias.masked_fill_(~read[:, None, None, :], float("-inf"))
+            q4 = q[:, :, None].contiguous()
+            eff = torch.ops.aten._scaled_dot_product_efficient_attention
+            eff(q4, kc, vc, bias, True)
+            row["library_ms"] = time_ms(torch, lambda: eff(q4, kc, vc, bias, True),
+                                        iters)
+            del kc, vc, bias
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_note"] = f"none: {type(e).__name__}: {str(e)[:200]}"
+        out[shape] = row
+        lib = (f"{row['library_ms']:.5f} ms" if row["library_ms"] is not None
+               else row["library_note"])
+        print(f"[times] flash_paged_decode_partials at the {shape} shape, one "
+              f"shard of two (B {b}, {hq}/{hkv} heads, D {d}, page {ps}, T {t}, "
+              f"kv_len {int(kv_len.min())}-{int(kv_len.max())}, {rows} owned "
+              f"K/V rows, f32): kernel {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, efficient attention with lse on the "
+              f"owned rows (gather excluded) {lib}, bound {row['bound_ms']:.5f} "
+              f"ms ({row['bound_by']})", flush=True)
+        del q, kl, vl, bt, bt_l, valid
+    result = {"name": "flash_paged_decode_partials", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+              "replaces": "src/repro/kernels/decode.py:144",
+              "launches": dist_launches["total"], **out["decode"],
+              "launches_by_path": {"dist_paged_serve_rank0": dist_launches["by_mode"]},
+              "library_call": "aten._scaled_dot_product_efficient_attention "
+                              "(compute_log_sumexp) on the owned rows"}
+    result.update({f"chunk_shape_{k}": v for k, v in out["chunk"].items()})
+    worst = max(v for k, v in errs.items()
+                if k.startswith("flash_paged_decode_partials/"))
+    print(f"[times] worst gated kernel-vs-plain error over the kernel phase "
+          f"(gate and two-shard checks, f32 and bf16) {worst:.3e}")
+    torch.cuda.empty_cache()
+    return result
 
 
 if __name__ == "__main__":

@@ -107,6 +107,46 @@ def spark_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
                         num_splits=num_splits)
 
 
+def spark_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
+                                block_valid=None, impl: str = "kernel",
+                                window: Optional[int] = None,
+                                scale: Optional[float] = None,
+                                num_splits: int = 1):
+    """Paged decode stopping at the un-finalised online-softmax state: the
+    building block of distributed paged serving.
+
+    Each shard of a page-sharded pool calls it with its local pages, a
+    block table remapped to local ids and ``block_valid [B, T]`` marking the
+    entries it owns (the others name the local trash page and are never
+    read). Returns f32 ``(acc [B,Hq,D], m [B,Hq], l [B,Hq])``; shards merge
+    with the online-softmax algebra and finalise once
+    (``distributed/paged.py``). ``num_splits > 1`` merges split-KV partials
+    within the shard first, which composes with the cross-shard merge.
+
+    ``impl="kernel"`` gates per row inside the CUDA kernel; the plain impls
+    gather the pages and gate per position with ``block_valid`` repeated
+    over each page's rows, as JAX's XLA path does.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel":
+        return ops.paged_decode_partials(
+            q, k_pages, v_pages, block_tables, kv_len, block_valid=block_valid,
+            window=window, scale=scale, num_splits=num_splits)
+    ps = k_pages.shape[2]
+    pos_valid = None
+    if block_valid is not None:
+        pos_valid = block_valid.bool().repeat_interleave(ps, dim=1)
+    k = ops.gather_pages(k_pages, block_tables)
+    v = ops.gather_pages(v_pages, block_tables)
+    if num_splits > 1:
+        return _torch_split_decode_partials(
+            q, k, v, kv_len=kv_len, window=window, scale=scale,
+            pos_valid=pos_valid, num_splits=num_splits)
+    return _torch_masked_decode_partials(q, k, v, kv_len=kv_len, window=window,
+                                         scale=scale, pos_valid=pos_valid)
+
+
 def _torch_masked_decode(q, k, v, *, kv_len=None, window=None, scale=None):
     acc, m, l = _torch_masked_decode_partials(q, k, v, kv_len=kv_len,
                                               window=window, scale=scale)
@@ -115,11 +155,12 @@ def _torch_masked_decode(q, k, v, *, kv_len=None, window=None, scale=None):
 
 
 def _torch_masked_decode_partials(q, k, v, *, kv_len=None, window=None,
-                                  scale=None, kv_start=0):
+                                  scale=None, pos_valid=None, kv_start=0):
     """Masked single-query decode, stopping at the un-normalised state
-    (acc, m, l) over this slice's positions. ``kv_start`` offsets the slice's
-    global positions (``kv_len``/``window`` stay global). Fully-masked rows
-    keep ``m == NEG_INF, l == 0, acc == 0``."""
+    (acc, m, l) over this slice's positions (``pos_valid [B, Skv]``, if
+    given, gates the positions a pool shard owns). ``kv_start`` offsets the
+    slice's global positions (``kv_len``/``window`` stay global).
+    Fully-masked rows keep ``m == NEG_INF, l == 0, acc == 0``."""
     b, hq, d = q.shape
     skv = k.shape[2]
     scale = (d ** -0.5) if scale is None else scale
@@ -133,6 +174,8 @@ def _torch_masked_decode_partials(q, k, v, *, kv_len=None, window=None,
     allowed = kp < L
     if window is not None:
         allowed &= kp > (L - 1) - window
+    if pos_valid is not None:
+        allowed &= pos_valid[:, None, :]
     s = torch.where(allowed, s, NEG_INF)
     m = s.amax(dim=-1)
     m_safe = torch.where(m == NEG_INF, torch.zeros_like(m), m)
@@ -143,7 +186,7 @@ def _torch_masked_decode_partials(q, k, v, *, kv_len=None, window=None,
 
 
 def _torch_split_decode_partials(q, k, v, *, kv_len=None, window=None,
-                                 scale=None, num_splits=2):
+                                 scale=None, pos_valid=None, num_splits=2):
     """Split-KV decode in plain torch: the KV axis is cut into ``num_splits``
     contiguous slices, each slice's state comes from
     :func:`_torch_masked_decode_partials` at its global offset, and the
@@ -157,9 +200,10 @@ def _torch_split_decode_partials(q, k, v, *, kv_len=None, window=None,
     parts = []
     for lo in range(0, skv, chunk):
         hi = min(lo + chunk, skv)
+        pv = None if pos_valid is None else pos_valid[:, lo:hi]
         acc, m, l = _torch_masked_decode_partials(
             q, k[:, :, lo:hi], v[:, :, lo:hi], kv_len=kv_len, window=window,
-            scale=scale, kv_start=lo)
+            scale=scale, pos_valid=pv, kv_start=lo)
         parts.append(osm.SoftmaxState(m=m, l=l, acc=acc))
     state = osm.merge_many(osm.SoftmaxState(
         m=torch.stack([p.m for p in parts]), l=torch.stack([p.l for p in parts]),

@@ -2,8 +2,9 @@
 // row against a KV cache, contiguous or paged.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/decode.py:131
-// `_contig_kernel` and :136 `_paged_kernel`, both -> `_decode_body` (:60),
-// launched by `flash_decode` (:200) and `flash_paged_decode` (:316). Per row b
+// `_contig_kernel`, :136 `_paged_kernel` and :144 `_paged_valid_kernel`, all
+// -> `_decode_body` (:60), launched by `flash_decode` (:200),
+// `flash_paged_decode` (:316) and `flash_paged_decode_partials` (:355). Per row b
 // it computes softmax(q K^T * scale) V over the first kv_len[b] cache
 // positions (kv_len == 0 gives exact zeros), optionally gated by a sliding
 // window (kp > (kv_len - 1) - window). With num_splits > 1 each split folds
@@ -37,9 +38,20 @@
 // bit-exact here because both walk the same tiles. Table entries past a
 // row's allocation name the trash page (0), which may hold anything (1e6
 // under the engine's poison hook): such rows lie at positions >= kv_len or
-// outside the window and are never loaded. The distributed variant
-// (`_paged_valid_kernel`, :144) adds a per-block validity gate to this
-// template in its own slice.
+// outside the window and are never loaded.
+//
+// The gated variant (`_paged_valid_kernel`, distributed paged serving) adds
+// `valid [B, T]` to the paged cache: a shard of a page-sharded pool reads
+// only the table entries it owns (valid != 0); the others name its local
+// trash page. JAX gates whole page blocks; here the gate is per row, since a
+// tile spans several pages, some owned and some not: a row is loaded only if
+// it is inside kv_len and the window and its page is owned, every other row
+// is zero and masked like a row past kv_len, so the positions folded are
+// JAX's and only the order of f32 sums differs. A tile with no such row is
+// skipped (`__syncthreads_or`); a shard may own nothing of a row, which then
+// keeps m == NEG_INF, l == 0, acc == 0 (the m_safe guard). This variant always
+// writes the raw f32 (acc, m, l) partials, even with one split: the caller
+// merges them across shards.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,16 +90,22 @@ struct ContigCache {
   __device__ size_t row(int b, int hk, int pos) const {
     return (((size_t)b * Hkv + hk) * S + pos) * D;
   }
+  __device__ bool owned(int, int) const { return true; }
 };
 
-// Paged cache: a head-major pool [Hkv, P, ps, D] shared by all rows, and a
-// block table [B, T] naming the physical page of each logical block.
+// Paged cache: a head-major pool [Hkv, P, ps, D] shared by all rows, a
+// block table [B, T] naming the physical page of each logical block and,
+// for a shard of a sharded pool, `valid [B, T]` (0: not this shard's entry;
+// null: every entry is owned).
 template <typename T, int D>
 struct PagedCache {
-  const T* k; const T* v; const int* bt; int P, ps, width;
+  const T* k; const T* v; const int* bt; const int* valid; int P, ps, width;
   __device__ size_t row(int b, int hk, int pos) const {
     const int page = bt[(size_t)b * width + pos / ps];
     return (((size_t)hk * P + page) * ps + pos % ps) * D;
+  }
+  __device__ bool owned(int b, int pos) const {
+    return valid == nullptr || valid[(size_t)b * width + pos / ps] != 0;
   }
 };
 
@@ -95,7 +113,7 @@ struct DecodeParams {
   const void* q;                 // [B, Hq, D]
   const int* kv_len;             // [B]
   void* o;                       // [B, Hq, D] (num_splits == 1) or null
-  float* acc_part;               // [B, Hkv, ns, G, D] (num_splits > 1)
+  float* acc_part;               // [B, Hkv, ns, G, D] (when o is null)
   float* m_part; float* l_part;  // [B, Hkv, ns, G]
   int Hq, Hkv, G, S, nk, ns, nj;  // S: cache rows per row (T * ps when paged)
   float scale;
@@ -148,13 +166,14 @@ decode_kernel(const DecodeParams p, const Cache cache) {
     if (p.window > 0 && kv_start + BKV - 1 <= q_pos - p.window) continue;
 
     __syncthreads();                               // last tile's readers done
-    {   // one row per thread (NTHREADS == BKV): only rows this query reads
-      const int pos = kv_start + tid;
-      bool in = pos < kv_len;                      // kv_len <= S bounds the last tile
-      if (p.window > 0) in &= pos > q_pos - p.window;
-      sRow[tid] = in ? (long long)cache.row(b, hk, pos) : -1ll;
-    }
-    __syncthreads();
+    // one row per thread (NTHREADS == BKV): only rows this query reads, at
+    // the same position as this thread's score column below
+    const int kp = kv_start + tid;
+    bool ok = kp < kv_len;                         // kv_len <= S bounds the last tile
+    if (p.window > 0) ok &= kp > q_pos - p.window;
+    ok = ok && cache.owned(b, kp);
+    sRow[tid] = ok ? (long long)cache.row(b, hk, kp) : -1ll;
+    if (!__syncthreads_or(ok)) continue;           // no row of this tile is read
     // LPR lanes load one row, VEC elements each, so a warp reads whole rows
     // (256 coalesced bytes a row at f32 D 64) and resolves each row once
 #pragma unroll 4
@@ -177,9 +196,6 @@ decode_kernel(const DecodeParams p, const Cache cache) {
     __syncthreads();
 
     // ---- scores of column j = tid for every group row ----
-    const int kp = kv_start + tid;
-    bool ok = kp < kv_len;
-    if (p.window > 0) ok &= kp > q_pos - p.window;
     float s[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
@@ -262,9 +278,10 @@ decode_kernel(const DecodeParams p, const Cache cache) {
 }
 
 // The cache's pointers: k/v and, for a paged cache, the block table (null for
-// a contiguous one) with the pool's page count, page size and table width.
+// a contiguous one), the ownership gate (null: all owned) and the pool's page
+// count, page size and table width.
 struct CacheArgs {
-  const void* k; const void* v; const int* bt; int P, ps, width;
+  const void* k; const void* v; const int* bt; const int* valid; int P, ps, width;
 };
 
 template <typename T, int D, typename Cache>
@@ -286,8 +303,8 @@ int launch(const DecodeParams& p, const CacheArgs& c, int B, cudaStream_t stream
   const T* v = static_cast<const T*>(c.v);
   if (c.bt == nullptr)
     return launch_cache<T, D>(p, ContigCache<T, D>{k, v, p.Hkv, p.S}, B, stream);
-  return launch_cache<T, D>(p, PagedCache<T, D>{k, v, c.bt, c.P, c.ps, c.width}, B,
-                            stream);
+  return launch_cache<T, D>(
+      p, PagedCache<T, D>{k, v, c.bt, c.valid, c.P, c.ps, c.width}, B, stream);
 }
 
 template <typename T>
@@ -315,7 +332,10 @@ int launch_any(const void* q, const CacheArgs& c, const int* kv_len, void* o,
   p.nj = (p.nk + num_splits - 1) / num_splits;
   p.scale = scale; p.window = window;
   if (p.G > MAXG || p.G * Hkv != Hq || num_splits < 1) return (int)cudaErrorInvalidValue;
-  if ((num_splits == 1) != (o != nullptr)) return (int)cudaErrorInvalidValue;
+  // o: finalised output, one split only; else the f32 partials
+  if (o != nullptr ? num_splits != 1
+                   : (acc_part == nullptr || m_part == nullptr || l_part == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(p, c, B, D, s);
   if (dtype == 1) return launch_d<__nv_bfloat16>(p, c, B, D, s);
@@ -334,7 +354,7 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         float* m_part, float* l_part, int B, int Hq, int Hkv,
                         int S, int D, int dtype, float scale, int window,
                         int num_splits, void* stream) {
-  const CacheArgs c{k, v, nullptr, 0, 0, 0};
+  const CacheArgs c{k, v, nullptr, nullptr, 0, 0, 0};
   return launch_any(q, c, kv_len, o, acc_part, m_part, l_part, B, Hq, Hkv, S,
                     D, dtype, scale, window, num_splits, stream);
 }
@@ -350,9 +370,31 @@ int flash_paged_decode_launch(const void* q, const void* k_pages,
                               int dtype, float scale, int window,
                               int num_splits, void* stream) {
   if (page_size < 1 || T < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const CacheArgs c{k_pages, v_pages, block_tables, P, page_size, T};
+  const CacheArgs c{k_pages, v_pages, block_tables, nullptr, P, page_size, T};
   return launch_any(q, c, kv_len, o, acc_part, m_part, l_part, B, Hq, Hkv,
                     T * page_size, D, dtype, scale, window, num_splits, stream);
+}
+
+// The gated paged cache of one shard of a page-sharded pool: as
+// flash_paged_decode_launch, plus block_valid [B, T] int32 (0: an entry this
+// shard does not own, remapped to its local trash page; null: all owned).
+// Always writes the raw f32 partials acc_part [B, Hkv, ns, G, D] and
+// m_part / l_part [B, Hkv, ns, G], whatever the number of splits.
+int flash_paged_decode_partials_launch(const void* q, const void* k_pages,
+                                       const void* v_pages,
+                                       const int* block_tables,
+                                       const int* block_valid,
+                                       const int* kv_len, float* acc_part,
+                                       float* m_part, float* l_part, int B,
+                                       int Hq, int Hkv, int P, int page_size,
+                                       int T, int D, int dtype, float scale,
+                                       int window, int num_splits,
+                                       void* stream) {
+  if (page_size < 1 || T < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  const CacheArgs c{k_pages, v_pages, block_tables, block_valid, P, page_size, T};
+  return launch_any(q, c, kv_len, nullptr, acc_part, m_part, l_part, B, Hq,
+                    Hkv, T * page_size, D, dtype, scale, window, num_splits,
+                    stream);
 }
 
 const char* kernel_error_string(int err) {

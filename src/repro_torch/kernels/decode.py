@@ -18,10 +18,20 @@ resolves each row through the table, so on gathered pages the two agree
 bit for bit. JAX folds page-sized blocks and splits the table width; the
 port splits the tiles: equal within the f32 tolerance.
 
-On a CUDA tensor :func:`flash_decode` / :func:`flash_paged_decode` launch
-``csrc/flash_decode.cu`` (one block per (row, kv head, split)); on a CPU
-tensor they run :func:`flash_decode_torch` / :func:`flash_paged_decode_torch`,
-the same tiles and splits in plain torch.
+:func:`flash_paged_decode_partials` is the gated variant for one shard of
+a page-sharded pool (counterpart of JAX ``flash_paged_decode_partials``):
+``block_valid [B, T]`` marks the table entries the shard owns (the others
+name its local trash page), a row is read only if its page is owned, and
+the result is the un-finalised f32 state ``(acc, m, l)`` with the local
+splits already merged, for the cross-shard merge of
+``distributed/paged.py``.
+
+On a CUDA tensor :func:`flash_decode` / :func:`flash_paged_decode` /
+:func:`flash_paged_decode_partials` launch ``csrc/flash_decode.cu`` (one
+block per (row, kv head, split)); on a CPU tensor they run
+:func:`flash_decode_torch` / :func:`flash_paged_decode_torch` /
+:func:`flash_paged_decode_partials_torch`, the same tiles and splits in
+plain torch.
 """
 
 from __future__ import annotations
@@ -41,9 +51,10 @@ TILE = 128       # BKV in csrc/flash_decode.cu
 MAX_GROUP = 8    # MAXG in csrc/flash_decode.cu
 
 #: kernel launches since the last reset (the plain versions do not count):
-#: contiguous cache, paged cache
+#: contiguous cache, paged cache, gated paged cache (partials)
 launches = 0
 launches_paged = 0
+launches_paged_valid = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
@@ -70,9 +81,19 @@ def _split_states(acc, m, l, b, hq):
     return osm.SoftmaxState(m=m, l=l, acc=acc)
 
 
+def _merge_states(acc, m, l, b, hq) -> osm.SoftmaxState:
+    """The splits' partials merged into one un-finalised state, m/l
+    [B, Hq] and acc [B, Hq, D]. One split is already that state (the merge
+    would scale it by exp(0) = 1): it is only reshaped."""
+    state = _split_states(acc, m, l, b, hq)
+    if acc.shape[2] == 1:
+        return osm.SoftmaxState(m=state.m[:, 0], l=state.l[:, 0],
+                                acc=state.acc[:, 0])
+    return osm.merge_many(state, axis=1)
+
+
 def _merge_partials(acc, m, l, b, hq, out_dtype):
-    state = osm.merge_many(_split_states(acc, m, l, b, hq), axis=1)
-    o, _ = osm.finalize(state, out_dtype=out_dtype)
+    o, _ = osm.finalize(_merge_states(acc, m, l, b, hq), out_dtype=out_dtype)
     return o
 
 
@@ -120,11 +141,11 @@ def _check_kernel_inputs(name, q, k, v, hkv, kv_len, *tables):
         raise ValueError(f"{name} kernel needs k/v aligned to {align} bytes")
 
 
-def _kernel_outputs(q, hkv, ns):
-    """``(result, output pointers)``: o for one split, else the f32
-    partials ``(acc [B,Hkv,ns,G,D], m, l [B,Hkv,ns,G])``."""
+def _kernel_outputs(q, hkv, ns, partials=False):
+    """``(result, output pointers)``: o for one split (unless ``partials``),
+    else the f32 partials ``(acc [B,Hkv,ns,G,D], m, l [B,Hkv,ns,G])``."""
     b, hq, d = q.shape
-    if ns == 1:
+    if ns == 1 and not partials:
         o = torch.empty_like(q)
         return o, (o.data_ptr(), None, None, None)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -183,10 +204,33 @@ def flash_decode_torch(q, k, v, *, kv_len, window: Optional[int] = None,
 
 
 def _fold_tiles(q, read_tile, hkv, skv, *, kv_len, window, scale, num_splits):
+    """The plain versions' loop, finalised: o [B, Hq, D] in q.dtype."""
+    b, hq, d = q.shape
+    parts = _fold_tile_states(q, read_tile, hkv, skv, kv_len=kv_len,
+                              window=window, scale=scale, num_splits=num_splits)
+    if len(parts) == 1:
+        o, _ = osm.finalize(parts[0], out_dtype=q.dtype)
+        return o.reshape(b, hq, d)
+    return _merge_partials(*_stack_states(parts), b, hq, q.dtype)
+
+
+def _stack_states(parts):
+    """Per-split states ``[B, Hkv, G(, D)]`` → the kernel's partials
+    ``(acc [B,Hkv,ns,G,D], m, l [B,Hkv,ns,G])``."""
+    return (torch.stack([s.acc for s in parts], dim=2),
+            torch.stack([s.m for s in parts], dim=2),
+            torch.stack([s.l for s in parts], dim=2))
+
+
+def _fold_tile_states(q, read_tile, hkv, skv, *, kv_len, window, scale,
+                      num_splits, row_owned=None):
     """The plain versions' loop: ``read_tile(lo, hi)`` gives the K/V rows
     ``[lo, hi)`` of every row as ``[B, Hkv, hi - lo, D]``. Rows the query may
     not read are zeroed before the fold, as the kernel never loads them
-    (a trash or reclaimed page may hold anything)."""
+    (a trash or reclaimed page may hold anything). ``row_owned(lo, hi)``
+    (optional, ``[B, hi - lo]`` bool) gates rows further, as the kernel's
+    ownership gate does. Returns one ``SoftmaxState`` per split, m/l
+    ``[B, Hkv, G]`` and acc ``[B, Hkv, G, D]``."""
     b, hq, d = q.shape
     g = hq // hkv
     scale = (d ** -0.5) if scale is None else scale
@@ -203,6 +247,8 @@ def _fold_tiles(q, read_tile, hkv, skv, *, kv_len, window, scale, num_splits):
             allowed = kp < kv_len                              # [B,1,1,n]
             if window is not None:
                 allowed = allowed & (kp > q_pos - window)
+            if row_owned is not None:
+                allowed = allowed & row_owned(lo, hi)[:, None, None, :]
             kt, vt = read_tile(lo, hi)
             unread = ~allowed[:, :, 0, :, None]                # [B,1,n,1]
             kt, vt = kt.masked_fill(unread, 0), vt.masked_fill(unread, 0)
@@ -210,13 +256,7 @@ def _fold_tiles(q, read_tile, hkv, skv, *, kv_len, window, scale, num_splits):
             s = torch.where(allowed, s, NEG_INF)
             state = online_fold(state, s, vt)
         parts.append(state)
-    if ns == 1:
-        o, _ = osm.finalize(parts[0], out_dtype=q.dtype)
-        return o.reshape(b, hq, d)
-    acc = torch.stack([s.acc for s in parts], dim=2)       # [B,Hkv,ns,G,D]
-    m = torch.stack([s.m for s in parts], dim=2)
-    l = torch.stack([s.l for s in parts], dim=2)
-    return _merge_partials(acc, m, l, b, hq, q.dtype)
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +286,7 @@ def flash_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
     Hq / Hkv <= ``MAX_GROUP``) or raises.
     """
     _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True)
-    if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0] \
-            or block_tables.device != q.device:
-        raise ValueError(f"block_tables must be [B, T] on {q.device}, got "
-                         f"{tuple(block_tables.shape)} on {block_tables.device}")
+    _check_tables(q, block_tables)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_paged_decode_torch(q, k_pages, v_pages, block_tables,
@@ -259,6 +296,17 @@ def flash_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
         raise ValueError(f"flash_paged_decode runs on cuda or cpu, not {q.device}")
     return _launch_paged(q, k_pages, v_pages, block_tables, kv_len, window,
                          scale, num_splits)
+
+
+def _check_tables(q, block_tables, block_valid=None):
+    """block_tables [B, T] (and block_valid [B, T]) on q's device."""
+    for name, t in (("block_tables", block_tables), ("block_valid", block_valid)):
+        if t is None:
+            continue
+        if t.dim() != 2 or t.shape[0] != q.shape[0] or t.device != q.device \
+                or t.shape != block_tables.shape:
+            raise ValueError(f"{name} must be [B, T] on {q.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, kv_len, window, scale,
@@ -292,14 +340,111 @@ def flash_paged_decode_torch(q, k_pages, v_pages, block_tables, *, kv_len,
     and splits, each tile's rows read through the block table (position
     ``pos`` of row b is row ``pos % ps`` of page ``block_tables[b, pos // ps]``)."""
     hkv, _, ps, _ = k_pages.shape
+    return _fold_tiles(q, _page_reader(k_pages, v_pages, block_tables), hkv,
+                       block_tables.shape[1] * ps, kv_len=kv_len,
+                       window=window, scale=scale, num_splits=num_splits)
+
+
+def _page_reader(k_pages, v_pages, block_tables):
+    """``read_tile`` of the paged plain versions: position ``pos`` of row b
+    is row ``pos % ps`` of page ``block_tables[b, pos // ps]``."""
+    ps = k_pages.shape[2]
     bt = block_tables.long()
 
     def read_tile(lo, hi):
-        pos = torch.arange(lo, hi, device=q.device)
+        pos = torch.arange(lo, hi, device=bt.device)
         page = bt[:, pos // ps]                                # [B, n]
         off = (pos % ps)[None, :]
         return (k_pages[:, page, off].transpose(0, 1),         # [B, Hkv, n, D]
                 v_pages[:, page, off].transpose(0, 1))
 
-    return _fold_tiles(q, read_tile, hkv, bt.shape[1] * ps, kv_len=kv_len,
-                       window=window, scale=scale, num_splits=num_splits)
+    return read_tile
+
+
+# ---------------------------------------------------------------------------
+# gated paged cache: one shard of a page-sharded pool, raw partials
+# ---------------------------------------------------------------------------
+
+def flash_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
+                                block_valid=None, window: Optional[int] = None,
+                                scale: Optional[float] = None,
+                                num_splits: int = 1):
+    """Paged flash-decode stopping at the online-softmax state, for one
+    shard of a page-sharded pool (counterpart of JAX
+    ``flash_paged_decode_partials``).
+
+    Arguments as :func:`flash_paged_decode`, plus ``block_valid [B, T]``
+    int32 (0: a table entry this shard does not own, remapped to its local
+    trash page; None: every entry is owned). A position is read only if it
+    lies inside kv_len and the window and its page is owned. Returns the
+    f32 state ``(acc [B,Hq,D], m [B,Hq], l [B,Hq])``, the local splits
+    merged by ``merge_many``; a row that reads nothing keeps m == NEG_INF,
+    l == 0, acc == 0. A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel (as :func:`flash_paged_decode`, int32 block_valid)
+    or raises.
+    """
+    _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True)
+    _check_tables(q, block_tables, block_valid)
+    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_paged_decode_partials_torch(
+            q, k_pages, v_pages, block_tables, kv_len=kv_len,
+            block_valid=block_valid, window=window, scale=scale,
+            num_splits=num_splits)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_paged_decode_partials runs on cuda or cpu, "
+                         f"not {q.device}")
+    return _launch_paged_valid(q, k_pages, v_pages, block_tables, block_valid,
+                               kv_len, window, scale, num_splits)
+
+
+def _launch_paged_valid(q, k_pages, v_pages, block_tables, block_valid, kv_len,
+                        window, scale, num_splits):
+    global launches_paged_valid
+    hkv, n_pages, ps, d = k_pages.shape
+    tables = (block_tables,) if block_valid is None else (block_tables, block_valid)
+    _check_kernel_inputs("flash_paged_decode_partials", q, k_pages, v_pages,
+                         hkv, kv_len, *tables)
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError(f"block_tables and block_valid must be int32, got "
+                        f"{[t.dtype for t in tables]}")
+    b, hq, _ = q.shape
+    t = block_tables.shape[1]
+    _, ns, _ = split_layout(t * ps, num_splits)
+    parts, ptrs = _kernel_outputs(q, hkv, ns, partials=True)
+    fn = _build.kernel_fn("flash_decode", "flash_paged_decode_partials_launch",
+                          _PAGED_ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(),
+             None if block_valid is None else block_valid.data_ptr(),
+             kv_len.data_ptr(), *ptrs[1:], b, hq, hkv, n_pages, ps, t, d,
+             DTYPES[q.dtype], scale, window or 0, ns,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_decode", err)
+    launches_paged_valid += 1
+    state = _merge_states(*parts, b, hq)
+    return state.acc, state.m, state.l
+
+
+def flash_paged_decode_partials_torch(q, k_pages, v_pages, block_tables, *,
+                                      kv_len, block_valid=None,
+                                      window: Optional[int] = None,
+                                      scale: Optional[float] = None,
+                                      num_splits: int = 1):
+    """The gated kernel's plain-torch version: the paged version's tiles and
+    splits with the same per-row gate (position ``pos`` of row b is read
+    only if ``block_valid[b, pos // ps] != 0``), stopping at the merged f32
+    state ``(acc [B,Hq,D], m [B,Hq], l [B,Hq])``."""
+    hkv, _, ps, _ = k_pages.shape
+    b, hq, _ = q.shape
+    row_owned = None
+    if block_valid is not None:
+        def row_owned(lo, hi):
+            return block_valid[:, torch.arange(lo, hi, device=q.device) // ps] != 0
+
+    parts = _fold_tile_states(q, _page_reader(k_pages, v_pages, block_tables),
+                              hkv, block_tables.shape[1] * ps,
+                              kv_len=kv_len, window=window, scale=scale,
+                              num_splits=num_splits, row_owned=row_owned)
+    state = _merge_states(*_stack_states(parts), b, hq)
+    return state.acc, state.m, state.l

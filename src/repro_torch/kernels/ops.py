@@ -8,7 +8,8 @@ kernels on a CUDA tensor, their plain versions on a CPU tensor.
 plain-torch algorithm (the counterpart of ``mha_xla``); both differentiate
 too. ``decode`` and ``decode_reference`` are the single-token pair over a
 contiguous cache, ``paged_decode`` and ``paged_decode_reference`` the pair
-over a page pool.
+over a page pool, ``paged_decode_partials`` the gated form for one shard of
+a page-sharded pool.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode import (flash_decode, flash_paged_decode,
+                                       flash_paged_decode_partials,
                                        gather_pages)
 from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
@@ -132,6 +134,27 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *, window=None,
                               v_pages.contiguous(), block_tables.contiguous(),
                               kv_len.contiguous(), window=window, scale=scale,
                               num_splits=num_splits)
+
+
+def paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
+                          block_valid=None, window=None, scale=None,
+                          num_splits: int = 1):
+    """Paged flash-decode stopping at the f32 ``(acc, m, l)`` state.
+
+    ``block_valid [B, T]`` (0/1, any integer or bool dtype) gates table
+    entries: a shard of a page-sharded pool passes its ownership mask, so
+    entries it does not own (remapped to its local trash page) are never
+    read. States of different shards merge with the online-softmax algebra
+    and finalise once (``distributed/paged.py``); ``num_splits`` splits
+    within the shard first, and the returned triple is the same either way.
+    """
+    if block_valid is not None:
+        block_valid = block_valid.to(torch.int32).contiguous()
+    return flash_paged_decode_partials(
+        q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        block_tables.contiguous(), kv_len.contiguous(),
+        block_valid=block_valid, window=window, scale=scale,
+        num_splits=num_splits)
 
 
 def paged_decode_reference(q, k_pages, v_pages, block_tables, kv_len, *,

@@ -1,7 +1,7 @@
 """Serving launcher of the port: batched prefill + greedy decode on the
 contiguous cache, or continuous batching over a paged cache with
-``--paged`` (counterpart of ``repro.launch.serve`` without ``--mesh`` and
-``--autotune``).
+``--paged``, sharded over ``--mesh N`` ranks (counterpart of
+``repro.launch.serve`` without ``--autotune``).
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
@@ -13,11 +13,21 @@ Paged continuous batching (ragged synthetic requests through
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --paged --requests 16 --max-batch 8 --prompt-len 512 --gen 64
 
+Distributed paged serving: the page pool sharded over N ranks, one
+process each, spawned by the launcher (``launch/mesh.py``); weights are
+replicated. ``--dist-backend nccl`` (the default on cuda) needs a card a
+rank; ranks that share one card need ``--dist-backend gloo``:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
+      --paged --mesh 2 --dist-backend gloo --requests 16 --max-batch 8
+
 On the CPU, at smoke size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --smoke --device cpu --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --smoke --device cpu --paged --requests 4 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
+      --smoke --device cpu --paged --mesh 2 --dist-backend gloo \\
+      --requests 4 --prompt-len 16 --gen 4
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.attention import IMPLS
+from repro_torch.launch import mesh as pool_mesh
 from repro_torch.models import lm
 from repro_torch.runtime.steps import ServeArtifacts, make_serve_steps
 
@@ -101,6 +112,14 @@ def main(argv=None):
                          "plain versions)")
     ap.add_argument("--paged", action="store_true",
                     help="paged-KV continuous batching (ragged requests)")
+    ap.add_argument("--mesh", default="",
+                    help="--paged: shard the page pool over this many ranks "
+                         "(the pool axis only, e.g. 2), one process each")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=pool_mesh.BACKENDS,
+                    help="--mesh: torch.distributed backend (default nccl "
+                         "on cuda, a card a rank; gloo on the CPU and for "
+                         "ranks that share a card)")
     ap.add_argument("--requests", type=int, default=8,
                     help="--paged: synthetic requests to serve")
     ap.add_argument("--page-size", type=int, default=16)
@@ -147,8 +166,13 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     device = torch.device(args.device)
+    n_ranks = parse_mesh(args.mesh)
+    if n_ranks and not args.paged:
+        raise SystemExit("--mesh shards the page pool: it needs --paged (the "
+                         "contiguous cache over a mesh needs the sharding "
+                         "rules, not yet ported)")
     if args.paged:
-        return serve_paged(cfg, args, device)
+        return serve_paged(cfg, args, device, n_ranks)
 
     arts = make_serve_steps(cfg, impl=args.impl,
                             max_len=args.prompt_len + args.gen,
@@ -190,42 +214,113 @@ def paged_requests(cfg, pcfg, args, rs: np.random.RandomState):
     return reqs
 
 
-def serve_paged(cfg, args, device):
-    """Continuous batching over ragged synthetic requests (paged KV cache);
-    prints JAX's summary lines and returns ``(outputs, stats, engine)``."""
-    from repro_torch.serving import FaultPlan, PagedCacheConfig, ServingEngine
+def parse_mesh(spec: str) -> int:
+    """``--mesh``: "" (no mesh) → 0, "N" → N ranks on the pool axis. The
+    JAX launcher's multi-axis forms ("DxM", ...) need the sharding rules,
+    not yet ported."""
+    if not spec:
+        return 0
+    if not spec.isdigit() or int(spec) < 1:
+        raise SystemExit(f"--mesh {spec!r}: the port shards the page pool "
+                         f"over one axis, give its size (e.g. --mesh 2); "
+                         f"data / pod axes need the sharding rules, not yet "
+                         f"ported")
+    return int(spec)
 
-    params = lm.init_params(cfg, seed=args.seed, device=device)
-    rs = np.random.RandomState(args.seed)
+
+def _paged_config(args, n_shards: int):
+    """The pool and prefill row of ``--paged`` (JAX's sizing): roughly half
+    the requests fit at once, so the scheduler has to evict and admit, then
+    the pool is padded to a multiple of the shard count (one trash page a
+    shard)."""
+    from repro_torch.serving import PagedCacheConfig
+
     budget = args.prompt_len + args.gen
-    # pool sized so roughly half the requests fit at once: the scheduler has
-    # to evict and admit, which is the scenario being served
     pages_per_seq = -(-budget // args.page_size) + 1
-    num_pages = args.num_pages or (1 + max(2, args.requests // 2) * pages_per_seq)
+    num_pages = args.num_pages or (n_shards + max(2, args.requests // 2)
+                                   * pages_per_seq)
+    num_pages = -(-num_pages // n_shards) * n_shards
     pcfg = PagedCacheConfig(page_size=args.page_size, max_batch=args.max_batch,
                             max_pages_per_seq=pages_per_seq,
-                            num_pages=num_pages)
+                            num_pages=num_pages, num_shards=n_shards)
     # lazy: a preempted row re-prefills prompt + generated, so a prefill row
     # must hold a full budget
     prefill_len = max(args.prompt_len, args.page_size)
     if args.lazy:
         prefill_len = max(prefill_len, budget)
-    plan = FaultPlan(seed=args.fault_plan) if args.fault_plan >= 0 else None
+    return pcfg, prefill_len
+
+
+def _fault_plan(args):
+    from repro_torch.serving import FaultPlan
+    return FaultPlan(seed=args.fault_plan) if args.fault_plan >= 0 else None
+
+
+def _run_engine(cfg, args, device, mesh=None):
+    """Build the model and the engine (on this rank's shard under a
+    ``mesh``) and serve the synthetic requests; returns ``(outputs, stats,
+    engine)``."""
+    from repro_torch.serving import ServingEngine
+
+    params = lm.init_params(cfg, seed=args.seed, device=device)
+    pcfg, prefill_len = _paged_config(args, mesh.size if mesh else 1)
     eng = ServingEngine(cfg, pcfg, params, impl=args.impl, device=device,
-                        prefill_len=prefill_len, lazy=args.lazy,
+                        mesh=mesh, prefill_len=prefill_len, lazy=args.lazy,
                         num_splits=args.num_splits or None,
                         share_prefix=args.share_prefix,
                         prefill_chunk=args.prefill_chunk or None,
                         speculate_k=args.speculate or None,
                         deadline_ms=args.deadline_ms or None,
                         max_queue=args.max_queue or None,
-                        fault_plan=plan)
+                        fault_plan=_fault_plan(args))
+    rs = np.random.RandomState(args.seed)
+    out, stats = eng.run(paged_requests(cfg, pcfg, args, rs))
+    return out, stats, eng
+
+
+def _serve_rank(mesh, device, cfg, args):
+    """One rank of ``--paged --mesh N``: what rank 0 prints, from every rank
+    (the parent checks that they agree)."""
+    out, stats, eng = _run_engine(cfg, args, device, mesh)
+    return out, stats, eng.results
+
+
+def serve_paged(cfg, args, device, n_ranks: int = 0):
+    """Continuous batching over ragged synthetic requests (paged KV cache),
+    on one device or, with ``n_ranks``, sharded over that many spawned
+    ranks; prints JAX's summary lines and returns ``(outputs, stats,
+    engine)``, or ``(outputs, stats, per-rank (outputs, stats, results))``
+    under a mesh (rank 0's outputs and stats, equal on every rank)."""
+    plan = _fault_plan(args)
     if plan is not None:
         print(f"fault plan (seed {plan.seed}): "
               + " ".join(f"{e.kind}@{e.step}" for e in plan.events))
     if args.num_splits:
-        print(f"decode num_splits: {eng.num_splits}")
-    out, stats = eng.run(paged_requests(cfg, pcfg, args, rs))
+        print(f"decode num_splits: {args.num_splits}")
+    if n_ranks:
+        backend = args.dist_backend or pool_mesh.default_backend(device.type)
+        ranks = pool_mesh.run_ranks(_serve_rank, n_ranks, (cfg, args),
+                                    backend=backend, device_type=device.type)
+        devices = ", ".join(str(pool_mesh.rank_device(r, device.type))
+                            for r in range(n_ranks))
+        print(f"mesh: {n_ranks} ranks on the pool axis, backend {backend}, "
+              f"devices {devices}")
+        out, stats, results = ranks[0]
+        for r, (o, st, _) in enumerate(ranks[1:], 1):
+            same = set(o) == set(out) and all(np.array_equal(o[k], out[k])
+                                              for k in out)
+            if not same or st != stats:
+                raise RuntimeError(f"rank {r} served other outputs or stats "
+                                   f"than rank 0")
+        _print_summary(args, out, stats, results)
+        return out, stats, ranks
+    out, stats, eng = _run_engine(cfg, args, device)
+    _print_summary(args, out, stats, eng.results)
+    return out, stats, eng
+
+
+def _print_summary(args, out, stats, results):
+    """JAX's summary lines of a paged run."""
     mode = "lazy" if args.lazy else "eager"
     print(f"served {len(out)} requests ({stats['generated_tokens']:.0f} tokens) "
           f"in {stats['wall_s']*1e3:.1f}ms: {stats['tokens_per_s']:.1f} tok/s, "
@@ -253,8 +348,7 @@ def serve_paged(cfg, args, device):
         print("generated (request 0):", out[0][:16])
     else:  # request 0 cancelled/timed out/shed/failed under a fault plan
         print("request 0 did not complete:",
-              eng.results[0].outcome.value, "—", eng.results[0].reason)
-    return out, stats, eng
+              results[0].outcome.value, "—", results[0].reason)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ under ``torch.no_grad``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -20,12 +21,14 @@ from torch import nn
 from repro_torch.core.attention import (spark_attention, spark_decode,
                                        spark_paged_decode)
 from repro_torch.core.online_softmax import NEG_INF
+from repro_torch.distributed import paged as dpaged
 from repro_torch.kernels import rng
 
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call context: attention impl, mode flags and dropout seed."""
+    """Per-call context: attention impl, mode flags, dropout seed and the
+    pool mesh."""
     impl: str = "kernel"             # attention impl (core.attention.IMPLS)
     deterministic: bool = True       # disables dropout
     seed: int = 0                    # dropout seed (an int32 value)
@@ -34,6 +37,8 @@ class Ctx:
     num_splits: int = 1              # split-KV decode slices per (B, Hkv) row
     acc_dtype: Any = torch.float32   # forward product rounding (bf16-ACC)
     bwd_acc_dtype: Any = torch.float32   # backward product rounding
+    mesh: Any = None                 # distributed.mesh.PoolMesh: the paged
+                                     # serving steps' pool is sharded over it
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +186,13 @@ def init_attn_cache(cfg, batch: int, max_len: int, dtype, device):
             "index": 0}
 
 
-def init_paged_attn_cache(cfg, paged_cfg, dtype, device):
+def init_paged_attn_cache(cfg, paged_cfg, dtype, device, num_pages=None):
     """One layer's page pool: k_pages/v_pages [Hkv, num_pages, page_size, D]
     zeros, shared by all sequences (page 0 is the trash page, see
-    ``serving/paged_cache.py``)."""
-    shape = (cfg.num_kv_heads, paged_cfg.num_pages, paged_cfg.page_size,
-             cfg.head_dim)
+    ``serving/paged_cache.py``). ``num_pages`` (default the config's) is a
+    shard's page count when the pool is sharded."""
+    shape = (cfg.num_kv_heads, num_pages or paged_cfg.num_pages,
+             paged_cfg.page_size, cfg.head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -296,7 +302,7 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
 def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
                  segment_ids):
     """The paged branches of :func:`apply_attention` (q [B,Hq,S,D], k/v
-    [B,Hkv,S,D] after RoPE), mirroring JAX's single-device arms.
+    [B,Hkv,S,D] after RoPE), mirroring JAX's arms.
 
     * decode: append this token's K/V at position ``kv_len`` (the slot the
       row's table names), then paged flash-decode over ``kv_len + 1``.
@@ -308,6 +314,10 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
       row of its own (``token_tables``, ``token_kv_len`` = position + 1, 0
       for padding, which gives exact zeros): one paged-decode launch over
       B·S rows.
+
+    With ``ctx.mesh`` the cache is this rank's shard of the pool and every
+    arm goes through ``distributed/paged.py``: the scatter keeps the writes
+    this shard owns, and attention is local partials merged across ranks.
     """
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
@@ -319,26 +329,40 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
         if s != 1 or segment_ids is not None:
             raise ValueError("decode takes one token per row and no segment ids")
         bt, kvl = paged["block_tables"], paged["kv_len"]
-        ps = ck.shape[2]
-        page = bt.gather(1, (kvl // ps)[:, None].long())[:, 0]
-        dest = page * ps + kvl % ps                           # [B] token slots
-        _scatter_pages(ck, dest, k[:, :, 0].transpose(0, 1))
-        _scatter_pages(cv, dest, v[:, :, 0].transpose(0, 1))
-        # no ring buffer: a sliding window masks inside the kernel, and the
-        # engine frees pages wholly out of it (their entries revert to the
-        # trash page, which the same gate never reads)
-        o = spark_paged_decode(q[:, :, 0], ck, cv, bt, kvl + 1, impl=ctx.impl,
-                               window=window, num_splits=ctx.num_splits)
+        if ctx.mesh is not None:
+            # sharded pool: local scatter + local partials, merged across
+            # ranks (distributed/paged.py)
+            o = dpaged.paged_append_decode_sharded(
+                q[:, :, 0], k[:, :, 0], v[:, :, 0], ck, cv, bt, kvl,
+                mesh=ctx.mesh, impl=ctx.impl, window=window,
+                num_splits=ctx.num_splits)
+        else:
+            ps = ck.shape[2]
+            page = bt.gather(1, (kvl // ps)[:, None].long())[:, 0]
+            dest = page * ps + kvl % ps                       # [B] token slots
+            _scatter_pages(ck, dest, k[:, :, 0].transpose(0, 1))
+            _scatter_pages(cv, dest, v[:, :, 0].transpose(0, 1))
+            # no ring buffer: a sliding window masks inside the kernel, and
+            # the engine frees pages wholly out of it (their entries revert
+            # to the trash page, which the same gate never reads)
+            o = spark_paged_decode(q[:, :, 0], ck, cv, bt, kvl + 1,
+                                   impl=ctx.impl, window=window,
+                                   num_splits=ctx.num_splits)
         o = o[:, None]                                        # [B, 1, Hq, D]
     else:
         if "dest" not in paged:
             raise ValueError("prefill onto a paged cache needs dest token slots")
         dest = paged["dest"].reshape(-1)                      # [B*S]
-        _scatter_pages(ck, dest, k.transpose(0, 1).reshape(hkv, b * s, hd))
-        _scatter_pages(cv, dest, v.transpose(0, 1).reshape(hkv, b * s, hd))
+        scatter = (_scatter_pages if ctx.mesh is None else
+                   functools.partial(dpaged.scatter_pages_sharded, mesh=ctx.mesh))
+        scatter(ck, dest, k.transpose(0, 1).reshape(hkv, b * s, hd))
+        scatter(cv, dest, v.transpose(0, 1).reshape(hkv, b * s, hd))
         if "token_tables" in paged:
             q_tok = q.transpose(1, 2).reshape(b * s, hq, hd)
-            o = spark_paged_decode(
+            decode = (spark_paged_decode if ctx.mesh is None else
+                      functools.partial(dpaged.paged_decode_sharded,
+                                        mesh=ctx.mesh))
+            o = decode(
                 q_tok, ck, cv, paged["token_tables"].reshape(b * s, -1),
                 paged["token_kv_len"].reshape(b * s), impl=ctx.impl,
                 window=window, num_splits=ctx.num_splits).view(b, s, hq, hd)

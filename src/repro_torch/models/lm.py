@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.paged import pages_per_shard
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 
@@ -185,16 +186,20 @@ def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
 # paged serving: page-pool cache / packed prefill / block-table decode
 # ---------------------------------------------------------------------------
 
-def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda"):
+def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda", mesh=None):
     """Per-layer page pools ``{"k_pages", "v_pages"}`` [Hkv, num_pages,
     page_size, D] (no batch dim: sequences share the pool through block
-    tables; host-side page lifecycle in ``serving/paged_cache.py``). The
-    recurrent families' per-slot state rows are not yet ported."""
+    tables; host-side page lifecycle in ``serving/paged_cache.py``). With a
+    pool ``mesh`` they are this rank's shard, [Hkv, num_pages / N,
+    page_size, D]. The recurrent families' per-slot state rows are not yet
+    ported."""
     if set(cfg.block_pattern) != {"attn"}:
         raise NotImplementedError(
             f"{cfg.name}: paged serving of recurrent blocks is not yet ported")
     dtype = dtype or cfg.dtype
-    return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device)
+    n = 1 if mesh is None else mesh.size
+    local = pages_per_shard(paged_cfg.num_pages, n) if n > 1 else None
+    return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device, local)
             for _ in range(cfg.num_layers)]
 
 

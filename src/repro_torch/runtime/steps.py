@@ -1,5 +1,5 @@
-"""Train, prefill and decode steps on one device (counterpart of
-``repro.runtime.steps`` without a mesh).
+"""Train, prefill and decode steps (counterpart of ``repro.runtime.steps``):
+on one device, and the paged serving steps also over a pool mesh.
 
 PyTorch runs eagerly: there is no jit. The train step updates the params and
 the optimizer state in place; the serving steps run under
@@ -125,7 +125,7 @@ class ServeArtifacts:
 def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
                      batch: int = 1, torch_chunk: int = 1024,
                      num_splits: int = 1, device="cuda",
-                     paged=None) -> ServeArtifacts:
+                     paged=None, mesh=None) -> ServeArtifacts:
     """Serving steps of ``cfg`` with attention ``impl`` on ``device``.
 
     num_splits: split-KV slices per (batch, kv head) row of the decode step
@@ -148,10 +148,26 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
 
     ``state_slots``/``state_local`` carry the recurrent families' per-slot
     state rows; the attention-only archs take and ignore them.
+
+    mesh: a ``distributed.mesh.PoolMesh`` shards the page pool over its ranks
+    (``paged.num_shards`` must equal its size): every rank runs the same
+    steps on its shard of the pool and replicated weights, and decode merges
+    the shards' attention partials (``distributed/paged.py``). The
+    contiguous cache takes no mesh yet.
     """
     if paged is not None:
+        if mesh is not None and paged.num_shards != mesh.size:
+            raise ValueError(
+                f"PagedCacheConfig.num_shards={paged.num_shards} must "
+                f"equal the mesh's model-axis size {mesh.size} (the "
+                f"allocator reserves one trash page per pool shard)")
         return _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits,
-                                  device)
+                                  device, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "the contiguous cache over a mesh needs the sharding rules "
+            "(weights and activations split over ranks), not yet ported: "
+            "serve sharded with paged=")
 
     def cache_init():
         with torch.inference_mode():
@@ -171,28 +187,30 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
                           cache_init_fn=cache_init)
 
 
-def _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits, device):
+def _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits, device,
+                       mesh):
     def cache_init():
         with torch.inference_mode():
-            return lm.init_paged_cache(cfg, paged, device=device)
+            return lm.init_paged_cache(cfg, paged, device=device, mesh=mesh)
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, segment_ids, positions, dest, state_slots,
                    caches):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, mesh=mesh)
         return lm.paged_prefill(cfg, params, ctx, tokens, segment_ids,
                                 positions, dest, caches, state_slots)
 
     @torch.inference_mode()
     def decode_fn(params, token, caches, block_tables, kv_len):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits,
+                  mesh=mesh)
         return lm.paged_decode_step(cfg, params, ctx, token, caches,
                                     block_tables, kv_len)
 
     @torch.inference_mode()
     def chunk_prefill_fn(params, tokens, positions, dest, token_tables,
                          token_kv_len, state_slots, state_local, caches):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, mesh=mesh)
         return lm.paged_chunk_prefill(cfg, params, ctx, tokens, positions,
                                       dest, token_tables, token_kv_len, caches,
                                       state_slots, state_local)
@@ -202,7 +220,8 @@ def _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits, device):
                   caches):
         # the latency-bound step it replaces, k + 1 tokens wide: the decode
         # step's split-KV launch parameter
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits,
+                  mesh=mesh)
         return lm.paged_verify_step(cfg, params, ctx, tokens, positions, dest,
                                     token_tables, token_kv_len, caches)
 

@@ -61,11 +61,24 @@ prefill rows of ``prefill_len``, [B, k+1] verify rows — and run eagerly
 (tokens, block tables, lengths) go to the device as tensors, the pools are
 updated in place, and the logits come back to the host for greedy sampling.
 
-What the port leaves out, with a clear error: ``mesh=`` (distributed paged
-serving comes with the distributed slice), ``autotune=`` (the split-count
-cost model is seeded for a TPU), and the recurrent-state families (their
-per-slot state rows come with their models).  Every removal of an active
-sequence still records a typed outcome.
+Distributed serving (``mesh=``, a ``distributed.mesh.PoolMesh`` with
+``PagedCacheConfig.num_shards`` = its size): every rank runs this engine
+(SPMD) on its shard of each layer's page pool and replicated weights, and
+decode merges the shards' attention partials (``distributed/paged.py``).
+The numpy host layer is unchanged: block tables keep global page ids, and
+its decisions are replicated, since every input to them is equal on every
+rank (greedy sampling reads logits the merge made identical; faults, the
+watchdog and step budgets run on the iteration clock) — except wall-clock
+deadlines, which read each rank's own clock: rank 0 decides which requests
+expired and broadcasts them. Copy-on-write and the poison hook go through
+the sharded pool ops, and ``run()``'s wall time is rank 0's, so the stats
+are equal on every rank. ``snapshot``/``restore`` hold each rank's own
+shard of the pool.
+
+What the port leaves out, with a clear error: ``autotune=`` (the
+split-count cost model is seeded for a TPU) and the recurrent-state
+families (their per-slot state rows come with their models).  Every
+removal of an active sequence still records a typed outcome.
 """
 
 from __future__ import annotations
@@ -77,6 +90,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.paged import (copy_pages_sharded,
+                                           poison_pages_sharded)
 from repro_torch.models.layers import paged_decode_window
 from repro_torch.runtime.steps import make_serve_steps
 from repro_torch.serving.drafter import NgramDrafter, longest_accept
@@ -107,7 +122,9 @@ class ServingEngine:
                  watchdog_patience: int = 16):
         """params: the model (``models.lm.LM``) on ``device``. impl: the
         attention impl (``core.attention.IMPLS``); torch_chunk: the KV chunk
-        of ``impl="torch"``'s prefill. mesh / autotune: not ported (raise).
+        of ``impl="torch"``'s prefill. mesh: shard the page pool over the
+        ranks of a ``distributed.mesh.PoolMesh`` (module docstring); ``device``
+        is then this rank's. autotune: not ported (raises).
         lazy: admission policy (module docstring). reclaim: free
         fully-out-of-window pages each step — defaults to "whenever the arch
         has a sliding window"; pass False to pin pages for a model's whole
@@ -141,10 +158,6 @@ class ServingEngine:
         prefill, no completions) the livelock watchdog tolerates before it
         fails a stuck row with a diagnostic ``FAILED`` outcome."""
         assert cfg.causal, "serving needs an autoregressive arch"
-        if mesh is not None:
-            raise NotImplementedError(
-                "distributed paged serving (mesh=) is not yet ported: it "
-                "comes with the distributed slice")
         if autotune:
             raise NotImplementedError(
                 "autotune= is not yet ported: its cost model is seeded for a "
@@ -154,6 +167,7 @@ class ServingEngine:
                 f"{cfg.name}: serving recurrent-state archs is not yet ported")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.pcfg = paged_cfg
         self.prefill_len = prefill_len or paged_cfg.max_seq_len
         self.eos_id = eos_id                     # default for submissions
@@ -177,7 +191,7 @@ class ServingEngine:
         # with speculation on, a verify step can advance kv_len by up to
         # k + 1 tokens, so every growth pass reserves that many positions
         self._lookahead = self.speculate_k + 1
-        arts = make_serve_steps(cfg, impl=impl, paged=paged_cfg,
+        arts = make_serve_steps(cfg, impl=impl, paged=paged_cfg, mesh=mesh,
                                 num_splits=num_splits,
                                 torch_chunk=min(torch_chunk, self.prefill_len),
                                 device=self.device)
@@ -342,6 +356,10 @@ class ServingEngine:
         for rid, t in self._deadline_at.items():
             if now >= t:
                 expired[rid] = "wall-clock deadline expired"
+        if self.mesh is not None and self._deadline_at:
+            # each rank reads its own clock: rank 0's decision holds for all
+            expired = dict.fromkeys(self.mesh.broadcast_object(sorted(expired)),
+                                    "wall-clock deadline expired")
         for rid, limit in self._step_limit.items():
             if self._iter >= limit:
                 expired.setdefault(
@@ -804,9 +822,11 @@ class ServingEngine:
         src = self._dev(np.asarray([s for s, _ in pairs], np.int64))
         dst = self._dev(np.asarray([d for _, d in pairs], np.int64))
         with torch.inference_mode():
-            for layer in self.caches:      # {k_pages, v_pages}: [Hkv, P, ps, D]
-                for pool in layer.values():
-                    pool[:, dst] = pool[:, src]
+            if self.mesh is not None:      # a pair may span two shards
+                copy_pages_sharded(self._pools(), src, dst, self.mesh)
+                return
+            for pool in self._pools():     # [Hkv, P, ps, D]
+                pool[:, dst] = pool[:, src]
 
     def _poison_pages(self, pages: List[int]):
         """Test hook: clobber freed pages (plus the trash page their table
@@ -816,9 +836,15 @@ class ServingEngine:
         reclamation test asserts token-identity under this hook."""
         idx = self._dev(np.asarray(sorted(set(pages) | {TRASH_PAGE}), np.int64))
         with torch.inference_mode():
-            for layer in self.caches:
-                for pool in layer.values():
-                    pool[:, idx] = 1e6
+            if self.mesh is not None:      # each shard poisons what it owns
+                poison_pages_sharded(self._pools(), idx, self.mesh)
+                return
+            for pool in self._pools():
+                pool[:, idx] = 1e6
+
+    def _pools(self) -> List[torch.Tensor]:
+        """Every layer's k and v pools (this rank's shards under a mesh)."""
+        return [pool for layer in self.caches for pool in layer.values()]
 
     def _drain_state_releases(self):
         """Drain the state cache's released slots.  The port serves
@@ -938,6 +964,8 @@ class ServingEngine:
             # pages: conservation holds at every exit
             self._release_pocket()
         wall = time.perf_counter() - t0
+        if self.mesh is not None:          # equal stats on every rank
+            wall = self.mesh.broadcast_object(wall)
         steps = self._steps
         out = {rid: res.tokens for rid, res in sorted(self.results.items())
                if res.outcome is Outcome.COMPLETED}

@@ -27,6 +27,10 @@ def _trees():
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
     assert len(FILES) > 10
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in FILES[:-1]}
+    assert {"distributed/mesh.py", "distributed/paged.py",
+            "launch/mesh.py"} <= names
 
 
 def _import_violations(rel, tree):

@@ -28,6 +28,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import serving as tserving  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.distributed.mesh import PoolMesh  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
 from repro_torch.runtime.steps import make_serve_steps  # noqa: E402
 
@@ -186,8 +187,11 @@ def test_engine_refuses_unported_modes():
     _, tcfg, _, tparams = _model()
     pcfg = tserving.PagedCacheConfig(page_size=8, num_pages=11, max_batch=2,
                                      max_pages_per_seq=3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tserving.ServingEngine(tcfg, pcfg, tparams, device="cpu", mesh=object())
+    # a mesh is ported: the pool must have one shard a rank, as in JAX
+    with pytest.raises(ValueError, match="num_shards=1 must equal the mesh's "
+                                         "model-axis size 2"):
+        tserving.ServingEngine(tcfg, pcfg, tparams, device="cpu",
+                               mesh=PoolMesh(group=None, rank=0, size=2))
     with pytest.raises(NotImplementedError, match="autotune"):
         tserving.ServingEngine(tcfg, pcfg, tparams, device="cpu", autotune=True)
 

@@ -200,6 +200,126 @@ def test_flash_paged_decode_token_rows(cuda):
     assert float(o[250:].abs().max()) == 0.0
 
 
+def _state_out(acc, m, l):
+    """The normalised output and log-sum-exp of a partial state."""
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("hq,ps,window", [(8, 16, None), (10, 4, 45),
+                                          (8, 32, 200)])
+def test_flash_paged_decode_partials_kernel_matches_plain(cuda, hq, ps, window,
+                                                          num_splits, dtype):
+    """The gated kernel against its plain version: about half of the table
+    entries are not owned and still name their pages, which hold 1e6, as
+    does the trash page; a row owning nothing keeps the empty state."""
+    b, hkv, d, t = 4, 2, 64, 640 // ps
+    q, kp, vp, bt = _paged(cuda, b, hq, hkv, d, ps, t, dtype)
+    valid = (torch.rand((b, t), generator=cuda, device="cuda") < 0.5).to(torch.int32)
+    valid[2] = 0
+    foreign = bt[valid == 0].long()
+    for pool in (kp, vp):
+        pool[:, foreign] = 1e6
+        pool[:, TRASH_PAGE] = 1e6
+    kv_len = torch.tensor([t * ps, 0, 333, 129], dtype=torch.int32, device="cuda")
+    before = kdecode.launches_paged_valid
+    acc, m, l = kdecode.flash_paged_decode_partials(
+        q, kp, vp, bt, kv_len, block_valid=valid, window=window,
+        num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert kdecode.launches_paged_valid == before + 1
+    ref = kdecode.flash_paged_decode_partials_torch(
+        q, kp, vp, bt, kv_len=kv_len, block_valid=valid, window=window,
+        num_splits=num_splits)
+    (o, lse), (o_ref, lse_ref) = _state_out(acc, m, l), _state_out(*ref)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(lse, lse_ref) <= 1e-4
+    for row in (1, 2):                      # reads nothing / owns nothing
+        assert float(acc[row].abs().max()) == 0.0 and float(l[row].max()) == 0.0
+        assert bool((m[row] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_shards_of_the_gated_kernel_equal_the_paged_kernel(cuda, dtype):
+    """The pool cut into two shards, each with its tables remapped to local
+    ids and its trash page poisoned: the merged partials are the ungated
+    paged kernel on the whole pool."""
+    from repro_torch.core import online_softmax as osm
+    from repro_torch.distributed.paged import _local_ids
+
+    b, hq, hkv, d, ps, t = 4, 8, 2, 64, 16, 24
+    n_local = 1 + b * t // 2
+    q = _rand(cuda, (b, hq, d), dtype)
+    kp = _rand(cuda, (hkv, 2 * n_local, ps, d), dtype)
+    vp = _rand(cuda, (hkv, 2 * n_local, ps, d), dtype)
+    usable = torch.tensor([p for p in range(2 * n_local) if p % n_local],
+                          device="cuda")
+    perm = torch.randperm(usable.numel(), generator=cuda, device="cuda")
+    bt = usable[perm].view(b, t).to(torch.int32).contiguous()
+    kv_len = torch.tensor([t * ps, 200, 0, 31], dtype=torch.int32, device="cuda")
+    whole = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, num_splits=2)
+    states = []
+    for s in range(2):
+        kl = kp[:, s * n_local:(s + 1) * n_local].clone()
+        vl = vp[:, s * n_local:(s + 1) * n_local].clone()
+        kl[:, 0] = vl[:, 0] = 1e6
+        bt_local, valid = _local_ids(bt, n_local, s)
+        acc, m, l = kdecode.flash_paged_decode_partials(
+            q, kl, vl, bt_local.contiguous(), kv_len,
+            block_valid=valid.contiguous(), num_splits=2)
+        states.append(osm.SoftmaxState(m=m, l=l, acc=acc))
+    o, _ = osm.finalize(osm.merge(*states), out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert _err(o, whole) <= TOL[dtype]
+    assert float(o[2].abs().max()) == 0.0
+
+
+def _sharded_engine_rank(mesh, device, cfg, pcfg, reqs):
+    """A rank of the sharded SMOKE engine test: its tokens and launches."""
+    params = lm.init_params(cfg, seed=0, device=device)
+    eng = ServingEngine(cfg, pcfg, params, impl="kernel", device=device,
+                        mesh=mesh, prefill_len=64, lazy=True, prefill_chunk=32)
+    before = (kdecode.launches_paged, kdecode.launches_paged_valid)
+    out, stats = eng.run(list(reqs))        # logits reach the host each step
+    return out, stats, (kdecode.launches_paged - before[0],
+                        kdecode.launches_paged_valid - before[1])
+
+
+def test_sharded_paged_engine_on_the_card(cuda):
+    """Two gloo ranks sharing the card serve a SMOKE model through the gated
+    kernel (never the ungated one) and generate what one device does."""
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                              dtype=torch.float32)
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=n), g)
+            for n, g in ((40, 12), (25, 20), (33, 8), (50, 16), (12, 10))]
+    pcfg = PagedCacheConfig(page_size=8, num_pages=24, max_batch=3,
+                            max_pages_per_seq=10)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    want, _ = ServingEngine(cfg, pcfg, params, impl="kernel", device="cuda",
+                            prefill_len=64, lazy=True, prefill_chunk=32).run(list(reqs))
+    ranks = run_ranks(_sharded_engine_rank, 2,
+                      (cfg, dataclasses.replace(pcfg, num_pages=24, num_shards=2),
+                       reqs), backend="gloo", device_type="cuda", timeout_s=600)
+    for out, stats, (ungated, gated) in ranks:
+        assert ungated == 0 and gated > 0 and gated % cfg.num_layers == 0
+        assert stats["outcomes"]["completed"] == len(reqs)
+        for rid in want:
+            assert (out[rid] == want[rid]).all(), rid
+    # NCCL needs a card a rank: on one card, a mesh of one rank still runs
+    # its init, collectives and object broadcast
+    (out, stats, (ungated, gated)), = run_ranks(
+        _sharded_engine_rank, 1, (cfg, pcfg, reqs), backend="nccl",
+        device_type="cuda", timeout_s=600)
+    assert ungated == 0 and gated > 0
+    for rid in want:
+        assert (out[rid] == want[rid]).all(), rid
+
+
 def test_paged_engine_kernel_matches_torch(cuda):
     """A SMOKE paged engine (lazy, chunked prefill, speculation) with
     impl="kernel" generates what impl="torch" does, and its paged attention
@@ -251,6 +371,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):                        # int64 table
         kdecode.flash_paged_decode(q[:, :, 0].contiguous(), pool, pool,
                                    torch.tensor([[1, 2]], device="cuda"), kv_len)
+    with pytest.raises(TypeError):                        # int64 block_valid
+        kdecode.flash_paged_decode_partials(
+            q[:, :, 0].contiguous(), pool, pool,
+            torch.tensor([[1, 2]], dtype=torch.int32, device="cuda"), kv_len,
+            block_valid=torch.tensor([[1, 0]], device="cuda"))
     odd = torch.zeros(pool.numel() + 1, device="cuda")[1:].view(pool.shape)
     with pytest.raises(ValueError, match="aligned"):      # 4-byte offset, D 64
         kdecode.flash_paged_decode(q[:, :, 0].contiguous(), odd, odd,
