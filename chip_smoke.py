@@ -11,15 +11,19 @@ Phases, each of which exits non-zero on failure:
 1. device  — the card's name, count, and ``nvidia-smi`` name / power limit;
 2. build   — nvcc builds the three CUDA kernel libraries from
              ``kernels/csrc`` in parallel and prints ptxas's registers and
-             spills per instantiation (the f32 D=64 backward kernels, the
-             training path's, must not spill);
+             spills per instantiation (the f32 and bf16 D=64 backward
+             kernel, the training path's, must not spill) and the count of
+             tensor-core instructions (HMMA / HGMMA in ``cuobjdump -sass``)
+             of those two, which must not be 0;
 3. kernels — each CUDA kernel against its plain-torch version on the same
              inputs, f32 and bf16: the forward and decode at granite-3-2b's
-             prefill / decode shapes, the two backward kernels at its
+             prefill / decode shapes, the fused backward kernel at its
              training shape (B 4, 32/8 heads, S 2048, D 64, causal), plus
              window, segments, dropout, ragged, q-suffix, head-dim-128 /
              GQA-5 and bf16-ACC cases, and against the naive oracle (autograd
-             of it for the backward) on a small input; the paged decode at
+             of it for the backward) on a small input; the backward twice on
+             the same inputs (dK, dV bit-equal, dQ within tolerance: its
+             atomic adds run in another order); the paged decode at
              page sizes 4, 16 and 32, groups 4 and 5, ragged lengths with 0,
              a 1e6-poisoned trash page past each allocation and out of the
              window, 1 and 3 splits and 256 chunk-prefill token rows, and
@@ -57,8 +61,8 @@ Phases, each of which exits non-zero on failure:
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
              ``impl="kernel"`` against one with ``impl="torch"`` on the same
-             params and batch, the counters reading 80 / 40 / 40 launches of
-             ``flash_fwd`` / ``dkv`` / ``dq`` (forward plus recompute) and 0
+             params and batch, the counters reading 80 / 40 launches of
+             ``flash_fwd`` / ``flash_bwd`` (forward plus recompute) and 0
              for the torch impl; (b) 4 steps of ``make_train_step`` with the
              counters reset before and read after, then one step under
              ``torch.profiler`` (device time by kernel group, busy share);
@@ -66,12 +70,14 @@ Phases, each of which exits non-zero on failure:
              resume for 2 more;
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
-             (``scaled_dot_product_attention`` forward, or its backward for
-             the two backward kernels; on the contiguous equivalent for the
+             (``scaled_dot_product_attention`` forward, or its whole
+             backward for the fused backward kernel, in f32 and in bf16 at
+             the training shape; on the contiguous equivalent for the
              paged decode, gather excluded; aten's memory-efficient attention
              with its log-sum-exp on the owned rows for the gated kernel: a
-             yardstick the port never calls) and its bound, printed as one
-             JSON line.
+             yardstick the port never calls) and its bound at the tensor-core
+             peak of its dtype (beside the bound without tensor cores),
+             printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -94,9 +100,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s;
-# 67 TFLOP/s float32 without tensor cores; 989 TFLOP/s bf16 on tensor cores.
+# tensor cores 495 TFLOP/s TF32 (the f32 rows: an f32 product on tensor
+# cores goes through TF32) and 989 TFLOP/s bf16; 67 TFLOP/s float32 without
+# tensor cores, kept beside each bound as ``bound_ms_no_tensor_cores``.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+PEAK_FLOPS_NO_TENSOR_CORES = 67e12
 
 # kernel vs plain version on the same inputs (module docstrings of
 # kernels/flash_fwd.py and kernels/decode.py): both compute in f32 and fold
@@ -115,7 +124,7 @@ LSE_TOL = 1e-4       # f32 lse ~ log(Skv) + max score ~ 10: ten f32 ulps there
 # relative; 1e-3 of the largest logit leaves room for that and still catches
 # a kernel that is wrong anywhere on the path
 LOGIT_REL_TOL = 1e-3
-# backward kernels vs plain version, relative to max(1, max|plain|): f32 the
+# backward kernel vs plain version, relative to max(1, max|plain|): f32 the
 # JAX suite's gradient tolerance (dK and dV sum over up to 2048 q rows and a
 # group of 4 in another order); bf16 inputs or bf16-ACC two bf16 ulps (P~,
 # dS, the tile products and the outputs are rounded to bf16 on both sides)
@@ -204,7 +213,7 @@ def main(argv=None) -> None:
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
-    rows += bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0])
+    rows.append(bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0]))
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
     rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
@@ -214,9 +223,26 @@ def main(argv=None) -> None:
                                              "count": count}}))
 
 
+def bounds(flops: float, nbytes: float, dtype: str = "float32") -> dict:
+    """The least time the card could take for ``flops`` operations on
+    ``nbytes`` bytes: the larger of bytes over the memory rate and operations
+    over the tensor-core peak of ``dtype`` (``bound_ms``), and the same at
+    the f32 rate without tensor cores (``bound_ms_no_tensor_cores``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_tc = flops / PEAK_FLOPS[dtype]
+    t_cc = flops / PEAK_FLOPS_NO_TENSOR_CORES
+    return {"bound_ms": max(t_tc, t_bytes) * 1e3,
+            "bound_by": "operations" if t_tc > t_bytes else "bytes",
+            "bound_ms_no_tensor_cores": max(t_cc, t_bytes) * 1e3}
+
+
+BWD_D64 = ("flash_bwd_kernel<f32, D64>", "flash_bwd_kernel<bf16, D64>")
+
+
 def build_report(_build) -> None:
-    """ptxas's registers and spills per kernel instantiation; fails if an
-    f32 D=64 backward kernel (the training path's) spills."""
+    """ptxas's registers and spills per kernel instantiation, and the
+    tensor-core instructions of the backward kernel; fails if the f32 or
+    bf16 D=64 backward kernel (the training path's) spills or has none."""
     import re
     for kname in _build.KERNELS:
         report = _build.ptxas_report.get(kname)
@@ -237,14 +263,41 @@ def build_report(_build) -> None:
                 spills = line.strip()
                 n = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               spills)
-                if (entry in ("dkv_kernel<f32, D64>", "dq_kernel<f32, D64>")
-                        and (n is None or n.groups() != ("0", "0"))):
+                if entry in BWD_D64 and (n is None or n.groups() != ("0", "0")):
                     fail(f"{kname} {entry} spills: {spills}")
                 continue
             if "registers" in line:
                 regs = line.split(":", 1)[-1].strip()
                 print(f"[build] {kname} {entry}: {regs}; {spills}")
+    mma = tensor_core_instructions(_build)
+    for entry in BWD_D64:
+        print(f"[build] flash_bwd {entry}: {mma.get(entry, 0)} tensor-core "
+              f"instructions (HMMA / HGMMA in cuobjdump -sass)")
+        if not mma.get(entry):
+            fail(f"flash_bwd {entry} has no tensor-core instruction")
     sys.stdout.flush()
+
+
+def tensor_core_instructions(_build) -> dict:
+    """{"flash_bwd_kernel<f32, D64>": count, ...}: HMMA and HGMMA lines per
+    ACC-f32 backward kernel in ``cuobjdump -sass`` of the built library."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build.build(["flash_bwd"])["flash_bwd"]
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed ({out.returncode}): {out.stderr[:500]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb0E", part)
+        if m:
+            name = (f"flash_bwd_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
+                    f"D{m.group(2)}>")
+            counts[name] = sum("HMMA" in ln or "HGMMA" in ln
+                               for ln in part.splitlines())
+    return counts
 
 
 def _rand(torch, gen, shape, dtype):
@@ -555,9 +608,11 @@ def gated_kernel_phase(torch, kdecode):
 
 
 def bwd_kernel_phase(torch, kfwd, kbwd):
-    """The two backward kernels against their plain version, f32 and bf16,
-    at the training shape and the edge cases; then against autograd of the
-    naive oracle. Returns {case: max |kernel - plain| / max(1, max|plain|)}."""
+    """The fused backward kernel against its plain version, f32 and bf16,
+    at the training shape and the edge cases, and against itself on a second
+    launch (dK, dV bit-equal; dQ, summed by atomic adds in another order,
+    within the tolerance); then against autograd of the naive oracle.
+    Returns {case: max |kernel - plain| / max(1, max|plain|)}."""
     from repro_torch.kernels import ref
 
     print(f"[kernels] backward tolerances, kernel vs plain version, relative "
@@ -600,6 +655,7 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
                 errs[f"flash_fwd/{name}/{dn}"] = e
                 del o_ref
             grads = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+            again = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             plain = kbwd.flash_bwd_torch(q, k, v, lse, do, kbwd.row_delta(o, do),
                                          **kw)
@@ -616,6 +672,13 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail(f"flash_bwd {name} {dn} disagrees with its plain version")
+            rerun = _maxerr(grads[0], again[0]) / max(1.0, float(plain[0].float().abs().max()))
+            same_kv = torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+            print(f"[kernels] flash_bwd {name} {dn} launched twice: dk, dv "
+                  f"{'bit-equal' if same_kv else 'DIFFER'}; dq {rerun:.3e} relative "
+                  f"(atomic adds in another order; tol {BWD_TOL[tn]:.1e})")
+            if not same_kv or rerun > BWD_TOL[tn]:
+                fail(f"flash_bwd {name} {dn} is not reproducible on a second launch")
             if "segment_ids" in kw:
                 pad = skv // 16
                 if max(float(grads[0][:, :, -pad:].abs().max()),
@@ -623,9 +686,9 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
                        float(grads[2][:, :, -pad:].abs().max())) != 0.0:
                     fail("flash_bwd: padding tokens (segment id -1) get a gradient")
             errs[f"flash_bwd/{name}/{dn}"] = worst
-            del q, k, v, do, o, lse, grads, plain
+            del q, k, v, do, o, lse, grads, again, plain
 
-    # both backward kernels against autograd of the naive oracle, small f32
+    # the backward kernel against autograd of the naive oracle, small f32
     q, k, v = _fwd_inputs(torch, gen, 2, 8, 2, 100, 300, 64, torch.float32)
     do = _rand(torch, gen, (2, 8, 100, 64), torch.float32)
     kw = dict(causal=True, window=90, segment_ids=_segments(torch, 2, 300),
@@ -639,7 +702,7 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
     print(f"[kernels] flash_bwd vs autograd of the naive oracle (f32, window, "
           f"segments, dropout, q suffix): {worst:.3e} (tol {BWD_TOL['float32']:.0e})")
     if worst > BWD_TOL["float32"]:
-        fail("the backward kernels disagree with autograd of the naive oracle")
+        fail("the backward kernel disagrees with autograd of the naive oracle")
     torch.cuda.empty_cache()
     return errs
 
@@ -1155,13 +1218,13 @@ def train_phase(torch, kfwd, kbwd):
     def loss_and_grads(impl):
         ctx = Ctx(impl=impl, deterministic=False, seed=step_seed(0),
                   torch_chunk=256)
-        kfwd.launches = kbwd.launches_dkv = kbwd.launches_dq = 0
+        kfwd.launches = kbwd.launches_bwd = 0
         t0 = time.perf_counter()
         loss = lm.loss_fn(cfg, params, batch, ctx)[0]
         loss.backward()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = (kfwd.launches, kbwd.launches_dkv, kbwd.launches_dq)
+        counts = (kfwd.launches, kbwd.launches_bwd)
         named = dict(params.named_parameters())
         out = (float(loss.detach()),
                float(global_norm(p.grad for p in params.parameters())),
@@ -1172,14 +1235,14 @@ def train_phase(torch, kfwd, kbwd):
     n = cfg.num_layers
     lk, gk, leaves_k, ck, dtk = loss_and_grads("kernel")
     print(f"[train] (a) impl=kernel: loss {lk:.6f}, grad norm {gk:.6f}, "
-          f"{dtk:.2f} s; launches flash_fwd / dkv / dq {ck} (expected "
-          f"{(2 * n, n, n)}: forward plus remat recompute)", flush=True)
-    if ck != (2 * n, n, n):
+          f"{dtk:.2f} s; launches flash_fwd / flash_bwd {ck} (expected "
+          f"{(2 * n, n)}: forward plus remat recompute)", flush=True)
+    if ck != (2 * n, n):
         fail(f"the training pass did not go through the kernels: {ck}")
     lt, gt, leaves_t, ct, dtt = loss_and_grads("torch")
     print(f"[train] (a) impl=torch (chunk 256): loss {lt:.6f}, grad norm "
           f"{gt:.6f}, {dtt:.2f} s; launches {ct}", flush=True)
-    if ct != (0, 0, 0):
+    if ct != (0, 0):
         fail("impl='torch' launched a CUDA kernel")
     checks = [("loss", abs(lk - lt) / abs(lt), TRAIN_TOL["loss"]),
               ("grad norm", abs(gk - gt) / gt, TRAIN_TOL["grad_norm"])]
@@ -1196,7 +1259,7 @@ def train_phase(torch, kfwd, kbwd):
 
     # (b) the train step, as a user calls it, counters reset just before
     torch.cuda.reset_peak_memory_stats()
-    kfwd.launches = kbwd.launches_dkv = kbwd.launches_dq = 0
+    kfwd.launches = kbwd.launches_bwd = 0
     times = []
     for step in range(TRAIN_STEPS):
         b = place_batch(make_batch(dc, step), "cuda")
@@ -1212,10 +1275,8 @@ def train_phase(torch, kfwd, kbwd):
               f"{times[-1]:.3f} s", flush=True)
         if not math.isfinite(loss):
             fail(f"training step {step}: loss {loss}")
-    counts = {"flash_fwd": kfwd.launches, "flash_bwd_dkv": kbwd.launches_dkv,
-              "flash_bwd_dq": kbwd.launches_dq}
-    want = {"flash_fwd": 2 * n * TRAIN_STEPS, "flash_bwd_dkv": n * TRAIN_STEPS,
-            "flash_bwd_dq": n * TRAIN_STEPS}
+    counts = {"flash_fwd": kfwd.launches, "flash_bwd": kbwd.launches_bwd}
+    want = {"flash_fwd": 2 * n * TRAIN_STEPS, "flash_bwd": n * TRAIN_STEPS}
     peak = torch.cuda.max_memory_allocated()
     warm = times[1:]
     tok_s = TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(warm)
@@ -1304,7 +1365,7 @@ def profile_step(torch, step) -> None:
         us = e.self_device_time_total
         name = e.key
         g = ("attention kernels" if any(k in name for k in
-                                        ("fwd_kernel", "dkv_kernel", "dq_kernel"))
+                                        ("fwd_kernel", "bwd_kernel"))
              else "GEMMs" if "gemm" in name.lower() else "other")
         groups[g] += us / 1e6
         names.append((us / 1e6, name))
@@ -1346,7 +1407,6 @@ def times_phase(torch, kfwd, kdecode, launches, errs):
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     f32 = torch.float32
-    peak = PEAK_FLOPS["float32"]
     b, hq, hkv, s, d = 8, 32, 8, 512, 64
     q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, f32)
     o, _ = kfwd.flash_fwd(q, k, v, causal=True)
@@ -1362,8 +1422,7 @@ def times_phase(torch, kfwd, kdecode, launches, errs):
         "launches": launches["flash_fwd"], "max_abs_err": fwd_err,
         "ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, causal=True), 20),
         "plain_ms": time_ms(torch, lambda: kfwd.flash_fwd_torch(q, k, v, causal=True), 5),
-        "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+        **bounds(flops, nbytes),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 20),
     }
@@ -1387,108 +1446,116 @@ def times_phase(torch, kfwd, kdecode, launches, errs):
         "ms": time_ms(torch, lambda: kdecode.flash_decode(q, kc, vc, kv_len=kv_len), 50),
         "plain_ms": time_ms(torch, lambda: kdecode.flash_decode_torch(
             q, kc, vc, kv_len=kv_len), 10),
-        "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+        **bounds(flops, nbytes),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, :, None], ks, vs, enable_gqa=True), 50),
     }
     for row in (fwd, dec):
         print(f"[times] {row['name']}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 peak "
-              f"{peak / 1e12:.0f} TFLOP/s without tensor cores, "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s; the bf16 peak, "
-              f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s, applies to bf16 "
-              f"runs, and the serving path runs f32)")
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; TF32 tensor "
+              f"cores {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s, "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s), without tensor cores "
+              f"{row['bound_ms_no_tensor_cores']:.4f} ms "
+              f"({PEAK_FLOPS_NO_TENSOR_CORES / 1e12:.0f} TFLOP/s f32)")
     worst = max(errs.values())
     print(f"[times] worst kernel-vs-plain error over the kernel phase {worst:.3e}")
     return [fwd, dec]
 
 
 def bwd_times_phase(torch, kfwd, kbwd, train_launches, fwd_row):
-    """The backward kernels, each launched alone, at the training path's
-    attention shape (B 4, 32/8 heads, S 2048, D 64, causal, f32) beside their
-    plain versions, the backward of ``scaled_dot_product_attention`` and
-    their bounds; adds the forward kernel's time at that shape and its
-    training launches to ``fwd_row``."""
+    """The fused backward kernel at the training path's attention shape (B 4,
+    32/8 heads, S 2048, D 64, causal) in f32, as the path runs, and in bf16,
+    beside its plain version (f32), the whole backward of
+    ``scaled_dot_product_attention`` (dq, dk and dv: the same work) in the
+    same dtype and call, its bounds, and max |dQ(run 1) - dQ(run 2)| of two
+    launches on the same inputs (dQ's atomic adds run in another order);
+    adds the forward kernel's time at that shape and its training launches
+    to ``fwd_row``. Returns the kernel's row."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    f32 = torch.float32
-    peak = PEAK_FLOPS["float32"]
     b, hq, hkv, s, d = TRAIN_BATCH, 32, 8, TRAIN_SEQ, 64
-    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, f32)
-    do = _rand(torch, gen, (b, hq, s, d), f32)
-    o, lse = kfwd.flash_fwd(q, k, v, causal=True)
-    delta = kbwd.row_delta(o, do)
-    kw = dict(causal=True, window=None, scale=d ** -0.5, dropout_rate=0.0,
-              dropout_seed=0, segment_ids=None, acc_dtype=f32)
     pairs = s * (s + 1) // 2                  # causal (q, k) pairs per head
-    rows_bytes = 4 * 2 * b * hq * s           # lse and delta
-    q_bytes, kv_bytes = 4 * b * hq * s * d, 4 * b * hkv * s * d
+    flops = 10 * d * b * hq * pairs           # S, dP, dV, dK, dQ: 2 D each
+    row = {"name": "flash_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+           "replaces": "src/repro/kernels/flash_bwd.py:98, "
+                       "src/repro/kernels/flash_bwd.py:164",
+           "launches": train_launches["flash_bwd"]}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+        do = _rand(torch, gen, (b, hq, s, d), dtype)
+        o, lse = kfwd.flash_fwd(q, k, v, causal=True)
+        delta = kbwd.row_delta(o, do)
+        kw = dict(causal=True, scale=d ** -0.5)
+        el = q.element_size()
+        q_bytes, kv_bytes = el * b * hq * s * d, el * b * hkv * s * d
+        rows_bytes = 4 * 2 * b * hq * s       # lse and delta
+        if dtype == torch.float32:            # the forward at the training shape
+            o_ref, _ = kfwd.flash_fwd_torch(q, k, v, causal=True)
+            fb = bounds(4 * b * hq * d * pairs,
+                        2 * q_bytes + 2 * kv_bytes + rows_bytes // 2)
+            fwd_row.update({
+                "launches_by_path": {"serve": fwd_row["launches"],
+                                     "train": train_launches["flash_fwd"]},
+                "train_shape_max_abs_err": _maxerr(o, o_ref),
+                "train_shape_ms": time_ms(torch, lambda: kfwd.flash_fwd(
+                    q, k, v, causal=True), 10),
+                "train_shape_plain_ms": time_ms(torch, lambda: kfwd.flash_fwd_torch(
+                    q, k, v, causal=True), 2, warmup=1),
+                "train_shape_bound_ms": fb["bound_ms"],
+                "train_shape_bound_ms_no_tensor_cores": fb["bound_ms_no_tensor_cores"],
+                "train_shape_library_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), 10),
+            })
+            del o_ref
+            print(f"[times] flash_fwd at the training shape (B {b}, {hq}/{hkv} "
+                  f"heads, S {s}, D {d}, causal, f32): kernel "
+                  f"{fwd_row['train_shape_ms']:.4f} ms, plain "
+                  f"{fwd_row['train_shape_plain_ms']:.4f} ms, sdpa "
+                  f"{fwd_row['train_shape_library_ms']:.4f} ms, bound "
+                  f"{fb['bound_ms']:.4f} ms (TF32 tensor cores), "
+                  f"{fb['bound_ms_no_tensor_cores']:.4f} ms without", flush=True)
 
-    # the forward at the training shape (the serving row keeps its shape)
-    o_ref, _ = kfwd.flash_fwd_torch(q, k, v, causal=True)
-    flops = 4 * b * hq * d * pairs
-    nbytes = 2 * q_bytes + 2 * kv_bytes + rows_bytes // 2
-    fwd_row.update({
-        "launches_by_path": {"serve": fwd_row["launches"],
-                             "train": train_launches["flash_fwd"]},
-        "train_shape_max_abs_err": _maxerr(o, o_ref),
-        "train_shape_ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, causal=True), 10),
-        "train_shape_plain_ms": time_ms(
-            torch, lambda: kfwd.flash_fwd_torch(q, k, v, causal=True), 2, warmup=1),
-        "train_shape_bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "train_shape_library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10),
-    })
-    del o_ref
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 10)
+        del qg, kg, vg, out
 
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-        out, (qg, kg, vg), do, retain_graph=True), 10)
-    del qg, kg, vg, out
-
-    rows = []
-    for name, launch, plain_fn, line, fpp, nbytes in (
-            ("flash_bwd_dkv", kbwd.launch_dkv, kbwd.flash_bwd_dkv_torch, 98, 8 * d,
-             2 * q_bytes + 4 * kv_bytes + rows_bytes),
-            ("flash_bwd_dq", kbwd.launch_dq, kbwd.flash_bwd_dq_torch, 164, 6 * d,
-             3 * q_bytes + 2 * kv_bytes + rows_bytes)):
-        got = launch(q, k, v, lse, do, delta, **kw)
-        plain = plain_fn(q, k, v, lse, do, delta, **kw)
-        if name == "flash_bwd_dq":
-            got, plain = (got,), (plain,)
-        err = max(_maxerr(g, gp) for g, gp in zip(got, plain))
-        flops = fpp * b * hq * pairs
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
-            "replaces": f"src/repro/kernels/flash_bwd.py:{line}",
-            "launches": train_launches[name], "max_abs_err": err,
-            "ms": time_ms(torch, lambda: launch(q, k, v, lse, do, delta, **kw), 10),
-            "plain_ms": time_ms(torch, lambda: plain_fn(q, k, v, lse, do, delta, **kw),
-                                2, warmup=1),
-            "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-            "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
-            "library_ms": lib_ms,
-        })
-        del got, plain
-    print(f"[times] flash_fwd at the training shape (B {b}, {hq}/{hkv} heads, "
-          f"S {s}, D {d}, causal, f32): kernel {fwd_row['train_shape_ms']:.4f} ms, "
-          f"plain {fwd_row['train_shape_plain_ms']:.4f} ms, sdpa "
-          f"{fwd_row['train_shape_library_ms']:.4f} ms, bound "
-          f"{fwd_row['train_shape_bound_ms']:.4f} ms")
-    for row in rows:
-        print(f"[times] {row['name']} at the training shape: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              f"backward (dq, dk and dv together) {row['library_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 peak "
-              f"{peak / 1e12:.0f} TFLOP/s without tensor cores)")
-    del q, k, v, do, o, lse, delta
+        call = lambda: kbwd.launch_bwd(q, k, v, lse, do, delta, **kw)  # noqa: E731
+        got, again = call(), call()
+        rerun = _maxerr(got[0], again[0])
+        bd = bounds(flops, 3 * q_bytes + 4 * kv_bytes + rows_bytes, dn)
+        part = {"ms": time_ms(torch, call, 10), "library_ms": lib_ms, **bd,
+                "dq_rerun_max_abs_diff": rerun}
+        if dtype == torch.float32:
+            plain = kbwd.flash_bwd_torch(q, k, v, lse, do, delta, **kw)
+            part["max_abs_err"] = max(_maxerr(g, gp) for g, gp in zip(got, plain))
+            part["plain_ms"] = time_ms(
+                torch, lambda: kbwd.flash_bwd_torch(q, k, v, lse, do, delta, **kw),
+                2, warmup=1)
+            part["bound_ms_3xtf32"] = 3 * flops / PEAK_FLOPS["float32"] * 1e3
+            row.update(part)
+            del plain
+        else:
+            row.update({f"bf16_{key}": val for key, val in part.items()})
+        print(f"[times] flash_bwd at the training shape (B {b}, {hq}/{hkv} heads, "
+              f"S {s}, D {d}, causal, {dn}): kernel {part['ms']:.4f} ms"
+              + (f", plain {part['plain_ms']:.4f} ms" if "plain_ms" in part else "")
+              + f", sdpa backward (dq, dk and dv together) {lib_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {dn} tensor cores)"
+              + (f", 3xTF32 {part['bound_ms_3xtf32']:.4f} ms" if "bound_ms_3xtf32" in part
+                 else "")
+              + f", without tensor cores {bd['bound_ms_no_tensor_cores']:.4f} ms; "
+              f"{flops / part['ms'] / 1e9:.1f} TFLOP/s; max|dq(run 1) - dq(run 2)| "
+              f"{rerun:.3e}", flush=True)
+        del q, k, v, do, o, lse, delta, got, again
     torch.cuda.empty_cache()
-    return rows
+    return row
 
 
 def paged_times_phase(torch, kdecode, paged_launches, errs):
@@ -1502,7 +1569,6 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
 
     gen = torch.Generator(device="cuda").manual_seed(77)
     f32 = torch.float32
-    peak = PEAK_FLOPS["float32"]
     hq, hkv, d, ps, t = 32, 8, 64, 16, 37
     shapes = {
         "decode": torch.randint(528, 577, (8,), generator=gen, device="cuda",
@@ -1533,8 +1599,7 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
                 q, kp, vp, bt, kv_len), iters),
             "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
                 q, kp, vp, bt, kv_len=kv_len), 5),
-            "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-            "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+            **bounds(flops, nbytes),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), iters),
         }
@@ -1544,7 +1609,8 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
               f"{out[shape]['ms']:.5f} ms, plain {out[shape]['plain_ms']:.4f} ms, "
               f"sdpa on the contiguous equivalent (gather excluded) "
               f"{out[shape]['library_ms']:.5f} ms, bound "
-              f"{out[shape]['bound_ms']:.5f} ms ({out[shape]['bound_by']})")
+              f"{out[shape]['bound_ms']:.5f} ms ({out[shape]['bound_by']}; "
+              f"without tensor cores {out[shape]['bound_ms_no_tensor_cores']:.5f} ms)")
         del q, kp, vp, bt, kc, vc, o
     row = {"name": "flash_paged_decode", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1572,7 +1638,6 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
 
     gen = torch.Generator(device="cuda").manual_seed(78)
     f32 = torch.float32
-    peak = PEAK_FLOPS["float32"]
     hq, hkv, d, ps, t = 32, 8, 64, 16, 37
     shapes = {
         "decode": torch.randint(528, 577, (8,), generator=gen, device="cuda",
@@ -1613,8 +1678,7 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
             "ms": time_ms(torch, call, iters),
             "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_partials_torch(
                 q, kl, vl, bt_l, kv_len=kv_len, block_valid=valid), 5),
-            "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
-            "bound_by": "operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+            **bounds(flops, nbytes),
             "library_ms": None,
         }
         try:   # the yardstick: (o, lse) over the owned rows, gather excluded
@@ -1639,7 +1703,8 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
               f"K/V rows, f32): kernel {row['ms']:.5f} ms, plain "
               f"{row['plain_ms']:.4f} ms, efficient attention with lse on the "
               f"owned rows (gather excluded) {lib}, bound {row['bound_ms']:.5f} "
-              f"ms ({row['bound_by']})", flush=True)
+              f"ms ({row['bound_by']}; without tensor cores "
+              f"{row['bound_ms_no_tensor_cores']:.5f} ms)", flush=True)
         del q, kl, vl, bt, bt_l, valid
     result = {"name": "flash_paged_decode_partials", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_decode.cu",

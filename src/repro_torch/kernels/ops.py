@@ -2,7 +2,7 @@
 
 ``mha`` is the trainable fused attention, a ``torch.autograd.Function``
 (JAX's ``custom_vjp``): forward = ``flash_fwd``, backward = ``flash_bwd``
-(the two backward kernels, recomputing P from the saved lse) — the CUDA
+(the fused backward kernel, recomputing P from the saved lse) — the CUDA
 kernels on a CUDA tensor, their plain versions on a CPU tensor.
 ``mha_reference`` is the unfused oracle and ``mha_torch`` the chunked
 plain-torch algorithm (the counterpart of ``mha_xla``); both differentiate
