@@ -32,7 +32,12 @@ Phases, each of which exits non-zero on failure:
              partials) at the same cases with about half the table entries
              foreign and their pages 1e6, and two shards' partials (local
              pools, tables remapped to local ids, local trash pages 1e6)
-             merged against the ungated kernel on the whole pool;
+             merged against the ungated kernel on the whole pool; both
+             also at a packed chunk row of 256 token rows over three tables
+             and padding (query tiles with mixed tables, ``row_tokens``
+             256) at D 64, D 32 and D 128 with a GQA group of 5, and each
+             case's launch geometry printed (clusters at the decode shape,
+             which must put a block on every SM);
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -77,7 +82,11 @@ Phases, each of which exits non-zero on failure:
              with its log-sum-exp on the owned rows for the gated kernel: a
              yardstick the port never calls) and its bound at the tensor-core
              peak of its dtype (beside the bound without tensor cores),
-             printed as one JSON line.
+             printed as one JSON line; the decode kernels' rows also carry
+             ``device_ms`` (the kernel alone, cold L2) and ``host_us`` (a
+             wrapper call) from ``perf/decode_times.py``, at the decode
+             shape and (``<shape>_shape_``) at the chunk, at decode with 32
+             and 64 slots and at verify (8 slots of 5 token rows).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -216,6 +225,7 @@ def main(argv=None) -> None:
     rows.append(bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0]))
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
     rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
+    device_times_phase(rows)
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     print(json.dumps({"kernels": rows}))
     print(smi)
@@ -256,7 +266,8 @@ def build_report(_build) -> None:
                               r"(?:Lb([01]))?", line)
                 entry = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
                          f"D{m.group(3)}{', acc bf16' if m.group(4) == '1' else ''}"
-                         f"{', paged' if 'PagedCache' in line else ''}>"
+                         f"{', paged' if 'PagedCache' in line else ''}"
+                         f"{', query tiles' if 'ELb1EEEvNS_12Decode' in line else ''}>"
                          if m else line.split("'")[1][:60])
                 continue
             if "spill" in line:
@@ -436,9 +447,57 @@ def _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t, dtype, window=None):
     return q, kp, vp, bt
 
 
+# a packed chunk row of granite's chunk width: spans (history, new tokens)
+# of three sequences, each its own table, then padding rows (the trash
+# table, kv_len 0), as ``serving/engine.py`` packs a chunk
+CHUNK_MIXED = ([(300, 120), (0, 64), (180, 60)], 12)
+
+
+def _token_rows_case(torch, gen, hq, hkv, d, ps, t, dtype, spans, pads):
+    """q, a pool and the token rows' tables and kv_len for ``spans`` and
+    ``pads`` (``CHUNK_MIXED``); the trash page 0 holds 1e6."""
+    n_pages = 1 + len(spans) * t
+    kp = _rand(torch, gen, (hkv, n_pages, ps, d), dtype)
+    vp = _rand(torch, gen, (hkv, n_pages, ps, d), dtype)
+    kp[:, 0], vp[:, 0] = 1e6, 1e6
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    tables, lens = [], []
+    for i, (h, n) in enumerate(spans):
+        table = perm[i * t:(i + 1) * t].to(torch.int32)
+        table[-(-(h + n) // ps):] = 0                  # past the allocation
+        tables += [table] * n
+        lens += list(range(h + 1, h + n + 1))
+    tables += [torch.zeros_like(tables[0])] * pads
+    lens += [0] * pads
+    q = _rand(torch, gen, (len(lens), hq, d), dtype)
+    return (q, kp, vp, torch.stack(tables).contiguous(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def _geometry_line(torch, kdecode, name, rows, hq, hkv, skv, ns, row_tokens, d):
+    """Print a launch's geometry (f32, paged); at the engine's decode shape
+    (8 rows of 8 kv heads) fail unless it puts a block on every SM in
+    clusters."""
+    geo = kdecode.launch_geometry(rows, hq, hkv, skv, ns, row_tokens=row_tokens,
+                                  head_dim=d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = geo["blocks"] // geo["cluster"]
+    print(f"[kernels] {name} splits={ns}: {rows} rows (row_tokens {row_tokens}) -> "
+          f"{geo['rows_per_block']} a block, {clusters} clusters of {geo['cluster']} ({geo['blocks']} "
+          f"blocks on {sms} SMs; the card holds {geo['resident_clusters']} such "
+          f"clusters at once)", flush=True)
+    if rows * hkv == 64 and ns == 1 and (
+            geo["cluster"] < 2 or geo["blocks"] < sms
+            or geo["resident_clusters"] < clusters):
+        fail(f"{name}: the decode shape leaves SMs without a block ({geo})")
+    return geo
+
+
 def paged_kernel_phase(torch, kdecode):
     """The paged decode kernel against its plain version, f32 and bf16, and
-    bit for bit against the contiguous kernel on the gathered pages."""
+    bit for bit against the contiguous kernel on the gathered pages; each
+    case's launch geometry (clusters at the decode shape, query tiles for
+    token rows)."""
     gen = torch.Generator(device="cuda").manual_seed(2024)
     cases = [
         # name, kv_len, hq, hkv, d, page size, table width, window
@@ -446,26 +505,40 @@ def paged_kernel_phase(torch, kdecode):
         ("ps4_g5_d128", [592, 40, 0, 333], 40, 8, 128, 4, 148, None),
         ("ps32_g4_window", [600, 0, 256, 31, 500, 64, 449, 2], 32, 8, 64, 32, 19, 100),
         ("chunk_256_rows", [0] * 16 + list(range(301, 541)), 32, 8, 64, 16, 37, None),
+        ("chunk_mixed_tables", None, 32, 8, 64, 16, 37, None),
+        ("chunk_mixed_d32", None, 32, 8, 32, 16, 37, None),
+        ("chunk_mixed_g5_d128", None, 40, 8, 128, 16, 37, None),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for name, lens, hq, hkv, d, ps, t, window in cases:
-            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t,
-                                        dtype, window)
+            if lens is None:                 # spans of three tables, padding
+                q, kp, vp, bt, kv_len = _token_rows_case(
+                    torch, gen, hq, hkv, d, ps, t, dtype, *CHUNK_MIXED)
+                lens = kv_len.tolist()
+            else:
+                kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps,
+                                            t, dtype, window)
             if name == "chunk_256_rows":     # every token row reads one table
                 bt = bt[-1:].expand(len(lens), t).contiguous()
+            # a chunk's rows are the token rows of one batch row
+            rt = len(lens) if name.startswith("chunk") else 1
             kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
             zero = kv_len == 0
             for ns in (1, 3):
-                o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len,
-                                               window=window, num_splits=ns)
+                if dtype == torch.float32:
+                    _geometry_line(torch, kdecode, f"flash_paged_decode {name}",
+                                   len(lens), hq, hkv, t * ps, ns, rt, d)
+                o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window,
+                                               num_splits=ns, row_tokens=rt)
                 torch.cuda.synchronize()
                 o_ref = kdecode.flash_paged_decode_torch(
                     q, kp, vp, bt, kv_len=kv_len, window=window, num_splits=ns)
                 o_contig = kdecode.flash_decode(q, kc, vc, kv_len=kv_len,
-                                                window=window, num_splits=ns)
+                                                window=window, num_splits=ns,
+                                                row_tokens=rt)
                 e, ec = _maxerr(o, o_ref), _maxerr(o, o_contig)
                 zero_ok = float(o[zero].abs().max()) == 0.0 if bool(zero.any()) else True
                 ok = (e <= TOL[dn] and ec == 0.0 and zero_ok
@@ -530,29 +603,44 @@ def gated_kernel_phase(torch, kdecode):
         ("ps4_g5_d128", [592, 40, 0, 333], 40, 8, 128, 4, 148, None),
         ("ps32_g4_window", [600, 0, 256, 31, 500, 64, 449, 2], 32, 8, 64, 32, 19, 100),
         ("chunk_256_rows", [0] * 16 + list(range(301, 541)), 32, 8, 64, 16, 37, None),
+        ("chunk_mixed_tables", None, 32, 8, 64, 16, 37, None),
+        ("chunk_mixed_d32", None, 32, 8, 32, 16, 37, None),
+        ("chunk_mixed_g5_d128", None, 40, 8, 128, 16, 37, None),
     ]
     errs, worst = {}, {"gate": 0.0, "lse": 0.0, "shards": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for name, lens, hq, hkv, d, ps, t, window in cases:
-            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            q, kp, vp, bt, n_local = _sharded_case(torch, gen, kv_len, hq, hkv,
-                                                   d, ps, t, dtype, window)
+            if lens is None:                 # spans of three tables, padding
+                q, kp, vp, bt, kv_len = _token_rows_case(
+                    torch, gen, hq, hkv, d, ps, t, dtype, *CHUNK_MIXED)
+                lens, n_local = kv_len.tolist(), kp.shape[1] // 2
+            else:
+                kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                q, kp, vp, bt, n_local = _sharded_case(torch, gen, kv_len, hq,
+                                                       hkv, d, ps, t, dtype, window)
             if name == "chunk_256_rows":     # every token row reads one table
                 bt = bt[-1:].expand(len(lens), t).contiguous()
             b = len(lens)
+            rt = b if name.startswith("chunk") else 1     # one batch row's tokens
             for ns in (1, 3):
+                if dtype == torch.float32:
+                    _geometry_line(torch, kdecode,
+                                   f"flash_paged_decode_partials {name}", b, hq,
+                                   hkv, t * ps, ns, rt, d)
                 # (a) the gate alone, on the whole pool
                 valid = (torch.rand((b, t), generator=gen, device="cuda") < 0.5
                          ).to(torch.int32)
                 if name == "chunk_256_rows":  # one table: one ownership
                     valid = valid[-1:].expand(b, t).contiguous()
+                elif name.startswith("chunk_mixed"):   # ownership by page id
+                    valid = (bt % 2).to(torch.int32).contiguous()
                 kpa, vpa = kp.clone(), vp.clone()
                 foreign = bt[valid == 0].long()
                 kpa[:, foreign], vpa[:, foreign] = 1e6, 1e6
                 part = kdecode.flash_paged_decode_partials(
                     q, kpa, vpa, bt, kv_len, block_valid=valid, window=window,
-                    num_splits=ns)
+                    num_splits=ns, row_tokens=rt)
                 torch.cuda.synchronize()
                 ref = kdecode.flash_paged_decode_partials_torch(
                     q, kpa, vpa, bt, kv_len=kv_len, block_valid=valid,
@@ -570,7 +658,8 @@ def gated_kernel_phase(torch, kdecode):
                 del kpa, vpa
                 # (b) two shards merged against the ungated kernel, whole pool
                 whole = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len,
-                                                   window=window, num_splits=ns)
+                                                   window=window, num_splits=ns,
+                                                   row_tokens=rt)
                 states = []
                 for shard in range(2):
                     lo = shard * n_local
@@ -579,7 +668,7 @@ def gated_kernel_phase(torch, kdecode):
                         q, kp[:, lo:lo + n_local].contiguous(),
                         vp[:, lo:lo + n_local].contiguous(), bt_l.contiguous(),
                         kv_len, block_valid=valid_l.contiguous(),
-                        window=window, num_splits=ns)
+                        window=window, num_splits=ns, row_tokens=rt)
                     states.append(osm.SoftmaxState(m=m, l=l, acc=acc))
                 merged, _ = osm.finalize(osm.merge(*states), out_dtype=dtype)
                 torch.cuda.synchronize()
@@ -1581,7 +1670,8 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
         if shape == "chunk":
             bt = bt[-1:].expand(kv_len.shape[0], t).contiguous()
         b = kv_len.shape[0]
-        o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len)
+        rt = b if shape == "chunk" else 1                    # one batch row's tokens
+        o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, row_tokens=rt)
         err = _maxerr(o, kdecode.flash_paged_decode_torch(q, kp, vp, bt,
                                                           kv_len=kv_len))
         pos = torch.arange(t * ps, device="cuda")
@@ -1596,7 +1686,7 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
         out[shape] = {
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
-                q, kp, vp, bt, kv_len), iters),
+                q, kp, vp, bt, kv_len, row_tokens=rt), iters),
             "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
                 q, kp, vp, bt, kv_len=kv_len), 5),
             **bounds(flops, nbytes),
@@ -1658,8 +1748,9 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
         kl = kp[:, :n_local].contiguous()
         vl = vp[:, :n_local].contiguous()
         del kp, vp
+        rt = b if shape == "chunk" else 1                    # one batch row's tokens
         call = lambda: kdecode.flash_paged_decode_partials(      # noqa: E731
-            q, kl, vl, bt_l, kv_len, block_valid=valid)
+            q, kl, vl, bt_l, kv_len, block_valid=valid, row_tokens=rt)
         part = call()
         ref = kdecode.flash_paged_decode_partials_torch(
             q, kl, vl, bt_l, kv_len=kv_len, block_valid=valid)
@@ -1720,6 +1811,28 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
           f"(gate and two-shard checks, f32 and bf16) {worst:.3e}")
     torch.cuda.empty_cache()
     return result
+
+
+def device_times_phase(rows) -> None:
+    """Rows 4-6 gain the kernel's device time alone and the wrapper's host
+    time (``perf/decode_times.py``): ``device_ms`` from ``torch.profiler``
+    (or a CUDA graph) over launches rotating over cache copies whose bytes
+    exceed the L2 (cold, as each layer of the engine finds its pages), and
+    ``host_us`` a wrapper call; ``<shape>_shape_`` the same at the other
+    shapes (chunk, decode with 32 and 64 slots, verify)."""
+    from repro_torch.perf import decode_times
+
+    by_name = {row["name"]: row for row in rows}
+    for name, shapes in decode_times.measure().items():
+        for shape, r in shapes.items():
+            prefix = "" if shape == "decode" else f"{shape}_shape_"
+            for key in ("device_ms", "device_ms_method", "device_ms_copies",
+                        "host_us"):
+                by_name[name][prefix + key] = r[key]
+            print(f"[times] {name} at the {shape} shape: device "
+                  f"{r['device_ms']:.5f} ms ({r['device_ms_method']}, cold L2: "
+                  f"{r['device_ms_copies']} cache copies), host "
+                  f"{r['host_us']:.2f} us a wrapper call", flush=True)
 
 
 if __name__ == "__main__":

@@ -83,7 +83,8 @@ def spark_decode(q, k, v, *, impl: str = "kernel", kv_len=None,
 
 def spark_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
                        impl: str = "kernel", window: Optional[int] = None,
-                       scale: Optional[float] = None, num_splits: int = 1):
+                       scale: Optional[float] = None, num_splits: int = 1,
+                       row_tokens: int = 1):
     """Single-token decode against a paged KV cache (the serving engine's
     attention). q [B,Hq,D]; k_pages/v_pages [Hkv,P,page_size,D], a pool
     shared by all rows; block_tables [B,T] int32, the physical page of each
@@ -93,14 +94,17 @@ def spark_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
     ``impl="kernel"`` reads the pages through the table inside the CUDA
     kernel; the plain impls gather the pages into a contiguous cache and run
     :func:`spark_decode`'s masked decode (JAX's XLA path), split-KV over the
-    gathered length when ``num_splits > 1``.
+    gathered length when ``num_splits > 1``. ``row_tokens`` is the kernel's
+    launch hint (``kernels/decode.py``): S when the rows are S token rows of
+    each batch row flattened (chunked prefill, verify); the plain impls
+    ignore it.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
         return ops.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
                                 window=window, scale=scale,
-                                num_splits=num_splits)
+                                num_splits=num_splits, row_tokens=row_tokens)
     return spark_decode(q, ops.gather_pages(k_pages, block_tables),
                         ops.gather_pages(v_pages, block_tables), impl=impl,
                         kv_len=kv_len, window=window, scale=scale,
@@ -111,7 +115,7 @@ def spark_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
                                 block_valid=None, impl: str = "kernel",
                                 window: Optional[int] = None,
                                 scale: Optional[float] = None,
-                                num_splits: int = 1):
+                                num_splits: int = 1, row_tokens: int = 1):
     """Paged decode stopping at the un-finalised online-softmax state: the
     building block of distributed paged serving.
 
@@ -123,16 +127,18 @@ def spark_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
     (``distributed/paged.py``). ``num_splits > 1`` merges split-KV partials
     within the shard first, which composes with the cross-shard merge.
 
-    ``impl="kernel"`` gates per row inside the CUDA kernel; the plain impls
-    gather the pages and gate per position with ``block_valid`` repeated
-    over each page's rows, as JAX's XLA path does.
+    ``impl="kernel"`` gates per row inside the CUDA kernel (``row_tokens``
+    as in :func:`spark_paged_decode`); the plain impls gather the pages and
+    gate per position with ``block_valid`` repeated over each page's rows,
+    as JAX's XLA path does.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
         return ops.paged_decode_partials(
             q, k_pages, v_pages, block_tables, kv_len, block_valid=block_valid,
-            window=window, scale=scale, num_splits=num_splits)
+            window=window, scale=scale, num_splits=num_splits,
+            row_tokens=row_tokens)
     ps = k_pages.shape[2]
     pos_valid = None
     if block_valid is not None:

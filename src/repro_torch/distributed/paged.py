@@ -118,20 +118,23 @@ def scatter_pages_sharded(pages, dest, vals, *, mesh: PoolMesh) -> None:
 def paged_decode_sharded(q, k_pages, v_pages, block_tables, kv_len, *,
                          mesh: PoolMesh, impl: str = "kernel",
                          window: Optional[int] = None,
-                         scale: Optional[float] = None, num_splits: int = 1):
+                         scale: Optional[float] = None, num_splits: int = 1,
+                         row_tokens: int = 1):
     """Sharded paged decode, no append: the distributed counterpart of
     ``spark_paged_decode`` (chunked prefill and verify, one decode row per
     token). q [B, Hq, D] replicated; k_pages/v_pages this rank's
     [Hkv, P_local, ps, D]; block_tables [B, T] global ids; kv_len [B].
     ``num_splits`` applies split-KV *within* each shard: the shard-local
-    splits merge locally, then across shards. Returns o [B, Hq, D] in
-    q.dtype, identical on every rank."""
+    splits merge locally, then across shards; ``row_tokens`` is the
+    kernel's launch hint (S for B·S flattened token rows). Returns o
+    [B, Hq, D] in q.dtype, identical on every rank."""
     n_local = k_pages.shape[1]
     pages_per_shard(n_local * mesh.size, mesh.size)
     bt_local, valid = _local_ids(block_tables, n_local, mesh.rank)
     acc, m, l = spark_paged_decode_partials(
         q, k_pages, v_pages, bt_local, kv_len, block_valid=valid, impl=impl,
-        window=window, scale=scale, num_splits=num_splits)
+        window=window, scale=scale, num_splits=num_splits,
+        row_tokens=row_tokens)
     return merge_partials(acc, m, l, mesh, out_dtype=q.dtype)
 
 

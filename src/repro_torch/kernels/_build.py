@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled, at first
 use, into ``build/kernels/lib<name>-<digest>.so`` under the repository root
-(the digest covers the source and the flags, so an edited source is rebuilt).
+(the digest covers the source, the headers of ``csrc/`` and the flags, so an
+edited source or header is rebuilt).
 Nothing is prebuilt and nothing is fetched: the checkout plus the CUDA
 toolkit's ``nvcc`` are enough. ``build(names)`` starts one nvcc per source,
 all at once, and keeps ptxas's register and shared-memory report of each.
@@ -41,6 +42,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # csrc/mma.cuh, ...
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -74,6 +77,23 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets
+
+
+def write_variant(name: str, edits, out: Path) -> Path:
+    """Copy ``csrc/<name>.cu`` and the headers of ``csrc/`` into ``out``, each
+    text edit ``(old, new)`` applied to the one file that holds ``old``;
+    returns the copy of the source (for the ablation scripts)."""
+    files = {p.name: p.read_text()
+             for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh")))}
+    for old, new in edits:
+        holders = [f for f, text in files.items() if old in text]
+        if len(holders) != 1:
+            raise RuntimeError(f"{old!r} is in {holders or 'no file'} of {name}")
+        files[holders[0]] = files[holders[0]].replace(old, new)
+    out.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        (out / f).write_text(text)
+    return out / f"{name}.cu"
 
 
 def kernel_fn(name: str, symbol: str, argtypes: Sequence):

@@ -4,7 +4,7 @@ Counterpart of ``repro.kernels.decode.flash_decode`` (contiguous cache) and
 ``flash_paged_decode`` (page pool). One query token per row attends to its
 cache over the first ``kv_len[b]`` positions, optionally gated by a sliding
 window. The GQA group ``G = Hq // Hkv`` shares every K/V tile.
-``num_splits > 1`` cuts the 128-wide KV tiles into that many contiguous
+``num_splits > 1`` cuts the 64-wide KV tiles into that many contiguous
 slices, each folded into raw f32 ``(acc, m, l)`` partials;
 :func:`_split_states` + ``merge_many`` + ``finalize`` combine them in plain
 torch (plain XLA in JAX).
@@ -13,7 +13,7 @@ The cache is contiguous, ``k/v [B, Hkv, S, D]``, or paged: a pool
 ``k_pages/v_pages [Hkv, P, page_size, D]`` shared by all rows and read
 through ``block_tables [B, T]`` (row b's logical block j lives in page
 ``block_tables[b, j]``; entries past a row's allocation name the trash page
-0). The paged kernel walks the same 128-row tiles as the contiguous one and
+0). The paged kernel walks the same 64-row tiles as the contiguous one and
 resolves each row through the table, so on gathered pages the two agree
 bit for bit. JAX folds page-sized blocks and splits the table width; the
 port splits the tiles: equal within the f32 tolerance.
@@ -27,11 +27,18 @@ splits already merged, for the cross-shard merge of
 ``distributed/paged.py``.
 
 On a CUDA tensor :func:`flash_decode` / :func:`flash_paged_decode` /
-:func:`flash_paged_decode_partials` launch ``csrc/flash_decode.cu`` (one
-block per (row, kv head, split)); on a CPU tensor they run
-:func:`flash_decode_torch` / :func:`flash_paged_decode_torch` /
-:func:`flash_paged_decode_partials_torch`, the same tiles and splits in
-plain torch.
+:func:`flash_paged_decode_partials` launch ``csrc/flash_decode.cu``: a
+cluster of blocks per (rows, kv head, split) deals the split's tiles over
+its blocks and merges their states on chip. ``row_tokens`` is a launch
+hint that changes no result beyond rounding: a chunked-prefill or verify
+call, whose rows are S token rows of each batch row flattened, passes S,
+and the kernel folds each tile once for every run of consecutive rows that
+read one table (on tensor cores); decode passes 1 (the default), one row a
+block (:func:`launch_geometry` gives the shape of a launch). On a CPU
+tensor they run :func:`flash_decode_torch` /
+:func:`flash_paged_decode_torch` / :func:`flash_paged_decode_partials_torch`,
+the same tiles and splits in plain torch, one row at a time; the kernel's
+cluster merge orders the f32 sums of a split differently.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import online_fold
 from repro_torch.kernels.flash_fwd import DTYPES, HEAD_DIMS
 
-TILE = 128       # BKV in csrc/flash_decode.cu
+TILE = 64        # BKV in csrc/flash_decode.cu
 MAX_GROUP = 8    # MAXG in csrc/flash_decode.cu
 
 #: kernel launches since the last reset (the plain versions do not count):
@@ -57,10 +64,9 @@ launches_paged = 0
 launches_paged_valid = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_int, _P]
-_PAGED_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                                   ctypes.c_int, _P]
+_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P]
+_PAGED_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P]
+_GEOMETRY_ARGTYPES = [ctypes.c_int] * 9 + [_P]
 
 
 def split_layout(skv: int, num_splits: int):
@@ -97,7 +103,8 @@ def _merge_partials(acc, m, l, b, hq, out_dtype):
     return o
 
 
-def _check_inputs(q, k, v, kv_len, window, num_splits, *, paged=False):
+def _check_inputs(q, k, v, kv_len, window, num_splits, *, paged=False,
+                  row_tokens=1):
     """Shapes of a decode call: q [B, Hq, D]; k/v [B, Hkv, S, D] or, paged,
     the pool [Hkv, P, page_size, D]; kv_len [B]."""
     what = "k/v pages [Hkv,P,ps,D]" if paged else "k/v [B,Hkv,S,D]"
@@ -119,12 +126,14 @@ def _check_inputs(q, k, v, kv_len, window, num_splits, *, paged=False):
         raise ValueError(f"window must be positive, got {window}")
     if num_splits < 1:
         raise ValueError(f"num_splits must be >= 1, got {num_splits}")
+    if row_tokens < 1:
+        raise ValueError(f"row_tokens must be >= 1, got {row_tokens}")
 
 
 def _check_kernel_inputs(name, q, k, v, hkv, kv_len, *tables):
     """What the CUDA kernel takes, beyond :func:`_check_inputs`. Its tile
-    loader reads k/v rows ``VEC`` elements a load (csrc/flash_decode.cu),
-    so they must be aligned to that."""
+    loader copies k/v rows and reads q 16 bytes a lane, so they must be
+    aligned to 16 bytes."""
     if q.dtype not in DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {q.dtype}")
     if kv_len.dtype != torch.int32:
@@ -136,30 +145,56 @@ def _check_kernel_inputs(name, q, k, v, hkv, kv_len, *tables):
         raise ValueError(f"{name} kernel head_dim must be in {HEAD_DIMS}, got {d}")
     if g > MAX_GROUP:
         raise ValueError(f"{name} kernel GQA group must be <= {MAX_GROUP}, got {g}")
-    align = (4 if d >= 128 else 2 if d >= 64 else 1) * q.element_size()
-    if k.data_ptr() % align or v.data_ptr() % align:
-        raise ValueError(f"{name} kernel needs k/v aligned to {align} bytes")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name} kernel needs q, k, v aligned to 16 bytes")
 
 
 def _kernel_outputs(q, hkv, ns, partials=False):
     """``(result, output pointers)``: o for one split (unless ``partials``),
-    else the f32 partials ``(acc [B,Hkv,ns,G,D], m, l [B,Hkv,ns,G])``."""
+    else the f32 partials ``(acc [B,Hkv,ns,G,D], m, l [B,Hkv,ns,G])``; with
+    one split those are already the merged state, ``acc [B,Hq,D]`` and
+    ``m, l [B,Hq]`` (the same memory layout)."""
     b, hq, d = q.shape
     if ns == 1 and not partials:
         o = torch.empty_like(q)
         return o, (o.data_ptr(), None, None, None)
     f32 = dict(dtype=torch.float32, device=q.device)
-    parts = (torch.empty((b, hkv, ns, hq // hkv, d), **f32),
-             torch.empty((b, hkv, ns, hq // hkv), **f32),
-             torch.empty((b, hkv, ns, hq // hkv), **f32))
+    lead = (b, hq) if ns == 1 else (b, hkv, ns, hq // hkv)
+    parts = (torch.empty((*lead, d), **f32), torch.empty(lead, **f32),
+             torch.empty(lead, **f32))
     return parts, (None, *(t.data_ptr() for t in parts))
 
 
+def launch_geometry(rows: int, hq: int, hkv: int, skv: int,
+                    num_splits: int = 1, *, row_tokens: int = 1,
+                    head_dim: int = 64, dtype=torch.float32,
+                    paged: bool = True) -> dict:
+    """The shape of a kernel launch of ``rows`` rows over ``skv`` cache rows
+    each on the current card: ``{"rows_per_block", "cluster", "blocks",
+    "resident_clusters"}``, the last the clusters of that launch's kernel
+    (``dtype``, ``head_dim``, paged or contiguous cache, query tiles or not)
+    the card holds at once (``csrc/flash_decode.cu`` ``geometry``,
+    ``cudaOccupancyMaxActiveClusters``). Needs a card."""
+    _, ns, _ = split_layout(skv, num_splits)
+    out = (ctypes.c_int * 4)()
+    fn = _build.kernel_fn("flash_decode", "flash_decode_geometry",
+                          _GEOMETRY_ARGTYPES)
+    _build.check("flash_decode", fn(rows, hq, hkv, skv, head_dim, DTYPES[dtype],
+                                    int(paged), ns, row_tokens,
+                                    ctypes.addressof(out)))
+    return {"rows_per_block": out[0], "cluster": out[1], "blocks": out[2],
+            "resident_clusters": out[3]}
+
+
 def flash_decode(q, k, v, *, kv_len=None, window: Optional[int] = None,
-                 scale: Optional[float] = None, num_splits: int = 1):
+                 scale: Optional[float] = None, num_splits: int = 1,
+                 row_tokens: int = 1):
     """q [B, Hq, D]; k/v [B, Hkv, S, D]; kv_len [B] int32 (default: full S).
 
     Returns o [B, Hq, D] in q.dtype; rows with kv_len == 0 are exact zeros.
+    ``row_tokens``: the launch hint of the module docstring (no two rows of
+    a contiguous cache share one, so it only slows this kernel; it takes
+    the hint so that it can be held bit for bit against the paged one).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, int32 kv_len, D in ``HEAD_DIMS``,
     Hq / Hkv <= ``MAX_GROUP``) or raises.
@@ -167,17 +202,17 @@ def flash_decode(q, k, v, *, kv_len=None, window: Optional[int] = None,
     b, skv = q.shape[0], k.shape[2]
     if kv_len is None:
         kv_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
-    _check_inputs(q, k, v, kv_len, window, num_splits)
+    _check_inputs(q, k, v, kv_len, window, num_splits, row_tokens=row_tokens)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_decode_torch(q, k, v, kv_len=kv_len, window=window,
                                   scale=scale, num_splits=num_splits)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
-    return _launch(q, k, v, kv_len, window, scale, num_splits)
+    return _launch(q, k, v, kv_len, window, scale, num_splits, row_tokens)
 
 
-def _launch(q, k, v, kv_len, window, scale, num_splits):
+def _launch(q, k, v, kv_len, window, scale, num_splits, row_tokens):
     global launches
     _check_kernel_inputs("flash_decode", q, k, v, k.shape[1], kv_len)
     b, hq, d = q.shape
@@ -187,7 +222,7 @@ def _launch(q, k, v, kv_len, window, scale, num_splits):
     fn = _build.kernel_fn("flash_decode", "flash_decode_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), *ptrs,
              b, hq, hkv, skv, d, DTYPES[q.dtype], scale, window or 0, ns,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             row_tokens, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_decode", err)
     launches += 1
     return out if ns == 1 else _merge_partials(*out, b, hq, q.dtype)
@@ -195,7 +230,7 @@ def _launch(q, k, v, kv_len, window, scale, num_splits):
 
 def flash_decode_torch(q, k, v, *, kv_len, window: Optional[int] = None,
                        scale: Optional[float] = None, num_splits: int = 1):
-    """The kernel's plain-torch version: the same 128-wide tiles and the same
+    """The kernel's plain-torch version: the same 64-wide tiles and the same
     split layout, folded through ``common.online_fold`` per split, then the
     f32 partial merge when there is more than one split."""
     return _fold_tiles(q, lambda lo, hi: (k[:, :, lo:hi], v[:, :, lo:hi]),
@@ -275,17 +310,20 @@ def gather_pages(pages, block_tables):
 
 def flash_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
                        window: Optional[int] = None,
-                       scale: Optional[float] = None, num_splits: int = 1):
+                       scale: Optional[float] = None, num_splits: int = 1,
+                       row_tokens: int = 1):
     """q [B, Hq, D]; k_pages/v_pages [Hkv, P, page_size, D]; block_tables
     [B, T] int32 (every entry a valid page id: the trash page 0 past a row's
-    allocation); kv_len [B] int32.
+    allocation); kv_len [B] int32; ``row_tokens`` the launch hint of the
+    module docstring (S for B·S flattened token rows, 1 for decode).
 
     Returns o [B, Hq, D] in q.dtype; rows with kv_len == 0 are exact zeros.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, int32 tables and kv_len, D in ``HEAD_DIMS``,
     Hq / Hkv <= ``MAX_GROUP``) or raises.
     """
-    _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True)
+    _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True,
+                  row_tokens=row_tokens)
     _check_tables(q, block_tables)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -295,7 +333,7 @@ def flash_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_paged_decode runs on cuda or cpu, not {q.device}")
     return _launch_paged(q, k_pages, v_pages, block_tables, kv_len, window,
-                         scale, num_splits)
+                         scale, num_splits, row_tokens)
 
 
 def _check_tables(q, block_tables, block_valid=None):
@@ -310,7 +348,7 @@ def _check_tables(q, block_tables, block_valid=None):
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, kv_len, window, scale,
-                  num_splits):
+                  num_splits, row_tokens):
     global launches_paged
     hkv, n_pages, ps, d = k_pages.shape
     _check_kernel_inputs("flash_paged_decode", q, k_pages, v_pages, hkv, kv_len,
@@ -326,7 +364,7 @@ def _launch_paged(q, k_pages, v_pages, block_tables, kv_len, window, scale,
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), kv_len.data_ptr(), *ptrs,
              b, hq, hkv, n_pages, ps, t, d, DTYPES[q.dtype], scale, window or 0,
-             ns, torch.cuda.current_stream(q.device).cuda_stream)
+             ns, row_tokens, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_decode", err)
     launches_paged += 1
     return out if ns == 1 else _merge_partials(*out, b, hq, q.dtype)
@@ -368,7 +406,7 @@ def _page_reader(k_pages, v_pages, block_tables):
 def flash_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
                                 block_valid=None, window: Optional[int] = None,
                                 scale: Optional[float] = None,
-                                num_splits: int = 1):
+                                num_splits: int = 1, row_tokens: int = 1):
     """Paged flash-decode stopping at the online-softmax state, for one
     shard of a page-sharded pool (counterpart of JAX
     ``flash_paged_decode_partials``).
@@ -383,7 +421,8 @@ def flash_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
     launches the kernel (as :func:`flash_paged_decode`, int32 block_valid)
     or raises.
     """
-    _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True)
+    _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True,
+                  row_tokens=row_tokens)
     _check_tables(q, block_tables, block_valid)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -395,11 +434,11 @@ def flash_paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
         raise ValueError(f"flash_paged_decode_partials runs on cuda or cpu, "
                          f"not {q.device}")
     return _launch_paged_valid(q, k_pages, v_pages, block_tables, block_valid,
-                               kv_len, window, scale, num_splits)
+                               kv_len, window, scale, num_splits, row_tokens)
 
 
 def _launch_paged_valid(q, k_pages, v_pages, block_tables, block_valid, kv_len,
-                        window, scale, num_splits):
+                        window, scale, num_splits, row_tokens):
     global launches_paged_valid
     hkv, n_pages, ps, d = k_pages.shape
     tables = (block_tables,) if block_valid is None else (block_tables, block_valid)
@@ -418,10 +457,12 @@ def _launch_paged_valid(q, k_pages, v_pages, block_tables, block_valid, kv_len,
              block_tables.data_ptr(),
              None if block_valid is None else block_valid.data_ptr(),
              kv_len.data_ptr(), *ptrs[1:], b, hq, hkv, n_pages, ps, t, d,
-             DTYPES[q.dtype], scale, window or 0, ns,
+             DTYPES[q.dtype], scale, window or 0, ns, row_tokens,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_decode", err)
     launches_paged_valid += 1
+    if ns == 1:
+        return parts
     state = _merge_states(*parts, b, hq)
     return state.acc, state.m, state.l
 

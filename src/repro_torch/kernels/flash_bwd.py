@@ -11,8 +11,12 @@ tiles, keeps dK/dV on chip and adds each tile's dQ into an f32 buffer with
 atomics, its products on tensor cores (3xTF32 for f32, bf16 mma for bf16).
 dK and dV are bit-reproducible; dQ's sum order changes from run to run, so
 it is reproducible to f32 rounding only. On a CPU tensor it runs the plain
-version, :func:`flash_bwd_torch`, which walks the same 64-wide tiles in the
-kernel's order.
+version, :func:`flash_bwd_torch`: the kernel's sums in its order of q tiles,
+over 64-row kv tiles (``flash_fwd.TILE``). The kernel takes 128 kv rows a
+block (``csrc/flash_bwd.cu`` ``Cfg::BKV``, 64 where shared memory is short:
+f32 at D 128) and adds one dQ update per block (``KCQ``; per 64 kv rows
+with bf16-ACC); the plain version adds one per 64-row tile. The two differ only
+in the order of f32 rounding.
 """
 
 from __future__ import annotations
@@ -136,10 +140,12 @@ def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
     """The kernel in plain torch: ``(dq, dk, dv)`` given ``delta =
     row_delta(o, do)``; the keywords are :func:`flash_bwd`'s.
 
-    Per 64-row kv tile it walks the q tiles the kernel visits, for every q
-    head at once: dV and dK of the tile accumulate over them and are summed
-    over the GQA group at the end, and each (q tile, kv tile)'s dQ update is
-    added into an f32 dQ. P~ and dS are rounded to the input dtype before
+    Per 64-row kv tile (the kernel's blocks take 128 kv rows: see the
+    module note) it walks the q tiles the kernel visits, for every q head at
+    once: dV and dK of the tile accumulate over them and are summed over the
+    GQA group at the end, and each (q tile, kv tile)'s dQ update is added
+    into an f32 dQ (the kernel adds one per 128-row block: only the order of
+    rounding differs). P~ and dS are rounded to the input dtype before
     their products, and with bf16 ``acc_dtype`` each 64-wide tile product is
     rounded to bf16. ``matmul`` computes every tile product (S, dP, dV, dK,
     dQ); the tests pass ``common.tf32_matmul`` to copy the kernel's 3xTF32.

@@ -126,19 +126,20 @@ def decode_reference(q, k, v, *, kv_len=None, window=None, scale=None):
 
 
 def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *, window=None,
-                 scale=None, num_splits: int = 1):
+                 scale=None, num_splits: int = 1, row_tokens: int = 1):
     """Single-token flash-decode over a paged KV cache. q [B, Hq, D];
     k_pages/v_pages [Hkv, P, page_size, D]; block_tables [B, T] int32 (the
-    trash page past each row's allocation); kv_len [B] int32."""
+    trash page past each row's allocation); kv_len [B] int32; ``row_tokens``
+    the kernel's launch hint (``kernels/decode.py``)."""
     return flash_paged_decode(q.contiguous(), k_pages.contiguous(),
                               v_pages.contiguous(), block_tables.contiguous(),
                               kv_len.contiguous(), window=window, scale=scale,
-                              num_splits=num_splits)
+                              num_splits=num_splits, row_tokens=row_tokens)
 
 
 def paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
                           block_valid=None, window=None, scale=None,
-                          num_splits: int = 1):
+                          num_splits: int = 1, row_tokens: int = 1):
     """Paged flash-decode stopping at the f32 ``(acc, m, l)`` state.
 
     ``block_valid [B, T]`` (0/1, any integer or bool dtype) gates table
@@ -154,7 +155,7 @@ def paged_decode_partials(q, k_pages, v_pages, block_tables, kv_len, *,
         q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
         block_tables.contiguous(), kv_len.contiguous(),
         block_valid=block_valid, window=window, scale=scale,
-        num_splits=num_splits)
+        num_splits=num_splits, row_tokens=row_tokens)
 
 
 def paged_decode_reference(q, k_pages, v_pages, block_tables, kv_len, *,

@@ -313,7 +313,9 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
     * chunked prefill / verify: scatter first, then each token is a decode
       row of its own (``token_tables``, ``token_kv_len`` = position + 1, 0
       for padding, which gives exact zeros): one paged-decode launch over
-      B·S rows.
+      B·S rows, told that they come S to a batch row (``row_tokens``), so
+      the kernel folds each page once for the consecutive rows that share a
+      table.
 
     With ``ctx.mesh`` the cache is this rank's shard of the pool and every
     arm goes through ``distributed/paged.py``: the scatter keeps the writes
@@ -365,7 +367,8 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
             o = decode(
                 q_tok, ck, cv, paged["token_tables"].reshape(b * s, -1),
                 paged["token_kv_len"].reshape(b * s), impl=ctx.impl,
-                window=window, num_splits=ctx.num_splits).view(b, s, hq, hd)
+                window=window, num_splits=ctx.num_splits,
+                row_tokens=s).view(b, s, hq, hd)
         else:
             o = spark_attention(q, k, v, impl=ctx.impl, causal=cfg.causal,
                                 window=cfg.attn_window, segment_ids=segment_ids,

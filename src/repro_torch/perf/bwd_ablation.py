@@ -1,9 +1,9 @@
 """Where the fused backward kernel's time goes, by ablation, on the card.
 
 Builds variants of ``kernels/csrc/flash_bwd.cu`` (D 64 only), each with
-one part of the work cut out by a text edit of a copy, and times each at
-the training shape (B 4, 32/8 heads, S 2048, D 64, causal) in f32 and
-bf16. A variant's results are wrong by design: only its time means
+one part of the work cut out by a text edit of a copy (of the source or of
+``csrc/mma.cuh``, whichever holds the text), and times each at the
+training shape (B 4, 32/8 heads, S 2048, D 64, causal) in f32 and bf16. A variant's results are wrong by design: only its time means
 something, as the time its missing part took (base minus variant, the
 parts overlapping). Run from the root of a checkout on a machine with the
 card and nvcc:
@@ -49,19 +49,13 @@ VARIANTS = {
 
 def build() -> dict:
     """{variant: library path}, one nvcc each, all at once."""
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
-    src = re.sub(r"    case (16|32|128): return launch<T, \d+, ACC16>\(p, stream\);\n",
-                 "", src)
-    OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not in flash_bwd.cu")
-            text = text.replace(old, new)
-        cu, lib = OUT / f"v{i}.cu", OUT / f"v{i}.so"
-        cu.write_text(text)
+        cu = _build.write_variant("flash_bwd", edits, OUT / f"v{i}")
+        cu.write_text(re.sub(
+            r"    case (16|32|128): return launch<T, \d+, ACC16>\(p, stream\);\n",
+            "", cu.read_text()))
+        lib = OUT / f"v{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))

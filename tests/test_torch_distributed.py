@@ -6,7 +6,7 @@ version, ``impl="kernel"`` on a CPU tensor, and the plain ``torch`` /
 interpret mode and its ``impl="xla"`` path, on the same numpy inputs with a
 random ownership mask and a 1e6-poisoned trash page: ``m`` equal, the
 normalised ``acc / l`` and ``l`` at the JAX suite's f32 tolerance 2e-5 (the
-port folds 128-row tiles, JAX page-sized blocks: the same sums in another
+port folds 64-row tiles, JAX page-sized blocks: the same sums in another
 order). Then the JAX suite's two hand-made-shard checks, mirrored.
 
 Across ranks: two ranks spawned with ``launch.mesh.run_ranks`` (gloo,
@@ -91,7 +91,7 @@ def _gated_case(hq, hkv, ps, window, ns):
     """Inputs and JAX's two results: a pool whose table entries are owned
     at random (~half), the others remapped to the 1e6-poisoned trash page
     0, as a shard sees them."""
-    d, t, b = 32, 320 // ps, 4               # a full row spans three 128-row tiles
+    d, t, b = 32, 320 // ps, 4               # a full row spans five 64-row tiles
     r = np.random.default_rng(hq * 1000 + ps * 10 + ns)
     n_pages = 1 + b * t
     q = r.standard_normal((b, hq, d), np.float32)

@@ -193,11 +193,144 @@ def test_flash_paged_decode_token_rows(cuda):
     tables = bt.expand(n, t).contiguous()
     kv_len = (torch.arange(n, device="cuda", dtype=torch.int32) + 200)
     kv_len[250:] = 0
-    o = kdecode.flash_paged_decode(q, kp, vp, tables, kv_len, num_splits=2)
+    o = kdecode.flash_paged_decode(q, kp, vp, tables, kv_len, num_splits=2,
+                                   row_tokens=n)
     o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, tables, kv_len=kv_len,
                                              num_splits=2)
     assert _err(o, o_ref) <= TOL[torch.float32]
     assert float(o[250:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv", [(8, 32, 8), (16, 64, 16), (32, 32, 8),
+                                      (64, 32, 8)])
+def test_flash_paged_decode_clusters(cuda, b, hq, hkv, dtype):
+    """The decode shape below and above one cluster a SM: B·Hkv 64 takes
+    clusters that put a block on every SM, 256 and 512 one block a cluster,
+    and a decode of more than 16 slots (each its own table) still one row
+    a block; all against the plain version, kv_len 0 rows exact zeros, two
+    launches bit-equal, the paged kernel equal to the contiguous one."""
+    d, ps, t = 64, 16, 37
+    q, kp, vp, bt = _paged(cuda, b, hq, hkv, d, ps, t, dtype)
+    kv_len = torch.randint(528, 577, (b,), generator=cuda, device="cuda",
+                           dtype=torch.int32)
+    kv_len[1] = 0
+    geo = kdecode.launch_geometry(b, hq, hkv, t * ps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert geo["rows_per_block"] == 1 and geo["blocks"] >= sms
+    assert (geo["cluster"] > 1) == (b * hkv < sms)
+    o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len)
+    again = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len)
+    torch.cuda.synchronize()
+    assert _err(o, again) == 0.0
+    assert _err(o, kdecode.flash_paged_decode_torch(q, kp, vp, bt,
+                                                    kv_len=kv_len)) <= TOL[dtype]
+    assert float(o[1].abs().max()) == 0.0
+    o_contig = kdecode.flash_decode(q, kdecode.gather_pages(kp, bt),
+                                    kdecode.gather_pages(vp, bt), kv_len=kv_len)
+    assert _err(o, o_contig) == 0.0
+
+
+def _token_rows(gen, hq, hkv, d, ps, spans, pads, dtype):
+    """Token rows of several sequences through one pool, as a packed chunk
+    row or a verify launch holds them: ``spans`` (history, new tokens) per
+    sequence, each its own table, a row a new token reading ``position +
+    1`` keys; then ``pads`` rows of the trash table with kv_len 0. The
+    trash page holds 1e6."""
+    t = max(-(-(h + n) // ps) for h, n in spans) + 1
+    _, kp, vp, bt = _paged(gen, len(spans), hq, hkv, d, ps, t, dtype)
+    kp[:, TRASH_PAGE] = vp[:, TRASH_PAGE] = 1e6
+    tables, kv_len = [], []
+    for i, (h, n) in enumerate(spans):
+        table = bt[i].clone()
+        table[-(-(h + n) // ps):] = TRASH_PAGE
+        tables += [table] * n
+        kv_len += list(range(h + 1, h + n + 1))
+    tables += [torch.full_like(bt[0], TRASH_PAGE)] * pads
+    kv_len += [0] * pads
+    q = _rand(gen, (len(kv_len), hq, d), dtype)
+    return (q, kp, vp, torch.stack(tables).contiguous(),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+# (spans, pads, row_tokens): a packed chunk row of three sequences and
+# padding (one batch row of 24 tokens); verify over four slots of 5 rows,
+# one idle; one long run over 256 rows
+TOKEN_ROWS = {
+    "chunk": ([(40, 9), (0, 7), (70, 5)], 3, 24),
+    "verify": ([(33, 5), (60, 5), (11, 5)], 5, 5),
+    "one_table": ([(300, 256)], 0, 256),
+}
+# (hq, hkv, d): GQA groups of 4 and 5 (qwen3-14b's D 128 with G 5: 12 token
+# rows a block, 60 query rows)
+TILE_HEADS = [(8, 2, 64), (8, 2, 32), (10, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("hq,hkv,d", TILE_HEADS)
+@pytest.mark.parametrize("shape", list(TOKEN_ROWS))
+def test_flash_paged_decode_query_tiles(cuda, shape, hq, hkv, d, window, dtype):
+    """Launches that say their rows are token rows of one batch row
+    (row_tokens) fold each tile once for every run of rows with one table:
+    rows of mixed tables against the plain version (padding rows exact
+    zeros) and against the one-row path, the contiguous kernel on the
+    gathered pages bit for bit, two launches bit-equal, launches counted."""
+    ps = 16
+    spans, pads, rt = TOKEN_ROWS[shape]
+    q, kp, vp, bt, kv_len = _token_rows(cuda, hq, hkv, d, ps, spans, pads, dtype)
+    geo = kdecode.launch_geometry(q.shape[0], hq, hkv, bt.shape[1] * ps,
+                                  row_tokens=rt, head_dim=d, dtype=dtype)
+    assert geo["rows_per_block"] == min(rt, 16, 64 // (hq // hkv))
+    before = kdecode.launches_paged
+    o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window,
+                                   row_tokens=rt)
+    again = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window,
+                                       row_tokens=rt)
+    one_row = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window)
+    torch.cuda.synchronize()
+    assert kdecode.launches_paged == before + 3
+    assert _err(o, again) == 0.0
+    o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len,
+                                             window=window)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(one_row, o_ref) <= TOL[dtype]
+    if bool((kv_len == 0).any()):
+        assert float(o[kv_len == 0].abs().max()) == 0.0
+    o_contig = kdecode.flash_decode(q, kdecode.gather_pages(kp, bt),
+                                    kdecode.gather_pages(vp, bt), kv_len=kv_len,
+                                    window=window, row_tokens=rt)
+    assert _err(o, o_contig) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(10, 2, 64), (8, 2, 32), (10, 2, 128)])
+@pytest.mark.parametrize("shape", list(TOKEN_ROWS))
+def test_flash_paged_decode_partials_query_tiles(cuda, shape, hq, hkv, d, dtype):
+    """The gated kernel at the same token rows, one shard's view: a table's
+    foreign entries name the trash page with valid 0, so rows of one
+    sequence share table and ownership; padding rows keep the empty
+    state."""
+    ps = 16
+    spans, pads, rt = TOKEN_ROWS[shape]
+    q, kp, vp, bt, kv_len = _token_rows(cuda, hq, hkv, d, ps, spans, pads, dtype)
+    valid = ((bt < kp.shape[1] // 2) | (bt == TRASH_PAGE)).to(torch.int32)
+    bt = torch.where(valid == 1, bt, TRASH_PAGE).to(torch.int32).contiguous()
+    before = kdecode.launches_paged_valid
+    acc, m, l = kdecode.flash_paged_decode_partials(q, kp, vp, bt, kv_len,
+                                                    block_valid=valid,
+                                                    row_tokens=rt)
+    torch.cuda.synchronize()
+    assert kdecode.launches_paged_valid == before + 1
+    ref = kdecode.flash_paged_decode_partials_torch(q, kp, vp, bt, kv_len=kv_len,
+                                                    block_valid=valid)
+    (o, lse), (o_ref, lse_ref) = _state_out(acc, m, l), _state_out(*ref)
+    assert _err(o, o_ref) <= TOL[dtype]
+    read = ref[2] > 0
+    assert _err(lse[read], lse_ref[read]) <= 1e-4
+    if bool((~read).any()):
+        assert float(acc[~read].abs().max()) == 0.0
+        assert bool((m[~read] == -1e30).all())
 
 
 def _state_out(acc, m, l):

@@ -4,7 +4,7 @@ Kernel level: the same numpy inputs go through JAX ``ops.paged_decode``
 (Pallas interpret mode) and ``paged_decode_reference``, and through the
 port's ``flash_paged_decode`` on a CPU tensor (the plain version of
 ``csrc/flash_decode.cu``'s paged cache), at the JAX suite's f32 tolerance
-2e-5 (the port folds 128-row tiles, JAX page-sized blocks: the same sums in
+2e-5 (the port folds 64-row tiles, JAX page-sized blocks: the same sums in
 another order). Model level: the three paged branches of
 ``layers.apply_attention`` on one layer and the four ``lm.paged_*`` entry
 points on the granite-3-2b SMOKE config, against JAX with the weights
@@ -86,7 +86,7 @@ def _both(q, kp, vp, bt, kv_len, **kw):
 
 CASES = [
     # hq, hkv, page_size, window (tests/test_paged.py's, then the engine's
-    # page sizes, where one 128-row tile spans many pages)
+    # page sizes, where one 64-row tile spans many pages)
     (4, 4, 64, None),      # MHA
     (8, 2, 64, None),      # GQA
     (4, 2, 64, 100),       # sliding window masked in-kernel
@@ -99,7 +99,7 @@ CASES = [
 @pytest.mark.parametrize("hq,hkv,ps,window", CASES, ids=[str(c) for c in CASES])
 def test_paged_plain_matches_jax(hq, hkv, ps, window):
     b, d = 3, 64
-    t = max(4, 320 // ps)                    # a row spans several 128-row tiles
+    t = max(4, 320 // ps)                    # a row spans several 64-row tiles
     q, kp, vp, bt = _pool(0, b, hq, hkv, d, ps, t)
     kv_len = np.array([t * ps, ps + 7, 3], np.int32)
     got, want = _both(q, kp, vp, bt, kv_len, window=window)
