@@ -11,10 +11,11 @@ Phases, each of which exits non-zero on failure:
 1. device  — the card's name, count, and ``nvidia-smi`` name / power limit;
 2. build   — nvcc builds the three CUDA kernel libraries from
              ``kernels/csrc`` in parallel and prints ptxas's registers and
-             spills per instantiation (the f32 and bf16 D=64 backward
-             kernel, the training path's, must not spill) and the count of
-             tensor-core instructions (HMMA / HGMMA in ``cuobjdump -sass``)
-             of those two, which must not be 0;
+             spills per instantiation (no forward instantiation, and not
+             the f32 and bf16 D=64 backward kernel, the training path's,
+             may spill) and the count of tensor-core instructions (HMMA /
+             HGMMA in ``cuobjdump -sass``) of every forward instantiation
+             and of those two backward ones, which must not be 0;
 3. kernels — each CUDA kernel against its plain-torch version on the same
              inputs, f32 and bf16: the forward and decode at granite-3-2b's
              prefill / decode shapes, the fused backward kernel at its
@@ -82,7 +83,13 @@ Phases, each of which exits non-zero on failure:
              with its log-sum-exp on the owned rows for the gated kernel: a
              yardstick the port never calls) and its bound at the tensor-core
              peak of its dtype (beside the bound without tensor cores),
-             printed as one JSON line; the decode kernels' rows also carry
+             printed as one JSON line; the forward's row also carries,
+             from ``perf/fwd_times.py``, its device time alone
+             (``torch.profiler``), events time, SDPA's time in the same
+             dtype and the bounds (TF32 and 3xTF32 for f32) at the
+             prefill and training shapes in f32 and bf16 and at the
+             training shape with dropout 0.1 (``times_by_case``); the
+             decode kernels' rows also carry
              ``device_ms`` (the kernel alone, cold L2) and ``host_us`` (a
              wrapper call) from ``perf/decode_times.py``, at the decode
              shape and (``<shape>_shape_``) at the chunk, at decode with 32
@@ -223,6 +230,7 @@ def main(argv=None) -> None:
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
     rows.append(bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0]))
+    fwd_times_phase(rows[0])
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
     rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
     device_times_phase(rows)
@@ -251,8 +259,9 @@ BWD_D64 = ("flash_bwd_kernel<f32, D64>", "flash_bwd_kernel<bf16, D64>")
 
 def build_report(_build) -> None:
     """ptxas's registers and spills per kernel instantiation, and the
-    tensor-core instructions of the backward kernel; fails if the f32 or
-    bf16 D=64 backward kernel (the training path's) spills or has none."""
+    tensor-core instructions of the forward and backward kernels; fails if
+    a forward instantiation or the f32 or bf16 D=64 backward kernel (the
+    training path's) spills or has none."""
     import re
     for kname in _build.KERNELS:
         report = _build.ptxas_report.get(kname)
@@ -274,38 +283,43 @@ def build_report(_build) -> None:
                 spills = line.strip()
                 n = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               spills)
-                if entry in BWD_D64 and (n is None or n.groups() != ("0", "0")):
+                if ((entry in BWD_D64 or str(entry).startswith("fwd_kernel"))
+                        and (n is None or n.groups() != ("0", "0"))):
                     fail(f"{kname} {entry} spills: {spills}")
                 continue
             if "registers" in line:
                 regs = line.split(":", 1)[-1].strip()
                 print(f"[build] {kname} {entry}: {regs}; {spills}")
-    mma = tensor_core_instructions(_build)
-    for entry in BWD_D64:
-        print(f"[build] flash_bwd {entry}: {mma.get(entry, 0)} tensor-core "
-              f"instructions (HMMA / HGMMA in cuobjdump -sass)")
-        if not mma.get(entry):
-            fail(f"flash_bwd {entry} has no tensor-core instruction")
+    mma = tensor_core_instructions(_build, "flash_bwd")
+    fwd = tensor_core_instructions(_build, "flash_fwd")
+    want = [*BWD_D64, *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
+                        for d in (16, 32, 64, 128) for acc in ("", ", acc bf16"))]
+    for entry in want:
+        n = mma.get(entry, fwd.get(entry, 0))
+        print(f"[build] {entry}: {n} tensor-core instructions (HMMA / HGMMA in "
+              f"cuobjdump -sass)")
+        if not n:
+            fail(f"{entry} has no tensor-core instruction")
     sys.stdout.flush()
 
 
-def tensor_core_instructions(_build) -> dict:
+def tensor_core_instructions(_build, kname: str) -> dict:
     """{"flash_bwd_kernel<f32, D64>": count, ...}: HMMA and HGMMA lines per
-    ACC-f32 backward kernel in ``cuobjdump -sass`` of the built library."""
+    kernel instantiation in ``cuobjdump -sass`` of library ``kname``."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = _build.build(["flash_bwd"])["flash_bwd"]
+    lib = _build.build([kname])[kname]
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed ({out.returncode}): {out.stderr[:500]}")
     counts = {}
     for part in out.stdout.split("Function : ")[1:]:
-        m = re.match(r"\S*flash_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb0E", part)
+        m = re.match(r"\S*?\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)ELb([01])E", part)
         if m:
-            name = (f"flash_bwd_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
-                    f"D{m.group(2)}>")
+            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
+                    f"D{m.group(3)}{', acc bf16' if m.group(4) == '1' else ''}>")
             counts[name] = sum("HMMA" in ln or "HGMMA" in ln
                                for ln in part.splitlines())
     return counts
@@ -1395,7 +1409,7 @@ def train_phase(torch, kfwd, kbwd):
 
     with tempfile.TemporaryDirectory() as tmp:
         straight = trainer(f"{tmp}/a")
-        straight.run(4)
+        r0 = straight.run(4)
         t1 = trainer(f"{tmp}/b")
         t1.hooks["pre_step"] = lambda s: t1.request_preemption() if s == 1 else None
         r1 = t1.run(4)
@@ -1404,11 +1418,16 @@ def train_phase(torch, kfwd, kbwd):
     resumed = [m["loss"] for m in t1.metrics_log + t2.metrics_log]
     ref_losses = [m["loss"] for m in straight.metrics_log]
     worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, ref_losses))
+    # the reference pins train(N) == train(k) + resume + train(k..N) to 1e-6
+    # in every parameter (tests/test_fault_tolerance.py); printed, not gated
+    param_diff = max(_maxerr(a.detach(), b.detach()) for a, b in zip(
+        r0["params"].parameters(), r2["params"].parameters()))
     ok = (r1["preempted"] and r1["stop_step"] == 2 and r2["stop_step"] == 4
           and len(resumed) == 4 and worst <= TRAIN_TOL["loss"])
     print(f"[train] (c) Trainer at SMOKE size on the card: preempted at step "
           f"{r1['stop_step']}, resumed to {r2['stop_step']}; losses {resumed} vs "
-          f"straight {ref_losses}: max rel diff {worst:.3e} "
+          f"straight {ref_losses}: max rel diff {worst:.3e}; max |param(straight) "
+          f"- param(resumed)| {param_diff:.3e} (the reference's bound 1e-6) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("the trainer's preempt / resume run went wrong")
@@ -1647,6 +1666,31 @@ def bwd_times_phase(torch, kfwd, kbwd, train_launches, fwd_row):
     return row
 
 
+def fwd_times_phase(row) -> None:
+    """The forward kernel's row gains ``times_by_case`` from
+    ``perf/fwd_times.py`` (the kernel alone under ``torch.profiler``, events
+    around calls, SDPA in the same dtype and with the same dropout rate, the
+    bounds) at the prefill and training shapes in f32 and bf16 and at the
+    training shape with dropout 0.1, and the 3xTF32 bounds of its f32
+    shapes."""
+    from repro_torch.kernels import _build
+    from repro_torch.perf import fwd_times
+
+    fn = fwd_times.library_fn(_build.build(["flash_fwd"])["flash_fwd"])
+    res = fwd_times.measure({"kernel": fn})
+    row["bound_ms_3xtf32"] = res["prefill_f32"]["bound_ms_3xtf32"]
+    row["train_shape_bound_ms_3xtf32"] = res["train_f32"]["bound_ms_3xtf32"]
+    row["times_by_case"] = {}
+    for case, r in res.items():
+        row["times_by_case"][case] = {**r.pop("kernel"), **r}
+        t = row["times_by_case"][case]
+        print(f"[times] flash_fwd {case}: device {t['device_ms']:.5f} ms "
+              f"({t['device_ms_method']}), events {t['ms']:.5f} ms, sdpa "
+              f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})" + (f", 3xTF32 {t['bound_ms_3xtf32']:.5f} ms"
+                                      if "bound_ms_3xtf32" in t else ""), flush=True)
+
+
 def paged_times_phase(torch, kdecode, paged_launches, errs):
     """The paged decode kernel at the engine's decode shape (B 8, 32/8
     heads, D 64, page 16, T 37, kv_len 528-576) and at a 256-token chunk's
@@ -1819,7 +1863,8 @@ def device_times_phase(rows) -> None:
     (or a CUDA graph) over launches rotating over cache copies whose bytes
     exceed the L2 (cold, as each layer of the engine finds its pages), and
     ``host_us`` a wrapper call; ``<shape>_shape_`` the same at the other
-    shapes (chunk, decode with 32 and 64 slots, verify)."""
+    shapes (chunk, decode with 32 and 64 slots, verify), and row 5 the
+    bound of the shapes phase 6 does not time itself."""
     from repro_torch.perf import decode_times
 
     by_name = {row["name"]: row for row in rows}
@@ -1829,10 +1874,14 @@ def device_times_phase(rows) -> None:
             for key in ("device_ms", "device_ms_method", "device_ms_copies",
                         "host_us"):
                 by_name[name][prefix + key] = r[key]
+            if "bound_ms" in r and prefix + "bound_ms" not in by_name[name]:
+                by_name[name][prefix + "bound_ms"] = r["bound_ms"]
             print(f"[times] {name} at the {shape} shape: device "
                   f"{r['device_ms']:.5f} ms ({r['device_ms_method']}, cold L2: "
                   f"{r['device_ms_copies']} cache copies), host "
-                  f"{r['host_us']:.2f} us a wrapper call", flush=True)
+                  f"{r['host_us']:.2f} us a wrapper call"
+                  + (f", bound {r['bound_ms']:.5f} ms" if "bound_ms" in r else ""),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -139,36 +139,6 @@ __device__ __forceinline__ void add_tile(float (&acc)[NT][4], const float (&tmp)
     for (int e = 0; e < 4; ++e) acc[j][e] += ACC16 ? round_bf16(tmp[j][e]) : tmp[j][e];
 }
 
-// ---- cp.async ------------------------------------------------------------
-// src-size 0 zero-fills the destination without reading the source
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;"); }
-
-// rows [row0, row0 + rows) of a [*, D] tensor into shared [rows][ld];
-// rows past `valid` become zeros
-template <typename T, int D, int NT>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
-                                          int valid, int tid) {
-  constexpr int CH = D * (int)sizeof(T) / 16;         // 16-byte chunks a row
-  constexpr int PER = 16 / (int)sizeof(T);
-  for (int i = tid; i < rows * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * PER;
-    const bool ok = row0 + r < valid;
-    cp_async16(dst + r * ld + c, src + (size_t)(ok ? row0 + r : 0) * D + c, ok);
-  }
-}
-
 // Block-uniform tile skip, the `needed` test of both TPU kernels, for q
 // tile iq (64 rows) and kv tile ik (bkv rows, bkv / 64 segment tiles).
 __device__ __forceinline__ bool tile_needed(const BwdParams& p, int b, int iq, int ik,
@@ -284,10 +254,11 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
     for (int i = tid; i < BQ; i += NT) {
       const bool ok = q0 + i < p.Sq;
       const size_t at = ok ? row + q0 + i : row;
-      cp_async4(sLse + st * BQ + i, p.lse + at, ok);
-      cp_async4(sDelta + st * BQ + i, p.delta + at, ok);
+      cp_async4(sLse + st * BQ + i, p.lse + at, ok ? 4 : 0);
+      cp_async4(sDelta + st * BQ + i, p.delta + at, ok ? 4 : 0);
       if (segments)
-        cp_async4(sQseg + st * BQ + i, p.q_seg + (size_t)b * p.Sq + (ok ? q0 + i : 0), ok);
+        cp_async4(sQseg + st * BQ + i, p.q_seg + (size_t)b * p.Sq + (ok ? q0 + i : 0),
+                  ok ? 4 : 0);
     }
   };
 
@@ -307,7 +278,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
       load_q_tile(cur, 0);
       cp_async_commit();
     }
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();                      // this tile landed; the last one is read
     if (ST == 2 && nxt < n_items) {       // the next tile loads while this computes
       load_q_tile(nxt, st ^ 1);

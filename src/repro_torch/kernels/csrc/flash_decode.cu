@@ -126,20 +126,6 @@ __device__ __forceinline__ void load_vec(const T* p, float* out) {
   for (int e = 0; e < N; ++e) out[e] = to_f(pk.v[e]);
 }
 
-// 16 bytes global -> shared; src_bytes 0 zero-fills without reading
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // Contiguous cache [B, Hkv, S, D]: position pos of (b, hk) is row pos of
 // that head's slab; no two rows share a cache.
 template <typename T, int D>

@@ -1,62 +1,94 @@
-// Fused attention forward for Hopper (sm_90a), written by hand.
+// Fused attention forward for Hopper (sm_90a), written by hand, its products
+// on tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_fwd.py:46
 // `_fwd_kernel` (launched by `flash_fwd`, :155). It computes
 //   O = dropout(softmax(Q K^T * scale)) V   and   lse = m + log(l)
 // with q as the suffix of kv (q_offset = Skv - Sq), causal masking, a sliding
-// window, packed-sequence segment ids (negative = padding), ragged tails, the
-// coordinate-hash dropout of kernels/rng.py (bit-identical keep mask) and the
-// online-softmax fold of src/repro/kernels/common.py:43 (m_safe guard, l
-// updated before dropout, P cast to the value type before P.V, l_safe at
-// finalize so fully masked rows give o = 0 and lse = NEG_INF).
+// window, packed-sequence segment ids (negative = padding), ragged tails, GQA,
+// the coordinate-hash dropout of kernels/rng.py (bit-identical keep mask) and
+// the online-softmax fold of src/repro/kernels/common.py:43 over 64-row KV
+// tiles (m_safe guard, l updated before dropout, P cast to the value type
+// before P.V, each tile's P.V summed on its own and folded as acc * alpha +
+// pv, l_safe at finalize so fully masked rows give o = 0 and lse = NEG_INF).
+// bf16-ACC (ACC16, JAX's acc_dtype=bfloat16, paper §3.1): the score tile is
+// rounded to bf16 before the scale, and each tile's P.V before the fold
+// (flash_fwd.py:89, common.py:76-78).
 //
-// What bounds it: at prefill shapes (granite: Sq = Skv = 512..2048, D = 64,
-// 32 q heads) attention does O(S^2 D) operations on O(S D) bytes, so it is
-// bound by operations, not by device memory.
+// What bounds it on this card: operations. S = Q K^T and P V are 4 D flops
+// a causal (q, k) pair and q head on O(S D) bytes. At the training shape
+// (granite-3-2b: B 4, 32/8 heads, S 2048, D 64, causal) that is 68.7 GFLOP
+// on 169 MB (f32): 0.139 ms at the TF32 peak, 0.417 ms as 3xTF32 (three
+// TF32 products an f32 product), 0.069 ms in bf16, against 0.050 ms of
+// bytes. At the prefill shape (B 8, S 512) 8.6 GFLOP on 84 MB: the bytes
+// (0.025 ms) and the 3xTF32 operations (0.052 ms) are the same order. Measured
+// (PERF.md, perf/fwd_ablation.py): mma.sync's TF32 rate bounds the f32
+// kernel (about half the TF32 peak a pass), then the K/V copies.
 //
-// What the design does about that: one thread block per (q tile, q head,
-// batch) keeps its Q tile and the (m, l, acc) state on chip for the whole KV
-// loop; S and P never leave the SM, so device memory sees Q, K, V read and O
-// written once per q tile. Tiles wholly above the causal diagonal, outside
-// the window or with disjoint segment ranges are skipped without loading.
-// Products run as f32 FMAs from shared memory on a 4x8 register tile per
-// thread (S) and 4 x D/8 (P.V). This is the simple first kernel: tensor-core
-// products (mma.sync / wgmma) and TMA-fed K/V pipelines are later work.
-//
-// bf16-ACC (template flag ACC16, JAX's acc_dtype=bfloat16, paper §3.1): the
-// score tile is rounded to bf16 after the D loop, before the scale, and each
-// tile's P.V is summed in scratch registers, rounded to bf16 and only then
-// folded into the f32 accumulator (flash_fwd.py:89, common.py:76-78).
+// What the design does about that:
+// - Tensor cores. Both products are mma.sync through csrc/mma.cuh: 3xTF32
+//   on m16n8k8 for f32 (each operand split hi + lo, lo*hi + hi*lo + hi*hi:
+//   one TF32 product cannot hold the 2e-5 tolerance), one m16n8k16 bf16
+//   product with f32 accumulators for bf16.
+// - Warps own q rows. A block of NW warps takes 16 NW q rows; warp w holds
+//   rows 16w..16w+15 through the whole KV loop: its Q fragments (split once
+//   for f32; reread from shared memory where they would not fit the
+//   registers, f32 at D 128), the S/P tile, each row's m and l and the
+//   output accumulator. A row's max and sum are joined across the quad of
+//   lanes that holds it with two shuffles. P is the A operand of P V
+//   straight from S's accumulator registers (acc_to_a: packed neighbours
+//   for bf16, a permuted k order for TF32): no S or P goes through shared
+//   memory, and the softmax needs no block barrier.
+// - Each tile's P V is summed into zeroed fragments and folded into the f32
+//   accumulator as acc * alpha + pv (bf16-rounded first under ACC16): JAX's
+//   fold, and a chain of mma into one accumulator over a long sequence would
+//   drift, since the tensor core's accumulation truncates.
+// - A K/V ring. K and V tiles are copied in their stored dtype by cp.async,
+//   16 bytes a request, into a two-stage ring; the next needed tile is in
+//   flight while this one's products run; one block barrier a tile. Rows
+//   are padded by 16 bytes, so the ldmatrix and the f32 V loads are free of
+//   bank conflicts.
+// - Masks only where they bite. Tiles that no row of the block may read
+//   (above the causal diagonal, behind the window, disjoint segment ranges)
+//   are never loaded; a warp skips a loaded tile that none of its 16 rows
+//   may read (exact: such a tile leaves the state unchanged); a tile wholly
+//   inside the causal, window and length limits with no segments takes a
+//   path with no per-element mask. Diagonal, window-edge, ragged and segment
+//   tiles mask on the fragments. Softmax runs in base 2 (scores times
+//   scale * log2 e, one ex2 an element); dropout scales a kept P by a
+//   multiply with 1 / (1 - rate), within an ulp of JAX's division (an f32
+//   division an element cost more than the whole dropout hash).
+// - Heavy tiles first. Blocks are numbered q tile major from the last q tile,
+//   so under causal masking the longest rows start first and the short ones
+//   fill the last wave.
+// - Deterministic: no atomics; two launches on the same inputs are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;          // q rows per block   (kernels/flash_fwd.py TILE)
-constexpr int BKV = 64;         // kv rows per tile   (kernels/flash_fwd.py TILE)
-constexpr int NTHREADS = 128;
-constexpr int CG = 8;           // column groups: thread owns cols cg + 8*j
-constexpr int RG = NTHREADS / CG;   // 16 row groups: rows rg + 16*i
-constexpr int RPT = BQ / RG;        // 4 rows per thread
-constexpr int CPT = BKV / CG;       // 8 score columns per thread
+constexpr int BKV = 64;         // kv rows a tile (kernels/flash_fwd.py TILE): the fold's tile
+constexpr int SUB = 64;         // rows of a segment-bound tile (flash_fwd.py _tile_minmax)
 constexpr float NEG_INF = -1e30f;   // core/online_softmax.py NEG_INF
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // kernels/rng.py constants
 constexpr uint32_t M1 = 0x85EBCA6Bu, M2 = 0xC2B2AE35u, M3 = 0x27D4EB2Fu;
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 2^x in one MUFU op (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -72,202 +104,299 @@ struct FwdParams {
   const void* q; const void* k; const void* v;
   void* o; float* lse;
   const int* q_seg; const int* kv_seg;                      // null: no segments
-  const int* qs_min; const int* qs_max;                     // [B, nq]
+  const int* qs_min; const int* qs_max;                     // [B, nq64]
   const int* ks_min; const int* ks_max;                     // [B, nk]
-  int B, Hq, Hkv, Sq, Skv, nq, nk;
+  int B, Hq, Hkv, Sq, Skv, nq, nq64, nk;                    // nq: blocks' q tiles
   float scale;
   int causal, window;                                       // window <= 0: none
   int dropout; uint32_t seed, threshold; float keep_div;    // keep_div = 1 - rate
 };
 
+// The layout of one (T, D): warps, the ring, shared memory.
+template <typename T, int D>
+struct Cfg {
+  static constexpr int NW = 4;                    // warps, 16 q rows each
+  static constexpr int BQ = 16 * NW;              // q rows a block
+  static constexpr int NT = 32 * NW;
+  static constexpr int NST = 2;                   // K/V ring stages
+  // blocks an SM the registers must allow: three for bf16 up to D 64 (at
+  // two, perf/fwd_ablation.py's "no register cap", it is 22 % slower),
+  // else what the code needs (two f32 blocks at D 64 fit in any case)
+  static constexpr int MINB = sizeof(T) == 2 && D <= 64 ? 3 : 1;
+  static constexpr int LD = D + 16 / (int)sizeof(T);    // Q, K, V rows, padded 16 bytes
+  // Q's fragments live in registers (f32 hi and lo: 2 D words a lane; bf16
+  // D / 4) unless that would crowd out the accumulators (f32 at D 128)
+  static constexpr bool QREG = (int)sizeof(T) * D <= 256;
+  static constexpr int SMEM = (int)sizeof(T) * (BQ + 2 * NST * BKV) * LD + 4 * NST * BKV;
+};
+
+// s <- s * scale * log2(e), rounded to bf16 first with ACC16; with MASK,
+// NEG_INF where a pair lies past Skv, above the diagonal, outside the window
+// or across segments. Fragment element e of n-tile j: row qp[e >> 1],
+// column kv_start + 8 j + 2 t + (e & 1).
+template <bool ACC16, bool MASK>
+__device__ __forceinline__ void scale_mask(float (&s)[BKV / 8][4], const FwdParams& p, float sl2,
+                                           int kv_start, const int (&qp)[2],
+                                           const int (&qseg)[2], const int* kseg, int t) {
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sv = (ACC16 ? round_bf16(s[j][e]) : s[j][e]) * sl2;
+      if (!MASK) {
+        s[j][e] = sv;
+        continue;
+      }
+      const int c = 8 * j + 2 * t + (e & 1), kp = kv_start + c, q = qp[e >> 1];
+      bool ok = kp < p.Skv;
+      if (p.causal) ok &= kp <= q;
+      if (p.window > 0) ok &= kp > q - p.window;
+      if (kseg != nullptr) ok &= qseg[e >> 1] == kseg[c] && qseg[e >> 1] >= 0;
+      s[j][e] = ok ? sv : NEG_INF;
+    }
+}
+
 template <typename T, int D, bool ACC16>
-__global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
-  constexpr int DPT = D / CG;                 // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                           // [BQ][D + 1]
-  float* sK = sQ + BQ * (D + 1);              // [BKV][D + 1]
-  float* sV = sK + BKV * (D + 1);             // [BKV][D]
-  float* sP = sV + BKV * D;                   // [BQ][BKV + 1]
-  __shared__ int sQseg[BQ];
-  __shared__ int sKseg[BKV];
+__global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(const FwdParams p) {
+  using C = Cfg<T, D>;
+  using M = Mma<T>;
+  constexpr int BQ = C::BQ, NT = C::NT, LD = C::LD, NST = C::NST;
+  constexpr int KQ = D / M::K;                    // k-steps of S = Q K^T
+  constexpr int KP = BKV / M::K;                  // k-steps of P V
+  constexpr int NC = D / 8 < 8 ? D / 8 : 8;       // n-tiles of P V a pass (pv's registers)
+  constexpr int NQF = C::QREG ? KQ : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);             // [BQ][LD]
+  T* sK = sQ + BQ * LD;                           // [NST][BKV][LD]
+  T* sV = sK + NST * BKV * LD;                    // [NST][BKV][LD]
+  int* sKseg = reinterpret_cast<int*>(sV + NST * BKV * LD);   // [NST][BKV]
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // heavy tiles first: q tile major, from the last q tile down
+  const int bh = (int)(blockIdx.x % (p.B * p.Hq));
+  const int iq = p.nq - 1 - (int)(blockIdx.x / (p.B * p.Hq));
+  const int b = bh / p.Hq, h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
-  const int tid = threadIdx.x, rg = tid / CG, cg = tid % CG;
-  const int q0 = iq * BQ;                     // first q row of this tile
-  const int q_start = q0 + (p.Skv - p.Sq);    // its global position
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = iq * BQ, r0 = 16 * warp;         // the block's and the warp's first q row
+  const int q_start = q0 + (p.Skv - p.Sq);        // the block's first q position
+  const int qw = q_start + r0;                    // the warp's
   const bool segments = p.q_seg != nullptr;
+  const size_t q_row0 = (size_t)(b * p.Hq + h) * p.Sq;
+  const size_t kv_off = (size_t)(b * p.Hkv + hk) * p.Skv * D;
+  const T* kg = static_cast<const T*>(p.k) + kv_off;
+  const T* vg = static_cast<const T*>(p.v) + kv_off;
 
-  const T* qg = static_cast<const T*>(p.q) + (size_t)(b * p.Hq + h) * p.Sq * D;
-  const T* kg = static_cast<const T*>(p.k) + (size_t)(b * p.Hkv + hk) * p.Skv * D;
-  const T* vg = static_cast<const T*>(p.v) + (size_t)(b * p.Hkv + hk) * p.Skv * D;
-
-  for (int i = tid; i < BQ * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    sQ[r * (D + 1) + c] = (q0 + r < p.Sq) ? to_f(qg[(size_t)(q0 + r) * D + c]) : 0.f;
+  // the block-uniform tile test (the TPU kernel's `needed`), over the
+  // block's q rows; segment bounds come in 64-row tiles
+  int qs_lo = 0, qs_hi = -1;
+  if (segments) {
+    qs_lo = 0x7fffffff;
+    for (int s = q0 / SUB; s < p.nq64 && s < (q0 + BQ) / SUB; ++s) {
+      qs_lo = min(qs_lo, p.qs_min[b * p.nq64 + s]);
+      qs_hi = max(qs_hi, p.qs_max[b * p.nq64 + s]);
+    }
   }
-  if (segments)
-    for (int i = tid; i < BQ; i += NTHREADS)
-      sQseg[i] = (q0 + i < p.Sq) ? p.q_seg[(size_t)b * p.Sq + q0 + i] : -1;
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
-
-  for (int ik = 0; ik < p.nk; ++ik) {
+  auto next_tile = [&](int ik) {
+    for (; ik < p.nk; ++ik) {
+      const int kv_start = ik * BKV;
+      if (p.causal && kv_start > q_start + BQ - 1) return p.nk;   // and every later tile
+      if (p.window > 0 && kv_start + BKV - 1 <= q_start - p.window) continue;
+      if (segments && (p.ks_min[b * p.nk + ik] > qs_hi || p.ks_max[b * p.nk + ik] < qs_lo))
+        continue;
+      return ik;
+    }
+    return p.nk;
+  };
+  auto load_kv = [&](int ik, int st) {
     const int kv_start = ik * BKV;
-    // block-level early exit; uniform over the block, so the barriers below
-    // are reached by every thread or by none
-    bool needed = true;
-    if (p.causal) needed &= kv_start <= q_start + BQ - 1;
-    if (p.window > 0) needed &= kv_start + BKV - 1 > q_start - p.window;
+    load_rows<T, D, NT>(sK + st * BKV * LD, LD, kg, kv_start, BKV, p.Skv, tid);
+    load_rows<T, D, NT>(sV + st * BKV * LD, LD, vg, kv_start, BKV, p.Skv, tid);
     if (segments)
-      needed &= p.ks_min[b * p.nk + ik] <= p.qs_max[b * p.nq + iq] &&
-                p.ks_max[b * p.nk + ik] >= p.qs_min[b * p.nq + iq];
-    if (!needed) continue;
+      for (int i = tid; i < BKV; i += NT) {
+        const bool ok = kv_start + i < p.Skv;
+        cp_async4(sKseg + st * BKV + i, p.kv_seg + (size_t)b * p.Skv + (ok ? kv_start + i : 0),
+                  ok ? 4 : 0);
+      }
+  };
 
-    __syncthreads();                          // last tile's readers are done
-    for (int i = tid; i < BKV * D; i += NTHREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = kv_start + r < p.Skv;
-      const size_t off = (size_t)(kv_start + r) * D + c;
-      sK[r * (D + 1) + c] = in ? to_f(kg[off]) : 0.f;
-      sV[r * D + c] = in ? to_f(vg[off]) : 0.f;
+  // the ring: tile t_ld is the next to load, into stage n_ld % NST; a
+  // group is committed even when nothing is left to load, so that
+  // cp_async_wait<NST - 2> always means "the tile to compute has landed"
+  int t_ld = next_tile(0), n_ld = 0;
+  auto issue = [&]() {
+    if (t_ld < p.nk) {
+      load_kv(t_ld, n_ld % NST);
+      ++n_ld;
+      t_ld = next_tile(t_ld + 1);
     }
-    if (segments)
-      for (int i = tid; i < BKV; i += NTHREADS)
-        sKseg[i] = (kv_start + i < p.Skv) ? p.kv_seg[(size_t)b * p.Skv + kv_start + i] : -1;
-    __syncthreads();
+    cp_async_commit();
+  };
+  // the Q tile (rows past Sq zero) with the first K/V tile, then the rest
+  // of the ring's first fill
+  load_rows<T, D, NT>(sQ, LD, static_cast<const T*>(p.q) + q_row0 * D, q0, BQ, p.Sq, tid);
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) issue();
 
-    // ---- S = Q K^T on a 4x8 register tile ----
-    float s[RPT][CPT];
+  // this lane's two rows (g and g + 8 of the warp's 16)
+  const bool live = q0 + r0 < p.Sq;               // rows past Sq are never written
+  const int qp[2] = {qw + g, qw + g + 8};
+  int qseg[2] = {-1, -1};
+  if (segments)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + r0 + g + 8 * i;
+      if (r < p.Sq) qseg[i] = p.q_seg[(size_t)b * p.Sq + r];
+    }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  zero(acc);
+  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
+  const float inv_keep = 1.f / p.keep_div;
+  const float sl2 = p.scale * LOG2E;
+
+  cp_async_wait<NST - 2>();
+  __syncthreads();
+  typename M::A qf[NQF];
+  if constexpr (C::QREG) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t r[4];
+      ld_a<false>(r, sQ, LD, r0, kk * M::K, lane);
+      qf[kk] = M::make_a(r);
+    }
+  }
+
+  for (int i = 0, cur = next_tile(0); cur < p.nk; ++i, cur = next_tile(cur + 1)) {
+    const int st = i % NST;
+    cp_async_wait<NST - 2>();
+    __syncthreads();                      // tile cur landed; stage (i - 1) % NST is read
+    issue();                              // the next tile loads while this one computes
+    const int kv_start = cur * BKV;
+    // a tile none of the warp's rows may read leaves their state as it is
+    if (!live || (p.causal && kv_start > qw + 15) ||
+        (p.window > 0 && kv_start + BKV - 1 <= qw - p.window))
+      continue;
+    const T* k_s = sK + st * BKV * LD;
+    const T* v_s = sV + st * BKV * LD;
+
+    // ---- S = Q K^T: the warp's 16 rows x 64 columns ----
+    float s[BKV / 8][4];
+    zero(s);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sQ[(rg + RG * i) * (D + 1) + d];
+    for (int kk = 0; kk < KQ; ++kk) {
+      typename M::A a;
+      if constexpr (C::QREG) {
+        a = qf[kk];
+      } else {
+        uint32_t r[4];
+        ld_a<false>(r, sQ, LD, r0, kk * M::K, lane);
+        a = M::make_a(r);
+      }
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = sK[(cg + CG * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < BKV / 8; j += 2) {
+        uint32_t rb[4];
+        ld_b2<false>(rb, k_s, LD, 8 * j, kk * M::K, lane);
+        M::mma(s[j], a, M::make_b(rb[0], rb[1]));
+        M::mma(s[j + 1], a, M::make_b(rb[2], rb[3]));
+      }
     }
 
-    // ---- mask, then the online fold (common.py online_fold) ----
-    float alpha[RPT];
+    // ---- scale and mask: no mask where every pair is allowed ----
+    const bool inside = !segments && kv_start + BKV <= p.Skv &&
+                        (!p.causal || kv_start + BKV - 1 <= qw) &&
+                        (p.window <= 0 || kv_start > qw + 15 - p.window);
+    if (inside)
+      scale_mask<ACC16, false>(s, p, sl2, kv_start, qp, qseg, nullptr, t);
+    else
+      scale_mask<ACC16, true>(s, p, sl2, kv_start, qp, qseg,
+                              segments ? sKseg + st * BKV : nullptr, t);
+
+    // ---- the online fold (common.py online_fold), base 2 ----
+    float alpha[2];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg + RG * i, qp = q_start + r;
+    for (int r = 0; r < 2; ++r) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = cg + CG * j, kp = kv_start + c;
-        bool ok = kp < p.Skv;
-        if (p.causal) ok &= kp <= qp;
-        if (p.window > 0) ok &= kp > qp - p.window;
-        if (segments) ok &= (sQseg[r] == sKseg[c]) && (sQseg[r] >= 0);
-        const float sv = ACC16 ? round_bf16(s[i][j]) : s[i][j];
-        s[i][j] = ok ? sv * p.scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 8 lanes sharing a row are lanes 8k..8k+7 of one warp
-#pragma unroll
-      for (int off = 1; off < CG; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      alpha[i] = expf(m[i] - m_new);
+      for (int j = 0; j < BKV / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = ex2(m[r] - m_new);
       const float m_safe = (m_new == NEG_INF) ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = expf(s[i][j] - m_safe);
-        sum += s[i][j];
-      }
+      for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
-      for (int off = 1; off < CG; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha[i] + sum;           // l sees pre-dropout probabilities
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = cg + CG * j;
-        float pj = s[i][j];
-        if (p.dropout) {
-          const uint32_t x = (uint32_t)qp * M1 + (uint32_t)(kv_start + c) * M2 + hs;
-          const uint32_t bits = mix32(mix32(x) * M3 + GOLDEN);
-          pj = (bits >= p.threshold) ? pj / p.keep_div : 0.f;
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = ex2(s[j][e] - m_safe);
+          sum += s[j][e];
         }
-        sP[r * (BKV + 1) + c] = to_f(from_f<T>(pj));   // P cast to v.dtype
-      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * alpha[r] + sum;       // l sees pre-dropout probabilities
+      m[r] = m_new;
     }
-    __syncthreads();
+    if (p.dropout) {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t kp = (uint32_t)(kv_start + 8 * j + 2 * t + (e & 1));
+          const uint32_t x = (uint32_t)qp[e >> 1] * M1 + kp * M2 + hs;
+          const bool keep = mix32(mix32(x) * M3 + GOLDEN) >= p.threshold;
+          s[j][e] = keep ? s[j][e] * inv_keep : 0.f;
+        }
+    }
 
-    // ---- acc = acc * alpha + P V (ACC16: the tile's P V rounded to bf16) ----
-    float pv[RPT][DPT];
+    // ---- acc = acc * alpha + P V, P from S's registers, NC n-tiles a pass ----
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int c0 = 0; c0 < D / 8; c0 += NC) {
+      float pv[NC][4];
+      zero(pv);
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        if (ACC16) pv[i][c] = 0.f;
-        else acc[i][c] *= alpha[i];
-      }
-#pragma unroll 4
-    for (int j = 0; j < BKV; ++j) {
-      float vv[DPT];
+      for (int kk = 0; kk < KP; ++kk) {
+        const typename M::A a = acc_to_a<T>(s, kk);
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) vv[c] = sV[j * D + cg + CG * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float pj = sP[(rg + RG * i) * (BKV + 1) + j];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-          if (ACC16) pv[i][c] = fmaf(pj, vv[c], pv[i][c]);
-          else acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
+        for (int j = 0; j < NC; j += 2) {
+          uint32_t rb[4];
+          ld_b2_acc(rb, v_s, LD, 8 * (c0 + j), kk * M::K, lane);
+          M::mma(pv[j], a, M::make_b(rb[0], rb[1]));
+          M::mma(pv[j + 1], a, M::make_b(rb[2], rb[3]));
         }
       }
-    }
-    if (ACC16) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int j = 0; j < NC; ++j)
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = acc[i][c] * alpha[i] + round_bf16(pv[i][c]);
+        for (int e = 0; e < 4; ++e)
+          acc[c0 + j][e] = acc[c0 + j][e] * alpha[e >> 1] + (ACC16 ? round_bf16(pv[j][e]) : pv[j][e]);
     }
   }
 
   // ---- finalize: l_safe guard, o in q.dtype, lse in f32 ----
-  T* og = static_cast<T*>(p.o) + (size_t)(b * p.Hq + h) * p.Sq * D;
+  if (!live) return;
+  T* og = static_cast<T*>(p.o) + q_row0 * D;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qr = q0 + rg + RG * i;
+  for (int r = 0; r < 2; ++r) {
+    const int qr = q0 + r0 + g + 8 * r;
     if (qr >= p.Sq) continue;
-    const float l_safe = (l[i] == 0.f) ? 1.f : l[i];
+    const float l_safe = (l[r] == 0.f) ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      og[(size_t)qr * D + cg + CG * c] = from_f<T>(acc[i][c] / l_safe);
-    if (cg == 0) p.lse[(size_t)(b * p.Hq + h) * p.Sq + qr] = m[i] + logf(l_safe);
+    for (int j = 0; j < D / 8; ++j)
+      store_pair(og + (size_t)qr * D + 8 * j + 2 * t, acc[j][2 * r] / l_safe,
+                 acc[j][2 * r + 1] / l_safe);
+    if (t == 0) p.lse[q_row0 + qr] = (m[r] == NEG_INF) ? NEG_INF : m[r] * LN2 + logf(l_safe);
   }
 }
 
 template <typename T, int D, bool ACC16>
-int launch(const FwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) *
-      (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D, ACC16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(FwdParams p, cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, D, ACC16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.nq, p.Hq, p.B);
-  fwd_kernel<T, D, ACC16><<<grid, NTHREADS, smem, stream>>>(p);
+  p.nq = (p.Sq + C::BQ - 1) / C::BQ;
+  const unsigned blocks = (unsigned)p.nq * p.Hq * p.B;
+  fwd_kernel<T, D, ACC16><<<blocks, C::NT, C::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -287,7 +416,9 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; acc_bf16: round each tile product to
-// bf16 (bf16-ACC). Segment pointers are all null or all set.
+// bf16 (bf16-ACC). Segment pointers are all null or all set; the segment
+// bounds are over 64-row tiles. q, k, v, o are contiguous [B, H, S, D] of
+// dtype, 16-byte aligned; lse [B, Hq, Sq] f32.
 // Returns the cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      float* lse, const int* q_seg, const int* kv_seg,
@@ -302,7 +433,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   p.q_seg = q_seg; p.kv_seg = kv_seg;
   p.qs_min = qs_min; p.qs_max = qs_max; p.ks_min = ks_min; p.ks_max = ks_max;
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
-  p.nq = (Sq + BQ - 1) / BQ;
+  p.nq = 0;                               // set by launch for its BQ
+  p.nq64 = (Sq + SUB - 1) / SUB;
   p.nk = (Skv + BKV - 1) / BKV;
   p.scale = scale; p.causal = causal; p.window = window;
   p.dropout = dropout; p.seed = (uint32_t)seed; p.threshold = threshold;

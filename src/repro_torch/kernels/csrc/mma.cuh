@@ -1,8 +1,9 @@
-// Tensor-core helpers shared by the hand-written Hopper kernels
-// (csrc/flash_bwd.cu, csrc/flash_decode.cu): warp-level mma.sync on
-// fragments loaded from shared memory, 3xTF32 for f32 and one bf16 product
-// for bf16. One copy, so both kernels keep the same f32 arithmetic that
-// their 2e-5 / 5e-5 tolerances rest on.
+// Helpers shared by the hand-written Hopper kernels (csrc/flash_fwd.cu,
+// csrc/flash_bwd.cu, csrc/flash_decode.cu): cp.async copies into shared
+// memory, and warp-level mma.sync on fragments loaded from shared memory or
+// handed on in registers, 3xTF32 for f32 and one bf16 product for bf16. One
+// copy, so the kernels keep the same f32 arithmetic that their 2e-5 / 5e-5
+// tolerances rest on.
 
 #pragma once
 
@@ -10,7 +11,50 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// ---- cp.async: src_bytes 0 zero-fills the destination without reading ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [row0, row0 + rows) of a [*, D] tensor into shared [rows][ld] by the
+// block's NT threads, 16 bytes a request; rows past `valid` become zeros.
+// A thread keeps one 16-byte column and steps NT / CH rows at a time (NT a
+// multiple of the CH chunks of a row), so a request costs two adds and a
+// compare.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
+                                          int valid, int tid) {
+  constexpr int CH = D * (int)sizeof(T) / 16;         // 16-byte chunks a row
+  constexpr int RS = NT / CH;                         // rows a step
+  static_assert(NT % CH == 0, "a thread keeps one column");
+  const int r = tid / CH, c = (tid % CH) * (16 / (int)sizeof(T));
+  const T* s = src + (size_t)(row0 + r) * D + c;
+  T* d = dst + r * ld + c;
+#pragma unroll 4
+  for (int i = 0; r + i < rows; i += RS) {
+    const bool ok = row0 + r + i < valid;
+    cp_async16(d + i * ld, ok ? s + (size_t)i * D : src, ok ? 16 : 0);
+  }
+}
 
 // ---- tensor-core fragments (PTX ISA, mma.m16n8k8 .tf32 / m16n8k16 .bf16) --
 // An operand is read as a logical [row][k] matrix from shared memory stored
@@ -182,6 +226,50 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const T* a, int l
       M::mma(acc[NT - 1], fa, M::make_b(rb[0], rb[1]));
     }
   }
+}
+
+// ---- an accumulator handed on as the next product's A operand ------------
+// P (the accumulator of S = Q K^T, NT n-tiles of 8 columns) as the A operand
+// of P V for k-step kk, straight from registers, rounded to T (P cast to the
+// value type). bf16 (k 16): n-tiles 2kk and 2kk + 1, neighbouring columns
+// packed into one register, which is m16n8k16's A layout. f32 (k 8): n-tile
+// kk; TF32's A wants columns t and t + 4 of a lane's quad where the
+// accumulator holds 2t and 2t + 1, so the k order is permuted rather than
+// the values moved (A's column t carries column 2t, its column t + 4 column
+// 2t + 1), and ld_b2_acc reads B's rows in that same order.
+template <typename T, int NT>
+__device__ __forceinline__ typename Mma<T>::A acc_to_a(const float (&c)[NT][4], int kk) {
+  if constexpr (std::is_same<T, float>::value) {
+    const uint32_t r[4] = {bits(c[kk][0]), bits(c[kk][2]), bits(c[kk][1]), bits(c[kk][3])};
+    return Mma<float>::make_a(r);
+  } else {
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(c[2 * kk + (i >> 1)][2 * (i & 1)],
+                                                     c[2 * kk + (i >> 1)][2 * (i & 1) + 1]);
+      r[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return Mma<T>::make_a(r);
+  }
+}
+
+// B of the two n-tiles at n0 and n0 + 8 for the k-step at k0 of a product
+// whose A comes from acc_to_a, read from shared [k][n] (row-major, ld): f32
+// rows k0 + 2t and k0 + 2t + 1 (acc_to_a's k order; ld = 4 mod 16 words
+// puts the 32 lanes on distinct banks), bf16 the transposed ldmatrix.
+__device__ __forceinline__ void ld_b2_acc(uint32_t (&r)[4], const float* s, int ld, int n0,
+                                          int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* row = s + (k0 + 2 * t) * ld + n0 + g;
+  r[0] = bits(row[0]);
+  r[1] = bits(row[ld]);
+  r[2] = bits(row[8]);
+  r[3] = bits(row[ld + 8]);
+}
+__device__ __forceinline__ void ld_b2_acc(uint32_t (&r)[4], const __nv_bfloat16* s, int ld,
+                                          int n0, int k0, int lane) {
+  ld_b2<true>(r, s, ld, n0, k0, lane);
 }
 
 template <int NT>

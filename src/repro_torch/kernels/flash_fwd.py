@@ -4,10 +4,12 @@ Counterpart of ``repro.kernels.flash_fwd``. ``flash_fwd`` computes
 ``O = dropout(softmax(QKᵀ·scale))·V`` and ``lse`` with causal masking (q as
 the kv suffix), a sliding window, ``segment_ids`` and coordinate-hash
 dropout. On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (one block per
-(q tile, q head, batch), KV tiles looped inside the block); on a CPU tensor
-it runs :func:`flash_fwd_torch`, which folds the same 64-wide KV tiles
-through the same online-softmax fold in plain torch. ``acc_dtype=bfloat16``
-(bf16-ACC) rounds each score tile and each tile's P·V to bf16 on both.
+128-row q tile, q head and batch, each warp 16 q rows on tensor cores, the
+64-row KV tiles looped inside the block through a ``cp.async`` ring); on a
+CPU tensor it runs :func:`flash_fwd_torch`, which folds the same 64-wide KV
+tiles through the same online-softmax fold in plain torch.
+``acc_dtype=bfloat16`` (bf16-ACC) rounds each score tile and each tile's P·V
+to bf16 on both.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.kernels import _build, rng
 from repro_torch.kernels.common import online_fold, round_acc
 from repro_torch.kernels.ref import _expand_kv
 
-TILE = 64                      # BQ == BKV in csrc/flash_fwd.cu
+TILE = 64                      # KV tile of the fold and of the segment bounds
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is instantiated for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACC_DTYPES = (torch.float32, torch.bfloat16)   # accumulate types of a product

@@ -20,7 +20,9 @@ a table a slot, ``row_tokens`` 5), f32, it measures:
   the engine does; q, kv_len and the tables are read just before each
   launch (by a reduction the timing leaves out), as the engine's step has
   just written them;
-* ``host_us`` — a host clock over many wrapper calls, no synchronise.
+* ``host_us`` — a host clock over many wrapper calls, no synchronise;
+* ``bound_ms`` (the paged kernel) — the least time of the launch: its
+  bytes or its flops at the card's peak rates, whichever is the longer.
 
 Run from the root of a checkout on a machine with the card and nvcc::
 
@@ -46,6 +48,7 @@ import torch
 
 from repro_torch.distributed.paged import _local_ids
 from repro_torch.kernels import decode as kdecode
+from repro_torch.perf import HBM_BYTES_PER_S, PEAK_FLOPS
 
 HQ, HKV, D, PS, T = 32, 8, 64, 16, 37
 L2_BYTES = 50e6
@@ -145,12 +148,13 @@ def host_us(fn, iters: int = 100, repeats: int = 7, warmup: int = 20) -> float:
     return sorted(runs)[repeats // 2]
 
 
-def device_ms(calls, reps: int = 200):
-    """``(ms, method)``: the mean device time of one ``decode_kernel``
-    launch over ``reps`` calls rotating over ``calls`` (one a cache copy;
-    each may launch other kernels too), from ``torch.profiler``; from CUDA
-    events around a CUDA graph of the same calls where the profiler records
-    no launch (the other kernels then count)."""
+def device_ms(calls, reps: int = 200, kernel: str = KERNEL):
+    """``(ms, method)``: the mean device time of one launch of the kernel
+    whose name holds ``kernel`` over ``reps`` calls rotating over ``calls``
+    (one a cache copy; each may launch other kernels too), from
+    ``torch.profiler``; from CUDA events around a CUDA graph of the same
+    calls where the profiler records no launch (the other kernels then
+    count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,7 +168,7 @@ def device_ms(calls, reps: int = 200):
                 calls[i % len(calls)]()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and KERNEL in e.key:
+            if e.device_type == DeviceType.CUDA and kernel in e.key:
                 total += e.self_device_time_total
                 count += e.count
     except RuntimeError as e:   # no CUPTI: the graph below
@@ -200,6 +204,18 @@ def _case(calls, iters, operands):
     return {"ms": time_ms(calls[0], iters), "device_ms": dev,
             "device_ms_method": how, "device_ms_copies": len(calls),
             "host_us": host_us(calls[0])}
+
+
+def paged_bound_ms(kv_len, rows_per_table: int) -> float:
+    """The least time of a paged launch (f32): the larger of its bytes
+    (each table's K/V rows up to its rows' longest kv_len once, q and o, the
+    tables and kv_len) at 3.35 TB/s and its flops (4 D a query head and key
+    read) at the TF32 tensor-core peak, 495 TFLOP/s."""
+    b = kv_len.shape[0]
+    longest = kv_len.view(b // rows_per_table, rows_per_table).max(dim=1).values
+    nbytes = 4 * (2 * HKV * D * int(longest.sum()) + 2 * b * HQ * D + b * T + b)
+    flops = 4 * HQ * D * int(kv_len.sum())
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e3
 
 
 def measure() -> dict:
@@ -241,6 +257,8 @@ def measure() -> dict:
             out[name][shape] = _case(calls, 50 if shape == "decode" else 20,
                                      [(q, kv_len, bt, va)
                                       for bt, va in zip(tables, valids)])
+            if not gated:
+                out[name][shape]["bound_ms"] = paged_bound_ms(kv_len, per_table)
             del q, kp, vp, tables, valids, calls
     torch.cuda.empty_cache()
     return out

@@ -26,6 +26,7 @@ from repro_torch.data import DataConfig, make_batch  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime.steps import (make_serve_steps, make_train_step,  # noqa: E402
                                        place_batch)
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.serving import (PagedCacheConfig, ServingEngine,  # noqa: E402
                                  TRASH_PAGE)
 
@@ -95,6 +96,67 @@ def test_flash_fwd_kernel_matches_plain(cuda, name, dtype):
     if dtype == torch.float32:
         o_naive = ref.naive_mha(q, k, v, **kw)
         assert _err(o, o_naive) <= TOL[dtype]
+
+
+def _fwd_check(gen, b, hq, hkv, sq, skv, d, dtype, acc=torch.float32, **kw):
+    """The forward kernel against its plain version (and, for f32, the
+    naive oracle) on one case, launched twice: the two launches bit-equal.
+    Returns (o, lse)."""
+    q = _rand(gen, (b, hq, sq, d), dtype)
+    k = _rand(gen, (b, hkv, skv, d), dtype)
+    v = _rand(gen, (b, hkv, skv, d), dtype)
+    o, lse = kfwd.flash_fwd(q, k, v, acc_dtype=acc, **kw)
+    o2, lse2 = kfwd.flash_fwd(q, k, v, acc_dtype=acc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref, lse_ref = kfwd.flash_fwd_torch(q, k, v, acc_dtype=acc, **kw)
+    bf16 = torch.bfloat16 in (dtype, acc)
+    assert _err(o, o_ref) <= TOL[torch.bfloat16 if bf16 else torch.float32]
+    # bf16-ACC rounds the scores to bf16 before the softmax (as in
+    # test_flash_fwd_bf16_acc_kernel_matches_plain)
+    assert _err(lse, lse_ref) <= (2e-3 if acc == torch.bfloat16 else 1e-4)
+    if not bf16:
+        assert _err(o, ref.naive_mha(q, k, v, **kw)) <= TOL[torch.float32]
+    return o, lse
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", kfwd.HEAD_DIMS)
+def test_flash_fwd_head_dims(cuda, d, dtype, acc):
+    """Every head dim the kernel is built for, f32 and bf16 inputs, f32 and
+    bf16 accumulation: causal GQA, q a ragged suffix of kv."""
+    _fwd_check(cuda, 2, 8, 2, 150, 230, d, dtype, acc, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1, 63, 65, 127])
+def test_flash_fwd_short_q_over_long_kv(cuda, sq, dtype):
+    """A few q rows (less than one block, one warp and a row, a block less
+    one row) as the suffix of 1000 kv rows, causal."""
+    _fwd_check(cuda, 2, 8, 2, sq, 1000, 64, dtype, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [20, 64, 128])
+def test_flash_fwd_window_edges(cuda, window, dtype):
+    """A window inside one KV tile, and windows at one and two tiles, where
+    tiles pass between the unmasked and the masked path."""
+    _fwd_check(cuda, 2, 8, 2, 300, 300, 64, dtype, causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_dropout_window_segments(cuda, dtype):
+    """Dropout, a window and packed segments together on a q suffix: rows
+    of padding (segment -1) are exact zeros with lse NEG_INF."""
+    skv, sq = 260, 200
+    seg = (torch.arange(skv, device="cuda", dtype=torch.int32) // 70).repeat(2, 1)
+    seg[:, -30:] = -1
+    o, lse = _fwd_check(cuda, 2, 8, 2, sq, skv, 64, dtype, causal=True,
+                        window=70, segment_ids=seg, dropout_rate=0.2,
+                        dropout_seed=-5)
+    assert float(o[:, :, -30:].abs().max()) == 0.0
+    assert bool((lse[:, :, -30:] == -1e30).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -633,3 +695,30 @@ def test_train_step_kernel_matches_torch(cuda):
     assert abs(gk - gt) <= 1e-4 * gt
     for a, b in zip(dk, dt):
         assert _err(a, b) <= 1e-4 * float(b.abs().max())
+
+
+def test_trainer_resume_on_the_card_matches_straight(cuda, tmp_path):
+    """4 steps straight ≡ 2 steps, a preemption and a resume to 4 on the
+    card (SMOKE granite, packed batch, dropout 0.1, the kernels): every
+    parameter within the reference's 1e-6 (tests/test_fault_tolerance.py
+    test_resume_determinism), although the backward sums dQ by atomics."""
+    cfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                              dtype=torch.float32, dropout_rate=0.1)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4,
+                    seed=1, pack=True)
+
+    def trainer(path):
+        arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-3), impl="kernel",
+                               device="cuda")
+        return Trainer(arts=arts, data_cfg=dc, tcfg=TrainerConfig(
+            ckpt_dir=str(path), ckpt_every=100, log_every=1000))
+
+    straight = trainer(tmp_path / "a").run(4)
+    first = trainer(tmp_path / "b")
+    first.hooks["pre_step"] = lambda s: first.request_preemption() if s == 1 else None
+    stopped = first.run(4)
+    assert stopped["preempted"] and stopped["stop_step"] == 2
+    resumed = trainer(tmp_path / "b").run(4)
+    assert resumed["stop_step"] == 4
+    for a, b in zip(straight["params"].parameters(), resumed["params"].parameters()):
+        assert _err(a.detach(), b.detach()) <= 1e-6
