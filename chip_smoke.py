@@ -38,7 +38,13 @@ Phases, each of which exits non-zero on failure:
              and padding (query tiles with mixed tables, ``row_tokens``
              256) at D 64, D 32 and D 128 with a GQA group of 5, and each
              case's launch geometry printed (clusters at the decode shape,
-             which must put a block on every SM);
+             which must put a block on every SM); and every kernel at
+             recurrentgemma-2b's geometry (10/1 heads, D 256): the forward
+             at B 2, S 3072, causal, window 2048 and with ragged segments,
+             the contiguous decode over a ring of 2048 slots (kv_len with
+             0), the paged and the gated decode at page 16, window 2048
+             (out-of-window pages reclaimed to the 1e6 trash page) and at
+             256 chunk token rows;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -63,6 +69,20 @@ Phases, each of which exits non-zero on failure:
              kernel run up to a printed near-tie, the gated kernel launched
              40 × (decode + chunk + verify calls) on each rank and the
              ungated one never; host time in the merge collectives;
+4d. hybrid — recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local
+             attention; d_model 2560, 10/1 heads, head dim 256, window 2048,
+             vocab 256000) at full width and depth, f32, random weights from
+             seed 0: (a) the contiguous path, batch 4, prompt 3072 (past the
+             window: prefill masks, the ring rolls), 32 generated, kernel vs
+             torch impl (greedy tokens identical, logits within 1e-3 of
+             max|logit|, counters 8 ``flash_fwd`` and 8 x 31
+             ``flash_decode``); (b) the paged engine (page 16, 8 slots) on
+             12 seeded requests of 1024-3072 prompt and 16-48 new tokens in
+             three modes: eager with window reclaim, lazy on half the pool
+             with preemption forced by a seeded storm plan and
+             ``poison_reclaimed``, chunked prefill of 512: tokens equal to
+             the torch impl's up to a printed near-tie, counters 8 x calls;
+             prefix sharing and speculation refused; peak memory;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -93,7 +113,10 @@ Phases, each of which exits non-zero on failure:
              ``device_ms`` (the kernel alone, cold L2) and ``host_us`` (a
              wrapper call) from ``perf/decode_times.py``, at the decode
              shape and (``<shape>_shape_``) at the chunk, at decode with 32
-             and 64 slots and at verify (8 slots of 5 token rows).
+             and 64 slots and at verify (8 slots of 5 token rows); three
+             more rows hold rows 1, 4 and 5 at recurrentgemma-2b's prefill,
+             decode and paged decode (and 512-token chunk) shapes, with
+             SDPA given the window as a mask.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -224,6 +247,15 @@ def main(argv=None) -> None:
     dist_launches = dist_serve_phase(torch, paged_tokens, args.dist_ranks,
                                      args.dist_backend)
 
+    # ---------------- phase 4d: the hybrid recurrentgemma-2b ----------------
+    torch.cuda.reset_peak_memory_stats()
+    hybrid_launches = serve_phase(torch, kfwd, kdecode, "recurrentgemma_2b",
+                                  batch=4, prompt_len=3072, gen_len=32,
+                                  tag="hybrid")
+    hybrid_paged = hybrid_paged_phase(torch, kfwd, kdecode)
+    print(f"[hybrid] peak max_memory_allocated over phase 4d "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
 
@@ -235,6 +267,8 @@ def main(argv=None) -> None:
     rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
     device_times_phase(rows)
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
+    rows += hybrid_times_phase(torch, kfwd, kdecode, hybrid_launches,
+                               hybrid_paged, errs)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -293,7 +327,7 @@ def build_report(_build) -> None:
     mma = tensor_core_instructions(_build, "flash_bwd")
     fwd = tensor_core_instructions(_build, "flash_fwd")
     want = [*BWD_D64, *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
-                        for d in (16, 32, 64, 128) for acc in ("", ", acc bf16"))]
+                        for d in (16, 32, 64, 128, 256) for acc in ("", ", acc bf16"))]
     for entry in want:
         n = mma.get(entry, fwd.get(entry, 0))
         print(f"[build] {entry}: {n} tensor-core instructions (HMMA / HGMMA in "
@@ -371,6 +405,12 @@ def kernel_phase(torch, kfwd, kdecode):
         ("ragged_500", 8, 32, 8, 500, 500, 64, dict(causal=True)),
         ("q_suffix_200_of_500", 8, 32, 8, 200, 500, 64, dict(causal=True)),
         ("d128_gqa5", 8, 40, 8, 512, 512, 128, dict(causal=True)),
+        # recurrentgemma-2b's attention (10/1 heads, D 256, window 2048): a
+        # prefill past the window, whole tiles behind every row's window
+        ("rg_s3072_window2048", 2, 10, 1, 3072, 3072, 256,
+         dict(causal=True, window=2048)),
+        ("rg_segments_ragged_1000", 2, 10, 1, 1000, 1000, 256,
+         dict(causal=True, window=2048, segments=True)),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -420,6 +460,28 @@ def kernel_phase(torch, kfwd, kdecode):
                          f"with its plain version")
                 errs[f"flash_decode/{name}/ns{ns}/{dn}"] = e
             del q, k, v, o, o_ref
+
+        # recurrentgemma-2b's decode: a ring of 2048 slots, 10/1 heads, D 256
+        kv_len = torch.tensor([2048, 0, 700, 2047], dtype=torch.int32,
+                              device="cuda")
+        q = _rand(torch, gen, (4, 10, 256), dtype)
+        k = _rand(torch, gen, (4, 1, 2048, 256), dtype)
+        v = _rand(torch, gen, (4, 1, 2048, 256), dtype)
+        for ns in (1, 3):
+            o = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=ns)
+            torch.cuda.synchronize()
+            e = _maxerr(o, kdecode.flash_decode_torch(q, k, v, kv_len=kv_len,
+                                                      num_splits=ns))
+            ok = e <= TOL[dn] and float(o[1].abs().max()) == 0.0
+            print(f"[kernels] flash_decode rg_ring2048_g10_d256 splits={ns} "
+                  f"{dn}: max|o - plain| {e:.3e} (tol {TOL[dn]:.1e}), kv_len=0 "
+                  f"row zero: {float(o[1].abs().max()) == 0.0} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"flash_decode rg_ring2048_g10_d256 splits={ns} {dn} "
+                     f"disagrees with its plain version")
+            errs[f"flash_decode/rg_ring2048_g10_d256/ns{ns}/{dn}"] = e
+        del q, k, v, o
 
     # both kernels against the independent naive oracle, small f32 inputs
     q, k, v = _fwd_inputs(torch, gen, 2, 8, 2, 100, 300, 64, torch.float32)
@@ -522,6 +584,13 @@ def paged_kernel_phase(torch, kdecode):
         ("chunk_mixed_tables", None, 32, 8, 64, 16, 37, None),
         ("chunk_mixed_d32", None, 32, 8, 32, 16, 37, None),
         ("chunk_mixed_g5_d128", None, 40, 8, 128, 16, 37, None),
+        # recurrentgemma-2b: 10/1 heads, D 256, page 16, window 2048; decode
+        # rows whose out-of-window pages are reclaimed (trash, 1e6), and a
+        # chunk of 256 token rows of one table (query tiles of 6 rows)
+        ("rg_ps16_g10_d256_window", [3120, 0, 2049, 1040, 17, 2600, 3000, 2048],
+         10, 1, 256, 16, 196, 2048),
+        ("chunk_256_rows_rg_window", [0] * 16 + list(range(2801, 3041)),
+         10, 1, 256, 16, 196, 2048),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -533,9 +602,11 @@ def paged_kernel_phase(torch, kdecode):
                 lens = kv_len.tolist()
             else:
                 kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-                q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps,
-                                            t, dtype, window)
-            if name == "chunk_256_rows":     # every token row reads one table
+                # a chunk's rows share the last row's table: nothing reclaimed
+                q, kp, vp, bt = _paged_case(
+                    torch, gen, kv_len, hq, hkv, d, ps, t, dtype,
+                    None if name.startswith("chunk") else window)
+            if name.startswith("chunk_256_rows"):     # every token row reads one table
                 bt = bt[-1:].expand(len(lens), t).contiguous()
             # a chunk's rows are the token rows of one batch row
             rt = len(lens) if name.startswith("chunk") else 1
@@ -620,6 +691,13 @@ def gated_kernel_phase(torch, kdecode):
         ("chunk_mixed_tables", None, 32, 8, 64, 16, 37, None),
         ("chunk_mixed_d32", None, 32, 8, 32, 16, 37, None),
         ("chunk_mixed_g5_d128", None, 40, 8, 128, 16, 37, None),
+        # recurrentgemma-2b: 10/1 heads, D 256, page 16, window 2048; decode
+        # rows whose out-of-window pages are reclaimed (trash, 1e6), and a
+        # chunk of 256 token rows of one table (query tiles of 6 rows)
+        ("rg_ps16_g10_d256_window", [3120, 0, 2049, 1040, 17, 2600, 3000, 2048],
+         10, 1, 256, 16, 196, 2048),
+        ("chunk_256_rows_rg_window", [0] * 16 + list(range(2801, 3041)),
+         10, 1, 256, 16, 196, 2048),
     ]
     errs, worst = {}, {"gate": 0.0, "lse": 0.0, "shards": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -631,9 +709,10 @@ def gated_kernel_phase(torch, kdecode):
                 lens, n_local = kv_len.tolist(), kp.shape[1] // 2
             else:
                 kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-                q, kp, vp, bt, n_local = _sharded_case(torch, gen, kv_len, hq,
-                                                       hkv, d, ps, t, dtype, window)
-            if name == "chunk_256_rows":     # every token row reads one table
+                q, kp, vp, bt, n_local = _sharded_case(
+                    torch, gen, kv_len, hq, hkv, d, ps, t, dtype,
+                    None if name.startswith("chunk") else window)
+            if name.startswith("chunk_256_rows"):     # every token row reads one table
                 bt = bt[-1:].expand(len(lens), t).contiguous()
             b = len(lens)
             rt = b if name.startswith("chunk") else 1     # one batch row's tokens
@@ -645,7 +724,7 @@ def gated_kernel_phase(torch, kdecode):
                 # (a) the gate alone, on the whole pool
                 valid = (torch.rand((b, t), generator=gen, device="cuda") < 0.5
                          ).to(torch.int32)
-                if name == "chunk_256_rows":  # one table: one ownership
+                if name.startswith("chunk_256_rows"):  # one table: one ownership
                     valid = valid[-1:].expand(b, t).contiguous()
                 elif name.startswith("chunk_mixed"):   # ownership by page id
                     valid = (bt % 2).to(torch.int32).contiguous()
@@ -810,23 +889,27 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
     return errs
 
 
-def serve_phase(torch, kfwd, kdecode):
-    """granite-3-2b, full width and depth, through the port's serving path."""
+def serve_phase(torch, kfwd, kdecode, arch="granite_3_2b", batch=8,
+                prompt_len=512, gen_len=32, tag="serve"):
+    """An arch at full width and depth through the port's contiguous serving
+    path (granite-3-2b; phase 4d: recurrentgemma-2b, batch 4, prompt 3072
+    past its 2048-token window, so prefill masks and the ring rolls)."""
     from repro_torch import configs
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import lm
     from repro_torch.runtime.steps import make_serve_steps
 
-    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
+    cfg = dataclasses.replace(configs.get_config(arch),
                               dtype=torch.float32)   # as launch/serve.py forces
-    batch, prompt_len, gen_len = 8, 512, 32
+    n_attn = lm.block_kinds(cfg).count("attn")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
-          f"vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B params f32 "
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({n_attn} attention), "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, window {cfg.attn_window}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.2f} B params f32 "
           f"(random, seed 0) in {time.perf_counter() - t0:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
@@ -843,21 +926,21 @@ def serve_phase(torch, kfwd, kdecode):
                             cfg.vocab_size)
     launches = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches}
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_fwd": cfg.num_layers,
-            "flash_decode": cfg.num_layers * (gen_len - 1)}
-    print(f"[serve] impl=kernel: prefill {batch}x{prompt_len} "
+    want = {"flash_fwd": n_attn, "flash_decode": n_attn * (gen_len - 1)}
+    print(f"[{tag}] impl=kernel: prefill {batch}x{prompt_len} "
           f"{run_k.prefill_s * 1e3:.1f} ms; decode {gen_len - 1} steps "
           f"{run_k.decode_s * 1e3:.1f} ms "
           f"({(gen_len - 1) * batch / run_k.decode_s:.1f} tok/s); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    print(f"[serve] launch counters {launches} (expected {want})", flush=True)
+    print(f"[{tag}] launch counters {launches} (expected {want})", flush=True)
     if launches != want:
-        fail(f"the serving path did not go through the kernels: {launches}")
+        fail(f"{arch}: the serving path did not go through the kernels: "
+             f"{launches}")
 
-    print(f"[serve] tolerance kernel vs torch impl: max |d logit| <= "
-          f"{LOGIT_REL_TOL:.0e} x max|logit| (40 layers of f32 with sums in "
-          f"another order move logits ~1e-6 relative; a wrong kernel moves "
-          f"them by far more)")
+    print(f"[{tag}] tolerance kernel vs torch impl: max |d logit| <= "
+          f"{LOGIT_REL_TOL:.0e} x max|logit| ({cfg.num_layers} layers of f32 "
+          f"with sums in another order move logits ~1e-6 relative; a wrong "
+          f"kernel moves them by far more)")
     run_t = greedy_generate(steps("torch"), params, prompt, gen_len,
                             cfg.vocab_size, feed=run_k.tokens)
     if {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches} != want:
@@ -873,11 +956,13 @@ def serve_phase(torch, kfwd, kdecode):
             fail(f"step {step}: kernel vs torch logits differ by {rel:.3e} "
                  f"of max|logit| (tol {LOGIT_REL_TOL:.0e})")
     match = float((run_k.tokens == run_t.tokens).float().mean())
-    print(f"[serve] impl=torch (fed the kernel run's tokens): prefill "
+    print(f"[{tag}] impl=torch (fed the kernel run's tokens): prefill "
           f"{run_t.prefill_s * 1e3:.1f} ms; decode {run_t.decode_s * 1e3:.1f} ms")
-    print(f"[serve] kernel vs torch logits over prefill + {gen_len - 1} steps: "
+    print(f"[{tag}] kernel vs torch logits over prefill + {gen_len - 1} steps: "
           f"max |d| / max|logit| {worst:.3e} (tol {LOGIT_REL_TOL:.0e}); "
           f"greedy token match {match:.4f}", flush=True)
+    if tag == "hybrid" and match != 1.0:
+        fail(f"{arch}: kernel and torch greedy tokens differ ({match:.4f})")
     del params, run_k, run_t
     torch.cuda.empty_cache()
     return launches
@@ -985,24 +1070,22 @@ def paged_serve_phase(torch, kfwd, kdecode):
 
     from repro_torch import configs
     from repro_torch.models import lm
-    from repro_torch.serving import PagedCacheConfig, ServingEngine
+    from repro_torch.serving import PagedCacheConfig
 
     cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
                               dtype=torch.float32)
     params = lm.init_params(cfg, seed=0, device="cuda")
-    n = cfg.num_layers
     ps, slots = 16, 8
     budget = PAGED_PROMPT + PAGED_GEN
     pages_per_seq = -(-budget // ps) + 1                       # 37
     full_pool = 1 + slots * pages_per_seq                      # 297
-    print(f"[paged] {cfg.name}, {n} layers f32 (random, seed 0): page {ps}, "
-          f"{slots} slots, {pages_per_seq} pages a sequence, pool {full_pool} "
-          f"pages ({(full_pool - 1) // 2 + 1} in lazy mode); {PAGED_REQUESTS} "
-          f"requests, prompts {PAGED_PROMPT // 4}-{PAGED_PROMPT} tokens, "
-          f"{PAGED_GEN // 4}-{PAGED_GEN} generated; near-tie tolerance: top-2 "
-          f"margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
-    counts = {"flash_fwd": 0, "flash_paged_decode": 0, "by_mode": {}}
-    tokens = {}
+    print(f"[paged] {cfg.name}, {cfg.num_layers} layers f32 (random, seed 0): "
+          f"page {ps}, {slots} slots, {pages_per_seq} pages a sequence, pool "
+          f"{full_pool} pages ({(full_pool - 1) // 2 + 1} in lazy mode); "
+          f"{PAGED_REQUESTS} requests, prompts {PAGED_PROMPT // 4}-{PAGED_PROMPT} "
+          f"tokens, {PAGED_GEN // 4}-{PAGED_GEN} generated; near-tie tolerance: "
+          f"top-2 margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
+    modes = {}
     for mode, kw in PAGED_MODES.items():
         lazy = kw.get("lazy", False)
         pcfg = PagedCacheConfig(
@@ -1010,14 +1093,39 @@ def paged_serve_phase(torch, kfwd, kdecode):
             num_pages=(full_pool - 1) // 2 + 1 if lazy else full_pool)
         # lazy: a preempted row re-prefills prompt + generated, so a row
         # holds a full budget (launch/serve.py's rule)
-        prefill_len = budget if lazy else PAGED_PROMPT
-        reqs = _paged_requests(np, cfg.vocab_size, mode,
-                               pcfg.max_seq_len - PAGED_GEN - 1)
+        modes[mode] = (pcfg, budget if lazy else PAGED_PROMPT, kw,
+                       _paged_requests(np, cfg.vocab_size, mode,
+                                       pcfg.max_seq_len - PAGED_GEN - 1))
+    counts, tokens, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
+                                      "paged", PAGED_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    return counts, tokens
+
+
+def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
+    """Each mode of ``modes`` ({name: (pool config, prefill row length,
+    engine kwargs, requests)}) through ``ServingEngine`` with impl kernel,
+    then torch: every request completes, ``flash_fwd`` launches (attention
+    layers) x prefill calls and the paged kernel (attention layers) x
+    (decode + chunk + verify calls), the torch impl none, a lazy mode
+    preempts, and the tokens are equal up to a printed near-tie. Returns
+    the kernel runs' launch counts, their (outputs, top-2 margins) and
+    their engine stats by mode."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+
+    n = lm.block_kinds(cfg).count("attn")
+    counts = {"flash_fwd": 0, "flash_paged_decode": 0, "by_mode": {}}
+    tokens, kernel_stats = {}, {}
+    for mode, (pcfg, prefill_len, kw, reqs) in modes.items():
         runs = {}
         for impl in ("kernel", "torch"):
             eng = ServingEngine(cfg, pcfg, params, impl=impl, device="cuda",
-                                prefill_len=prefill_len,
-                                torch_chunk=PAGED_PROMPT, **kw)
+                                prefill_len=prefill_len, torch_chunk=torch_chunk,
+                                **kw)
             rec = StepRecorder(torch, eng, cfg.vocab_size)
             torch.cuda.reset_peak_memory_stats()
             kfwd.launches = kdecode.launches = kdecode.launches_paged = 0
@@ -1026,7 +1134,7 @@ def paged_serve_phase(torch, kfwd, kdecode):
             got = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches,
                    "flash_paged_decode": kdecode.launches_paged}
             c = rec.calls
-            print(f"[paged] {mode} impl={impl}: {stats['generated_tokens']:.0f} "
+            print(f"[{tag}] {mode} impl={impl}: {stats['generated_tokens']:.0f} "
                   f"tokens in {stats['wall_s']:.3f} s = "
                   f"{stats['tokens_per_s']:.1f} tokens/s; "
                   f"{stats['decode_steps']:.0f} decode steps; calls prefill "
@@ -1034,7 +1142,9 @@ def paged_serve_phase(torch, kfwd, kdecode):
                   f"/ verify {c['verify']}; preemptions "
                   f"{stats['preemptions']:.0f}; page utilization "
                   f"{stats['mean_utilization']:.3f}, pool fraction "
-                  f"{stats['mean_pool_fraction']:.3f}; prefill tokens "
+                  f"{stats['mean_pool_fraction']:.3f}; pages reclaimed "
+                  f"{stats['pages_reclaimed']:.0f}; state releases "
+                  f"{stats['state_releases']:.0f}; prefill tokens "
                   f"{stats['prefill_tokens']:.0f} ({stats['prefill_tokens_skipped']:.0f} "
                   f"skipped), cow {stats['cow_copies']:.0f}, drafted "
                   f"{stats['drafted_tokens']:.0f} / accepted "
@@ -1042,25 +1152,26 @@ def paged_serve_phase(torch, kfwd, kdecode):
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
                   f"launches {got}", flush=True)
             if stats["outcomes"]["completed"] != len(reqs):
-                fail(f"paged {mode} {impl}: outcomes {stats['outcomes']}")
+                fail(f"{tag} {mode} {impl}: outcomes {stats['outcomes']}")
             if impl == "kernel":
                 want = {"flash_fwd": n * c["prefill"], "flash_decode": 0,
                         "flash_paged_decode": n * (c["decode"] + c["chunk"]
                                                    + c["verify"])}
                 if got != want or want["flash_paged_decode"] == 0:
-                    fail(f"paged {mode}: the path did not go through the "
+                    fail(f"{tag} {mode}: the path did not go through the "
                          f"kernels: {got}, expected {want}")
                 counts["flash_fwd"] += got["flash_fwd"]
                 counts["flash_paged_decode"] += got["flash_paged_decode"]
                 counts["by_mode"][mode] = got["flash_paged_decode"]
+                kernel_stats[mode] = stats
             elif any(got.values()):
-                fail(f"paged {mode}: impl='torch' launched a CUDA kernel: {got}")
+                fail(f"{tag} {mode}: impl='torch' launched a CUDA kernel: {got}")
             runs[impl] = (out, rec)
-        if lazy and stats["preemptions"] == 0:
-            fail("paged lazy: the half pool forced no preemption")
+        if kw.get("lazy") and stats["preemptions"] == 0:
+            fail(f"{tag} {mode}: the lazy mode preempted no row")
         out_k, rec_k = runs["kernel"]
-        tokens[mode] = (out_k, rec_k.margin)
         out_t = runs["torch"][0]
+        tokens[mode] = (out_k, rec_k.margin)
         same, ties = 0, []
         for rid, toks in out_k.items():
             diff = np.nonzero(toks != out_t[rid])[0]
@@ -1073,13 +1184,98 @@ def paged_serve_phase(torch, kfwd, kdecode):
                         f"{out_t[rid][i]}, margin {margin:.3e} of max|logit| "
                         f"{peak:.3e}")
             if margin > LOGIT_REL_TOL * peak:
-                fail(f"paged {mode}: {ties[-1]}: not a near-tie")
-        print(f"[paged] {mode}: kernel vs torch tokens identical for {same} of "
+                fail(f"{tag} {mode}: {ties[-1]}: not a near-tie")
+        print(f"[{tag}] {mode}: kernel vs torch tokens identical for {same} of "
               f"{len(out_k)} requests"
               + ("".join(f"; near-tie {t}" for t in ties)), flush=True)
+    return counts, tokens, kernel_stats
+
+
+# phase 4d: recurrentgemma-2b, 12 seeded requests of 1024-3072 prompt and
+# 16-48 new tokens on page 16 and 8 slots (the pool of a sequence: 196 pages)
+HYBRID_REQUESTS, HYBRID_PROMPT, HYBRID_GEN = 12, 3072, 48
+HYBRID_MODES = {
+    # name: (engine kwargs beyond page 16 and 8 slots, prefill row length,
+    # half the pool); window reclaim is on in every mode (the arch has a
+    # window), poisoned under the lazy mode
+    "eager": ({}, HYBRID_PROMPT, False),
+    # preemption forced by a seeded storm plan (serving/faults.py: the
+    # youngest rows preempted at three steps): these prompts are long beside
+    # their generations, so growth on half the pool never runs dry
+    "lazy": ({"lazy": True, "poison_reclaimed": True,
+              "fault_plan": dict(seed=3, horizon=40, events_per_kind=3,
+                                 kinds=("storm",))},
+             HYBRID_PROMPT + HYBRID_GEN, True),
+    "chunk_512": ({"prefill_chunk": 512}, 512, False),
+}
+
+
+def _hybrid_requests(np, vocab):
+    """12 seeded requests: prompts 1024-3072 tokens, 16-48 generated."""
+    rs = np.random.RandomState(1)
+    return [(rs.randint(0, vocab, size=int(rs.randint(HYBRID_PROMPT // 3,
+                                                       HYBRID_PROMPT + 1))),
+             int(rs.randint(HYBRID_GEN // 3, HYBRID_GEN + 1)))
+            for _ in range(HYBRID_REQUESTS)]
+
+
+def hybrid_pool(lazy: bool):
+    """Phase 4d's page pool: page 16, 8 slots, 196 pages a sequence; the
+    whole pool holds every slot's budget, the lazy one half of it."""
+    from repro_torch.serving import PagedCacheConfig
+
+    ps, slots = 16, 8
+    pages_per_seq = -(-(HYBRID_PROMPT + HYBRID_GEN) // ps) + 1       # 196
+    full = 1 + slots * pages_per_seq                                 # 1569
+    return PagedCacheConfig(page_size=ps, max_batch=slots,
+                            max_pages_per_seq=pages_per_seq,
+                            num_pages=(full - 1) // 2 + 1 if lazy else full)
+
+
+def hybrid_paged_phase(torch, kfwd, kdecode):
+    """recurrentgemma-2b at full width and depth through the paged engine in
+    ``HYBRID_MODES`` (``_engine_modes``: kernel impl against torch impl,
+    launch counters 8 attention layers x calls, tokens equal up to a
+    near-tie); eager must reclaim out-of-window pages; prefix sharing and
+    speculation are refused. Returns the kernel runs' launch counts."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import FaultPlan, ServingEngine
+
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    reqs = _hybrid_requests(np, cfg.vocab_size)
+    for kw in ({"share_prefix": True}, {"speculate_k": 4}):
+        try:
+            ServingEngine(cfg, hybrid_pool(False), params, device="cuda", **kw)
+        except ValueError as e:
+            print(f"[hybrid] {kw} refused: {e}")
+        else:
+            fail(f"recurrentgemma-2b: the engine accepted {kw}")
+    pcfg = hybrid_pool(False)
+    print(f"[hybrid] paged: page {pcfg.page_size}, {pcfg.max_batch} slots, "
+          f"{pcfg.max_pages_per_seq} pages a sequence, pool {pcfg.num_pages} "
+          f"pages ({hybrid_pool(True).num_pages} in lazy mode); "
+          f"{len(reqs)} requests, prompts {min(len(t) for t, _ in reqs)}-"
+          f"{max(len(t) for t, _ in reqs)} tokens, "
+          f"{min(g for _, g in reqs)}-{max(g for _, g in reqs)} generated",
+          flush=True)
+    modes = {}
+    for mode, (kw, prefill_len, lazy) in HYBRID_MODES.items():
+        kw = dict(kw)
+        if "fault_plan" in kw:
+            kw["fault_plan"] = FaultPlan(**kw["fault_plan"])
+        modes[mode] = (hybrid_pool(lazy), prefill_len, kw, reqs)
+    counts, _, stats = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
+                                     "hybrid", 512)
+    if stats["eager"]["pages_reclaimed"] == 0:
+        fail("hybrid eager: no page left the 2048-token window")
     del params
     torch.cuda.empty_cache()
-    return counts, tokens
+    return counts
 
 
 DIST_RANKS = 2
@@ -1677,7 +1873,8 @@ def fwd_times_phase(row) -> None:
     from repro_torch.perf import fwd_times
 
     fn = fwd_times.library_fn(_build.build(["flash_fwd"])["flash_fwd"])
-    res = fwd_times.measure({"kernel": fn})
+    res = fwd_times.measure({"kernel": fn}, [c for c in fwd_times.CASES
+                                             if not c.startswith("hybrid")])
     row["bound_ms_3xtf32"] = res["prefill_f32"]["bound_ms_3xtf32"]
     row["train_shape_bound_ms_3xtf32"] = res["train_f32"]["bound_ms_3xtf32"]
     row["times_by_case"] = {}
@@ -1693,8 +1890,9 @@ def fwd_times_phase(row) -> None:
 
 def paged_times_phase(torch, kdecode, paged_launches, errs):
     """The paged decode kernel at the engine's decode shape (B 8, 32/8
-    heads, D 64, page 16, T 37, kv_len 528-576) and at a 256-token chunk's
-    shape (256 token rows reading one table up to positions 301-556), f32,
+    heads, D 64, page 16, T 37, kv_len 528-576), at a 256-token chunk's
+    shape (256 token rows reading one table up to positions 301-556) and at
+    a verify launch's (8 slots of 5 token rows, a table a slot), f32,
     beside its plain version, SDPA on the contiguous equivalent (ragged
     lengths as a boolean mask; the page gather excluded) and its bound: the
     K/V rows the rows read (each distinct row once), q and o, the tables."""
@@ -1703,18 +1901,25 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
     gen = torch.Generator(device="cuda").manual_seed(77)
     f32 = torch.float32
     hq, hkv, d, ps, t = 32, 8, 64, 16, 37
+    slot_len = torch.randint(528, 577, (8,), generator=gen, device="cuda",
+                             dtype=torch.int32)
     shapes = {
-        "decode": torch.randint(528, 577, (8,), generator=gen, device="cuda",
-                                dtype=torch.int32),
+        "decode": slot_len,
         "chunk": torch.arange(301, 557, device="cuda", dtype=torch.int32),
+        # a verify step: each slot's current token and 4 drafts
+        "verify": (slot_len[:, None] + torch.arange(
+            1, 6, device="cuda", dtype=torch.int32)).view(-1),
     }
     out = {}
     for shape, kv_len in shapes.items():
         q, kp, vp, bt = _paged_case(torch, gen, kv_len, hq, hkv, d, ps, t, f32)
         if shape == "chunk":
             bt = bt[-1:].expand(kv_len.shape[0], t).contiguous()
+        elif shape == "verify":      # a slot's 5 rows share its last row's table
+            bt = bt[4::5].repeat_interleave(5, dim=0).contiguous()
         b = kv_len.shape[0]
-        rt = b if shape == "chunk" else 1                    # one batch row's tokens
+        # the token rows of one batch row: a chunk's all, a verify slot's 5
+        rt = {"decode": 1, "chunk": b, "verify": 5}[shape]
         o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, row_tokens=rt)
         err = _maxerr(o, kdecode.flash_paged_decode_torch(q, kp, vp, bt,
                                                           kv_len=kv_len))
@@ -1726,7 +1931,7 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
         flops = 4 * hq * d * int(kv_len.sum())
         kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
         mask = read[:, None, None, :]
-        iters = 50 if shape == "decode" else 20
+        iters = 20 if shape == "chunk" else 50
         out[shape] = {
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
@@ -1752,7 +1957,8 @@ def paged_times_phase(torch, kdecode, paged_launches, errs):
            "launches": paged_launches["flash_paged_decode"], **out["decode"],
            "launches_by_path": {"paged_serve": paged_launches["by_mode"]},
            "library_note": "sdpa on the gathered contiguous cache, gather excluded"}
-    row.update({f"chunk_shape_{k}": v for k, v in out["chunk"].items()})
+    for shape in ("chunk", "verify"):
+        row.update({f"{shape}_shape_{k}": v for k, v in out[shape].items()})
     worst = max(v for k, v in errs.items() if k.startswith("flash_paged_decode/"))
     print(f"[times] worst paged kernel-vs-plain error over the kernel phase {worst:.3e}")
     torch.cuda.empty_cache()
@@ -1855,6 +2061,141 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
           f"(gate and two-shard checks, f32 and bf16) {worst:.3e}")
     torch.cuda.empty_cache()
     return result
+
+
+def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches, errs):
+    """Rows 1, 4 and 5 at recurrentgemma-2b's shapes (f32, 10/1 heads, D
+    256, window 2048): its prefill attention (B 4, S 3072, causal), its
+    contiguous decode over a full 2048-slot ring (B 4) and its paged decode
+    (8 slots, kv_len 1040-3120, page 16, T 196) and 512-token chunk, each
+    beside its plain version, SDPA with the window as a boolean mask (GQA
+    expanded by ``enable_gqa``; the paged rows on the gathered cache, the
+    gather excluded), its bound and its device time alone
+    (``perf/fwd_times.py``, ``perf/decode_times.py``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.perf import decode_times, fwd_times
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    f32 = torch.float32
+    hq, hkv, d, w = 10, 1, 256, 2048
+    src = "src/repro_torch/kernels/csrc/"
+    worst = max(v for k, v in errs.items() if "/rg" in k or "_rg_" in k)
+    print(f"[times] recurrentgemma-2b: worst kernel-vs-plain error over its "
+          f"phase-3 cases {worst:.3e}")
+
+    # row 1: the prefill attention of one layer
+    b, s = 4, 3072
+    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, f32)
+    o, _ = kfwd.flash_fwd(q, k, v, causal=True, window=w)
+    fwd_err = _maxerr(o, kfwd.flash_fwd_torch(q, k, v, causal=True, window=w)[0])
+    mask = fwd_times.sdpa_mask(s, w)
+    fn = fwd_times.library_fn(_build.build(["flash_fwd"])["flash_fwd"])
+    dev = fwd_times.measure({"kernel": fn}, ("hybrid_prefill_f32",))
+    fwd = {
+        "name": "flash_fwd (recurrentgemma-2b prefill)", "route": "cuda",
+        "source": src + "flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_fwd.py:46",
+        "launches": launches["flash_fwd"] + paged_launches["flash_fwd"],
+        "max_abs_err": fwd_err,
+        "ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, causal=True,
+                                                    window=w), 10),
+        "plain_ms": time_ms(torch, lambda: kfwd.flash_fwd_torch(
+            q, k, v, causal=True, window=w), 2, warmup=1),
+        **bounds(4 * b * hq * d * fwd_times.causal_pairs(s, w),
+                 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d + b * hq * s)),
+        "bound_ms_3xtf32": dev["hybrid_prefill_f32"]["bound_ms_3xtf32"],
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 10),
+        "device_ms": dev["hybrid_prefill_f32"]["kernel"]["device_ms"],
+        "device_ms_method": dev["hybrid_prefill_f32"]["kernel"]["device_ms_method"],
+        "shape": "B 4, 10/1 heads, S 3072, D 256, causal, window 2048, f32",
+    }
+    del q, k, v, o
+
+    # row 4: one decode step's attention over the full ring
+    q = _rand(torch, gen, (b, hq, d), f32)
+    kc, vc = (_rand(torch, gen, (b, hkv, w, d), f32) for _ in range(2))
+    kv_len = torch.full((b,), w, dtype=torch.int32, device="cuda")
+    o = kdecode.flash_decode(q, kc, vc, kv_len=kv_len)
+    hyb = decode_times.measure_hybrid()
+    dec = {
+        "name": "flash_decode (recurrentgemma-2b decode)", "route": "cuda",
+        "source": src + "flash_decode.cu",
+        "replaces": "src/repro/kernels/decode.py:131",
+        "launches": launches["flash_decode"],
+        "max_abs_err": _maxerr(o, kdecode.flash_decode_torch(q, kc, vc,
+                                                             kv_len=kv_len)),
+        "ms": time_ms(torch, lambda: kdecode.flash_decode(q, kc, vc,
+                                                          kv_len=kv_len), 50),
+        "plain_ms": time_ms(torch, lambda: kdecode.flash_decode_torch(
+            q, kc, vc, kv_len=kv_len), 10),
+        **bounds(4 * b * hq * d * w,
+                 4 * (2 * b * hq * d + 2 * b * hkv * w * d) + 4 * b),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, enable_gqa=True), 50),
+        "shape": "B 4, 10/1 heads, a full ring of 2048 slots, D 256, f32",
+    }
+    del q, kc, vc, o
+
+    # row 5: the engine's decode of 8 slots and a 512-token chunk
+    shapes = decode_times.hybrid_shapes(gen)
+    pag = {"name": "flash_paged_decode (recurrentgemma-2b)", "route": "cuda",
+           "source": src + "flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:136",
+           "launches": paged_launches["flash_paged_decode"],
+           "launches_by_path": {"hybrid_paged_serve": paged_launches["by_mode"]},
+           "shape": "8 slots, 10/1 heads, D 256, page 16, T 196, kv_len "
+                    "1040-3120, window 2048, f32; chunk_shape_: 512 token "
+                    "rows of one table, kv_len 2561-3072",
+           "library_note": "sdpa on the gathered contiguous cache with the "
+                           "window as a mask, gather excluded"}
+    for shape, (kv_len, per_table, rt) in shapes.items():
+        q, kp, vp, bt, _ = decode_times.paged_inputs(
+            kv_len, rows_per_table=per_table, seed=5, geometry=decode_times.HYBRID)
+        bt = bt[0]
+        o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=w,
+                                       row_tokens=rt)
+        err = _maxerr(o, kdecode.flash_paged_decode_torch(
+            q, kp, vp, bt, kv_len=kv_len, window=w))
+        kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
+        pos = torch.arange(kc.shape[2], device="cuda")
+        allowed = ((pos[None, :] < kv_len[:, None])
+                   & (pos[None, :] > kv_len[:, None] - 1 - w))[:, None, None, :]
+        r = {"max_abs_err": err,
+             "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
+                 q, kp, vp, bt, kv_len, window=w, row_tokens=rt), 30),
+             "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
+                 q, kp, vp, bt, kv_len=kv_len, window=w), 3, warmup=1),
+             **bounds(4 * hq * d * int(kv_len.clamp(max=w).sum()),
+                      decode_times.paged_bytes(kv_len, per_table,
+                                               decode_times.HYBRID, w)),
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], kc, vc, attn_mask=allowed, enable_gqa=True), 30),
+             "device_ms": hyb["flash_paged_decode"][shape]["device_ms"],
+             "device_ms_method": hyb["flash_paged_decode"][shape]["device_ms_method"],
+             "host_us": hyb["flash_paged_decode"][shape]["host_us"]}
+        pag.update(r if shape == "decode" else
+                   {f"{shape}_shape_{key}": val for key, val in r.items()})
+        del q, kp, vp, bt, kc, vc, o
+    for key in ("device_ms", "device_ms_method", "host_us"):
+        dec[key] = hyb["flash_decode"]["decode"][key]
+    for row in (fwd, dec, pag):
+        print(f"[times] {row['name']}: kernel {row['ms']:.5f} ms (device "
+              f"{row['device_ms']:.5f} ms, {row['device_ms_method']}), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.5f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}); launches "
+              f"{row['launches']}; max|kernel - plain| {row['max_abs_err']:.3e}",
+              flush=True)
+    print(f"[times] flash_paged_decode (recurrentgemma-2b) at the 512-token "
+          f"chunk: kernel {pag['chunk_shape_ms']:.5f} ms (device "
+          f"{pag['chunk_shape_device_ms']:.5f}), plain "
+          f"{pag['chunk_shape_plain_ms']:.4f} ms, sdpa "
+          f"{pag['chunk_shape_library_ms']:.5f} ms, bound "
+          f"{pag['chunk_shape_bound_ms']:.5f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return [fwd, dec, pag]
 
 
 def device_times_phase(rows) -> None:

@@ -54,6 +54,15 @@
 //   across the two warps that hold its halves. A one-row block (decode) is
 //   4 warps over 8 query rows in f32 FMA from shared memory: it is bound by
 //   bytes, not operations.
+// - Head dim 256 (recurrentgemma-2b: 10 query heads on one kv head). The
+//   ring's tiles are 32 rows, half a split's tile (two 64-row f32 stages
+//   would be 266 KB): the split and cluster layout stays in 64-row tiles,
+//   and rank c of a cluster takes the 32-row tiles c, c + C, ... of its
+//   split. A one-row block is 8 warps, 16 query rows, which holds a group
+//   of 10 (up to 16; 8 below D 256). A query-tiled block takes
+//   min(S, 16, 64 / G) token rows as at any D: 6 at a group of 10. Its P.V
+//   runs in passes of 8 n-tiles, so that the 16 n-tiles of a warp's half
+//   of D are not all live at once beside the accumulator.
 // - Masks are selects, never products: a cache row that no query row of the
 //   run may read (past kv_len, outside the window, a page the shard does
 //   not own: possibly the trash page, 1e6 under the engine's poison hook) is
@@ -100,9 +109,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BKV = 64;         // cache rows per tile (kernels/decode.py TILE)
+constexpr int BKV = 64;         // cache rows a split's tile (kernels/decode.py TILE)
 constexpr int CL = 16;          // lanes of a row group (a warp holds two)
-constexpr int MAXG = 8;         // largest GQA group handled
 constexpr int QMAX = 64;        // query rows of a query-tiled block
 constexpr int MAXR = 16;        // token rows of a query-tiled block
 constexpr int MAXC = 8;         // largest cluster (the portable size)
@@ -193,27 +201,37 @@ __device__ __forceinline__ void pair_sync(int mt) {
 }
 
 // The layout of one instantiation. One token row a block (TILED false): 4
-// warps of two 16-lane row groups, one query row a group (8 a block), f32
-// FMA. Query tiles (TILED true): 8 warps, 64 query rows on tensor cores,
-// warp w takes the 16 rows of m-tile w % 4 and half w / 4 of the tile's
-// columns (scores) and of D (P.V). Shared memory: the K and V rings in T,
-// then q and P (f32 for one row, T for query tiles). Rows are padded so
-// that the lanes that read different rows together hit different banks.
+// warps of two 16-lane row groups, one query row a group (8 a block; at D
+// 256, 8 warps and 16 rows, for recurrentgemma's group of 10), f32 FMA.
+// Query tiles (TILED true): 8 warps, 64 query rows on tensor cores, warp w
+// takes the 16 rows of m-tile w % 4 and half w / 4 of the tile's columns
+// (scores) and of D (P.V). Shared memory: the K and V rings in T, then q
+// and P (f32 for one row, T for query tiles). Rows are padded so that the
+// lanes that read different rows together hit different banks. The ring's
+// tiles are BK rows: the split's 64-row tiles, or halves of them at D 256,
+// where two 64-row f32 stages alone would be 266 KB.
 template <typename T, int D, bool TILED>
 struct Smem {
   using QT = typename std::conditional<TILED, T, float>::type;
-  static constexpr int NT = TILED ? 256 : 128;           // threads a block
-  static constexpr int QROWS = TILED ? QMAX : NT / CL;   // query rows
+  static constexpr int NT = TILED || D > 128 ? 256 : 128;   // threads a block
+  static constexpr int QROWS = TILED ? QMAX : NT / CL;      // query rows
   static constexpr int NSTAGE = 2;
+  static constexpr int BK = D > 128 ? BKV / 2 : BKV;        // rows a ring tile
   // elements; V's 8-element pad serves the query tiles' transposed loads,
   // and a one-row block keeps 16 bytes so that three fit on an SM
   static constexpr int LDK = D + 16 / (int)sizeof(T), LDV = TILED ? D + 8 : LDK;
-  static constexpr int LDQ = D + 16 / (int)sizeof(QT), LDP = BKV + 16 / (int)sizeof(QT);
-  static constexpr size_t STAGE = (size_t)BKV * (LDK + LDV) * sizeof(T);
+  static constexpr int LDQ = D + 16 / (int)sizeof(QT), LDP = BK + 16 / (int)sizeof(QT);
+  static constexpr size_t STAGE = (size_t)BK * (LDK + LDV) * sizeof(T);
   static constexpr size_t RING = NSTAGE * STAGE;
   static constexpr size_t BYTES = RING + sizeof(QT) * QROWS * (LDQ + LDP);
   static_assert(sizeof(float) * QROWS * D <= RING, "merge buffer fits the ring");
+  static_assert(BYTES <= 232448, "a block's shared memory");
+  static_assert(BKV % BK == 0 && BK % CL == 0 && BK % 16 == 0, "tiles");
 };
+
+// The largest GQA group a one-row block holds at head dim d (its QROWS):
+// the query-tiled block takes any group up to its 64 query rows.
+__host__ __device__ constexpr int max_group(int d) { return d > 128 ? 16 : 8; }
 
 template <typename T, int D, typename Cache, bool TILED>
 __global__ void __launch_bounds__(Smem<T, D, TILED>::NT)
@@ -221,10 +239,13 @@ decode_kernel(const DecodeParams p, const Cache cache) {
   using SM = Smem<T, D, TILED>;
   using QT = typename SM::QT;
   constexpr int NSTAGE = SM::NSTAGE, LDK = SM::LDK, LDV = SM::LDV, LDQ = SM::LDQ,
-                LDP = SM::LDP, NTHREADS = SM::NT;
+                LDP = SM::LDP, NTHREADS = SM::NT, BK = SM::BK;
+  constexpr int SUBT = BKV / BK;                   // ring tiles a split tile
   constexpr int VE = 16 / (int)sizeof(T);          // elements of a 16-byte chunk
   constexpr int CPR = D / VE;                      // chunks a cache row
-  constexpr int NJ = BKV / CL;                     // one row: score columns a lane
+  constexpr int NJ = BK / CL;                      // one row: score columns a lane
+  constexpr int NS = BK / 16;                      // query tiles: a half's score n-tiles
+  constexpr int NPV = D / 16 < 8 ? D / 16 : 8;     // ... P.V n-tiles a pass
   constexpr int VC = D / CL;                       // one row: output columns a lane
   constexpr int VW = VC < 4 ? VC : 4;              // ... loaded at once
   constexpr int NU = VC / VW;
@@ -232,13 +253,13 @@ decode_kernel(const DecodeParams p, const Cache cache) {
   // the state's accumulator: one row [1][VC]; query tiles [D / 16][4], the
   // mma fragments of the warp's half of D
   constexpr int A0 = TILED ? D / 16 : 1, A1 = TILED ? 4 : VC;
-  constexpr int ITEMS = (BKV * CPR + NTHREADS - 1) / NTHREADS;  // 16-byte copies a lane
+  constexpr int ITEMS = (BK * CPR + NTHREADS - 1) / NTHREADS;   // 16-byte copies a lane
   constexpr int QITEMS = (SM::QROWS * CPR + NTHREADS - 1) / NTHREADS;  // ... of q
   static_assert(D % VE == 0 && VC % VW == 0 && VE % 4 == 0 && D % 16 == 0, "layout");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);                        // [NSTAGE][BKV][LDK]
-  T* sV = sK + NSTAGE * BKV * LDK;                               // [NSTAGE][BKV][LDV]
+  T* sK = reinterpret_cast<T*>(smem_raw);                        // [NSTAGE][BK][LDK]
+  T* sV = sK + NSTAGE * BK * LDK;                                // [NSTAGE][BK][LDV]
   QT* sQ = reinterpret_cast<QT*>(smem_raw + SM::RING);           // [QROWS][LDQ]
   QT* sP = sQ + SM::QROWS * LDQ;                                 // [QROWS][LDP]
   float* sAcc = reinterpret_cast<float*>(smem_raw);              // merge: [QROWS][D]
@@ -281,7 +302,8 @@ decode_kernel(const DecodeParams p, const Cache cache) {
   }
   __syncthreads();
 
-  const int t_first = split * p.nj, t_end = min((split + 1) * p.nj, p.nk);
+  // the split's ring tiles (SUBT a split tile), dealt over the cluster
+  const int t_first = split * p.nj * SUBT, t_end = min((split + 1) * p.nj, p.nk) * SUBT;
   for (int ra = 0; ra < nrows;) {
     int rb = ra + 1;
     while (rb < nrows && !sRun[rb]) ++rb;          // the run [ra, rb)
@@ -312,7 +334,7 @@ decode_kernel(const DecodeParams p, const Cache cache) {
     // next tile of this rank at or after t that some row reads, or -1
     auto next_tile = [&](int t) {
       for (; t < t_end; t += p.C) {
-        const int lo_t = max(t * BKV, lo_min), hi_t = min(t * BKV + BKV, hi_max);
+        const int lo_t = max(t * BK, lo_min), hi_t = min(t * BK + BK, hi_max);
         if (lo_t < hi_t && cache.any_owned(b_run, lo_t, hi_t)) return t;
       }
       return -1;
@@ -324,18 +346,18 @@ decode_kernel(const DecodeParams p, const Cache cache) {
     auto resolve = [&](int t) {
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k) {
-        const int i = tid + k * NTHREADS, kp = t * BKV + i / CPR;
-        off[k] = t >= 0 && i < BKV * CPR && loaded(kp)
+        const int i = tid + k * NTHREADS, kp = t * BK + i / CPR;
+        off[k] = t >= 0 && i < BK * CPR && loaded(kp)
                      ? (long long)(cache.row(b_run, hk, kp) + (i % CPR) * VE) : -1ll;
       }
     };
     auto load_tile = [&](int stage) {
-      T* dk = sK + stage * BKV * LDK;
-      T* dv = sV + stage * BKV * LDV;
+      T* dk = sK + stage * BK * LDK;
+      T* dv = sV + stage * BK * LDV;
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k) {
         const int i = tid + k * NTHREADS, r = i / CPR, ch = i % CPR;
-        if (i >= BKV * CPR) continue;
+        if (i >= BK * CPR) continue;
         const bool ld = off[k] >= 0;
         cp_async16(dk + r * LDK + ch * VE, cache.k + (ld ? off[k] : 0), ld ? 16 : 0);
         cp_async16(dv + r * LDV + ch * VE, cache.v + (ld ? off[k] : 0), ld ? 16 : 0);
@@ -394,9 +416,9 @@ decode_kernel(const DecodeParams p, const Cache cache) {
       __syncthreads();            // tile n_cp landed; stage (n_cp - 1) % NSTAGE free
       issue();
       if (busy) {
-        const int stage = n_cp % NSTAGE, kv0 = t_cp * BKV;
-        const T* tk = sK + stage * BKV * LDK;
-        const T* tv = sV + stage * BKV * LDV;
+        const int stage = n_cp % NSTAGE, kv0 = t_cp * BK;
+        const T* tk = sK + stage * BK * LDK;
+        const T* tv = sV + stage * BK * LDV;
         if constexpr (!TILED) {
           // ---- one row: scores of row rg, columns cl + CL*j, f32 FMA ----
           float s[NJ];
@@ -446,7 +468,7 @@ decode_kernel(const DecodeParams p, const Cache cache) {
           __syncwarp();             // P of each row written by its 16 lanes
           // ---- acc += P V: columns u * CL * VW + cl * VW + e ----
 #pragma unroll 4
-          for (int j = 0; j < BKV; j += 4) {
+          for (int j = 0; j < BK; j += 4) {
             float pv[4];
             load_vec<float, 4>(sP + rg * LDP + j, pv);
 #pragma unroll
@@ -461,24 +483,25 @@ decode_kernel(const DecodeParams p, const Cache cache) {
           }
         } else {
           // ---- query tiles: S = q K^T on tensor cores, rows 16 mt + qg (+8),
-          // columns 32 nh + 8 j + 2 q4 (+1) ----
-          float s[4][4];
+          // columns BK / 2 nh + 8 j + 2 q4 (+1) ----
+          constexpr int HC = BK / 2;              // a half's columns
+          float s[NS][4];
           zero(s);
-          warp_gemm<T, 4, D, false, false>(s, sQ, LDQ, 16 * mt, tk, LDK, 32 * nh, 0, lane);
-          bool own[4][2];           // the thread's 8 columns, shared by its 2 rows
+          warp_gemm<T, NS, D, false, false>(s, sQ, LDQ, 16 * mt, tk, LDK, HC * nh, 0, lane);
+          bool own[NS][2];          // the thread's columns, shared by its 2 rows
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NS; ++j)
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
-              const int kp = kv0 + 32 * nh + 8 * j + 2 * q4 + c;
+              const int kp = kv0 + HC * nh + 8 * j + 2 * q4 + c;
               own[j][c] = kp < hi_max && cache.owned(b_run, kp);
             }
           float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NS; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int i = e >> 1, kp = kv0 + 32 * nh + 8 * j + 2 * q4 + (e & 1);
+              const int i = e >> 1, kp = kv0 + HC * nh + 8 * j + 2 * q4 + (e & 1);
               s[j][e] = own[j][e & 1] && kp >= lo[i] && kp < hi[i] ? s[j][e] * p.scale
                                                                      : NEG_INF;
               mx[i] = fmaxf(mx[i], s[j][e]);
@@ -501,12 +524,12 @@ decode_kernel(const DecodeParams p, const Cache cache) {
           }
           float sum[2] = {0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NS; ++j)
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               const float p0 = __expf(s[j][2 * i] - m_safe[i]);
               const float p1 = __expf(s[j][2 * i + 1] - m_safe[i]);
-              store_pair(sP + qrow(i) * LDP + 32 * nh + 8 * j + 2 * q4, p0, p1);
+              store_pair(sP + qrow(i) * LDP + HC * nh + 8 * j + 2 * q4, p0, p1);
               sum[i] += p0 + p1;
             }
 #pragma unroll
@@ -519,15 +542,20 @@ decode_kernel(const DecodeParams p, const Cache cache) {
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             l[i] = fmaf(l[i], alpha[i], sRed[1][0][qrow(i)] + sRed[1][1][qrow(i)]);
-          // ---- acc = acc * alpha + P V, D columns nh * D / 2 + ... ----
-          float pv[A0][4];
-          zero(pv);
-          warp_gemm<T, A0, BKV, false, true>(pv, sP, LDP, 16 * mt, tv, LDV, nh * (D / 2), 0,
-                                             lane);
+          // ---- acc = acc * alpha + P V, D columns nh * D / 2 + ..., NPV
+          // n-tiles a pass (pv's registers) ----
 #pragma unroll
-          for (int a = 0; a < A0; ++a)
+          for (int a0 = 0; a0 < A0; a0 += NPV) {
+            float pv[NPV][4];
+            zero(pv);
+            warp_gemm<T, NPV, BK, false, true>(pv, sP, LDP, 16 * mt, tv, LDV,
+                                               nh * (D / 2) + 8 * a0, 0, lane);
 #pragma unroll
-            for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(acc[a][b], alpha[b >> 1], pv[a][b]);
+            for (int a = 0; a < NPV; ++a)
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                acc[a0 + a][b] = fmaf(acc[a0 + a][b], alpha[b >> 1], pv[a][b]);
+          }
         }
       }
       ++n_cp;
@@ -731,6 +759,7 @@ int geometry_d(const DecodeParams& p, int d, int paged, int* out) {
     case 32: return clusters_rt<T, 32>(p, paged, out);
     case 64: return clusters_rt<T, 64>(p, paged, out);
     case 128: return clusters_rt<T, 128>(p, paged, out);
+    case 256: return clusters_rt<T, 256>(p, paged, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -759,20 +788,21 @@ int launch_d(const DecodeParams& p, const CacheArgs& c, int d, cudaStream_t stre
     case 32: return launch<T, 32>(p, c, stream);
     case 64: return launch<T, 64>(p, c, stream);
     case 128: return launch<T, 128>(p, c, stream);
+    case 256: return launch<T, 256>(p, c, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Fills p from the launch's sizes; cudaErrorInvalidValue if the kernel does
 // not take them.
-int params(DecodeParams& p, int B, int Hq, int Hkv, int S, int num_splits,
+int params(DecodeParams& p, int B, int Hq, int Hkv, int S, int D, int num_splits,
            int row_tokens) {
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.S = S;
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || num_splits < 1 || S < 1 ||
       row_tokens < 1)
     return (int)cudaErrorInvalidValue;
   p.G = Hq / Hkv;
-  if (p.G > MAXG) return (int)cudaErrorInvalidValue;
+  if (p.G > max_group(D)) return (int)cudaErrorInvalidValue;
   p.nk = (S + BKV - 1) / BKV;
   p.ns = num_splits;
   p.nj = (p.nk + num_splits - 1) / num_splits;
@@ -784,7 +814,7 @@ int launch_any(const void* q, const CacheArgs& c, const int* kv_len, void* o,
                int Hkv, int S, int D, int dtype, float scale, int window,
                int num_splits, int row_tokens, void* stream) {
   DecodeParams p;
-  if (int err = params(p, B, Hq, Hkv, S, num_splits, row_tokens)) return err;
+  if (int err = params(p, B, Hq, Hkv, S, D, num_splits, row_tokens)) return err;
   p.q = q; p.kv_len = kv_len; p.o = o;
   p.acc_part = acc_part; p.m_part = m_part; p.l_part = l_part;
   p.scale = scale; p.window = window;
@@ -865,7 +895,7 @@ int flash_paged_decode_partials_launch(const void* q, const void* k_pages,
 int flash_decode_geometry(int B, int Hq, int Hkv, int S, int D, int dtype, int paged,
                           int num_splits, int row_tokens, int* out) {
   DecodeParams p;
-  if (int err = params(p, B, Hq, Hkv, S, num_splits, row_tokens)) return err;
+  if (int err = params(p, B, Hq, Hkv, S, D, num_splits, row_tokens)) return err;
   out[0] = p.R;
   out[1] = p.C;
   out[2] = (p.B + p.R - 1) / p.R * p.C * p.Hkv * p.ns;

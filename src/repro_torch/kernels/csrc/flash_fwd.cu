@@ -39,6 +39,14 @@
 //   straight from S's accumulator registers (acc_to_a: packed neighbours
 //   for bf16, a permuted k order for TF32): no S or P goes through shared
 //   memory, and the softmax needs no block barrier.
+// - Head dim 256 (recurrentgemma-2b) takes its own shape: a warp's f32
+//   accumulator of 16 rows x 256 columns is 128 registers a lane, so two
+//   warps share each 16 q rows (8 warps a block), both compute the rows' S,
+//   m and l (the same products in the same order, so the same values) and
+//   each keeps half of O's columns; and the K/V tiles are 32 rows, since a
+//   64-row f32 stage alone is 133 KB: Q 64 x 260 words and two stages of
+//   32-row K and V take 195 KB (bf16 99 KB). The fold's tile is then 32
+//   rows, which the plain version follows (flash_fwd.py kv_tile).
 // - Each tile's P V is summed into zeroed fragments and folded into the f32
 //   accumulator as acc * alpha + pv (bf16-rounded first under ACC16): JAX's
 //   fold, and a chain of mma into one accumulator over a long sequence would
@@ -71,8 +79,7 @@
 
 namespace {
 
-constexpr int BKV = 64;         // kv rows a tile (kernels/flash_fwd.py TILE): the fold's tile
-constexpr int SUB = 64;         // rows of a segment-bound tile (flash_fwd.py _tile_minmax)
+constexpr int SUB = 64;         // rows of a segment-bound tile (flash_fwd.py TILE, _tile_minmax)
 constexpr float NEG_INF = -1e30f;   // core/online_softmax.py NEG_INF
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
@@ -105,8 +112,8 @@ struct FwdParams {
   void* o; float* lse;
   const int* q_seg; const int* kv_seg;                      // null: no segments
   const int* qs_min; const int* qs_max;                     // [B, nq64]
-  const int* ks_min; const int* ks_max;                     // [B, nk]
-  int B, Hq, Hkv, Sq, Skv, nq, nq64, nk;                    // nq: blocks' q tiles
+  const int* ks_min; const int* ks_max;                     // [B, nk64]
+  int B, Hq, Hkv, Sq, Skv, nq, nq64, nk, nk64;              // nq, nk: the Cfg's tiles
   float scale;
   int causal, window;                                       // window <= 0: none
   int dropout; uint32_t seed, threshold; float keep_div;    // keep_div = 1 - rate
@@ -115,10 +122,19 @@ struct FwdParams {
 // The layout of one (T, D): warps, the ring, shared memory.
 template <typename T, int D>
 struct Cfg {
-  static constexpr int NW = 4;                    // warps, 16 q rows each
-  static constexpr int BQ = 16 * NW;              // q rows a block
+  // warps that share 16 q rows, each holding 1 / DS of O's columns: at D
+  // 256 one warp's f32 accumulator (128 registers a lane) would not leave
+  // room for S and the operands, so two warps take 128 columns each and
+  // both compute the rows' S (and so the same m and l)
+  static constexpr int DS = D > 128 ? 2 : 1;
+  static constexpr int DW = D / DS;               // O's columns a warp
+  static constexpr int NW = 4 * DS;               // warps
+  static constexpr int BQ = 16 * NW / DS;         // q rows a block
   static constexpr int NT = 32 * NW;
   static constexpr int NST = 2;                   // K/V ring stages
+  // kv rows a tile, the fold's tile (kernels/flash_fwd.py kv_tile): at D
+  // 256 a 64-row f32 ring stage alone is 133 KB, so two stages of 32 rows
+  static constexpr int BKV = D > 128 ? 32 : 64;
   // blocks an SM the registers must allow: three for bf16 up to D 64 (at
   // two, perf/fwd_ablation.py's "no register cap", it is 22 % slower),
   // else what the code needs (two f32 blocks at D 64 fit in any case)
@@ -128,18 +144,19 @@ struct Cfg {
   // D / 4) unless that would crowd out the accumulators (f32 at D 128)
   static constexpr bool QREG = (int)sizeof(T) * D <= 256;
   static constexpr int SMEM = (int)sizeof(T) * (BQ + 2 * NST * BKV) * LD + 4 * NST * BKV;
+  static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
 // s <- s * scale * log2(e), rounded to bf16 first with ACC16; with MASK,
 // NEG_INF where a pair lies past Skv, above the diagonal, outside the window
 // or across segments. Fragment element e of n-tile j: row qp[e >> 1],
 // column kv_start + 8 j + 2 t + (e & 1).
-template <bool ACC16, bool MASK>
-__device__ __forceinline__ void scale_mask(float (&s)[BKV / 8][4], const FwdParams& p, float sl2,
+template <bool ACC16, bool MASK, int NJ>
+__device__ __forceinline__ void scale_mask(float (&s)[NJ][4], const FwdParams& p, float sl2,
                                            int kv_start, const int (&qp)[2],
                                            const int (&qseg)[2], const int* kseg, int t) {
 #pragma unroll
-  for (int j = 0; j < BKV / 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float sv = (ACC16 ? round_bf16(s[j][e]) : s[j][e]) * sl2;
@@ -160,10 +177,10 @@ template <typename T, int D, bool ACC16>
 __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(const FwdParams p) {
   using C = Cfg<T, D>;
   using M = Mma<T>;
-  constexpr int BQ = C::BQ, NT = C::NT, LD = C::LD, NST = C::NST;
+  constexpr int BQ = C::BQ, NT = C::NT, LD = C::LD, NST = C::NST, BKV = C::BKV, DW = C::DW;
   constexpr int KQ = D / M::K;                    // k-steps of S = Q K^T
   constexpr int KP = BKV / M::K;                  // k-steps of P V
-  constexpr int NC = D / 8 < 8 ? D / 8 : 8;       // n-tiles of P V a pass (pv's registers)
+  constexpr int NC = DW / 8 < 8 ? DW / 8 : 8;     // n-tiles of P V a pass (pv's registers)
   constexpr int NQF = C::QREG ? KQ : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);             // [BQ][LD]
@@ -177,7 +194,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
   const int b = bh / p.Hq, h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = iq * BQ, r0 = 16 * warp;         // the block's and the warp's first q row
+  const int c0w = (warp % C::DS) * DW;            // the warp's first column of O
+  const int q0 = iq * BQ, r0 = 16 * (warp / C::DS);   // the block's and the warp's first q row
   const int q_start = q0 + (p.Skv - p.Sq);        // the block's first q position
   const int qw = q_start + r0;                    // the warp's
   const bool segments = p.q_seg != nullptr;
@@ -201,7 +219,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
       const int kv_start = ik * BKV;
       if (p.causal && kv_start > q_start + BQ - 1) return p.nk;   // and every later tile
       if (p.window > 0 && kv_start + BKV - 1 <= q_start - p.window) continue;
-      if (segments && (p.ks_min[b * p.nk + ik] > qs_hi || p.ks_max[b * p.nk + ik] < qs_lo))
+      if (segments && (p.ks_min[b * p.nk64 + kv_start / SUB] > qs_hi ||
+                       p.ks_max[b * p.nk64 + kv_start / SUB] < qs_lo))
         continue;
       return ik;
     }
@@ -248,7 +267,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
       if (r < p.Sq) qseg[i] = p.q_seg[(size_t)b * p.Sq + r];
     }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DW / 8][4];
   zero(acc);
   const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
   const float inv_keep = 1.f / p.keep_div;
@@ -306,10 +325,10 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
                         (!p.causal || kv_start + BKV - 1 <= qw) &&
                         (p.window <= 0 || kv_start > qw + 15 - p.window);
     if (inside)
-      scale_mask<ACC16, false>(s, p, sl2, kv_start, qp, qseg, nullptr, t);
+      scale_mask<ACC16, false, BKV / 8>(s, p, sl2, kv_start, qp, qseg, nullptr, t);
     else
-      scale_mask<ACC16, true>(s, p, sl2, kv_start, qp, qseg,
-                              segments ? sKseg + st * BKV : nullptr, t);
+      scale_mask<ACC16, true, BKV / 8>(s, p, sl2, kv_start, qp, qseg,
+                                       segments ? sKseg + st * BKV : nullptr, t);
 
     // ---- the online fold (common.py online_fold), base 2 ----
     float alpha[2];
@@ -348,9 +367,10 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
         }
     }
 
-    // ---- acc = acc * alpha + P V, P from S's registers, NC n-tiles a pass ----
+    // ---- acc = acc * alpha + P V over the warp's DW columns, P from S's
+    // registers, NC n-tiles a pass ----
 #pragma unroll
-    for (int c0 = 0; c0 < D / 8; c0 += NC) {
+    for (int c0 = 0; c0 < DW / 8; c0 += NC) {
       float pv[NC][4];
       zero(pv);
 #pragma unroll
@@ -359,7 +379,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
 #pragma unroll
         for (int j = 0; j < NC; j += 2) {
           uint32_t rb[4];
-          ld_b2_acc(rb, v_s, LD, 8 * (c0 + j), kk * M::K, lane);
+          ld_b2_acc(rb, v_s, LD, c0w + 8 * (c0 + j), kk * M::K, lane);
           M::mma(pv[j], a, M::make_b(rb[0], rb[1]));
           M::mma(pv[j + 1], a, M::make_b(rb[2], rb[3]));
         }
@@ -381,10 +401,10 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
     if (qr >= p.Sq) continue;
     const float l_safe = (l[r] == 0.f) ? 1.f : l[r];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store_pair(og + (size_t)qr * D + 8 * j + 2 * t, acc[j][2 * r] / l_safe,
+    for (int j = 0; j < DW / 8; ++j)
+      store_pair(og + (size_t)qr * D + c0w + 8 * j + 2 * t, acc[j][2 * r] / l_safe,
                  acc[j][2 * r + 1] / l_safe);
-    if (t == 0) p.lse[q_row0 + qr] = (m[r] == NEG_INF) ? NEG_INF : m[r] * LN2 + logf(l_safe);
+    if (t == 0 && c0w == 0) p.lse[q_row0 + qr] = (m[r] == NEG_INF) ? NEG_INF : m[r] * LN2 + logf(l_safe);
   }
 }
 
@@ -395,6 +415,7 @@ int launch(FwdParams p, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   p.nq = (p.Sq + C::BQ - 1) / C::BQ;
+  p.nk = (p.Skv + C::BKV - 1) / C::BKV;
   const unsigned blocks = (unsigned)p.nq * p.Hq * p.B;
   fwd_kernel<T, D, ACC16><<<blocks, C::NT, C::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
@@ -407,6 +428,7 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
     case 32: return launch<T, 32, ACC16>(p, stream);
     case 64: return launch<T, 64, ACC16>(p, stream);
     case 128: return launch<T, 128, ACC16>(p, stream);
+    case 256: return launch<T, 256, ACC16>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -416,8 +438,8 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; acc_bf16: round each tile product to
-// bf16 (bf16-ACC). Segment pointers are all null or all set; the segment
-// bounds are over 64-row tiles. q, k, v, o are contiguous [B, H, S, D] of
+// bf16 (bf16-ACC); D 16, 32, 64, 128 or 256. Segment pointers are all null
+// or all set; the segment bounds are over 64-row tiles. q, k, v, o are contiguous [B, H, S, D] of
 // dtype, 16-byte aligned; lse [B, Hq, Sq] f32.
 // Returns the cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
@@ -433,9 +455,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   p.q_seg = q_seg; p.kv_seg = kv_seg;
   p.qs_min = qs_min; p.qs_max = qs_max; p.ks_min = ks_min; p.ks_max = ks_max;
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
-  p.nq = 0;                               // set by launch for its BQ
+  p.nq = p.nk = 0;                        // set by launch for its BQ, BKV
   p.nq64 = (Sq + SUB - 1) / SUB;
-  p.nk = (Skv + BKV - 1) / BKV;
+  p.nk64 = (Skv + SUB - 1) / SUB;
   p.scale = scale; p.causal = causal; p.window = window;
   p.dropout = dropout; p.seed = (uint32_t)seed; p.threshold = threshold;
   p.keep_div = keep_div;

@@ -15,7 +15,8 @@ through ``block_tables [B, T]`` (row b's logical block j lives in page
 ``block_tables[b, j]``; entries past a row's allocation name the trash page
 0). The paged kernel walks the same 64-row tiles as the contiguous one and
 resolves each row through the table, so on gathered pages the two agree
-bit for bit. JAX folds page-sized blocks and splits the table width; the
+bit for bit (at head dim 256 both fold each tile as two 32-row halves,
+the plain versions whole tiles: f32 sums in another order). JAX folds page-sized blocks and splits the table width; the
 port splits the tiles: equal within the f32 tolerance.
 
 :func:`flash_paged_decode_partials` is the gated variant for one shard of
@@ -54,8 +55,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import online_fold
 from repro_torch.kernels.flash_fwd import DTYPES, HEAD_DIMS
 
-TILE = 64        # BKV in csrc/flash_decode.cu
-MAX_GROUP = 8    # MAXG in csrc/flash_decode.cu
+TILE = 64        # BKV in csrc/flash_decode.cu: the split layout's tile
+
+
+def max_group(head_dim: int) -> int:
+    """The largest GQA group the kernel takes at ``head_dim``
+    (``max_group`` in ``csrc/flash_decode.cu``: the query rows of a
+    one-row block): 8, and 16 at D 256, whose one-row block has 8 warps."""
+    return 16 if head_dim > 128 else 8
+
 
 #: kernel launches since the last reset (the plain versions do not count):
 #: contiguous cache, paged cache, gated paged cache (partials)
@@ -143,8 +151,9 @@ def _check_kernel_inputs(name, q, k, v, hkv, kv_len, *tables):
     d, g = q.shape[2], q.shape[1] // hkv
     if d not in HEAD_DIMS:
         raise ValueError(f"{name} kernel head_dim must be in {HEAD_DIMS}, got {d}")
-    if g > MAX_GROUP:
-        raise ValueError(f"{name} kernel GQA group must be <= {MAX_GROUP}, got {g}")
+    if g > max_group(d):
+        raise ValueError(f"{name} kernel GQA group must be <= {max_group(d)} at "
+                         f"head_dim {d}, got {g}")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs q, k, v aligned to 16 bytes")
 
@@ -197,7 +206,7 @@ def flash_decode(q, k, v, *, kv_len=None, window: Optional[int] = None,
     the hint so that it can be held bit for bit against the paged one).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, int32 kv_len, D in ``HEAD_DIMS``,
-    Hq / Hkv <= ``MAX_GROUP``) or raises.
+    Hq / Hkv <= ``max_group(D)``) or raises.
     """
     b, skv = q.shape[0], k.shape[2]
     if kv_len is None:
@@ -320,7 +329,7 @@ def flash_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
     Returns o [B, Hq, D] in q.dtype; rows with kv_len == 0 are exact zeros.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, int32 tables and kv_len, D in ``HEAD_DIMS``,
-    Hq / Hkv <= ``MAX_GROUP``) or raises.
+    Hq / Hkv <= ``max_group(D)``) or raises.
     """
     _check_inputs(q, k_pages, v_pages, kv_len, window, num_splits, paged=True,
                   row_tokens=row_tokens)

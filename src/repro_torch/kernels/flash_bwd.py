@@ -29,9 +29,14 @@ import torch
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.kernels import _build, rng
 from repro_torch.kernels.common import round_acc
-from repro_torch.kernels.flash_fwd import (DTYPES, HEAD_DIMS, TILE, _check_inputs,
+from repro_torch.kernels.flash_fwd import (DTYPES, TILE, _check_inputs,
                                            segment_tiles)
 from repro_torch.kernels.ref import _expand_kv
+
+#: head dims the kernel is instantiated for (``csrc/flash_bwd.cu``
+#: ``launch_d``); the forward also takes 256, whose backward needs a
+#: shared-memory budget of its own
+HEAD_DIMS = (16, 32, 64, 128)
 
 #: kernel launches since the last reset (the plain version does not count)
 launches_bwd = 0
@@ -89,16 +94,20 @@ def launch_bwd(q, k, v, lse, do, delta, *, causal=False, window=None,
     The keywords are :func:`flash_bwd`'s. dQ is added into a zeroed f32
     buffer (``dq`` itself for f32 inputs, cast to bf16 afterwards else)."""
     global launches_bwd
+    b, hq, sq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_bwd kernel head_dim must be in {HEAD_DIMS}, got {d}"
+            + (": training at head dim 256 (recurrentgemma-2b) is queued, it "
+               "needs a backward with a shared-memory budget of its own"
+               if d == 256 else ""))
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_bwd kernel takes float32 or bfloat16, got {q.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, do, lse)):
         raise ValueError("flash_bwd kernel needs contiguous q, k, v, do, lse")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_bwd kernel needs q, k, v, do aligned to 16 bytes")
-    b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_bwd kernel head_dim must be in {HEAD_DIMS}, got {d}")
     scale = (d ** -0.5) if scale is None else scale
     delta = delta.contiguous()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)

@@ -4,10 +4,11 @@ Counterpart of ``repro.kernels.flash_fwd``. ``flash_fwd`` computes
 ``O = dropout(softmax(QKᵀ·scale))·V`` and ``lse`` with causal masking (q as
 the kv suffix), a sliding window, ``segment_ids`` and coordinate-hash
 dropout. On a CUDA tensor it launches ``csrc/flash_fwd.cu`` (one block per
-128-row q tile, q head and batch, each warp 16 q rows on tensor cores, the
-64-row KV tiles looped inside the block through a ``cp.async`` ring); on a
-CPU tensor it runs :func:`flash_fwd_torch`, which folds the same 64-wide KV
-tiles through the same online-softmax fold in plain torch.
+64-row q tile, q head and batch, each warp 16 q rows on tensor cores, two
+warps a row group at D 256, the 64-row KV tiles, 32 at D 256, looped inside
+the block through a ``cp.async`` ring); on a CPU tensor it runs
+:func:`flash_fwd_torch`, which folds the same KV tiles through the same
+online-softmax fold in plain torch.
 ``acc_dtype=bfloat16`` (bf16-ACC) rounds each score tile and each tile's P·V
 to bf16 on both.
 """
@@ -24,8 +25,8 @@ from repro_torch.kernels import _build, rng
 from repro_torch.kernels.common import online_fold, round_acc
 from repro_torch.kernels.ref import _expand_kv
 
-TILE = 64                      # KV tile of the fold and of the segment bounds
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is instantiated for
+TILE = 64                      # KV tile of the segment bounds (and of the fold to D 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernel is instantiated for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACC_DTYPES = (torch.float32, torch.bfloat16)   # accumulate types of a product
 
@@ -36,6 +37,13 @@ _P = ctypes.c_void_p
 _ARGTYPES = ([_P] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
              ctypes.c_float, _P])
+
+
+def kv_tile(d: int) -> int:
+    """KV rows a fold step takes at head dim ``d`` (``Cfg::BKV`` in
+    ``csrc/flash_fwd.cu``): 64, and 32 at D 256, where a 64-row f32 ring
+    stage would not leave room for a second one in shared memory."""
+    return 32 if d > 128 else TILE
 
 
 def _check_inputs(q, k, v, segment_ids, window, acc_dtype=torch.float32):
@@ -143,8 +151,8 @@ def flash_fwd_torch(q, k, v, *, causal: bool = False,
                     window: Optional[int] = None, scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
                     segment_ids=None, acc_dtype=torch.float32):
-    """The kernel's plain-torch version: the same 64-wide KV tiles folded in
-    the same order through ``common.online_fold``, every q row at once.
+    """The kernel's plain-torch version: the same KV tiles (:func:`kv_tile`)
+    folded in the same order through ``common.online_fold``, every q row at once.
     bf16 ``acc_dtype`` rounds each score tile (before the scale) and each
     tile's P·V to bf16, as the kernel does."""
     b, hq, sq, d = q.shape
@@ -159,8 +167,9 @@ def flash_fwd_torch(q, k, v, *, causal: bool = False,
         seg = segment_ids.to(torch.int32)
         q_seg = seg[:, q_offset:]
     state = init_state((b, hq, sq), d, device=dev)
-    for lo in range(0, skv, TILE):
-        hi = min(lo + TILE, skv)
+    tile = kv_tile(d)
+    for lo in range(0, skv, tile):
+        hi = min(lo + tile, skv)
         if causal and lo > q_offset + sq - 1:
             break                     # every later tile is above the diagonal
         if window is not None and hi - 1 <= q_offset - window:

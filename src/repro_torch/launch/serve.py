@@ -28,6 +28,12 @@ On the CPU, at smoke size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --smoke --device cpu --paged --mesh 2 --dist-backend gloo \\
       --requests 4 --prompt-len 16 --gen 4
+
+The hybrid recurrentgemma-2b (RG-LRU and local-attention blocks) serves on
+both caches, not over ``--mesh``; ``--share-prefix`` and ``--speculate``
+exit with the engine's refusal, as in JAX:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
+      --smoke --device cpu [--paged]
 """
 
 from __future__ import annotations
@@ -171,6 +177,9 @@ def main(argv=None):
         raise SystemExit("--mesh shards the page pool: it needs --paged (the "
                          "contiguous cache over a mesh needs the sharding "
                          "rules, not yet ported)")
+    if n_ranks and "rec" in cfg.block_pattern:
+        raise SystemExit(f"{cfg.name}: serving recurrent blocks over --mesh "
+                         f"is not yet ported")
     if args.paged:
         return serve_paged(cfg, args, device, n_ranks)
 
@@ -264,15 +273,18 @@ def _run_engine(cfg, args, device, mesh=None):
 
     params = lm.init_params(cfg, seed=args.seed, device=device)
     pcfg, prefill_len = _paged_config(args, mesh.size if mesh else 1)
-    eng = ServingEngine(cfg, pcfg, params, impl=args.impl, device=device,
-                        mesh=mesh, prefill_len=prefill_len, lazy=args.lazy,
-                        num_splits=args.num_splits or None,
-                        share_prefix=args.share_prefix,
-                        prefill_chunk=args.prefill_chunk or None,
-                        speculate_k=args.speculate or None,
-                        deadline_ms=args.deadline_ms or None,
-                        max_queue=args.max_queue or None,
-                        fault_plan=_fault_plan(args))
+    try:
+        eng = ServingEngine(cfg, pcfg, params, impl=args.impl, device=device,
+                            mesh=mesh, prefill_len=prefill_len, lazy=args.lazy,
+                            num_splits=args.num_splits or None,
+                            share_prefix=args.share_prefix,
+                            prefill_chunk=args.prefill_chunk or None,
+                            speculate_k=args.speculate or None,
+                            deadline_ms=args.deadline_ms or None,
+                            max_queue=args.max_queue or None,
+                            fault_plan=_fault_plan(args))
+    except ValueError as e:      # a mode the engine refuses for this arch
+        raise SystemExit(str(e)) from None
     rs = np.random.RandomState(args.seed)
     out, stats = eng.run(paged_requests(cfg, pcfg, args, rs))
     return out, stats, eng

@@ -6,7 +6,9 @@ The JAX params are a pytree of arrays (pass them as numpy arrays, e.g.
 (plus ``tail["tail_r"]`` for layers past the last full period). Layer
 ``i = s·period + j`` is row ``s`` of ``sub_j``. Every leaf is already
 ``[d_in, d_out]``, the port's orientation, so conversion is an unstack: no
-transposes. Vocab padding is kept as it is. The AdamW moments and master
+transposes. Hybrid archs (recurrentgemma: rec, rec, attn superblocks and a
+rec, rec tail) unstack the same way, each layer's leaves named as its
+block's parameters. Vocab padding is kept as it is. The AdamW moments and master
 copy mirror the params tree and convert the same way. This module imports
 neither JAX nor ``repro``.
 """
@@ -81,7 +83,8 @@ def convert_params(cfg, params: Mapping[str, Any], *, device="cuda",
     model = LM(cfg, vpad, device=device, dtype=dtype)
     named = dict(model.named_parameters())
     for name, arr in _named_arrays(cfg, params, model).items():
-        _copy(named[name], arr, name, dtype, device)
+        # each leaf in its parameter's dtype: the RG-LRU's lambda stays f32
+        _copy(named[name], arr, name, named[name].dtype, device)
     return model
 
 

@@ -1,14 +1,16 @@
-"""The decoder LM of the port (counterpart of ``repro.models.lm``), dense
-attention-only family.
+"""The decoder LM of the port (counterpart of ``repro.models.lm``): the dense
+attention-only family and the hybrid one (recurrentgemma: RG-LRU blocks and
+local attention blocks in ``cfg.block_pattern``, cycled over the layers).
 
 The JAX package scans stacked superblock params; here the layers are an
-``nn.ModuleList`` walked by a plain loop, with the same per-layer dropout
-seed offset ``i * 1000003`` (the sum wraps to int32, as JAX's does). With
-``cfg.remat`` and autograd on, each layer runs under
-``torch.utils.checkpoint`` (JAX remats per superblock, and a superblock of
-an attention-only arch is one layer): only the layer inputs are kept, and
-the backward recomputes the layer, attention kernel included. Serving caches
-are a list of per-layer dicts.
+``nn.ModuleList`` walked by a plain loop, layer ``i`` of kind
+``block_pattern[i % period]``, with the same per-layer dropout seed offset
+``i * 1000003`` (the sum wraps to int32, as JAX's does). With ``cfg.remat``
+and autograd on, each layer runs under ``torch.utils.checkpoint`` (JAX
+remats per superblock): only the layer inputs are kept, and the backward
+recomputes the layer, attention kernel included. Serving caches are a list
+of per-layer dicts: K/V (a ring of ``window`` slots, or page pools) for
+attention layers, state rows ``{"h", "conv"}`` for recurrent ones.
 
 Public entry points:
   init_params(cfg, seed=, device=)                 → LM (random weights)
@@ -29,17 +31,29 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.paged import pages_per_shard
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru
 from repro_torch.models.layers import Ctx
+
+#: the block kinds of ``cfg.block_pattern`` the port runs
+KINDS = ("attn", "rec")
+
+
+def block_kinds(cfg) -> List[str]:
+    """Each layer's kind: ``block_pattern`` cycled over the layers."""
+    period = len(cfg.block_pattern)
+    return [cfg.block_pattern[i % period] for i in range(cfg.num_layers)]
 
 
 class Block(nn.Module):
-    """One pre-norm attention + gated-MLP block (JAX ``_init_block``'s leaves)."""
+    """One pre-norm block, a mixer (attention, or the RG-LRU for ``kind``
+    "rec") and a gated MLP (JAX ``_init_block``'s leaves)."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, kind: str, dtype, device):
         super().__init__()
+        self.kind = kind
         self.norm1 = layers._param((cfg.d_model,), dtype, device)
-        self.mixer = layers.Attention(cfg, dtype, device)
+        self.mixer = (layers.Attention(cfg, dtype, device) if kind == "attn"
+                      else rglru.RGLRU(cfg, dtype, device))
         self.norm2 = layers._param((cfg.d_model,), dtype, device)
         self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
@@ -51,16 +65,17 @@ class LM(nn.Module):
 
     def __init__(self, cfg, vocab_padded: int, *, device, dtype=None):
         super().__init__()
-        if (cfg.family != "dense" or cfg.moe is not None
+        if (cfg.family not in ("dense", "hybrid") or cfg.moe is not None
                 or cfg.frontend is not None or cfg.mlp_type != "gated_silu"
-                or set(cfg.block_pattern) != {"attn"}):
+                or not set(cfg.block_pattern) <= set(KINDS)
+                or ("rec" in cfg.block_pattern) != (cfg.rglru is not None)):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (dense attention-only archs only)")
+                f"repro_torch (dense and RG-LRU hybrid archs only)")
         dtype = dtype or cfg.dtype
         self.embed = layers._param((vocab_padded, cfg.d_model), dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, dtype, device)
+                                    for kind in block_kinds(cfg))
         self.final_norm = layers._param((cfg.d_model,), dtype, device)
         self.lm_head = layers._param((cfg.d_model, vocab_padded), dtype, device)
 
@@ -76,7 +91,9 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
     for blk in model.blocks:
         blk.norm1.fill_(1.0)
         blk.norm2.fill_(1.0)
-        blk.mixer = layers.init_attention(gen, cfg, cfg.dtype)
+        blk.mixer = (layers.init_attention(gen, cfg, cfg.dtype)
+                     if blk.kind == "attn"
+                     else rglru.init_rglru(gen, cfg, cfg.dtype))
         blk.mlp = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
     model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
                                         cfg.dtype, scale=0.02))
@@ -89,9 +106,15 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
 def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
                  segment_ids=None, paged=None):
     h = layers.rms_norm(x, p.norm1)
-    mixed, new_cache = layers.apply_attention(
-        p.mixer, h, ctx, cfg, positions=positions, cache=cache,
-        layer_seed=layer_seed, segment_ids=segment_ids, paged=paged)
+    if p.kind == "attn":
+        mixed, new_cache = layers.apply_attention(
+            p.mixer, h, ctx, cfg, positions=positions, cache=cache,
+            layer_seed=layer_seed, segment_ids=segment_ids, paged=paged)
+    else:
+        # the recurrence carries state across a whole row whatever its
+        # segments (packing is an attention-family feature, as in JAX)
+        mixed, new_cache = rglru.apply_rglru(p.mixer, h, ctx, cfg, cache=cache,
+                                             positions=positions, paged=paged)
     x = x + mixed
     return x + layers.apply_mlp(p.mlp, layers.rms_norm(x, p.norm2)), new_cache
 
@@ -110,8 +133,8 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
     positions: [B, S] or [S] RoPE positions (default ``arange(S)``).
     segment_ids [B, S]: packed-batch ids (int32); attention masks
     cross-segment pairs — pass per-segment ``positions`` alongside.
-    paged: the routing of paged caches, passed to every attention layer
-    (``layers.apply_attention``).
+    paged: the routing of paged caches, passed to every layer
+    (``layers.apply_attention``, ``rglru.apply_rglru``).
     """
     x = params.embed[tokens]
     if positions is None:
@@ -156,12 +179,13 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
-    """Per-layer contiguous KV caches (sliding-window archs keep only
-    ``window`` slots)."""
+    """Per-layer contiguous caches: KV for attention layers (sliding-window
+    archs keep only ``window`` slots), zero state rows for recurrent ones."""
     dtype = dtype or cfg.dtype
     eff = max_len if cfg.attn_window is None else min(max_len, cfg.attn_window)
     return [layers.init_attn_cache(cfg, batch, eff, dtype, device)
-            for _ in range(cfg.num_layers)]
+            if kind == "attn" else rglru.init_rglru_cache(cfg, batch, device)
+            for kind in block_kinds(cfg)]
 
 
 def prefill(cfg, params: LM, ctx: Ctx, tokens, caches):
@@ -187,20 +211,28 @@ def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda", mesh=None):
-    """Per-layer page pools ``{"k_pages", "v_pages"}`` [Hkv, num_pages,
-    page_size, D] (no batch dim: sequences share the pool through block
-    tables; host-side page lifecycle in ``serving/paged_cache.py``). With a
-    pool ``mesh`` they are this rank's shard, [Hkv, num_pages / N,
-    page_size, D]. The recurrent families' per-slot state rows are not yet
+    """Per-layer serving caches: attention layers get page pools
+    ``{"k_pages", "v_pages"}`` [Hkv, num_pages, page_size, D] (no batch dim:
+    sequences share the pool through block tables; host-side page lifecycle
+    in ``serving/paged_cache.py``); with a pool ``mesh`` they are this
+    rank's shard, [Hkv, num_pages / N, page_size, D]. Recurrent layers get
+    per-slot state rows ``{"h", "conv"}`` [max_batch + 1, ...]: slot i backs
+    decode slot i, and the trailing trash row absorbs padding tokens'
+    gathers and scatters (host-side slot lifecycle in
+    ``serving/state_cache.py``). The recurrent rows over a mesh are not yet
     ported."""
-    if set(cfg.block_pattern) != {"attn"}:
+    kinds = block_kinds(cfg)
+    if mesh is not None and "rec" in kinds:
         raise NotImplementedError(
-            f"{cfg.name}: paged serving of recurrent blocks is not yet ported")
+            f"{cfg.name}: serving recurrent blocks over a pool mesh is not "
+            f"yet ported")
     dtype = dtype or cfg.dtype
     n = 1 if mesh is None else mesh.size
     local = pages_per_shard(paged_cfg.num_pages, n) if n > 1 else None
     return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device, local)
-            for _ in range(cfg.num_layers)]
+            if kind == "attn"
+            else rglru.init_rglru_cache(cfg, paged_cfg.max_batch + 1, device)
+            for kind in kinds]
 
 
 def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
@@ -211,12 +243,16 @@ def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
     per-prompt positions from 0); dest [B, S] flat page-pool token slots
     (``BlockTables.prefill_dest``). Fills the pools in place. Returns
     (logits [B, S, Vpad], caches); the engine reads each prompt's last row.
-    state_slots (the recurrent families' per-slot routing, JAX's signature)
-    is unused by the attention-only archs.
+    state_slots [B, S] (recurrent archs): each token's decode slot, -1 for
+    padding; recurrent layers reset their scan at every span start and
+    scatter span-end state into the slot's row. Prefill spans start at
+    position 0, so the per-segment positions are the offsets in the span.
     """
+    paged = {"dest": dest}
+    if state_slots is not None:
+        paged.update(state_slots=state_slots, state_local=positions)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
-                   positions=positions, segment_ids=segment_ids,
-                   paged={"dest": dest})
+                   positions=positions, segment_ids=segment_ids, paged=paged)
 
 
 def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
@@ -231,13 +267,16 @@ def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
     [B, S] = position + 1 for real tokens, 0 for padding. Each layer
     scatters the span's K/V first, then every token attends through its own
     table row. Returns (logits [B, S, Vpad], caches). state_slots /
-    state_local are unused by the attention-only archs, as in
-    :func:`paged_prefill`.
+    state_local [B, S] (recurrent archs): each token's decode slot (-1
+    padding) and offset in its span; a span whose global start (position -
+    local) is past 0 resumes the slot's stored state.
     """
+    paged = {"dest": dest, "token_tables": token_tables,
+             "token_kv_len": token_kv_len}
+    if state_slots is not None:
+        paged.update(state_slots=state_slots, state_local=state_local)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
-                   positions=positions,
-                   paged={"dest": dest, "token_tables": token_tables,
-                          "token_kv_len": token_kv_len})
+                   positions=positions, paged=paged)
 
 
 def paged_verify_step(cfg, params: LM, ctx: Ctx, tokens, positions, dest,

@@ -24,6 +24,12 @@ a table a slot, ``row_tokens`` 5), f32, it measures:
 * ``bound_ms`` (the paged kernel) — the least time of the launch: its
   bytes or its flops at the card's peak rates, whichever is the longer.
 
+``measure_hybrid`` times rows 4 and 5 at recurrentgemma-2b's geometry
+(10/1 heads, D 256, window 2048, f32): the contiguous decode over a ring
+of 2048 slots (B 4), the paged decode of 8 slots (kv_len 1040-3120, page
+16, T 196) and a 512-token chunk over one table (kv_len 2561-3072).
+``--hybrid`` prints those instead of the granite-3-2b cases.
+
 Run from the root of a checkout on a machine with the card and nvcc::
 
     PYTHONPATH=src python3 -m repro_torch.perf.decode_times
@@ -80,14 +86,17 @@ def _copies(read_bytes: float) -> int:
 
 
 def paged_inputs(kv_len, *, rows_per_table: int = 1, copies: int = 1,
-                 seed: int = 0, gated: bool = False):
+                 seed: int = 0, gated: bool = False,
+                 geometry=(HQ, HKV, D, PS, T)):
     """q [B, Hq, D] and a pool holding ``copies`` disjoint sets of tables,
     one for every ``rows_per_table`` consecutive rows. A table owns the
     pages its rows' longest kv_len reaches; other entries name the trash
     page 0, which holds 1e6.
     ``gated``: the pool is one shard of two, a random half of the entries
     foreign (remapped to the local trash page by ``_local_ids``); returns
-    the tables and their ``valid`` masks, else the tables and ``None``."""
+    the tables and their ``valid`` masks, else the tables and ``None``.
+    ``geometry``: (Hq, Hkv, D, page size, T)."""
+    HQ, HKV, D, PS, T = geometry
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b = kv_len.shape[0]
     n_tab = b // rows_per_table
@@ -206,16 +215,83 @@ def _case(calls, iters, operands):
             "host_us": host_us(calls[0])}
 
 
-def paged_bound_ms(kv_len, rows_per_table: int) -> float:
-    """The least time of a paged launch (f32): the larger of its bytes
-    (each table's K/V rows up to its rows' longest kv_len once, q and o, the
-    tables and kv_len) at 3.35 TB/s and its flops (4 D a query head and key
-    read) at the TF32 tensor-core peak, 495 TFLOP/s."""
+def paged_bytes(kv_len, rows_per_table: int, geometry=(HQ, HKV, D, PS, T),
+                window=None) -> int:
+    """The bytes a paged launch (f32) must move: each table's K/V rows that
+    its rows read, inside kv_len and the window, once; q and o; the tables
+    and kv_len."""
+    HQ, HKV, D, PS, T = geometry
     b = kv_len.shape[0]
-    longest = kv_len.view(b // rows_per_table, rows_per_table).max(dim=1).values
-    nbytes = 4 * (2 * HKV * D * int(longest.sum()) + 2 * b * HQ * D + b * T + b)
-    flops = 4 * HQ * D * int(kv_len.sum())
-    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e3
+    kvl = kv_len.long().view(b // rows_per_table, rows_per_table)
+    hi = kvl.max(dim=1).values
+    lo = (kvl - window).clamp(min=0).min(dim=1).values if window else 0 * hi
+    return 4 * (2 * HKV * D * int((hi - lo).sum()) + 2 * b * HQ * D + b * T + b)
+
+
+def paged_bound_ms(kv_len, rows_per_table: int, geometry=(HQ, HKV, D, PS, T),
+                   window=None) -> float:
+    """The least time of a paged launch (f32): the larger of its bytes
+    (:func:`paged_bytes`) at 3.35 TB/s and its flops (4 D a query head and
+    key read) at the TF32 tensor-core peak, 495 TFLOP/s."""
+    reads = kv_len.long() if window is None else kv_len.long().clamp(max=window)
+    flops = 4 * geometry[0] * geometry[2] * int(reads.sum())
+    return max(paged_bytes(kv_len, rows_per_table, geometry, window)
+               / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e3
+
+
+#: recurrentgemma-2b's attention: (Hq, Hkv, D, page size, T), its window
+HYBRID = (10, 1, 256, 16, 196)
+HYBRID_WINDOW = 2048
+
+
+def hybrid_shapes(gen) -> dict:
+    """The hybrid's paged shapes, as ``_shapes``: the engine's decode of 8
+    slots (prompts 1024-3072 and up to 48 new tokens) and a 512-token chunk
+    row of one prompt at positions 2560-3071."""
+    return {"decode": (torch.randint(1040, 3121, (8,), generator=gen,
+                                     device="cuda", dtype=torch.int32), 1, 1),
+            "chunk": (torch.arange(2561, 3073, device="cuda", dtype=torch.int32),
+                      512, 512)}
+
+
+def measure_hybrid() -> dict:
+    """{row: {shape: {ms, device_ms, device_ms_method, device_ms_copies,
+    host_us, bound_ms}}} for rows 4 and 5 at recurrentgemma-2b's geometry:
+    the contiguous decode over a full 2048-slot ring (B 4) and the paged
+    decode and chunk of :func:`hybrid_shapes` with the window."""
+    hq, hkv, d, ps, t = HYBRID
+    w = HYBRID_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    out = {"flash_decode": {}, "flash_paged_decode": {}}
+    b = 4
+    read = 2 * 4 * b * hkv * w * d
+    q = torch.randn((b, hq, d), generator=gen, device="cuda")
+    caches = [(torch.randn((b, hkv, w, d), generator=gen, device="cuda"),
+               torch.randn((b, hkv, w, d), generator=gen, device="cuda"))
+              for _ in range(_copies(read))]
+    kv_len = torch.full((b,), w, dtype=torch.int32, device="cuda")
+    calls = [lambda k=k, v=v: kdecode.flash_decode(q, k, v, kv_len=kv_len)
+             for k, v in caches]
+    out["flash_decode"]["decode"] = {
+        **_case(calls, 50, [(q, kv_len)] * len(calls)),
+        "bound_ms": max((read + 4 * 2 * b * hq * d) / HBM_BYTES_PER_S,
+                        4 * b * hq * d * w / PEAK_FLOPS["float32"]) * 1e3}
+    del caches, calls
+    for shape, (kv_len, per_table, row_tokens) in hybrid_shapes(gen).items():
+        n_tab = kv_len.shape[0] // per_table
+        q, kp, vp, tables, _ = paged_inputs(
+            kv_len, rows_per_table=per_table,
+            copies=_copies(2 * 4 * hkv * d * w * n_tab), seed=9, geometry=HYBRID)
+        calls = [lambda bt=bt: kdecode.flash_paged_decode(
+            q, kp, vp, bt, kv_len, window=w, row_tokens=row_tokens)
+            for bt in tables]
+        out["flash_paged_decode"][shape] = {
+            **_case(calls, 50 if shape == "decode" else 20,
+                    [(q, kv_len, bt) for bt in tables]),
+            "bound_ms": paged_bound_ms(kv_len, per_table, HYBRID, w)}
+        del q, kp, vp, tables, calls
+    torch.cuda.empty_cache()
+    return out
 
 
 def measure() -> dict:
@@ -265,13 +341,18 @@ def measure() -> dict:
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--hybrid", action="store_true",
+                    help="recurrentgemma-2b's shapes (measure_hybrid)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_times needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = measure()
+    res = measure_hybrid() if args.hybrid else measure()
     for name, shapes in res.items():
         for shape, r in shapes.items():
             print(f"[decode_times] {name} {shape}: device {r['device_ms']:.5f} ms "

@@ -3,17 +3,18 @@ table in PERF.md).
 
 At the serving path's prefill shape (B 8, 32/8 heads, S 512, D 64, causal)
 and the training path's attention shape (B 4, S 2048), each in f32 and in
-bf16, and at the training shape with dropout 0.1 (the call the training path
-makes), it measures:
+bf16, at the training shape with dropout 0.1 (the call the training path
+makes), and at recurrentgemma-2b's prefill (B 4, 10/1 heads, S 3072, D 256,
+causal, window 2048) in f32 and bf16, it measures:
 
 * ``ms`` — CUDA events around back-to-back kernel calls on one input;
 * ``device_ms`` — the kernel alone: ``torch.profiler``'s device time of the
   ``fwd_kernel`` launches of the same calls;
 * ``library_ms`` — ``F.scaled_dot_product_attention`` in the same dtype
-  with the same dropout rate (its own random bits), a yardstick the port
-  never calls;
+  with the same dropout rate (its own random bits; the window as a boolean
+  mask), a yardstick the port never calls;
 * the bounds: the larger of the bytes (q, k, v read once, o and the f32 lse
-  written once) at 3.35 TB/s and the causal pairs' 4 D flops at the
+  written once) at 3.35 TB/s and the allowed pairs' 4 D flops at the
   dtype's tensor-core peak (TF32 495, bf16 989 TFLOP/s), and for f32 the
   same at three TF32 products a product (``bound_ms_3xtf32``).
 
@@ -21,7 +22,9 @@ Run from the root of a checkout on a machine with the card and nvcc::
 
     PYTHONPATH=src python3 -m repro_torch.perf.fwd_times [--parent DIR]
 
-``--parent DIR`` names another tree's ``kernels/csrc`` (its
+``--cases NAME ...`` times only those cases (the hybrid's need a tree
+whose kernel takes D 256). ``--parent DIR`` names another tree's
+``kernels/csrc`` (its
 ``flash_fwd.cu`` and headers): that kernel is built into
 ``build/kernels/fwd_times/`` and timed through the same C entry point beside
 this tree's, in turns (parent, this, this, parent) in one process. It prints
@@ -44,7 +47,9 @@ from repro_torch.kernels import _build, flash_fwd, rng
 from repro_torch.perf import HBM_BYTES_PER_S, PEAK_FLOPS
 from repro_torch.perf.decode_times import device_ms, time_ms
 
-SHAPES = {"prefill": (8, 32, 8, 512, 64), "train": (4, 32, 8, 2048, 64)}
+#: shape -> (B, Hq, Hkv, S, D, window); every shape is causal
+SHAPES = {"prefill": (8, 32, 8, 512, 64, None), "train": (4, 32, 8, 2048, 64, None),
+          "hybrid_prefill": (4, 10, 1, 3072, 256, 2048)}
 #: case name -> (shape, dtype, dropout rate)
 CASES = {
     "prefill_f32": ("prefill", torch.float32, 0.0),
@@ -53,15 +58,24 @@ CASES = {
     "train_bf16": ("train", torch.bfloat16, 0.0),
     "train_dropout_f32": ("train", torch.float32, 0.1),
     "train_dropout_bf16": ("train", torch.bfloat16, 0.1),
+    "hybrid_prefill_f32": ("hybrid_prefill", torch.float32, 0.0),
+    "hybrid_prefill_bf16": ("hybrid_prefill", torch.bfloat16, 0.0),
 }
+
+
+def causal_pairs(s: int, window=None) -> int:
+    """(q, k) pairs a head may read under causal masking and a window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 OUT = _build.BUILD_DIR / "fwd_times"
 
 
 def bounds(shape: str, dtype) -> dict:
     """The case's bound: bytes or tensor-core operations, whichever is the
     longer (``bound_ms``, ``bound_by``); for f32 also at 3xTF32."""
-    b, hq, hkv, s, d = SHAPES[shape]
-    flops = 4 * b * hq * d * (s * (s + 1) // 2)      # QK^T and PV on causal pairs
+    b, hq, hkv, s, d, window = SHAPES[shape]
+    flops = 4 * b * hq * d * causal_pairs(s, window)   # QK^T and PV on allowed pairs
     el = torch.tensor([], dtype=dtype).element_size()
     nbytes = el * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -80,14 +94,15 @@ def library_fn(path: Path):
     return fn
 
 
-def raw_call(fn, q, k, v, o, lse, dropout_rate: float = 0.0, seed: int = 0):
-    """One causal launch of a ``flash_fwd_launch`` (no segments, no window)
-    into ``o`` and ``lse``; raises on a CUDA error."""
+def raw_call(fn, q, k, v, o, lse, dropout_rate: float = 0.0, seed: int = 0,
+             window=None):
+    """One causal launch of a ``flash_fwd_launch`` (no segments) into ``o``
+    and ``lse``; raises on a CUDA error."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
              *([None] * 6), b, hq, hkv, sq, skv, d, flash_fwd.DTYPES[q.dtype], 0,
-             d ** -0.5, 1, 0, int(dropout_rate > 0.0), seed,
+             d ** -0.5, 1, window or 0, int(dropout_rate > 0.0), seed,
              rng.keep_threshold(dropout_rate), 1.0 - dropout_rate,
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -106,7 +121,7 @@ def build_parent(csrc: Path) -> Path:
 
 
 def inputs(shape: str, dtype, seed: int = 0):
-    b, hq, hkv, s, d = SHAPES[shape]
+    b, hq, hkv, s, d, _ = SHAPES[shape]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
@@ -114,28 +129,41 @@ def inputs(shape: str, dtype, seed: int = 0):
     return q, k, v
 
 
-def measure(fns: dict) -> dict:
+def sdpa_mask(s: int, window):
+    """SDPA's boolean mask of causal pairs inside ``window`` [S, S], or None
+    (then ``is_causal``)."""
+    if window is None:
+        return None
+    pos = torch.arange(s, device="cuda")
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+
+def measure(fns: dict, cases=tuple(CASES)) -> dict:
     """{case: {kernel name: {ms, device_ms, device_ms_method}, "library_ms",
     bounds}} for each kernel of ``fns`` (name -> ``flash_fwd_launch``), in
-    the order given, on the same inputs."""
+    the order given, on the same inputs, at ``cases``."""
     import torch.nn.functional as F
 
     res = {}
-    for case in CASES:
+    for case in cases:
         shape, dtype, rate = CASES[case]
+        window = SHAPES[shape][5]
+        long = shape != "prefill"
         q, k, v = inputs(shape, dtype)
         o = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
         row = dict(bounds(shape, dtype))
         for name, fn in fns.items():
-            call = lambda fn=fn: raw_call(fn, q, k, v, o, lse, rate, 11)  # noqa: E731
-            dev, how = device_ms([call], reps=30 if shape == "train" else 100,
+            call = lambda fn=fn: raw_call(fn, q, k, v, o, lse, rate, 11,  # noqa: E731
+                                          window)
+            dev, how = device_ms([call], reps=30 if long else 100,
                                  kernel="fwd_kernel")
-            row[name] = {"ms": time_ms(call, 10 if shape == "train" else 30),
+            row[name] = {"ms": time_ms(call, 10 if long else 30),
                          "device_ms": dev, "device_ms_method": how}
+        mask = sdpa_mask(q.shape[2], window)
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, dropout_p=rate, is_causal=True, enable_gqa=True),
-            10 if shape == "train" else 30)
+            q, k, v, attn_mask=mask, dropout_p=rate, is_causal=mask is None,
+            enable_gqa=True), 10 if long else 30)
         res[case] = row
         del q, k, v, o, lse
     torch.cuda.empty_cache()
@@ -146,6 +174,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another tree's kernels/csrc, timed beside this tree's")
+    ap.add_argument("--cases", nargs="+", choices=list(CASES), default=list(CASES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("fwd_times needs a CUDA card")
@@ -159,7 +188,7 @@ def main() -> None:
     else:
         parent = library_fn(build_parent(args.parent))
         fns = {"parent": parent, "this": this, "this_again": this, "parent_again": parent}
-    res = measure(fns)
+    res = measure(fns, args.cases)
     for case, row in res.items():
         for name in fns:
             r = row[name]

@@ -146,8 +146,8 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
       verify_fn(params, tokens, positions, dest, token_tables, token_kv_len,
                 caches) → (logits [B,W,Vpad], caches)    # W = k + 1
 
-    ``state_slots``/``state_local`` carry the recurrent families' per-slot
-    state rows; the attention-only archs take and ignore them.
+    ``state_slots``/``state_local`` route the recurrent layers' per-slot
+    state rows (hybrid archs); attention layers ignore them.
 
     mesh: a ``distributed.mesh.PoolMesh`` shards the page pool over its ranks
     (``paged.num_shards`` must equal its size): every rank runs the same

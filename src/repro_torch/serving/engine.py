@@ -75,10 +75,23 @@ the sharded pool ops, and ``run()``'s wall time is rank 0's, so the stats
 are equal on every rank. ``snapshot``/``restore`` hold each rank's own
 shard of the pool.
 
+Hybrid recurrent archs (recurrentgemma's RG-LRU): every recurrent layer
+keeps one fixed state row per decode slot (plus a trailing trash row),
+admitted and released by the same scheduler calls that bind a slot's pages
+(``serving/state_cache.py``).  Prefill spans route through per-token
+``state_slots``/``state_local`` — the packed scan resets at span starts, a
+chunked continuation resumes the slot's stored state, and span-end state
+scatters back to the row; decode updates rows gated on ``kv_len > 0``.  A
+re-admitted slot's first span starts at position 0, which injects a fresh
+zero state (``poison_reclaimed`` clobbers released rows to prove it).
+Prefix sharing and speculation are attention-only (the index certifies KV
+pages, not state; cumulative state cannot roll back) and raise on
+recurrent archs.
+
 What the port leaves out, with a clear error: ``autotune=`` (the
-split-count cost model is seeded for a TPU) and the recurrent-state
-families (their per-slot state rows come with their models).  Every
-removal of an active sequence still records a typed outcome.
+split-count cost model is seeded for a TPU) and recurrent archs over a
+pool mesh.  Every removal of an active sequence still records a typed
+outcome.
 """
 
 from __future__ import annotations
@@ -162,9 +175,17 @@ class ServingEngine:
             raise NotImplementedError(
                 "autotune= is not yet ported: its cost model is seeded for a "
                 "TPU; pass num_splits")
-        if any(k != "attn" for k in cfg.block_pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: serving recurrent-state archs is not yet ported")
+        self.has_state = any(k != "attn" for k in cfg.block_pattern)
+        if self.has_state and share_prefix:
+            raise ValueError(
+                "prefix sharing is attention-only: the prefix index "
+                "certifies cached KV pages, not recurrent state — a hit "
+                "would skip the state computation a resumed scan needs")
+        if self.has_state and speculate_k:
+            raise ValueError(
+                "speculative decoding is attention-only: recurrent state "
+                "is cumulative, so rejected drafts cannot be rolled back "
+                "logically the way out-of-kv_len page writes can")
         self.cfg = cfg
         self.device = torch.device(device)
         self.mesh = mesh
@@ -437,6 +458,10 @@ class ServingEngine:
                 pages = alloc.free_page_ids()
                 if pages:
                     self._poison_pages(pages)
+                if self.has_state:
+                    slots = sched.tables.state.free_slot_ids()
+                    if slots:
+                        self._poison_state(slots)
             elif ev.kind == "nan":
                 self._nan_pending.append(ev.arg)
             elif ev.kind == "cancel":
@@ -843,15 +868,35 @@ class ServingEngine:
                 pool[:, idx] = 1e6
 
     def _pools(self) -> List[torch.Tensor]:
-        """Every layer's k and v pools (this rank's shards under a mesh)."""
-        return [pool for layer in self.caches for pool in layer.values()]
+        """Every attention layer's k and v pools (this rank's shards under a
+        mesh)."""
+        return [layer[k] for layer in self.caches if "k_pages" in layer
+                for k in ("k_pages", "v_pages")]
+
+    def _poison_state(self, slots: List[int]):
+        """Test hook: clobber released recurrent-state rows (plus the
+        trailing trash row) with 1e6 in every recurrent layer — any read of
+        dead state then corrupts generations instead of passing silently.
+        1e6 rather than NaN because legitimately masked gathers (padding
+        tokens, fresh spans) multiply the gathered row by zero."""
+        idx = self._dev(np.asarray(sorted(set(slots)) + [self.pcfg.max_batch],
+                                   np.int64))
+        with torch.inference_mode():
+            for layer in self.caches:
+                if "h" in layer:
+                    layer["h"][idx] = 1e6
+                    layer["conv"][idx] = 1e6
 
     def _drain_state_releases(self):
-        """Drain the state cache's released slots.  The port serves
-        attention-only archs, whose slots hold no recurrent state, so there
-        is nothing to poison; draining keeps the host bookkeeping as the
-        JAX engine leaves it."""
-        self.scheduler.tables.state.drain_released()
+        """Drain slots whose recurrent-state rows just died (finish or
+        preemption) and poison them under the test hook.  Correctness never
+        needs host-side zeroing — a re-admitted slot's first prefill span
+        starts at position 0, which injects a fresh zero state on device —
+        so this only arms the stale-read tripwire.  Called before every
+        admission pass, i.e. before any re-admitted slot could prefill."""
+        released = self.scheduler.tables.state.drain_released()
+        if released and self.poison_reclaimed and self.has_state:
+            self._poison_state(released)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the engine's device (ids stay

@@ -259,3 +259,19 @@ def test_flash_bwd_wrapper_checks():
         tbwd.flash_bwd(tq, tk, tv, o, lse, tdo, acc_dtype=torch.float16)
     with pytest.raises(ValueError):
         tbwd.flash_bwd(*(t.to("meta") for t in (tq, tk, tv, o, lse, tdo)))
+
+
+def test_backward_kernel_refuses_head_dim_256():
+    """The forward kernel takes head dim 256 (recurrentgemma-2b); the
+    backward kernel has its own head dims and refuses 256 with a clear
+    error before it touches a card, instead of falling off its switch."""
+    assert 256 in tfwd.HEAD_DIMS and 256 not in tbwd.HEAD_DIMS
+    assert tbwd.HEAD_DIMS == (16, 32, 64, 128)
+    q = torch.zeros((1, 2, 8, 256))
+    kv = torch.zeros((1, 1, 8, 256))
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="head dim 256.*queued"):
+        tbwd.launch_bwd(q, kv, kv, lse, q, lse)
+    with pytest.raises(ValueError, match="got 80$"):
+        tbwd.launch_bwd(q[..., :80], kv[..., :80], kv[..., :80], lse,
+                        q[..., :80], lse)

@@ -546,6 +546,97 @@ def test_paged_engine_kernel_matches_torch(cuda):
         assert (outs["kernel"][rid] == outs["torch"][rid]).all(), rid
 
 
+# ---- recurrentgemma-2b's attention: head dim 256, 10 query heads on one kv
+# head, a sliding window; the kernels take 32-row ring tiles there ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["window", "segments", "suffix"])
+def test_flash_fwd_head_dim_256_group_10(cuda, case, dtype):
+    """The forward at the hybrid's geometry: causal with a window shorter
+    than the sequence (whole tiles behind every row's window), packed
+    segments with padding, and a q suffix."""
+    b, hq, hkv, d = 2, 10, 1, 256
+    if case == "window":
+        _fwd_check(cuda, b, hq, hkv, 700, 700, d, dtype, causal=True, window=200)
+    elif case == "suffix":
+        _fwd_check(cuda, b, hq, hkv, 90, 333, d, dtype, causal=True, window=120)
+    else:
+        seg = (torch.arange(400, device="cuda", dtype=torch.int32) // 130).repeat(b, 1)
+        seg[:, -20:] = -1
+        o, _ = _fwd_check(cuda, b, hq, hkv, 400, 400, d, dtype, causal=True,
+                          window=100, segment_ids=seg)
+        assert float(o[:, :, -20:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_flash_decode_head_dim_256_group_10(cuda, num_splits, dtype):
+    """The contiguous decode over a ring of 300 slots at 10/1 heads, D 256:
+    ragged lengths with 0 against the plain version and the oracle."""
+    b, hq, hkv, s, d = 4, 10, 1, 300, 256
+    q = _rand(cuda, (b, hq, d), dtype)
+    k = _rand(cuda, (b, hkv, s, d), dtype)
+    v = _rand(cuda, (b, hkv, s, d), dtype)
+    kv_len = torch.tensor([300, 0, 33, 257], dtype=torch.int32, device="cuda")
+    o = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=num_splits)
+    again = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert _err(o, again) == 0.0
+    o_ref = kdecode.flash_decode_torch(q, k, v, kv_len=kv_len,
+                                       num_splits=num_splits)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert float(o[1].abs().max()) == 0.0
+    if dtype == torch.float32:
+        assert _err(o, ops.decode_reference(q, k, v, kv_len=kv_len)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(TOKEN_ROWS) + ["decode"])
+def test_flash_paged_decode_head_dim_256_group_10(cuda, shape, dtype):
+    """The paged decode at the hybrid's geometry with a window: decode rows
+    (one row a block, 16 query rows) and token rows (query tiles of 6 token
+    rows), against the plain version, the one-row path and the contiguous
+    kernel on the gathered pages; the gated kernel at the same rows with
+    about half the entries foreign."""
+    hq, hkv, d, ps, window = 10, 1, 256, 16, 48
+    if shape == "decode":
+        b, t = 4, 12
+        q, kp, vp, bt = _paged(cuda, b, hq, hkv, d, ps, t, dtype)
+        kv_len = torch.tensor([t * ps, 0, 17, 100], dtype=torch.int32,
+                              device="cuda")
+        rt = 1
+    else:
+        spans, pads, rt = TOKEN_ROWS[shape]
+        q, kp, vp, bt, kv_len = _token_rows(cuda, hq, hkv, d, ps, spans, pads,
+                                            dtype)
+    geo = kdecode.launch_geometry(q.shape[0], hq, hkv, bt.shape[1] * ps,
+                                  row_tokens=rt, head_dim=d, dtype=dtype)
+    assert geo["rows_per_block"] == (1 if rt == 1 else min(rt, 6))
+    o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window,
+                                   row_tokens=rt)
+    one_row = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, window=window)
+    torch.cuda.synchronize()
+    o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len,
+                                             window=window)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(one_row, o_ref) <= TOL[dtype]
+    if bool((kv_len == 0).any()):
+        assert float(o[kv_len == 0].abs().max()) == 0.0
+    o_contig = kdecode.flash_decode(q, kdecode.gather_pages(kp, bt),
+                                    kdecode.gather_pages(vp, bt), kv_len=kv_len,
+                                    window=window, row_tokens=rt)
+    assert _err(o, o_contig) == 0.0
+    valid = ((bt < kp.shape[1] // 2) | (bt == TRASH_PAGE)).to(torch.int32)
+    bt = torch.where(valid == 1, bt, TRASH_PAGE).to(torch.int32).contiguous()
+    acc, m, l = kdecode.flash_paged_decode_partials(
+        q, kp, vp, bt, kv_len, block_valid=valid, window=window, row_tokens=rt)
+    torch.cuda.synchronize()
+    ref = kdecode.flash_paged_decode_partials_torch(
+        q, kp, vp, bt, kv_len=kv_len, block_valid=valid, window=window)
+    (og, _), (og_ref, _) = _state_out(acc, m, l), _state_out(*ref)
+    assert _err(og, og_ref) <= TOL[dtype]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _rand(cuda, (1, 4, 64, 64), torch.float32)
     k = _rand(cuda, (1, 2, 64, 64), torch.float32)
@@ -597,6 +688,35 @@ def test_serve_slice_kernel_matches_torch(cuda):
     rt = run("torch", feed=rk.tokens)
     for lk, lt in zip(rk.logits, rt.logits):
         assert _err(lk, lt) <= 1e-4
+    assert torch.equal(rk.tokens, rt.tokens)
+
+
+def test_hybrid_full_width_serving_kernel_matches_torch(cuda):
+    """recurrentgemma-2b at full width and depth (f32, random weights) on
+    the contiguous cache: a 2100-token prompt past the 2048-token window
+    (the ring rolls), 8 tokens; the kernel impl's greedy tokens equal the
+    torch impl's, logits within 1e-3 of max|logit|, one forward launch an
+    attention layer and one decode launch a layer a step."""
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    n_attn = lm.block_kinds(cfg).count("attn")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 2100), generator=cuda,
+                           device="cuda")
+
+    def run(impl, feed=None):
+        arts = make_serve_steps(cfg, impl=impl, max_len=2108, batch=2,
+                                torch_chunk=2100, device="cuda")
+        return greedy_generate(arts, params, prompt, 8, cfg.vocab_size,
+                               feed=feed)
+
+    before = (kfwd.launches, kdecode.launches)
+    rk = run("kernel")
+    assert (kfwd.launches, kdecode.launches) == (before[0] + n_attn,
+                                                 before[1] + n_attn * 7)
+    rt = run("torch", feed=rk.tokens)
+    for lk, lt in zip(rk.logits, rt.logits):
+        assert _err(lk, lt) <= 1e-3 * float(lt.abs().max())
     assert torch.equal(rk.tokens, rt.tokens)
 
 

@@ -142,6 +142,10 @@ FWD_CASES = {
     "dropout": (1, 2, 2, 64, 64, 32, False, None, False, 0.4),
     "ragged_tail": (1, 2, 1, 50, 50, 32, True, None, False, 0.0),
     "q_suffix": (1, 4, 2, 24, 88, 16, True, None, False, 0.0),
+    # recurrentgemma-2b's geometry: 10 query heads on one kv head, D 256,
+    # a window shorter than the sequence (the kernel's 32-row tiles)
+    "d256_group10_window": (1, 10, 1, 96, 96, 256, True, 40, False, 0.0),
+    "d256_group10_segments": (1, 10, 1, 80, 80, 256, True, 30, True, 0.0),
 }
 
 
@@ -228,6 +232,9 @@ DECODE_CASES = {
     "window_splits3": (2, 4, 2, 400, 32, [400, 250], 100, 3),
     "group5": (2, 10, 2, 200, 16, [200, 57], None, 1),
     "group5_splits3": (2, 10, 2, 200, 16, [200, 57], None, 3),
+    # recurrentgemma-2b's geometry: 10 query heads on one kv head, D 256
+    "d256_group10": (3, 10, 1, 256, 256, [256, 0, 131], None, 1),
+    "d256_group10_window_splits3": (3, 10, 1, 256, 256, [256, 0, 131], 100, 3),
 }
 
 
