@@ -12,10 +12,11 @@ Phases, each of which exits non-zero on failure:
 2. build   — nvcc builds the three CUDA kernel libraries from
              ``kernels/csrc`` in parallel and prints ptxas's registers and
              spills per instantiation (no forward instantiation, and not
-             the f32 and bf16 D=64 backward kernel, the training path's,
-             may spill) and the count of tensor-core instructions (HMMA /
-             HGMMA in ``cuobjdump -sass``) of every forward instantiation
-             and of those two backward ones, which must not be 0;
+             the f32 and bf16 D=64 and D=256 backward kernels, the two
+             training paths', may spill) and the count of tensor-core
+             instructions (HMMA / HGMMA in ``cuobjdump -sass``) of every
+             forward instantiation and of those four backward ones, which
+             must not be 0;
 3. kernels — each CUDA kernel against its plain-torch version on the same
              inputs, f32 and bf16: the forward and decode at granite-3-2b's
              prefill / decode shapes, the fused backward kernel at its
@@ -44,7 +45,10 @@ Phases, each of which exits non-zero on failure:
              the contiguous decode over a ring of 2048 slots (kv_len with
              0), the paged and the gated decode at page 16, window 2048
              (out-of-window pages reclaimed to the 1e6 trash page) and at
-             256 chunk token rows;
+             256 chunk token rows; and the backward at recurrentgemma-2b's
+             training geometry (B 1, 10/1 heads, D 256, S 3072, causal,
+             window 2048) in f32 and bf16, with bf16-ACC, dropout 0.1 and
+             segments;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -94,6 +98,14 @@ Phases, each of which exits non-zero on failure:
              ``torch.profiler`` (device time by kernel group, busy share);
              (c) the ``Trainer`` at SMOKE size: 2 steps, a preemption, a
              resume for 2 more;
+5b. hybrid — recurrentgemma-2b's training at full width and depth (f32,
+             remat, dropout 0.1, batch 1 × 3072 from ``make_batch``, past
+             the 2048 window; AdamW without its f32 master copy, which
+             with f32 params is the same update and leaves the state in
+             80 GB): (a) as 5a, with three attention leaves and one RG-LRU
+             leaf, the counters reading 16 / 8 (8 attention layers, D 256);
+             (b) as 5b: step time, tokens/s and peak memory, then a
+             profiled step;
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -115,8 +127,9 @@ Phases, each of which exits non-zero on failure:
              shape and (``<shape>_shape_``) at the chunk, at decode with 32
              and 64 slots and at verify (8 slots of 5 token rows); three
              more rows hold rows 1, 4 and 5 at recurrentgemma-2b's prefill,
-             decode and paged decode (and 512-token chunk) shapes, with
-             SDPA given the window as a mask.
+             decode and paged decode (and 512-token chunk) shapes, and one
+             rows 2-3 at its training shape (B 1, S 3072, f32 and bf16),
+             with SDPA given the window as a mask.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -175,6 +188,11 @@ TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-3}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
 TRAIN_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mixer.wk", "blocks.0.mixer.wv",
                 "lm_head")
+# phase 5b, recurrentgemma-2b: batch 1 x 3072 (past the 2048 window); the
+# leaves of its first attention layer (layer 2) and of its first RG-LRU
+HYBRID_BATCH, HYBRID_SEQ = 1, 3072
+HYBRID_LEAVES = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
+                 "blocks.0.mixer.w_rec")
 
 
 def fail(msg: str) -> None:
@@ -258,6 +276,7 @@ def main(argv=None) -> None:
 
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
+    hybrid_train = train_phase(torch, kfwd, kbwd, "recurrentgemma_2b")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -268,7 +287,8 @@ def main(argv=None) -> None:
     device_times_phase(rows)
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     rows += hybrid_times_phase(torch, kfwd, kdecode, hybrid_launches,
-                               hybrid_paged, errs)
+                               hybrid_paged, hybrid_train, errs)
+    rows.append(hybrid_bwd_times_phase(torch, kfwd, kbwd, hybrid_train))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -288,14 +308,17 @@ def bounds(flops: float, nbytes: float, dtype: str = "float32") -> dict:
             "bound_ms_no_tensor_cores": max(t_cc, t_bytes) * 1e3}
 
 
-BWD_D64 = ("flash_bwd_kernel<f32, D64>", "flash_bwd_kernel<bf16, D64>")
+# the backward instantiations of the training paths: granite (D 64) and
+# recurrentgemma-2b (D 256)
+BWD_TRAIN = ("flash_bwd_kernel<f32, D64>", "flash_bwd_kernel<bf16, D64>",
+             "flash_bwd_kernel<f32, D256>", "flash_bwd_kernel<bf16, D256>")
 
 
 def build_report(_build) -> None:
     """ptxas's registers and spills per kernel instantiation, and the
     tensor-core instructions of the forward and backward kernels; fails if
-    a forward instantiation or the f32 or bf16 D=64 backward kernel (the
-    training path's) spills or has none."""
+    a forward instantiation or an f32 or bf16 D=64 or D=256 backward kernel
+    (the training paths') spills or has none."""
     import re
     for kname in _build.KERNELS:
         report = _build.ptxas_report.get(kname)
@@ -317,7 +340,7 @@ def build_report(_build) -> None:
                 spills = line.strip()
                 n = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               spills)
-                if ((entry in BWD_D64 or str(entry).startswith("fwd_kernel"))
+                if ((entry in BWD_TRAIN or str(entry).startswith("fwd_kernel"))
                         and (n is None or n.groups() != ("0", "0"))):
                     fail(f"{kname} {entry} spills: {spills}")
                 continue
@@ -326,7 +349,7 @@ def build_report(_build) -> None:
                 print(f"[build] {kname} {entry}: {regs}; {spills}")
     mma = tensor_core_instructions(_build, "flash_bwd")
     fwd = tensor_core_instructions(_build, "flash_fwd")
-    want = [*BWD_D64, *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
+    want = [*BWD_TRAIN, *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
                         for d in (16, 32, 64, 128, 256) for acc in ("", ", acc bf16"))]
     for entry in want:
         n = mma.get(entry, fwd.get(entry, 0))
@@ -800,7 +823,7 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
     print(f"[kernels] backward tolerances, kernel vs plain version, relative "
           f"to max(1, max|plain|): f32 {BWD_TOL['float32']:.0e} (the JAX "
           f"suite's gradient tolerance; dK and dV sum over up to 2048 q rows "
-          f"and a group of 4 in another order); bf16 inputs or bf16-ACC "
+          f"and a group of 4 or 10 in another order); bf16 inputs or bf16-ACC "
           f"{BWD_TOL['bfloat16']:.2e} (two bf16 ulps)")
     gen = torch.Generator(device="cuda").manual_seed(4321)
     bf16 = torch.bfloat16
@@ -815,6 +838,15 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
         ("q_suffix_200_of_500", 4, 32, 8, 200, 500, 64, dict(causal=True)),
         ("d128_gqa5", 4, 40, 8, 512, 512, 128, dict(causal=True)),
         ("bf16_acc", 4, 32, 8, 512, 512, 64, dict(causal=True, acc_dtype=bf16)),
+        # recurrentgemma-2b's training geometry: 32-row kv blocks, four
+        # warps on each 16 rows, 10 q heads a block
+        ("rg_s3072", 1, 10, 1, 3072, 3072, 256, dict(causal=True, window=2048)),
+        ("rg_dropout_0.1", 1, 10, 1, 3072, 3072, 256,
+         dict(causal=True, window=2048, dropout_rate=0.1, dropout_seed=-3)),
+        ("rg_segments", 1, 10, 1, 3072, 3072, 256,
+         dict(causal=True, window=2048, segments=True)),
+        ("rg_bf16_acc", 1, 10, 1, 3072, 3072, 256,
+         dict(causal=True, window=2048, acc_dtype=bf16)),
     ]
     errs = {}
     for dtype in (torch.float32, bf16):
@@ -1481,9 +1513,12 @@ def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
     return launches
 
 
-def train_phase(torch, kfwd, kbwd):
-    """granite-3-2b at full width and depth through the port's training
-    path; returns the launch counts of the ``make_train_step`` run."""
+def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
+    """An arch at full width and depth through the port's training path:
+    granite-3-2b (phase 5: batch 4 x 2048, AdamW with its master copy, then
+    the SMOKE ``Trainer``) or recurrentgemma-2b (phase 5b: batch 1 x 3072,
+    AdamW without it). Returns the launch counts of the ``make_train_step``
+    run."""
     import tempfile
 
     from repro_torch import configs
@@ -1494,23 +1529,32 @@ def train_phase(torch, kfwd, kbwd):
     from repro_torch.runtime.steps import make_train_step, place_batch, step_seed
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
+    hybrid = arch == "recurrentgemma_2b"
+    tag = "[hybrid train]" if hybrid else "[train]"
+    n_batch, n_seq = (HYBRID_BATCH, HYBRID_SEQ) if hybrid else (TRAIN_BATCH, TRAIN_SEQ)
+    leaves = HYBRID_LEAVES if hybrid else TRAIN_LEAVES
+    cfg = dataclasses.replace(configs.get_config(arch),
                               dtype=torch.float32, dropout_rate=0.1, remat=True)
-    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-4), impl="kernel",
-                           total_steps=TRAIN_STEPS, warmup_steps=1,
+    # recurrentgemma-2b: 3.55 B f32 params, grads, m and v are 56.8 GB; an
+    # f32 master copy of f32 params (the same update) would add 14.2 GB
+    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-4, keep_master=not hybrid),
+                           impl="kernel", total_steps=TRAIN_STEPS, warmup_steps=1,
                            torch_chunk=256, device="cuda")
     t0 = time.perf_counter()
     params, opt = arts.init_fn(0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params f32 + AdamW m, v, "
-          f"master (random, seed 0) in {time.perf_counter() - t0:.1f} s; "
-          f"remat {cfg.remat}, dropout {cfg.dropout_rate}; batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens from make_batch", flush=True)
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH, seed=0)
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers "
+          f"({lm.block_kinds(cfg).count('attn')} attention), d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head dim {cfg.head_dim}, "
+          f"window {cfg.attn_window}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B params f32 + AdamW m, v"
+          f"{'' if hybrid else ', master'} (random, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s; remat {cfg.remat}, dropout "
+          f"{cfg.dropout_rate}; batch {n_batch} x {n_seq} tokens from make_batch",
+          flush=True)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=n_seq,
+                    global_batch=n_batch, seed=0)
     batch = place_batch(make_batch(dc, 0), "cuda")
 
     # (a) one loss-and-grad pass per impl on the same params and batch
@@ -1527,33 +1571,33 @@ def train_phase(torch, kfwd, kbwd):
         named = dict(params.named_parameters())
         out = (float(loss.detach()),
                float(global_norm(p.grad for p in params.parameters())),
-               {n: named[n].grad.clone() for n in TRAIN_LEAVES}, counts, dt)
+               {n: named[n].grad.clone() for n in leaves}, counts, dt)
         params.zero_grad(set_to_none=True)
         return out
 
-    n = cfg.num_layers
+    n = lm.block_kinds(cfg).count("attn")
     lk, gk, leaves_k, ck, dtk = loss_and_grads("kernel")
-    print(f"[train] (a) impl=kernel: loss {lk:.6f}, grad norm {gk:.6f}, "
+    print(f"{tag} (a) impl=kernel: loss {lk:.6f}, grad norm {gk:.6f}, "
           f"{dtk:.2f} s; launches flash_fwd / flash_bwd {ck} (expected "
           f"{(2 * n, n)}: forward plus remat recompute)", flush=True)
     if ck != (2 * n, n):
         fail(f"the training pass did not go through the kernels: {ck}")
     lt, gt, leaves_t, ct, dtt = loss_and_grads("torch")
-    print(f"[train] (a) impl=torch (chunk 256): loss {lt:.6f}, grad norm "
+    print(f"{tag} (a) impl=torch (chunk 256): loss {lt:.6f}, grad norm "
           f"{gt:.6f}, {dtt:.2f} s; launches {ct}", flush=True)
     if ct != (0, 0):
         fail("impl='torch' launched a CUDA kernel")
     checks = [("loss", abs(lk - lt) / abs(lt), TRAIN_TOL["loss"]),
               ("grad norm", abs(gk - gt) / gt, TRAIN_TOL["grad_norm"])]
-    for name in TRAIN_LEAVES:
+    for name in leaves:
         a, b = leaves_k[name], leaves_t[name]
         checks.append((f"grad {name}", _maxerr(a, b) / float(b.abs().max()),
                        TRAIN_TOL["leaf"]))
     for what, err, tol in checks:
-        print(f"[train] (a) kernel vs torch {what}: {err:.3e} (tol {tol:.0e}) "
+        print(f"{tag} (a) kernel vs torch {what}: {err:.3e} (tol {tol:.0e}) "
               f"{'ok' if err <= tol else 'FAIL'}")
         if not err <= tol:
-            fail(f"training pass kernel vs torch: {what} differs by {err:.3e}")
+            fail(f"{arch} training pass kernel vs torch: {what} differs by {err:.3e}")
     del leaves_k, leaves_t
 
     # (b) the train step, as a user calls it, counters reset just before
@@ -1568,7 +1612,7 @@ def train_phase(torch, kfwd, kbwd):
         loss = float(m["loss"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        print(f"[train] (b) step {step}: loss {loss:.6f}, grad norm "
+        print(f"{tag} (b) step {step}: loss {loss:.6f}, grad norm "
               f"{float(m['grad_norm']):.4f}, lr reported {m['lr']:.2e} (the "
               f"update applies AdamWConfig.lr, as the JAX step does), "
               f"{times[-1]:.3f} s", flush=True)
@@ -1578,18 +1622,20 @@ def train_phase(torch, kfwd, kbwd):
     want = {"flash_fwd": 2 * n * TRAIN_STEPS, "flash_bwd": n * TRAIN_STEPS}
     peak = torch.cuda.max_memory_allocated()
     warm = times[1:]
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(warm)
-    print(f"[train] (b) {TRAIN_STEPS} steps of make_train_step(impl='kernel'): "
+    tok_s = n_batch * n_seq * len(warm) / sum(warm)
+    print(f"{tag} (b) {TRAIN_STEPS} steps of make_train_step(impl='kernel'): "
           f"step times {[round(t, 4) for t in times]} s; steps 1-{TRAIN_STEPS - 1} "
           f"mean {sum(warm) / len(warm):.4f} s = {tok_s:.1f} tokens/s; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    print(f"[train] (b) launch counters {counts} (expected {want})", flush=True)
+    print(f"{tag} (b) launch counters {counts} (expected {want})", flush=True)
     if counts != want:
-        fail(f"the training steps did not go through the kernels: {counts}")
+        fail(f"the {arch} training steps did not go through the kernels: {counts}")
     profile_step(torch, lambda: float(arts.step_fn(params, opt, place_batch(
-        make_batch(dc, TRAIN_STEPS), "cuda"), TRAIN_STEPS)[2]["loss"]))
+        make_batch(dc, TRAIN_STEPS), "cuda"), TRAIN_STEPS)[2]["loss"]), tag)
     del params, opt, arts, batch
     torch.cuda.empty_cache()
+    if hybrid:
+        return counts
 
     # (c) the Trainer at SMOKE size: 2 steps, a preemption, 2 more on resume
     scfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
@@ -1630,7 +1676,7 @@ def train_phase(torch, kfwd, kbwd):
     return counts
 
 
-def profile_step(torch, step) -> None:
+def profile_step(torch, step, tag="[train]") -> None:
     """One more training step under ``torch.profiler``: device time by kernel
     group (the port's attention kernels, cuBLAS GEMMs, the rest) and the
     device's busy share of the step's wall time. ``step()`` returns the
@@ -1644,7 +1690,7 @@ def profile_step(torch, step) -> None:
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.start()
     except Exception as e:   # the profiler is a probe here, not a check
-        print(f"[train] profile: not measured ({type(e).__name__}: {e})")
+        print(f"{tag} profile: not measured ({type(e).__name__}: {e})")
         prof = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1653,14 +1699,14 @@ def profile_step(torch, step) -> None:
     wall = time.perf_counter() - t0
     if not math.isfinite(loss):
         fail(f"the profiled training step: loss {loss}")
-    print(f"[train] profiled step: loss {loss:.6f}")
+    print(f"{tag} profiled step: loss {loss:.6f}")
     if prof is None:
         return
     try:
         prof.stop()
         averages = prof.key_averages()
     except Exception as e:
-        print(f"[train] profile: not measured ({type(e).__name__}: {e})")
+        print(f"{tag} profile: not measured ({type(e).__name__}: {e})")
         return
     groups, names = {"attention kernels": 0.0, "GEMMs": 0.0, "other": 0.0}, []
     for e in averages:
@@ -1675,14 +1721,14 @@ def profile_step(torch, step) -> None:
         names.append((us / 1e6, name))
     busy = sum(groups.values())
     if busy == 0.0:
-        print("[train] profile: not measured (no device time recorded)")
+        print(f"{tag} profile: not measured (no device time recorded)")
         return
     parts = ", ".join(f"{g} {t:.4f} s ({100 * t / wall:.1f} %)" for g, t in groups.items())
-    print(f"[train] profile of one step (torch.profiler, wall {wall:.4f} s under "
+    print(f"{tag} profile of one step (torch.profiler, wall {wall:.4f} s under "
           f"the profiler): device time {parts}; device busy {busy:.4f} s = "
           f"{100 * busy / wall:.1f} % of the step, idle {100 * (1 - busy / wall):.1f} %")
     for t, name in sorted(names, reverse=True)[:8]:
-        print(f"[train] profile top kernel: {t:.4f} s {name[:110]}")
+        print(f"{tag} profile top kernel: {t:.4f} s {name[:110]}")
     sys.stdout.flush()
 
 
@@ -1857,6 +1903,77 @@ def bwd_times_phase(torch, kfwd, kbwd, train_launches, fwd_row):
               + f", without tensor cores {bd['bound_ms_no_tensor_cores']:.4f} ms; "
               f"{flops / part['ms'] / 1e9:.1f} TFLOP/s; max|dq(run 1) - dq(run 2)| "
               f"{rerun:.3e}", flush=True)
+        del q, k, v, do, o, lse, delta, got, again
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_bwd_times_phase(torch, kfwd, kbwd, train_launches):
+    """Rows 2-3 at recurrentgemma-2b's training shape (B 1, 10/1 heads, S
+    3072, D 256, causal, window 2048) in f32, as its path runs, and in
+    bf16: the kernel (CUDA events around ``launch_bwd``), its plain version
+    (f32), the whole backward of ``scaled_dot_product_attention`` with the
+    window as a boolean mask in the same dtype, and the bound over the
+    (q, k) pairs inside the window. Returns the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.perf import fwd_times
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, hq, hkv, s, d, w = HYBRID_BATCH, 10, 1, HYBRID_SEQ, 256, 2048
+    flops = 10 * d * b * hq * fwd_times.causal_pairs(s, w)
+    mask = fwd_times.sdpa_mask(s, w)
+    row = {"name": "flash_bwd (recurrentgemma-2b training)", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+           "replaces": "src/repro/kernels/flash_bwd.py:98, "
+                       "src/repro/kernels/flash_bwd.py:164",
+           "launches": train_launches["flash_bwd"],
+           "shape": f"B {b}, {hq}/{hkv} heads, S {s}, D {d}, causal, window {w}",
+           "library_note": "sdpa backward (dq, dk, dv) with the window as a "
+                           "boolean mask, GQA by enable_gqa"}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+        do = _rand(torch, gen, (b, hq, s, d), dtype)
+        o, lse = kfwd.flash_fwd(q, k, v, causal=True, window=w)
+        delta = kbwd.row_delta(o, do)
+        kw = dict(causal=True, window=w, scale=d ** -0.5)
+        el = q.element_size()
+        nbytes = (3 * el * b * hq * s * d + 4 * el * b * hkv * s * d
+                  + 4 * 2 * b * hq * s)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                             enable_gqa=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 5)
+        del qg, kg, vg, out
+        call = lambda: kbwd.launch_bwd(q, k, v, lse, do, delta, **kw)  # noqa: E731
+        got, again = call(), call()
+        bd = bounds(flops, nbytes, dn)
+        part = {"ms": time_ms(torch, call, 10), "library_ms": lib_ms, **bd,
+                "dq_rerun_max_abs_diff": _maxerr(got[0], again[0])}
+        if dtype == torch.float32:
+            plain = kbwd.flash_bwd_torch(q, k, v, lse, do, delta, **kw)
+            part["max_abs_err"] = max(_maxerr(g, gp) for g, gp in zip(got, plain))
+            part["plain_ms"] = time_ms(
+                torch, lambda: kbwd.flash_bwd_torch(q, k, v, lse, do, delta, **kw),
+                1, warmup=1)
+            part["bound_ms_3xtf32"] = 3 * flops / PEAK_FLOPS["float32"] * 1e3
+            row.update(part)
+            del plain
+        else:
+            row.update({f"bf16_{key}": val for key, val in part.items()})
+        print(f"[times] flash_bwd at recurrentgemma-2b's training shape ({row['shape']}, "
+              f"{dn}): kernel {part['ms']:.4f} ms"
+              + (f", plain {part['plain_ms']:.4f} ms" if "plain_ms" in part else "")
+              + f", sdpa backward with the window as a mask {lib_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {flops:.4e} flops, "
+              f"{dn} tensor cores)"
+              + (f", 3xTF32 {part['bound_ms_3xtf32']:.4f} ms" if "bound_ms_3xtf32" in part
+                 else "")
+              + f"; {flops / part['ms'] / 1e9:.1f} TFLOP/s; launches {row['launches']}; "
+              f"max|dq(run 1) - dq(run 2)| {part['dq_rerun_max_abs_diff']:.3e}",
+              flush=True)
         del q, k, v, do, o, lse, delta, got, again
     torch.cuda.empty_cache()
     return row
@@ -2063,7 +2180,8 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
     return result
 
 
-def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches, errs):
+def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches,
+                       train_launches, errs):
     """Rows 1, 4 and 5 at recurrentgemma-2b's shapes (f32, 10/1 heads, D
     256, window 2048): its prefill attention (B 4, S 3072, causal), its
     contiguous decode over a full 2048-slot ring (B 4) and its paged decode
@@ -2098,6 +2216,9 @@ def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches, errs):
         "source": src + "flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_fwd.py:46",
         "launches": launches["flash_fwd"] + paged_launches["flash_fwd"],
+        "launches_by_path": {"hybrid_serve": launches["flash_fwd"],
+                             "hybrid_paged_serve": paged_launches["flash_fwd"],
+                             "hybrid_train": train_launches["flash_fwd"]},
         "max_abs_err": fwd_err,
         "ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, causal=True,
                                                     window=w), 10),

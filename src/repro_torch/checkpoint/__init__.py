@@ -1,5 +1,6 @@
-from repro_torch.checkpoint.ckpt import (CorruptCheckpointError, latest_step,
-                                        restore, save, save_async)
+from repro_torch.checkpoint.ckpt import (CorruptCheckpointError, is_jax_layout,
+                                        latest_step, read_tree, restore, save,
+                                        save_async)
 
-__all__ = ["CorruptCheckpointError", "latest_step", "restore", "save",
-           "save_async"]
+__all__ = ["CorruptCheckpointError", "is_jax_layout", "latest_step",
+           "read_tree", "restore", "save", "save_async"]

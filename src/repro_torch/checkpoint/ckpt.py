@@ -15,6 +15,14 @@ A tree is a nested mapping (or dataclass) whose leaves are tensors or
 Python ints; ``None`` leaves are absent. Keys join the path with
 ``/``. numpy has no bfloat16, so a bf16 tensor is stored as its uint16 bits
 and recorded as ``"bfloat16"`` in ``dtypes``.
+
+A checkpoint that the JAX package's ``Trainer`` wrote has the same files but
+JAX's tree: stacked superblock params (``params/blocks/sub_0/mixer/wq``)
+and the optimizer state as a NamedTuple, whose fields JAX's key paths spell
+with a leading dot (``opt/.m/...``, ``opt/.step``). :func:`is_jax_layout`
+tells the two apart and :func:`read_tree` returns such a checkpoint as a
+nested dict of numpy arrays, which ``models.convert`` carries into the
+port's state.
 """
 
 from __future__ import annotations
@@ -166,14 +174,17 @@ def _fill(like, arrays, dtypes, prefix: str = ""):
     return out
 
 
-def restore(ckpt_dir: str, step: int, like):
-    """Restore step ``step`` into the structure of ``like``. Tensor leaves of
-    ``like`` are overwritten **in place** (dtype and device kept), so a
-    restore at full width needs no second copy of the state; int leaves are
-    replaced. Returns the filled tree."""
+def _meta(ckpt_dir: str, step: int):
+    """(directory, metadata) of step ``step``."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "metadata.json")) as f:
-        meta = json.load(f)
+        return d, json.load(f)
+
+
+def _checked(ckpt_dir: str, step: int):
+    """(directory, metadata) of step ``step`` once its payload matches the
+    recorded digest; raises :class:`CorruptCheckpointError` if not."""
+    d, meta = _meta(ckpt_dir, step)
     want = meta.get("digest")
     if want is not None:
         got = _digest_file(os.path.join(d, "arrays.npz"))
@@ -181,6 +192,41 @@ def restore(ckpt_dir: str, step: int, like):
             raise CorruptCheckpointError(
                 f"checkpoint {d} failed integrity check: arrays.npz digest "
                 f"{got} != recorded {want} (truncated or corrupted write?)")
+    return d, meta
+
+
+def is_jax_layout(ckpt_dir: str, step: int) -> bool:
+    """Whether step ``step`` was written by the JAX package's ``Trainer``
+    (its optimizer state's keys start ``opt/.``)."""
+    return any(k.startswith(f"opt{_SEP}.") for k in _meta(ckpt_dir, step)[1]["keys"])
+
+
+def read_tree(ckpt_dir: str, step: int) -> Dict[str, Any]:
+    """Step ``step`` as a nested dict of numpy arrays, its keys split at
+    ``/``; a key part's leading dot (a JAX NamedTuple field) is dropped, and
+    bf16 leaves become f32 (exact). Checks the digest first."""
+    d, meta = _checked(ckpt_dir, step)
+    dtypes = meta.get("dtypes", {})
+    tree: Dict[str, Any] = {}
+    with np.load(os.path.join(d, "arrays.npz")) as z:
+        for key in z.files:
+            a = z[key]
+            if dtypes.get(key) == "bfloat16":
+                a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).float().numpy()
+            *path, leaf = [p[1:] if p.startswith(".") else p for p in key.split(_SEP)]
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = a
+    return tree
+
+
+def restore(ckpt_dir: str, step: int, like):
+    """Restore step ``step`` into the structure of ``like``. Tensor leaves of
+    ``like`` are overwritten **in place** (dtype and device kept), so a
+    restore at full width needs no second copy of the state; int leaves are
+    replaced. Returns the filled tree."""
+    d, meta = _checked(ckpt_dir, step)
     with np.load(os.path.join(d, "arrays.npz")) as z:
         keys = list(_flatten(like))
         missing = set(keys) - set(z.files)

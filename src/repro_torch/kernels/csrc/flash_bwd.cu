@@ -46,7 +46,11 @@
 //   S^T = K Q^T and dP^T = V dO^T come out in the rows of its dK/dV
 //   accumulators. P~^T and dS^T go through shared memory (rounded to T, as
 //   JAX casts them to q.dtype); dQ = dS K for the tile is computed by all
-//   warps and added into an f32 buffer with atomicAdd (red.global.add.f32).
+//   warps and added into an f32 buffer with 16-byte vector atomics
+//   (atomicAdd on float4, sm_90: four columns an instruction, a quarter
+//   of the scalar adds, which at D 256's 32-row blocks took 0.90 of 5.86
+//   ms f32 and 1.31 of 3.00 ms bf16 on an H100 80GB HBM3 at 700 W,
+//   perf/bwd_ablation.py --hybrid).
 //   The order of those adds changes from run to run, so dQ is reproducible
 //   only to f32 rounding. The wrapper zeroes the buffer; the kernel
 //   allocates nothing.
@@ -58,6 +62,20 @@
 // Q/dO and the P~^T/dS^T tiles fit in shared memory, else 64 (4 warps) with
 // one stage (f32 at D 128). Rows are padded by 16 bytes, so the fragment
 // loads along rows are free of bank conflicts (those across rows 2-way).
+// - Head dim 256 (recurrentgemma-2b: 10 q heads on one kv head, window 2048)
+//   takes its own shape. One warp's dK and dV over 16 kv rows and all 256
+//   columns would be 256 f32 accumulators a lane before the tile products'
+//   temporaries, over the 255-register ceiling; and a 64-row f32 kv tile
+//   with one Q/dO stage needs 295 KB of shared memory against 227 KB. So a
+//   block takes 32 kv rows and 8 warps: four warps (WR) share each 16 kv
+//   rows. For S^T and dP^T each of the four takes 16 of the tile's 64 q
+//   columns over the whole depth (no product is computed twice, none split
+//   over D), then P~^T and dS^T meet in shared memory behind a block
+//   barrier, and each warp keeps a quarter of dK's and dV's columns (64
+//   accumulators a lane for both). f32 has one Q/dO stage (213 KB), bf16
+//   two (176 KB). A block's dQ update then sums 32 kv rows, so bf16-ACC
+//   rounds it per 32 kv rows, and the plain version tiles kv by 32 at D 256
+//   to round where the kernel does (flash_fwd.kv_tile, as the forward).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,9 +136,10 @@ struct Cfg {
     return 4 * (3 * stages * BQ + bkv) +
            (int)sizeof(T) * (2 * bkv * LD + stages * 2 * BQ * LD + 2 * bkv * LDP);
   }
-  static constexpr int BKV = bytes(128, 2) <= SMEM_MAX ? 128 : 64;
+  static constexpr int WR = D > 128 ? 4 : 1;  // warps sharing 16 kv rows
+  static constexpr int BKV = D > 128 ? 32 : bytes(128, 2) <= SMEM_MAX ? 128 : 64;
   static constexpr int STAGES = bytes(BKV, 2) <= SMEM_MAX ? 2 : 1;
-  static constexpr int NW = BKV / 16;         // warps: 16 kv rows each
+  static constexpr int NW = BKV / 16 * WR;    // warps
   static constexpr int NT = 32 * NW;
   static constexpr int SMEM = bytes(BKV, STAGES);
 };
@@ -140,7 +159,8 @@ __device__ __forceinline__ void add_tile(float (&acc)[NT][4], const float (&tmp)
 }
 
 // Block-uniform tile skip, the `needed` test of both TPU kernels, for q
-// tile iq (64 rows) and kv tile ik (bkv rows, bkv / 64 segment tiles).
+// tile iq (64 rows) and kv tile ik (bkv rows, within one or more 64-row
+// segment tiles).
 __device__ __forceinline__ bool tile_needed(const BwdParams& p, int b, int iq, int ik,
                                             int bkv) {
   const int q_start = iq * BQ + (p.Skv - p.Sq);
@@ -149,30 +169,30 @@ __device__ __forceinline__ bool tile_needed(const BwdParams& p, int b, int iq, i
   if (p.window > 0 && kv_start + bkv - 1 <= q_start - p.window) return false;
   if (p.q_seg == nullptr) return true;
   const int lo = p.qs_min[b * p.nq + iq], hi = p.qs_max[b * p.nq + iq];
-  for (int s = kv_start / SUB; s < p.nk64 && s < (kv_start + bkv) / SUB; ++s)
+  for (int s = kv_start / SUB; s < p.nk64 && s * SUB < kv_start + bkv; ++s)
     if (p.ks_min[b * p.nk64 + s] <= hi && p.ks_max[b * p.nk64 + s] >= lo) return true;
   return false;
 }
 
 // The elementwise step on the warp's S^T and dP^T fragments (kv rows r0 +
-// lane/4 (+ 8), q columns 8 j + 2 (lane % 4) (+ 1) of the tile): the mask
-// (MASK false: every pair is allowed and in range), P from lse, dropout and
-// dS. Leaves P~ in s and dS in dp.
-template <bool ACC16, bool MASK, int BKV>
-__device__ __forceinline__ void probs(const BwdParams& p, float (&s)[BQ / 8][4],
-                                      float (&dp)[BQ / 8][4], const float* lse_s,
+// lane/4 (+ 8), q columns c0 + 8 j + 2 (lane % 4) (+ 1) of the tile): the
+// mask (MASK false: every pair is allowed and in range), P from lse, dropout
+// and dS. Leaves P~ in s and dS in dp.
+template <bool ACC16, bool MASK, int NJ>
+__device__ __forceinline__ void probs(const BwdParams& p, float (&s)[NJ][4],
+                                      float (&dp)[NJ][4], const float* lse_s,
                                       const float* delta_s, const int* qseg_s,
                                       const int* sKseg, int b, int h, int q0, int kv_start,
-                                      int r0, int lane) {
+                                      int r0, int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int q_shift = p.Skv - p.Sq;
   const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
 #pragma unroll
-  for (int j = 0; j < BQ / 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + g + 8 * (e >> 1);          // kv row in the tile
-      const int c = 8 * j + 2 * t + (e & 1);        // q row in the tile
+      const int c = c0 + 8 * j + 2 * t + (e & 1);   // q row in the tile
       const int qp = q0 + c + q_shift, kp = kv_start + r;
       bool ok = true;
       if (MASK) {
@@ -205,9 +225,11 @@ template <typename T, int D, bool ACC16>
 __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdParams p) {
   using C = Cfg<T, D>;
   constexpr int BKV = C::BKV, NT = C::NT, LD = C::LD, LDP = C::LDP, ST = C::STAGES;
+  constexpr int WR = C::WR, RG = BKV / 16;  // warps on 16 kv rows; kv row groups
+  constexpr int DW = D / WR, QW = BQ / WR;  // dK/dV columns, S^T q columns a warp
   constexpr int WPR = C::NW / 4;          // warps sharing 16 q rows of the dQ product
   constexpr int NTQ = D / 8 / WPR;        // dQ n-tiles a warp
-  constexpr int KCQ = ACC16 ? SUB : BKV;  // kv rows a rounded dQ update sums
+  constexpr int KCQ = ACC16 && SUB < BKV ? SUB : BKV;  // kv rows a rounded dQ update sums
   extern __shared__ __align__(16) unsigned char smem[];
   float* sLse = reinterpret_cast<float*>(smem);       // [ST][BQ]
   float* sDelta = sLse + ST * BQ;                     // [ST][BQ]
@@ -226,7 +248,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
   const int G = p.Hq / p.Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int kv_start = ik * BKV, r0 = 16 * warp;
+  const int kv_start = ik * BKV, r0 = 16 * (warp % RG);
+  const int c0 = QW * (warp / RG), d0 = DW * (warp / RG);
   const size_t kv_off = (size_t)(b * p.Hkv + hk) * p.Skv * D;
   const bool segments = p.q_seg != nullptr;
   const int q_shift = p.Skv - p.Sq;
@@ -266,7 +289,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
   if (ST == 2 && cur < n_items) load_q_tile(cur, 0);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];       // kv rows r0 + g (+ 8), all D columns
+  float dk[DW / 8][4], dv[DW / 8][4];     // kv rows r0 + g (+ 8), columns d0 ..
   zero(dk);
   zero(dv);
 
@@ -291,12 +314,12 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
     const float* delta_s = sDelta + st * BQ;
     const int* qseg_s = sQseg + st * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T on the warp's 16 kv rows x 64 q columns
-    float s[BQ / 8][4], dp[BQ / 8][4];
+    // S^T = K Q^T and dP^T = V dO^T on the warp's 16 kv rows x QW q columns
+    float s[QW / 8][4], dp[QW / 8][4];
     zero(s);
     zero(dp);
-    warp_gemm<T, BQ / 8, D, false, false>(s, sK, LD, r0, q_s, LD, 0, 0, lane);
-    warp_gemm<T, BQ / 8, D, false, false>(dp, sV, LD, r0, do_s, LD, 0, 0, lane);
+    warp_gemm<T, QW / 8, D, false, false>(s, sK, LD, r0, q_s, LD, c0, 0, lane);
+    warp_gemm<T, QW / 8, D, false, false>(dp, sV, LD, r0, do_s, LD, c0, 0, lane);
 
     // mask, P from lse, dropout, dS; P~ into s, dS into dp. A tile whose
     // every pair is allowed and in range skips the mask.
@@ -305,32 +328,37 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
                         (!p.causal || kv_start + BKV - 1 <= qp0) &&
                         (p.window <= 0 || kv_start > qp0 + BQ - 1 - p.window);
     if (inside)
-      probs<ACC16, false, BKV>(p, s, dp, lse_s, delta_s, qseg_s, sKseg, b, h, q0, kv_start, r0,
-                               lane);
+      probs<ACC16, false>(p, s, dp, lse_s, delta_s, qseg_s, sKseg, b, h, q0, kv_start, r0, c0,
+                          lane);
     else
-      probs<ACC16, true, BKV>(p, s, dp, lse_s, delta_s, qseg_s, sKseg, b, h, q0, kv_start, r0,
-                              lane);
+      probs<ACC16, true>(p, s, dp, lse_s, delta_s, qseg_s, sKseg, b, h, q0, kv_start, r0, c0,
+                         lane);
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-      const int c = 8 * j + 2 * t;
+    for (int j = 0; j < QW / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * t;
       store_pair(sP + (r0 + g) * LDP + c, s[j][0], s[j][1]);
       store_pair(sP + (r0 + g + 8) * LDP + c, s[j][2], s[j][3]);
       store_pair(sdS + (r0 + g) * LDP + c, dp[j][0], dp[j][1]);
       store_pair(sdS + (r0 + g + 8) * LDP + c, dp[j][2], dp[j][3]);
     }
-    __syncwarp();
+    // a warp's rows of P~^T and dS^T come from the WR warps on its kv rows
+    if (WR > 1)
+      __syncthreads();
+    else
+      __syncwarp();
 
-    // dV += P~^T dO and dK += dS^T Q over this tile's 64 q rows (own kv rows)
+    // dV += P~^T dO and dK += dS^T Q over this tile's 64 q rows (own kv rows,
+    // columns d0 .. d0 + DW)
     {
-      float tmp[D / 8][4];
+      float tmp[DW / 8][4];
       zero(tmp);
-      warp_gemm<T, D / 8, BQ, false, true>(tmp, sP, LDP, r0, do_s, LD, 0, 0, lane);
+      warp_gemm<T, DW / 8, BQ, false, true>(tmp, sP, LDP, r0, do_s, LD, d0, 0, lane);
       add_tile<ACC16>(dv, tmp);
       zero(tmp);
-      warp_gemm<T, D / 8, BQ, false, true>(tmp, sdS, LDP, r0, q_s, LD, 0, 0, lane);
+      warp_gemm<T, DW / 8, BQ, false, true>(tmp, sdS, LDP, r0, q_s, LD, d0, 0, lane);
       add_tile<ACC16>(dk, tmp);
     }
-    __syncthreads();                      // every warp's dS^T rows are written
+    if (WR == 1) __syncthreads();         // every warp's dS^T rows are written
 
     // dQ += dS K: the warp owns q rows qm0 .. qm0+16 and D / WPR columns
     const int qm0 = 16 * (warp % 4), dn0 = (warp / 4) * (D / WPR);
@@ -338,7 +366,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
     zero(dq);
 #pragma unroll
     for (int kc = 0; kc < BKV; kc += KCQ) {
-      if (ACC16) {
+      if (ACC16 && KCQ < BKV) {
         float tmp[NTQ][4];
         zero(tmp);
         warp_gemm<T, NTQ, KCQ, true, true>(tmp, sdS, LDP, qm0, sK, LD, dn0, kc, lane);
@@ -347,14 +375,28 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
         warp_gemm<T, NTQ, KCQ, true, true>(dq, sdS, LDP, qm0, sK, LD, dn0, kc, lane);
       }
     }
+    if (ACC16 && KCQ == BKV) {            // one update of the block's kv rows
+#pragma unroll
+      for (int j = 0; j < NTQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[j][e] = round_bf16(dq[j][e]);
+    }
+    // One 16-byte vector atomic a lane and n-tile: a lane holds columns 2t,
+    // 2t + 1 of rows g and g + 8; lanes t and t ^ 1 swap halves, so an even
+    // t adds columns 2t .. 2t + 3 of row g and an odd t columns 2t - 2 ..
+    // 2t + 1 of row g + 8.
     float* dqg = p.dq + (size_t)(b * p.Hq + h) * p.Sq * D;
+    const bool odd = t & 1;
+    const int qr = q0 + qm0 + g + (odd ? 8 : 0);
 #pragma unroll
-    for (int j = 0; j < NTQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = q0 + qm0 + g + 8 * (e >> 1);
-        if (qr < p.Sq) atomicAdd(dqg + (size_t)qr * D + dn0 + 8 * j + 2 * t + (e & 1), dq[j][e]);
-      }
+    for (int j = 0; j < NTQ; ++j) {
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? dq[j][0] : dq[j][2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? dq[j][1] : dq[j][3], 1);
+      const float4 v = odd ? make_float4(s0, s1, dq[j][2], dq[j][3])
+                           : make_float4(dq[j][0], dq[j][1], s0, s1);
+      if (qr < p.Sq)
+        atomicAdd(reinterpret_cast<float4*>(dqg + (size_t)qr * D + dn0 + 8 * j + 2 * (t & ~1)), v);
+    }
     cur = nxt;
   }
 
@@ -362,12 +404,12 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, 1) flash_bwd_kernel(const BwdPa
   T* dkg = static_cast<T*>(p.dk) + kv_off;
   T* dvg = static_cast<T*>(p.dv) + kv_off;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DW / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kr = kv_start + r0 + g + 8 * (e >> 1);
       if (kr >= p.Skv) continue;
-      const size_t at = (size_t)kr * D + 8 * j + 2 * t + (e & 1);
+      const size_t at = (size_t)kr * D + d0 + 8 * j + 2 * t + (e & 1);
       dkg[at] = from_f<T>(dk[j][e]);
       dvg[at] = from_f<T>(dv[j][e]);
     }
@@ -391,6 +433,7 @@ int launch_d(const BwdParams& p, int d, cudaStream_t stream) {
     case 32: return launch<T, 32, ACC16>(p, stream);
     case 64: return launch<T, 64, ACC16>(p, stream);
     case 128: return launch<T, 128, ACC16>(p, stream);
+    case 256: return launch<T, 256, ACC16>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

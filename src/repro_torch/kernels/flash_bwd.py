@@ -12,11 +12,13 @@ atomics, its products on tensor cores (3xTF32 for f32, bf16 mma for bf16).
 dK and dV are bit-reproducible; dQ's sum order changes from run to run, so
 it is reproducible to f32 rounding only. On a CPU tensor it runs the plain
 version, :func:`flash_bwd_torch`: the kernel's sums in its order of q tiles,
-over 64-row kv tiles (``flash_fwd.TILE``). The kernel takes 128 kv rows a
-block (``csrc/flash_bwd.cu`` ``Cfg::BKV``, 64 where shared memory is short:
-f32 at D 128) and adds one dQ update per block (``KCQ``; per 64 kv rows
-with bf16-ACC); the plain version adds one per 64-row tile. The two differ only
-in the order of f32 rounding.
+over kv tiles of ``flash_fwd.kv_tile(D)`` rows (64, and 32 at D 256). The
+kernel takes 128 kv rows a block (``csrc/flash_bwd.cu`` ``Cfg::BKV``, 64
+where shared memory is short: f32 at D 128) and adds one dQ update per block
+(``KCQ``; per 64 kv rows with bf16-ACC); the plain version adds one per kv
+tile. At D 256 (recurrentgemma-2b) the kernel's block is 32 kv rows, four
+warps on each 16, so both add, and with bf16-ACC round, one dQ update per 32
+kv rows. The two differ only in the order of f32 rounding.
 """
 
 from __future__ import annotations
@@ -30,13 +32,12 @@ from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.kernels import _build, rng
 from repro_torch.kernels.common import round_acc
 from repro_torch.kernels.flash_fwd import (DTYPES, TILE, _check_inputs,
-                                           segment_tiles)
+                                           kv_tile, segment_tiles)
 from repro_torch.kernels.ref import _expand_kv
 
 #: head dims the kernel is instantiated for (``csrc/flash_bwd.cu``
-#: ``launch_d``); the forward also takes 256, whose backward needs a
-#: shared-memory budget of its own
-HEAD_DIMS = (16, 32, 64, 128)
+#: ``launch_d``), the forward's
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: kernel launches since the last reset (the plain version does not count)
 launches_bwd = 0
@@ -92,15 +93,13 @@ def launch_bwd(q, k, v, lse, do, delta, *, causal=False, window=None,
                acc_dtype=torch.float32):
     """Launch the fused kernel on CUDA tensors; returns ``(dq, dk, dv)``.
     The keywords are :func:`flash_bwd`'s. dQ is added into a zeroed f32
-    buffer (``dq`` itself for f32 inputs, cast to bf16 afterwards else)."""
+    buffer (``dq`` itself for f32 inputs, cast to bf16 afterwards else).
+    Head dims up to 128 take 64 or 128 kv rows a block, 256 takes 32 (the
+    module note)."""
     global launches_bwd
     b, hq, sq, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_bwd kernel head_dim must be in {HEAD_DIMS}, got {d}"
-            + (": training at head dim 256 (recurrentgemma-2b) is queued, it "
-               "needs a backward with a shared-memory budget of its own"
-               if d == 256 else ""))
+        raise ValueError(f"flash_bwd kernel head_dim must be in {HEAD_DIMS}, got {d}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_bwd kernel takes float32 or bfloat16, got {q.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, do, lse)):
@@ -131,13 +130,15 @@ def launch_bwd(q, k, v, lse, do, delta, *, causal=False, window=None,
     return dq.to(q.dtype), dk, dv
 
 
-def _tile_needed(lo_q, lo_k, q_offset, causal, window) -> bool:
-    """The kernel's causal / window tile skip (segment skips only drop tiles
-    whose every pair is masked, which contribute exact zeros here)."""
+def _tile_needed(lo_q, lo_k, q_offset, causal, window, bkv=TILE) -> bool:
+    """The kernel's causal / window tile skip for the 64-row q tile at
+    ``lo_q`` and the ``bkv``-row kv tile at ``lo_k`` (segment skips only
+    drop tiles whose every pair is masked, which contribute exact zeros
+    here)."""
     q_start = lo_q + q_offset
     if causal and lo_k > q_start + TILE - 1:
         return False
-    if window is not None and lo_k + TILE - 1 <= q_start - window:
+    if window is not None and lo_k + bkv - 1 <= q_start - window:
         return False
     return True
 
@@ -149,15 +150,17 @@ def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
     """The kernel in plain torch: ``(dq, dk, dv)`` given ``delta =
     row_delta(o, do)``; the keywords are :func:`flash_bwd`'s.
 
-    Per 64-row kv tile (the kernel's blocks take 128 kv rows: see the
-    module note) it walks the q tiles the kernel visits, for every q head at
-    once: dV and dK of the tile accumulate over them and are summed over the
-    GQA group at the end, and each (q tile, kv tile)'s dQ update is added
-    into an f32 dQ (the kernel adds one per 128-row block: only the order of
-    rounding differs). P~ and dS are rounded to the input dtype before
-    their products, and with bf16 ``acc_dtype`` each 64-wide tile product is
-    rounded to bf16. ``matmul`` computes every tile product (S, dP, dV, dK,
-    dQ); the tests pass ``common.tf32_matmul`` to copy the kernel's 3xTF32.
+    Per kv tile of ``kv_tile(D)`` rows (64; 32 at D 256, the kernel's
+    block there; at D <= 128 the kernel's blocks take 128 kv rows: see the
+    module note) it walks the 64-row q tiles the kernel visits, for every q
+    head at once: dV and dK of the tile accumulate over them and are summed
+    over the GQA group at the end, and each (q tile, kv tile)'s dQ update
+    is added into an f32 dQ (the kernel adds one per block: only the order
+    of rounding differs). P~ and dS are rounded to the input dtype before
+    their products, and with bf16 ``acc_dtype`` each tile product is
+    rounded to bf16 (the dQ update per kv tile). ``matmul`` computes every
+    tile product (S, dP, dV, dK, dQ); the tests pass ``common.tf32_matmul``
+    to copy the kernel's 3xTF32.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -204,12 +207,13 @@ def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
     dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
     dk = torch.empty((b, hkv, skv, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
-    for lk in range(0, skv, TILE):
-        hk = min(lk + TILE, skv)
+    bkv = kv_tile(d)
+    for lk in range(0, skv, bkv):
+        hk = min(lk + bkv, skv)
         dk_acc = torch.zeros((b, hq, hk - lk, d), dtype=torch.float32, device=dev)
         dv_acc = torch.zeros_like(dk_acc)
         for lq in range(0, sq, TILE):
-            if not _tile_needed(lq, lk, q_offset, causal, window):
+            if not _tile_needed(lq, lk, q_offset, causal, window, bkv):
                 continue
             hq_ = min(lq + TILE, sq)
             p_kept, ds = tile(lq, hq_, lk, hk)

@@ -5,6 +5,16 @@ On the card (the default device), granite-3-2b at full width and depth:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
       --steps 4 --batch 4 --seq 2048 --ckpt-every 1000
 
+recurrentgemma-2b at full width and depth, past its 2048-token window (the
+attention kernels at head dim 256):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma_2b \\
+      --steps 4 --batch 1 --seq 3072 --ckpt-every 1000
+
+AdamW keeps an f32 master copy of bf16 params only: the copy of f32 params
+would be the params themselves (the same update, 4 bytes a parameter
+more; recurrentgemma-2b's 3.55 B f32 params, grads and moments already
+fill 56.8 GB of the card's 80).
+
 On the CPU, at smoke size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
       --smoke --device cpu --steps 3 --batch 2 --seq 32
@@ -59,7 +69,9 @@ def main(argv=None):
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
     cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
-    arts = make_train_step(cfg, opt=AdamWConfig(lr=args.lr), impl=args.impl,
+    arts = make_train_step(cfg, opt=AdamWConfig(
+                               lr=args.lr, keep_master=cfg.dtype != torch.float32),
+                           impl=args.impl,
                            total_steps=args.steps, warmup_steps=args.warmup,
                            microbatch=args.microbatch,
                            torch_chunk=min(1024, args.seq),

@@ -170,10 +170,17 @@ def _linear_scan(a, b):
     return b
 
 
+def _gate_norm(u):
+    """√max(u, 1e-12) for u = 1 − a_t². ``torch.maximum`` splits the
+    gradient at a tie as ``jnp.maximum`` does (``clamp`` would pass all of
+    it to u)."""
+    return torch.sqrt(torch.maximum(u, u.new_tensor(1e-12)))
+
+
 def _gates(lam, r):
-    """a_t = exp(−c · softplus(Λ) · r_t) (in (0, 1)) and √(1 − a_t²)."""
+    """a_t = exp(−c · softplus(Λ) · r_t) (in (0, 1]) and √(1 − a_t²)."""
     a = torch.exp(-_C * F.softplus(lam) * r)
-    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return a, _gate_norm(1.0 - a * a)
 
 
 def _rglru_scan(x, r, i, lam):

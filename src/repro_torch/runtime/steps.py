@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.kernels.rng import int32
+from repro_torch.models.convert import convert_opt_state, convert_params
 from repro_torch.models.layers import Ctx
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
@@ -31,10 +32,15 @@ class TrainArtifacts:
         updated in place and returned.
     init_fn(seed=0) → (params :class:`~repro_torch.models.lm.LM`,
         opt_state :class:`~repro_torch.optim.AdamWState`) on ``device``.
+    from_jax(tree) → (params, opt_state) of a JAX ``Trainer`` checkpoint
+        (``checkpoint.read_tree``: ``{"params", "opt"}`` in JAX's layout),
+        through ``models.convert``; its master copy is dropped where the
+        optimizer keeps none.
     """
     step_fn: Any
     init_fn: Any
     device: Any
+    from_jax: Any
 
 
 def step_seed(step: int) -> int:
@@ -66,6 +72,16 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
     def init_fn(seed: int = 0):
         params = lm.init_params(cfg, seed=seed, device=device)
         return params, adamw_init(params, opt)
+
+    def from_jax(tree):
+        o = tree["opt"]
+        if opt.keep_master and "master" not in o:
+            raise ValueError("the JAX checkpoint has no f32 master copy for "
+                             "an optimizer with keep_master=True")
+        params = convert_params(cfg, tree["params"], device=device)
+        master = o["master"] if opt.keep_master else None
+        return params, convert_opt_state(
+            cfg, (o["step"], o["m"], o["v"], master), params, device=device)
 
     def loss_and_grads(params, batch, seed):
         ctx = Ctx(impl=impl, deterministic=(cfg.dropout_rate == 0.0),
@@ -100,7 +116,8 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
         metrics = dict(metrics, **om, lr=lr, loss=loss)
         return params, opt_state, metrics
 
-    return TrainArtifacts(step_fn=step_fn, init_fn=init_fn, device=device)
+    return TrainArtifacts(step_fn=step_fn, init_fn=init_fn, device=device,
+                          from_jax=from_jax)
 
 
 @dataclasses.dataclass

@@ -3,7 +3,9 @@
 
 * **Resume from latest** on start: checkpoints are atomic
   (``checkpoint/ckpt.py``) and restored in place into freshly initialised
-  state.
+  state. A checkpoint that the JAX package's ``Trainer`` wrote resumes too:
+  its params and AdamW state go through ``models.convert``
+  (``TrainArtifacts.from_jax``).
 * **Preemption**: SIGTERM sets a "checkpoint, then exit" request; the loop
   commits a final checkpoint at the next step boundary.
 * **Straggler monitor**: steps slower than ``threshold ×`` the rolling median
@@ -101,9 +103,13 @@ class Trainer:
             keep=self.tcfg.keep)
 
     def _restore_or_init(self, seed: int):
+        latest = ckpt.latest_step(self.tcfg.ckpt_dir)
+        if latest is not None and ckpt.is_jax_layout(self.tcfg.ckpt_dir, latest):
+            tree = ckpt.read_tree(self.tcfg.ckpt_dir, latest)
+            params, opt_state = self.arts.from_jax(tree)
+            return params, opt_state, int(tree["step"]) + 1
         params, opt_state = self.arts.init_fn(seed)
         start = 0
-        latest = ckpt.latest_step(self.tcfg.ckpt_dir)
         if latest is not None:
             tree = ckpt.restore(self.tcfg.ckpt_dir, latest,
                                 self._state_tree(params, opt_state, 0))

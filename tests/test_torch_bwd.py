@@ -37,6 +37,12 @@ CASES = {
     "ragged_100": (1, 2, 2, 100, 100, 32, dict(causal=True)),
     "dropout": (1, 2, 2, 128, 128, 32, dict(dropout_rate=0.15, dropout_seed=-5)),
     "segments": (2, 2, 1, 96, 96, 16, dict(causal=True, segments=True)),
+    # recurrentgemma-2b's attention geometry (10 q heads on one kv head, D
+    # 256, a window) at a short length: the kernel's 32-row kv tiles
+    "window_d256_g10": (1, 10, 1, 128, 128, 256, dict(causal=True, window=40)),
+    "window_d256_g10_dropout": (1, 10, 1, 128, 128, 256,
+                                dict(causal=True, window=40, dropout_rate=0.1,
+                                     dropout_seed=11)),
 }
 PAD = 7          # trailing padding tokens (segment id -1) of the segments case
 
@@ -146,7 +152,8 @@ def test_online_mha_grads_match_jax_online_mha(name):
         assert _err(x.grad, og) < TOL
 
 
-@pytest.mark.parametrize("name", ["causal_gqa", "dropout", "segments"])
+@pytest.mark.parametrize("name", ["causal_gqa", "dropout", "segments",
+                                  "window_d256_g10"])
 def test_tf32_products_precision(name):
     """The kernel's f32 products on tensor cores: every tile product of the
     backward in 3xTF32 (``common.tf32_matmul``) stays within 5e-5 of JAX's
@@ -261,17 +268,31 @@ def test_flash_bwd_wrapper_checks():
         tbwd.flash_bwd(*(t.to("meta") for t in (tq, tk, tv, o, lse, tdo)))
 
 
-def test_backward_kernel_refuses_head_dim_256():
-    """The forward kernel takes head dim 256 (recurrentgemma-2b); the
-    backward kernel has its own head dims and refuses 256 with a clear
-    error before it touches a card, instead of falling off its switch."""
-    assert 256 in tfwd.HEAD_DIMS and 256 not in tbwd.HEAD_DIMS
-    assert tbwd.HEAD_DIMS == (16, 32, 64, 128)
-    q = torch.zeros((1, 2, 8, 256))
+def test_backward_kernel_refuses_head_dim_256(monkeypatch):
+    """The backward kernel takes the forward's head dims, 256
+    (recurrentgemma-2b) among them: the wrapper hands a D 256 launch to the
+    kernel library (a stand-in here, which records the arguments), and
+    refuses a head dim that no kernel is instantiated for, such as 80
+    (hubert), with the plain message before it touches a card."""
+    assert tbwd.HEAD_DIMS == tfwd.HEAD_DIMS == (16, 32, 64, 128, 256)
+    q = torch.zeros((1, 10, 8, 256))
     kv = torch.zeros((1, 1, 8, 256))
-    lse = torch.zeros((1, 2, 8))
-    with pytest.raises(ValueError, match="head dim 256.*queued"):
-        tbwd.launch_bwd(q, kv, kv, lse, q, lse)
-    with pytest.raises(ValueError, match="got 80$"):
+    lse = torch.zeros((1, 10, 8))
+    calls = []
+
+    def kernel_fn(name, symbol, argtypes):
+        assert (name, symbol) == ("flash_bwd", "flash_bwd_launch")
+        return lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(tbwd._build, "kernel_fn", kernel_fn)
+    monkeypatch.setattr(tbwd.torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0})())
+    before = tbwd.launches_bwd
+    dq, dk, dv = tbwd.launch_bwd(q, kv, kv, lse, q, lse, causal=True, window=40)
+    assert tbwd.launches_bwd == before + 1
+    (args,) = calls
+    # B, Hq, Hkv, Sq, Skv, D, dtype, acc_bf16, scale, causal, window
+    assert args[15:26] == (1, 10, 1, 8, 8, 256, 0, 0, 256 ** -0.5, 1, 40)
+    assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+    with pytest.raises(ValueError, match=r"must be in \(16, 32, 64, 128, 256\), got 80$"):
         tbwd.launch_bwd(q[..., :80], kv[..., :80], kv[..., :80], lse,
                         q[..., :80], lse)

@@ -758,6 +758,65 @@ def test_flash_bwd_kernels_match_plain(cuda, name, dtype, acc):
         assert float(grads[1][:, :, -9:].abs().max()) == 0.0
 
 
+def _bwd_check(gen, b, hq, hkv, sq, skv, d, dtype, acc=torch.float32, **kw):
+    """The backward kernel against its plain version on one case, launched
+    twice (dK, dV bit-equal; dQ, summed by atomics, within the tolerance);
+    padding tokens (segment id < 0) get exact zero gradients."""
+    q, k, v, do = _bwd_inputs(gen, b, hq, hkv, sq, skv, d, dtype)
+    o, lse = kfwd.flash_fwd(q, k, v, acc_dtype=acc, **kw)
+    before = kbwd.launches_bwd
+    grads = kbwd.flash_bwd(q, k, v, o, lse, do, acc_dtype=acc, **kw)
+    again = kbwd.flash_bwd(q, k, v, o, lse, do, acc_dtype=acc, **kw)
+    torch.cuda.synchronize()
+    assert kbwd.launches_bwd == before + 2
+    plain = kbwd.flash_bwd_torch(q, k, v, lse, do, kbwd.row_delta(o, do),
+                                 acc_dtype=acc, **kw)
+    tol = BWD_TOL[torch.bfloat16 if torch.bfloat16 in (dtype, acc) else dtype]
+    for g, gp, x in zip(grads, plain, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert bool(torch.isfinite(g).all())
+        assert _err(g, gp) <= tol * max(1.0, float(gp.abs().max()))
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+    assert _err(grads[0], again[0]) <= tol * max(1.0, float(plain[0].abs().max()))
+    seg = kw.get("segment_ids")
+    if seg is not None:
+        pad = seg[0] < 0
+        assert float(grads[1][:, :, pad].abs().max()) == 0.0
+        assert float(grads[2][:, :, pad].abs().max()) == 0.0
+        assert float(grads[0][:, :, pad[skv - sq:]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", kbwd.HEAD_DIMS)
+def test_flash_bwd_head_dims(cuda, d, dtype, acc):
+    """Every head dim the backward kernel is built for, f32 and bf16 inputs,
+    f32 and bf16 accumulation: causal GQA, q a ragged suffix of kv."""
+    _bwd_check(cuda, 2, 8, 2, 150, 230, d, dtype, acc, causal=True)
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["window_dropout", "segments", "suffix"])
+def test_flash_bwd_head_dim_256_group_10(cuda, case, dtype, acc):
+    """The backward at the hybrid's geometry (10 q heads on one kv head, D
+    256): a window shorter than the sequence with dropout 0.1, packed
+    segments with padding under a window, and a q suffix whose window
+    starts inside a 32-row kv tile."""
+    b, hq, hkv, d = 1, 10, 1, 256
+    if case == "window_dropout":
+        _bwd_check(cuda, b, hq, hkv, 700, 700, d, dtype, acc, causal=True,
+                   window=200, dropout_rate=0.1, dropout_seed=17)
+    elif case == "suffix":
+        _bwd_check(cuda, b, hq, hkv, 90, 333, d, dtype, acc, causal=True,
+                   window=120)
+    else:
+        seg = (torch.arange(400, device="cuda", dtype=torch.int32) // 130).repeat(b, 1)
+        seg[:, -20:] = -1
+        _bwd_check(cuda, b, hq, hkv, 400, 400, d, dtype, acc, causal=True,
+                   window=100, segment_ids=seg)
+
+
 def test_flash_fwd_bf16_acc_kernel_matches_plain(cuda):
     q, k, v, _ = _bwd_inputs(cuda, 2, 8, 2, 200, 200, 64, torch.bfloat16)
     o, lse = kfwd.flash_fwd(q, k, v, causal=True, acc_dtype=torch.bfloat16)
@@ -815,6 +874,44 @@ def test_train_step_kernel_matches_torch(cuda):
     assert abs(gk - gt) <= 1e-4 * gt
     for a, b in zip(dk, dt):
         assert _err(a, b) <= 1e-4 * float(b.abs().max())
+
+
+def test_hybrid_full_width_train_pass_kernel_matches_torch(cuda):
+    """recurrentgemma-2b at full width and depth (26 layers, f32, random
+    weights, remat, dropout 0.1) over 2100 tokens, past the 2048 window:
+    one loss-and-grad pass through the kernels against impl="torch" on the
+    same params and batch. The forward kernel launches twice an attention
+    layer (forward and remat recompute), the backward kernel once (D 256,
+    10/1 heads); loss, grad norm and the attention and RG-LRU leaves agree."""
+    from repro_torch.optim import global_norm
+
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma_2b"),
+                              dtype=torch.float32, dropout_rate=0.1, remat=True)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    n_attn = lm.block_kinds(cfg).count("attn")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=2100, global_batch=1,
+                    seed=0)
+    batch = place_batch(make_batch(dc, 0), "cuda")
+    leaves = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
+              "blocks.0.mixer.w_rec")
+    out = {}
+    for impl in ("kernel", "torch"):
+        ctx = Ctx(impl=impl, deterministic=False, seed=-5, torch_chunk=512)
+        before = (kfwd.launches, kbwd.launches_bwd)
+        loss = lm.loss_fn(cfg, params, batch, ctx)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (kfwd.launches - before[0], kbwd.launches_bwd - before[1])
+        assert launched == ((2 * n_attn, n_attn) if impl == "kernel" else (0, 0))
+        named = dict(params.named_parameters())
+        out[impl] = (float(loss.detach()), float(global_norm(p.grad for p in params.parameters())),
+                     {n: named[n].grad.clone() for n in leaves})
+        params.zero_grad(set_to_none=True)
+    (lk, gk, dk), (lt, gt, dt) = out["kernel"], out["torch"]
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    assert abs(gk - gt) <= 1e-4 * gt
+    for n in leaves:
+        assert _err(dk[n], dt[n]) <= 1e-3 * float(dt[n].abs().max()), n
 
 
 def test_trainer_resume_on_the_card_matches_straight(cuda, tmp_path):

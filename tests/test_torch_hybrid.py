@@ -179,6 +179,41 @@ def test_rglru_scan_and_steps_match_jax():
         assert _err(tc["conv"], cache["conv"]) < TOL
 
 
+def test_rglru_scan_grads_match_jax():
+    """Gradients of the doubling scan against those of JAX's
+    ``associative_scan`` (``GRAD_TOL`` of tests/test_torch_train.py: 1e-4 of
+    each leaf's max), with r = 0 on some tokens (a_t = 1 exactly, where
+    1 - a_t^2 = 0 takes the 1e-12 floor and passes no gradient)."""
+    r = np.random.default_rng(4)
+    b, s, d = 2, 37, 6
+    x = r.standard_normal((b, s, d)).astype(np.float32)
+    rg = r.uniform(0.0, 1.0, (b, s, d)).astype(np.float32)
+    rg[:, ::5, :2] = 0.0
+    ig = r.uniform(0.0, 1.0, (b, s, d)).astype(np.float32)
+    lam = r.standard_normal(d).astype(np.float32)
+    w = r.standard_normal((b, s, d)).astype(np.float32)
+    jg = jax.jit(jax.grad(lambda *a: (jrglru._rglru_scan(*a) * w).sum(),
+                          argnums=(0, 1, 2, 3)))(x, rg, ig, lam)
+    xs = [_t(a).requires_grad_() for a in (x, rg, ig, lam)]
+    (rglru._rglru_scan(*xs) * _t(w)).sum().backward()
+    for name, t, g in zip(("x", "r", "i", "lambda"), xs, jg):
+        g = np.asarray(g)
+        assert _err(t.grad, g) <= 1e-4 * float(np.abs(g).max()), name
+
+
+def test_gate_norm_gradient_at_the_floor_matches_jax():
+    """sqrt(max(u, 1e-12)): below, at and above the floor, the gradient is
+    JAX's, half of it to u at the tie as ``jnp.maximum`` gives (a clamp
+    would give all of it)."""
+    u = np.array([0.0, np.float32(1e-12), 0.25, 1.0], np.float32)
+    jg = np.asarray(jax.grad(
+        lambda u: jnp.sqrt(jnp.maximum(u, 1e-12)).sum())(jnp.asarray(u)))
+    t = _t(u).requires_grad_()
+    rglru._gate_norm(t).sum().backward()
+    assert np.array_equal(t.grad.numpy(), jg)
+    assert jg[1] == np.float32(0.5 / np.sqrt(np.float32(1e-12)) / 2)
+
+
 def test_rglru_packed_scan_matches_jax():
     """One packed prefill row of three spans (a fresh span, a continuation
     resuming its slot's carried state, a fresh span of one token) and
