@@ -12,11 +12,12 @@ Phases, each of which exits non-zero on failure:
 2. build   — nvcc builds the three CUDA kernel libraries from
              ``kernels/csrc`` in parallel and prints ptxas's registers and
              spills per instantiation (no forward instantiation, and not
-             the f32 and bf16 D=64 and D=256 backward kernels, the two
-             training paths', may spill) and the count of tensor-core
-             instructions (HMMA / HGMMA in ``cuobjdump -sass``) of every
-             forward instantiation and of those four backward ones, which
-             must not be 0;
+             the f32 and bf16 D=64 and D=256 backward kernels, granite's and
+             the hybrid's training paths', may spill; the D=128 ones,
+             deepseek-moe-16b's, spill and are printed) and the count of
+             tensor-core instructions (HMMA / HGMMA in ``cuobjdump -sass``)
+             of every forward instantiation and of those four backward
+             ones, which must not be 0;
 3. kernels — each CUDA kernel against its plain-torch version on the same
              inputs, f32 and bf16: the forward and decode at granite-3-2b's
              prefill / decode shapes, the fused backward kernel at its
@@ -48,7 +49,14 @@ Phases, each of which exits non-zero on failure:
              256 chunk token rows; and the backward at recurrentgemma-2b's
              training geometry (B 1, 10/1 heads, D 256, S 3072, causal,
              window 2048) in f32 and bf16, with bf16-ACC, dropout 0.1 and
-             segments;
+             segments; and every kernel at the MoE family's shapes (D 128):
+             deepseek-moe-16b's 16/16 heads (a GQA group of 1) in the
+             forward at prefill (B 4, S 512) and training (B 2, S 2048,
+             dropout 0.1), the backward at training (f32, bf16, bf16-ACC),
+             the contiguous decode over 544 slots, the paged and gated decode
+             at page 16 (decode rows, 256 chunk rows, a mixed chunk row), and
+             dbrx-132b's 48/8 heads (a group of 6) in the forward (B 2, S
+             256) and the decode over 272 slots;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -87,6 +95,26 @@ Phases, each of which exits non-zero on failure:
              ``poison_reclaimed``, chunked prefill of 512: tokens equal to
              the torch impl's up to a printed near-tie, counters 8 x calls;
              prefix sharing and speculation refused; peak memory;
+4e. moe    — deepseek-moe-16b (28 layers, d_model 2048, 16/16 heads, head
+             dim 128, 64 experts top 6 and 2 shared, capacity factor 1.25,
+             groups of 256, vocab 102400) at full width and depth, f32,
+             random weights from seed 0, one set of params for both impls
+             and both caches: (a) the contiguous path, batch 4, prompt 512,
+             32 generated, kernel vs torch impl fed the kernel run's
+             tokens, counters 28 ``flash_fwd`` and 28 x 31 ``flash_decode``;
+             (b) the paged engine on 8 of (b)'s seeded requests in its four
+             modes (the lazy one with a storm-forced preemption); (c)
+             dbrx-132b (48/8 heads, D 128, 16 experts top 4) at full width
+             and 2 layers, batch 2, prompt 256, 16 generated, counters 2 and
+             2 x 15. Both impls' expert choices are recorded a layer
+             (``models/moe_routes.RouteRecorder`` wraps ``models/moe.py``'s
+             top-k; the model has no flag for it): at most ``MOE_FLIP_TOL`` of them may
+             differ, the flips are printed with their rows, and the logits
+             of the rows routed alike in every layer (capacity included)
+             are held to ``LOGIT_REL_TOL``; an engine's tokens may differ
+             from the first flipped call on. Prints ``moe_dropped`` at
+             prefill, prefill ms, decode tokens/s, a step's time beside the
+             bound of reading the weights once, peak memory;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -105,6 +133,14 @@ Phases, each of which exits non-zero on failure:
              80 GB): (a) as 5a, with three attention leaves and one RG-LRU
              leaf, the counters reading 16 / 8 (8 attention layers, D 256);
              (b) as 5b: step time, tokens/s and peak memory, then a
+             profiled step;
+5c. moe    — deepseek-moe-16b's training at full width and 4 layers (f32,
+             remat, dropout 0.1, batch 2 × 2048 from ``make_batch``, AdamW
+             without master): (a) as 5a, the torch pass routed as the
+             kernel pass was (its own flips counted, at most
+             ``MOE_FLIP_TOL``), leaves wq, the router, wi and lm_head,
+             counters 8 / 4; (b) 4 steps with ``moe_aux`` and
+             ``moe_dropped`` each, step time, tokens/s, peak memory, then a
              profiled step;
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
@@ -129,7 +165,12 @@ Phases, each of which exits non-zero on failure:
              more rows hold rows 1, 4 and 5 at recurrentgemma-2b's prefill,
              decode and paged decode (and 512-token chunk) shapes, and one
              rows 2-3 at its training shape (B 1, S 3072, f32 and bf16),
-             with SDPA given the window as a mask.
+             with SDPA given the window as a mask; five more hold rows 1-5
+             at deepseek-moe-16b's shapes (16/16 heads, D 128) in f32 and
+             bf16 (``bf16_``): the prefill (B 4, S 512) and training (B 2,
+             S 2048, dropout 0.1) forward, the backward at training, the
+             decode (B 4, 544 slots) and the paged decode (8 slots), the
+             forward and decode also at dbrx-132b's (``dbrx_shape_``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
@@ -193,6 +234,22 @@ TRAIN_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mixer.wk", "blocks.0.mixer.wv",
 HYBRID_BATCH, HYBRID_SEQ = 1, 3072
 HYBRID_LEAVES = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
                  "blocks.0.mixer.w_rec")
+# phase 5c, deepseek-moe-16b at full width and 4 layers: batch 2 x 2048
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
+MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
+              "lm_head")
+# the training phases: arch → (tag, batch, seq, leaves checked, AdamW's f32
+# master copy, layers (None: the config's))
+TRAIN_SETUPS = {
+    "granite_3_2b": ("[train]", TRAIN_BATCH, TRAIN_SEQ, TRAIN_LEAVES, True,
+                     None),
+    # 3.55 B f32 params, grads, m and v are 56.8 GB; a master copy of f32
+    # params (the same update) would add 14.2 GB
+    "recurrentgemma_2b": ("[hybrid train]", HYBRID_BATCH, HYBRID_SEQ,
+                          HYBRID_LEAVES, False, None),
+    "deepseek_moe_16b": ("[moe train]", MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                         MOE_LEAVES, False, MOE_TRAIN_LAYERS),
+}
 
 
 def fail(msg: str) -> None:
@@ -274,9 +331,13 @@ def main(argv=None) -> None:
     print(f"[hybrid] peak max_memory_allocated over phase 4d "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    # ---------------- phase 4e: the MoE family ----------------
+    moe_serve = moe_serve_phase(torch, kfwd, kdecode)
+
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
     hybrid_train = train_phase(torch, kfwd, kbwd, "recurrentgemma_2b")
+    moe_train = train_phase(torch, kfwd, kbwd, "deepseek_moe_16b")      # 5c
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -289,6 +350,7 @@ def main(argv=None) -> None:
     rows += hybrid_times_phase(torch, kfwd, kdecode, hybrid_launches,
                                hybrid_paged, hybrid_train, errs)
     rows.append(hybrid_bwd_times_phase(torch, kfwd, kbwd, hybrid_train))
+    rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -434,6 +496,12 @@ def kernel_phase(torch, kfwd, kdecode):
          dict(causal=True, window=2048)),
         ("rg_segments_ragged_1000", 2, 10, 1, 1000, 1000, 256,
          dict(causal=True, window=2048, segments=True)),
+        # the MoE family at D 128: deepseek-moe-16b's 16/16 heads at prefill
+        # and in training, dbrx-132b's 48/8 heads at prefill
+        ("moe_prefill_g1_d128", 4, 16, 16, 512, 512, 128, dict(causal=True)),
+        ("moe_train_g1_d128_dropout_0.1", 2, 16, 16, 2048, 2048, 128,
+         dict(causal=True, dropout_rate=0.1, dropout_seed=-9)),
+        ("dbrx_prefill_g6_d128", 2, 48, 8, 256, 256, 128, dict(causal=True)),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -505,6 +573,31 @@ def kernel_phase(torch, kfwd, kdecode):
                      f"disagrees with its plain version")
             errs[f"flash_decode/rg_ring2048_g10_d256/ns{ns}/{dn}"] = e
         del q, k, v, o
+
+        # the MoE family's decode at D 128: deepseek-moe-16b's 16/16 heads
+        # over 544 slots, dbrx-132b's 48/8 over 272 (kv_len with 0)
+        for name, hq, hkv, lens in (("moe_g1_d128_544", 16, 16, [528, 0, 544, 301]),
+                                    ("dbrx_g6_d128_272", 48, 8, [264, 0])):
+            b, cap = len(lens), max(lens)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = _rand(torch, gen, (b, hq, 128), dtype)
+            k = _rand(torch, gen, (b, hkv, cap, 128), dtype)
+            v = _rand(torch, gen, (b, hkv, cap, 128), dtype)
+            for ns in (1, 3):
+                o = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=ns)
+                torch.cuda.synchronize()
+                e = _maxerr(o, kdecode.flash_decode_torch(q, k, v, kv_len=kv_len,
+                                                          num_splits=ns))
+                ok = e <= TOL[dn] and float(o[1].abs().max()) == 0.0
+                print(f"[kernels] flash_decode {name} splits={ns} {dn}: max|o - "
+                      f"plain| {e:.3e} (tol {TOL[dn]:.1e}), kv_len=0 row zero: "
+                      f"{float(o[1].abs().max()) == 0.0} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"flash_decode {name} splits={ns} {dn} disagrees with "
+                         f"its plain version")
+                errs[f"flash_decode/{name}/ns{ns}/{dn}"] = e
+            del q, k, v, o
 
     # both kernels against the independent naive oracle, small f32 inputs
     q, k, v = _fwd_inputs(torch, gen, 2, 8, 2, 100, 300, 64, torch.float32)
@@ -614,6 +707,13 @@ def paged_kernel_phase(torch, kdecode):
          10, 1, 256, 16, 196, 2048),
         ("chunk_256_rows_rg_window", [0] * 16 + list(range(2801, 3041)),
          10, 1, 256, 16, 196, 2048),
+        # deepseek-moe-16b: 16/16 heads, D 128, the engine's page 16 and 37
+        # pages a sequence; decode rows, a 256-row chunk, a mixed chunk row
+        ("moe_ps16_g1_d128", [576, 0, 128, 333, 512, 17, 449, 200], 16, 16, 128,
+         16, 37, None),
+        ("chunk_256_rows_g1_d128", [0] * 16 + list(range(301, 541)), 16, 16,
+         128, 16, 37, None),
+        ("chunk_mixed_g1_d128", None, 16, 16, 128, 16, 37, None),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -721,6 +821,13 @@ def gated_kernel_phase(torch, kdecode):
          10, 1, 256, 16, 196, 2048),
         ("chunk_256_rows_rg_window", [0] * 16 + list(range(2801, 3041)),
          10, 1, 256, 16, 196, 2048),
+        # deepseek-moe-16b: 16/16 heads, D 128, the engine's page 16 and 37
+        # pages a sequence; decode rows, a 256-row chunk, a mixed chunk row
+        ("moe_ps16_g1_d128", [576, 0, 128, 333, 512, 17, 449, 200], 16, 16, 128,
+         16, 37, None),
+        ("chunk_256_rows_g1_d128", [0] * 16 + list(range(301, 541)), 16, 16,
+         128, 16, 37, None),
+        ("chunk_mixed_g1_d128", None, 16, 16, 128, 16, 37, None),
     ]
     errs, worst = {}, {"gate": 0.0, "lse": 0.0, "shards": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -823,7 +930,7 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
     print(f"[kernels] backward tolerances, kernel vs plain version, relative "
           f"to max(1, max|plain|): f32 {BWD_TOL['float32']:.0e} (the JAX "
           f"suite's gradient tolerance; dK and dV sum over up to 2048 q rows "
-          f"and a group of 4 or 10 in another order); bf16 inputs or bf16-ACC "
+          f"and a group of 1, 4 or 10 in another order); bf16 inputs or bf16-ACC "
           f"{BWD_TOL['bfloat16']:.2e} (two bf16 ulps)")
     gen = torch.Generator(device="cuda").manual_seed(4321)
     bf16 = torch.bfloat16
@@ -847,6 +954,11 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
          dict(causal=True, window=2048, segments=True)),
         ("rg_bf16_acc", 1, 10, 1, 3072, 3072, 256,
          dict(causal=True, window=2048, acc_dtype=bf16)),
+        # deepseek-moe-16b's training geometry: 16/16 heads, D 128
+        ("moe_train_g1_d128_dropout_0.1", 2, 16, 16, 2048, 2048, 128,
+         dict(causal=True, dropout_rate=0.1, dropout_seed=-11)),
+        ("moe_g1_d128_bf16_acc", 2, 16, 16, 2048, 2048, 128,
+         dict(causal=True, acc_dtype=bf16)),
     ]
     errs = {}
     for dtype in (torch.float32, bf16):
@@ -1013,13 +1125,16 @@ PAGED_MODES = {
 class StepRecorder:
     """Wraps an engine's four step callables: counts their calls and keeps,
     for every generated token (request id, index in its generation), the
-    top-2 logit margin and max |logit| of the row that produced it. The
-    engine is not changed; the wrappers read its scheduler to name rows."""
+    top-2 logit margin and max |logit| of the row that produced it and the
+    index of the call that did; with ``routes`` (an MoE arch's routes are
+    being recorded), for every call also its kind, its input tokens and the
+    request id of each token row (-1 for padding and idle rows). The engine
+    is not changed; the wrappers read its scheduler to name rows."""
 
-    def __init__(self, torch, eng, vocab):
-        self.torch, self.eng, self.vocab = torch, eng, vocab
+    def __init__(self, torch, eng, vocab, routes=False):
+        self.torch, self.eng, self.vocab, self.routes = torch, eng, vocab, routes
         self.calls = dict.fromkeys(("prefill", "decode", "chunk", "verify"), 0)
-        self.margin = {}
+        self.margin, self.call_of, self.inputs, self.rids = {}, {}, [], []
         for attr, kind in (("prefill_fn", "prefill"), ("decode_fn", "decode"),
                            ("chunk_prefill_fn", "chunk"), ("verify_fn", "verify")):
             setattr(eng, attr, self._wrap(getattr(eng, attr), kind))
@@ -1027,11 +1142,26 @@ class StepRecorder:
     def _wrap(self, fn, kind):
         def step(params, *args):
             keys = getattr(self, "_" + kind)(*args)   # before the engine appends
+            if self.routes:
+                self.inputs.append((kind, args[0].cpu()))
+                self.rids.append(self._token_rids(kind, args))
             logits, caches = fn(params, *args)
             self.calls[kind] += 1
             self._record(logits, keys)
             return logits, caches
         return step
+
+    def _token_rids(self, kind, args):
+        """The request id of each token row of a call, flattened as the
+        model flattens its tokens (row-major), -1 for padding."""
+        active = self.eng.scheduler.active
+        if kind in ("prefill", "chunk"):      # the tokens' decode slots
+            slots = (args[4] if kind == "prefill" else args[5]).reshape(-1)
+            return [active[s].request.rid if s >= 0 else -1
+                    for s in slots.cpu().tolist()]
+        rows, width = (args[0].shape[0], 1) if kind == "decode" else args[0].shape
+        return [active[s].request.rid if s in active and not active[s].prefilling
+                else -1 for s in range(rows) for _ in range(width)]
 
     def _key(self, slot, ahead=0):
         seq = self.eng.scheduler.active[int(slot)]
@@ -1072,10 +1202,11 @@ class StepRecorder:
         peak = rows.abs().amax(dim=-1).cpu().tolist()
         for (key, _), m, p in zip(keys, margin, peak):
             self.margin[key] = (m, p)
+            self.call_of[key] = sum(self.calls.values()) - 1
 
 
-def _paged_requests(np, vocab, mode, max_prompt):
-    """16 seeded requests, prompts 128-512 tokens and 16-64 generated;
+def _paged_requests(np, vocab, mode, max_prompt, n=PAGED_REQUESTS):
+    """``n`` seeded requests, prompts 128-512 tokens and 16-64 generated;
     prefix_chunk opens each with one 256-token system prompt (cut to the
     pool's reach, as launch/serve.py cuts it); speculate_4 tiles an 8-token
     motif, as launch/serve.py builds its --speculate prompts."""
@@ -1083,7 +1214,7 @@ def _paged_requests(np, vocab, mode, max_prompt):
     system = (rs.randint(0, vocab, size=256) if mode == "prefix_chunk"
               else np.zeros(0, np.int64))
     reqs = []
-    for _ in range(PAGED_REQUESTS):
+    for _ in range(n):
         plen = int(rs.randint(PAGED_PROMPT // 4, PAGED_PROMPT + 1))
         gen = int(rs.randint(PAGED_GEN // 4, PAGED_GEN + 1))
         if mode == "speculate_4":
@@ -1102,23 +1233,37 @@ def paged_serve_phase(torch, kfwd, kdecode):
 
     from repro_torch import configs
     from repro_torch.models import lm
-    from repro_torch.serving import PagedCacheConfig
 
     cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
                               dtype=torch.float32)
     params = lm.init_params(cfg, seed=0, device="cuda")
+    modes = _paged_modes(np, cfg, PAGED_REQUESTS, PAGED_MODES, "paged")
+    counts, tokens, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
+                                      "paged", PAGED_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    return counts, tokens
+
+
+def _paged_modes(np, cfg, n_requests, mode_kw, tag):
+    """Phase 4b's pools and requests for ``_engine_modes``: page 16, 8
+    slots, 37 pages a sequence, the whole pool (297 pages) or half of it in
+    a lazy mode; ``n_requests`` of ``_paged_requests``; ``mode_kw`` the
+    engine kwargs by mode."""
+    from repro_torch.serving import PagedCacheConfig
+
     ps, slots = 16, 8
     budget = PAGED_PROMPT + PAGED_GEN
     pages_per_seq = -(-budget // ps) + 1                       # 37
     full_pool = 1 + slots * pages_per_seq                      # 297
-    print(f"[paged] {cfg.name}, {cfg.num_layers} layers f32 (random, seed 0): "
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers f32 (random, seed 0): "
           f"page {ps}, {slots} slots, {pages_per_seq} pages a sequence, pool "
           f"{full_pool} pages ({(full_pool - 1) // 2 + 1} in lazy mode); "
-          f"{PAGED_REQUESTS} requests, prompts {PAGED_PROMPT // 4}-{PAGED_PROMPT} "
+          f"{n_requests} requests, prompts {PAGED_PROMPT // 4}-{PAGED_PROMPT} "
           f"tokens, {PAGED_GEN // 4}-{PAGED_GEN} generated; near-tie tolerance: "
           f"top-2 margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
     modes = {}
-    for mode, kw in PAGED_MODES.items():
+    for mode, kw in mode_kw.items():
         lazy = kw.get("lazy", False)
         pcfg = PagedCacheConfig(
             page_size=ps, max_batch=slots, max_pages_per_seq=pages_per_seq,
@@ -1127,12 +1272,48 @@ def paged_serve_phase(torch, kfwd, kdecode):
         # holds a full budget (launch/serve.py's rule)
         modes[mode] = (pcfg, budget if lazy else PAGED_PROMPT, kw,
                        _paged_requests(np, cfg.vocab_size, mode,
-                                       pcfg.max_seq_len - PAGED_GEN - 1))
-    counts, tokens, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
-                                      "paged", PAGED_PROMPT)
-    del params
-    torch.cuda.empty_cache()
-    return counts, tokens
+                                       pcfg.max_seq_len - PAGED_GEN - 1,
+                                       n_requests))
+    return modes
+
+
+def _engine_route_flips(cfg, rec_k, rec_t, routes_k, routes_t, tag, mode):
+    """The kernel and torch runs of one engine mode, compared call by call
+    while their step calls took the same tokens: the routing choices of
+    the torch run that the kernel run did not make (at most
+    ``MOE_FLIP_TOL`` of the decisions), printed with the requests of the
+    tokens routed otherwise. Returns the first step call with a flip, or
+    None."""
+    from repro_torch.models.moe_routes import route_diff
+
+    n_layers = cfg.num_layers
+    aligned = 0
+    for (kind_k, tok_k), (kind_t, tok_t) in zip(rec_k.inputs, rec_t.inputs):
+        if kind_k != kind_t or not tok_k.equal(tok_t):
+            break
+        aligned += 1
+    flips = decisions = 0
+    first, where = None, []
+    for c in range(aligned):
+        for layer in range(n_layers):
+            a, b = routes_t.calls[c * n_layers + layer], routes_k.calls[c * n_layers + layer]
+            f, changed = route_diff(cfg.moe, a, b)
+            flips += f
+            decisions += a.numel()
+            if bool(changed.any()):
+                first = c if first is None else first
+                rids = sorted({rec_k.rids[c][j] for j in
+                               changed.nonzero()[:, 0].tolist()})
+                where.append(f"call {c} ({rec_k.inputs[c][0]}) layer {layer}: "
+                             f"requests {rids}")
+    print(f"[{tag}] {mode}: routing, torch vs kernel impl over {aligned} step "
+          f"calls with equal tokens (of {len(rec_k.inputs)} / "
+          f"{len(rec_t.inputs)}): {flips} of {decisions} choices flipped "
+          f"({flips / max(decisions, 1):.2e}, tol {MOE_FLIP_TOL:.0e})"
+          + "".join(f"; {w}" for w in where[:12]), flush=True)
+    if flips > MOE_FLIP_TOL * decisions:
+        fail(f"{tag} {mode}: {flips} of {decisions} routing choices flipped")
+    return first
 
 
 def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
@@ -1141,12 +1322,18 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
     then torch: every request completes, ``flash_fwd`` launches (attention
     layers) x prefill calls and the paged kernel (attention layers) x
     (decode + chunk + verify calls), the torch impl none, a lazy mode
-    preempts, and the tokens are equal up to a printed near-tie. Returns
-    the kernel runs' launch counts, their (outputs, top-2 margins) and
-    their engine stats by mode."""
+    preempts, and the tokens are equal up to a printed near-tie. For an
+    MoE arch the routes of both runs are recorded (``RouteRecorder``), the
+    flips held to ``MOE_FLIP_TOL`` and printed, and tokens may also differ
+    from the call of the first flip on. Returns the kernel runs' launch
+    counts, their (outputs, top-2 margins) and their engine stats by
+    mode."""
+    import contextlib
+
     import numpy as np
 
     from repro_torch.models import lm
+    from repro_torch.models.moe_routes import RouteRecorder
     from repro_torch.serving import ServingEngine
 
     n = lm.block_kinds(cfg).count("attn")
@@ -1158,10 +1345,12 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
             eng = ServingEngine(cfg, pcfg, params, impl=impl, device="cuda",
                                 prefill_len=prefill_len, torch_chunk=torch_chunk,
                                 **kw)
-            rec = StepRecorder(torch, eng, cfg.vocab_size)
+            routes = RouteRecorder() if cfg.moe is not None else None
+            rec = StepRecorder(torch, eng, cfg.vocab_size, routes is not None)
             torch.cuda.reset_peak_memory_stats()
             kfwd.launches = kdecode.launches = kdecode.launches_paged = 0
-            out, stats = eng.run([(t, g) for t, g in reqs])
+            with routes or contextlib.nullcontext():
+                out, stats = eng.run([(t, g) for t, g in reqs])
             torch.cuda.synchronize()
             got = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches,
                    "flash_paged_decode": kdecode.launches_paged}
@@ -1198,12 +1387,15 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
                 kernel_stats[mode] = stats
             elif any(got.values()):
                 fail(f"{tag} {mode}: impl='torch' launched a CUDA kernel: {got}")
-            runs[impl] = (out, rec)
+            runs[impl] = (out, rec, routes)
+            rec.eng = eng = None      # the pool goes with the engine
         if kw.get("lazy") and stats["preemptions"] == 0:
             fail(f"{tag} {mode}: the lazy mode preempted no row")
-        out_k, rec_k = runs["kernel"]
-        out_t = runs["torch"][0]
+        out_k, rec_k, routes_k = runs["kernel"]
+        out_t, rec_t, routes_t = runs["torch"]
         tokens[mode] = (out_k, rec_k.margin)
+        first_flip = (None if routes_k is None else _engine_route_flips(
+            cfg, rec_k, rec_t, routes_k, routes_t, tag, mode))
         same, ties = 0, []
         for rid, toks in out_k.items():
             diff = np.nonzero(toks != out_t[rid])[0]
@@ -1215,7 +1407,9 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
             ties.append(f"request {rid} token {i}: kernel {toks[i]} vs torch "
                         f"{out_t[rid][i]}, margin {margin:.3e} of max|logit| "
                         f"{peak:.3e}")
-            if margin > LOGIT_REL_TOL * peak:
+            if first_flip is not None and first_flip <= rec_k.call_of[(rid, i)]:
+                ties[-1] += f", after the routing flip of call {first_flip}"
+            elif margin > LOGIT_REL_TOL * peak:
                 fail(f"{tag} {mode}: {ties[-1]}: not a near-tie")
         print(f"[{tag}] {mode}: kernel vs torch tokens identical for {same} of "
               f"{len(out_k)} requests"
@@ -1308,6 +1502,221 @@ def hybrid_paged_phase(torch, kfwd, kdecode):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+# phase 4e: deepseek-moe-16b at full width and depth (contiguous batch 4 x
+# (512 + 32); the paged engine on 8 of phase 4b's requests in its four
+# modes, the lazy one with a storm-forced preemption) and dbrx-132b at full
+# width and 2 layers (contiguous batch 2 x (256 + 16))
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_REQUESTS = 4, 512, 32, 8
+DBRX_LAYERS, DBRX_BATCH, DBRX_PROMPT, DBRX_GEN = 2, 2, 256, 16
+MOE_PAGED_MODES = dict(PAGED_MODES, lazy={
+    "lazy": True, "fault_plan": dict(seed=3, horizon=40, events_per_kind=3,
+                                     kinds=("storm",))})
+# kernel and torch impl differ by ~1e-6 in attention outputs, enough to
+# swap a token's k-th and (k+1)-th expert where they nearly tie: at most
+# this fraction of the routing choices may flip
+MOE_FLIP_TOL = 1e-3
+
+
+def moe_serve_phase(torch, kfwd, kdecode):
+    """Phase 4e: deepseek-moe-16b at full width and depth (28 layers, f32,
+    random weights from seed 0) on the contiguous path and through the
+    paged engine on one set of params, then dbrx-132b at full width and 2
+    layers on the contiguous path. Returns the kernel runs' launch counts
+    by path."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.serving import FaultPlan
+
+    cfg = dataclasses.replace(configs.get_config("deepseek_moe_16b"),
+                              dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    params = _moe_params(torch, cfg, "moe")
+    contiguous = _moe_contiguous(torch, kfwd, kdecode, cfg, params, MOE_BATCH,
+                                 MOE_PROMPT, MOE_GEN, "moe")
+    modes = _paged_modes(np, cfg, MOE_REQUESTS, MOE_PAGED_MODES, "moe paged")
+    pcfg, prefill_len, kw, reqs = modes["lazy"]
+    modes["lazy"] = (pcfg, prefill_len,
+                     dict(kw, fault_plan=FaultPlan(**kw["fault_plan"])), reqs)
+    paged, _, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
+                                "moe paged", MOE_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(configs.get_config("dbrx_132b"),
+                               num_layers=DBRX_LAYERS, dtype=torch.float32)
+    params = _moe_params(torch, dcfg, "dbrx")
+    dbrx = _moe_contiguous(torch, kfwd, kdecode, dcfg, params, DBRX_BATCH,
+                           DBRX_PROMPT, DBRX_GEN, "dbrx")
+    del params
+    torch.cuda.empty_cache()
+    return {"serve": contiguous, "paged": paged, "dbrx": dbrx}
+
+
+def _moe_params(torch, cfg, tag):
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    m = cfg.moe
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
+          f"vocab {cfg.vocab_size}; {m.num_experts} experts top {m.top_k} "
+          f"(d_ff {m.d_ff_expert}, {m.num_shared_experts} shared), capacity "
+          f"factor {m.capacity_factor}, groups of {m.group_size}; "
+          f"{n_params / 1e9:.3f} B params f32 = {4 * n_params / 2**30:.2f} GiB "
+          f"(random, seed 0) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def _moe_contiguous(torch, kfwd, kdecode, cfg, params, batch, prompt_len,
+                    gen_len, tag):
+    """An MoE arch through the contiguous serving path, kernel impl, then
+    torch impl fed the kernel run's tokens, both runs' routes recorded:
+    launch counters (one forward launch a layer, one decode launch a layer
+    a step), routing flips at most ``MOE_FLIP_TOL`` of the choices, printed
+    with their rows; the logits of every (row, step) whose tokens were
+    routed alike in every layer up to then (capacity groups included)
+    within ``LOGIT_REL_TOL`` of max|logit|. Prints prefill ms, decode
+    tokens/s and ms a step beside the bound of reading every weight once,
+    ``moe_dropped`` at prefill and peak memory. Returns the launch counts."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.moe_routes import (RouteRecorder, dropped_fraction,
+                                               route_diff)
+    from repro_torch.runtime.steps import make_serve_steps
+
+    n_layers = cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                           device="cuda")
+
+    def steps(impl):
+        return make_serve_steps(cfg, impl=impl, max_len=prompt_len + gen_len,
+                                batch=batch, torch_chunk=prompt_len,
+                                device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    kfwd.launches = kdecode.launches = 0
+    with RouteRecorder() as routes_k:
+        run_k = greedy_generate(steps("kernel"), params, prompt, gen_len,
+                                cfg.vocab_size)
+    launches = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": n_layers, "flash_decode": n_layers * (gen_len - 1)}
+    expert_bytes = sum(4 * (b.mlp.wi.numel() + b.mlp.wo.numel())
+                       for b in params.blocks)
+    weight_bytes = sum(4 * p.numel() for n, p in params.named_parameters()
+                       if n != "embed")
+    step_ms = run_k.decode_s * 1e3 / (gen_len - 1)
+    print(f"[{tag}] impl=kernel: prefill {batch}x{prompt_len} "
+          f"{run_k.prefill_s * 1e3:.1f} ms; decode {gen_len - 1} steps "
+          f"{run_k.decode_s * 1e3:.1f} ms = {step_ms:.2f} ms a step "
+          f"({(gen_len - 1) * batch / run_k.decode_s:.1f} tok/s); bound a step "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms for the expert "
+          f"weights ({expert_bytes / 1e9:.1f} GB: capacity 8 fills every "
+          f"expert), {weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms for every "
+          f"weight but the embedding; moe_dropped at prefill "
+          f"{dropped_fraction(cfg.moe, routes_k.calls[:n_layers]):.6f}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"[{tag}] launch counters {launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"{cfg.name}: the serving path did not go through the kernels: "
+             f"{launches}")
+
+    with RouteRecorder() as routes_t:
+        run_t = greedy_generate(steps("torch"), params, prompt, gen_len,
+                                cfg.vocab_size, feed=run_k.tokens)
+    if {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches} != want:
+        fail("impl='torch' launched a CUDA kernel")
+    # a row's tokens routed otherwise at some step taint it from that step on
+    # (its cache carries them)
+    flips = decisions = 0
+    tainted, where = [gen_len] * batch, []
+    for c, (a, b) in enumerate(zip(routes_t.calls, routes_k.calls)):
+        step, layer = divmod(c, n_layers)
+        f, changed = route_diff(cfg.moe, a, b)
+        flips += f
+        decisions += a.numel()
+        per_row = prompt_len if step == 0 else 1
+        for row in sorted({j // per_row for j in changed.nonzero()[:, 0].tolist()}):
+            tainted[row] = min(tainted[row], step)
+            where.append(f"row {row} step {step} layer {layer}")
+    print(f"[{tag}] routing, torch vs kernel impl: {flips} of {decisions} "
+          f"choices flipped ({flips / decisions:.2e}, tol {MOE_FLIP_TOL:.0e}); "
+          f"tokens routed otherwise at: {', '.join(where[:16]) or 'none'}",
+          flush=True)
+    if flips > MOE_FLIP_TOL * decisions:
+        fail(f"{cfg.name}: {flips} of {decisions} routing choices flipped")
+    worst, held = 0.0, 0
+    for step, (lk, lt) in enumerate(zip(run_k.logits, run_t.logits)):
+        if lk.shape != (batch, cfg.vocab_size) or \
+                not bool(torch.isfinite(lk).all()):
+            fail(f"{cfg.name} step {step}: logits of shape {tuple(lk.shape)} "
+                 f"or not finite")
+        rows = [r for r in range(batch) if tainted[r] > step]
+        held += len(rows)
+        if rows:
+            rel = _maxerr(lk[rows], lt[rows]) / float(lt.abs().max())
+            worst = max(worst, rel)
+            if rel > LOGIT_REL_TOL:
+                fail(f"{cfg.name} step {step}: kernel vs torch logits of rows "
+                     f"{rows} differ by {rel:.3e} of max|logit|")
+    match = float((run_k.tokens == run_t.tokens).float().mean())
+    print(f"[{tag}] impl=torch (fed the kernel run's tokens): prefill "
+          f"{run_t.prefill_s * 1e3:.1f} ms; decode {run_t.decode_s * 1e3:.1f} ms")
+    print(f"[{tag}] kernel vs torch logits over prefill + {gen_len - 1} steps, "
+          f"{held} of {batch * gen_len} (row, step) pairs routed alike: max |d| "
+          f"/ max|logit| {worst:.3e} (tol {LOGIT_REL_TOL:.0e}); greedy token "
+          f"match {match:.4f}", flush=True)
+    # the kernel run's prefill above was the first on the card at these
+    # shapes; once more, warm, then decode steps with and without the MoE
+    # metrics, timed before the one under the profiler
+    arts = steps("kernel")
+    caches = arts.cache_init_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, caches = arts.prefill_fn(params, prompt, caches)
+    torch.cuda.synchronize()
+    print(f"[{tag}] impl=kernel prefill again, warm: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    _moe_metrics_share(torch, lambda: arts.decode_fn(
+        params, run_k.tokens[:, 0], caches, prompt_len), tag)
+    profile_step(torch, lambda: float(arts.decode_fn(
+        params, run_k.tokens[:, 0], caches, prompt_len)[0].abs().max()),
+        f"[{tag}] decode", "max|logit|")
+    return launches
+
+
+def _moe_metrics_share(torch, step, tag, calls=5, turns=3) -> None:
+    """A serving step's time as it runs (``lm.forward`` with caches skips
+    the MoE metrics, which the steps drop) and with ``moe.apply_moe`` made
+    to compute them, in turns; prints the medians and the difference."""
+    import statistics
+
+    from repro_torch.models import moe
+
+    apply_moe = moe.apply_moe
+    times = {False: [], True: []}
+    for on in (False, True) * turns:
+        moe.apply_moe = (lambda *a, **kw: apply_moe(*a, **dict(kw, metrics=True))
+                         ) if on else apply_moe
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+        finally:
+            moe.apply_moe = apply_moe
+        times[on].append((time.perf_counter() - t0) * 1e3 / calls)
+    off, on = statistics.median(times[False]), statistics.median(times[True])
+    print(f"[{tag}] decode step without / with the MoE metrics ({turns} turns "
+          f"of {calls} steps, medians): {off:.3f} / {on:.3f} ms, the metrics "
+          f"{on - off:.3f} ms ({(on - off) / on * 100:.1f} %)", flush=True)
 
 
 DIST_RANKS = 2
@@ -1514,30 +1923,31 @@ def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
 
 
 def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
-    """An arch at full width and depth through the port's training path:
-    granite-3-2b (phase 5: batch 4 x 2048, AdamW with its master copy, then
-    the SMOKE ``Trainer``) or recurrentgemma-2b (phase 5b: batch 1 x 3072,
-    AdamW without it). Returns the launch counts of the ``make_train_step``
-    run."""
+    """An arch at full width through the port's training path
+    (``TRAIN_SETUPS``): granite-3-2b (phase 5: batch 4 x 2048, AdamW with
+    its master copy, then the SMOKE ``Trainer``), recurrentgemma-2b (phase
+    5b: batch 1 x 3072, AdamW without it) or deepseek-moe-16b at 4 layers
+    (phase 5c: batch 2 x 2048, AdamW without it; the torch pass of (a)
+    routed as the kernel pass was, the flips counted; ``moe_aux`` and
+    ``moe_dropped`` a step). Returns the launch counts of the
+    ``make_train_step`` run."""
     import tempfile
 
     from repro_torch import configs
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.models import lm
     from repro_torch.models.layers import Ctx
+    from repro_torch.models.moe_routes import RouteRecorder
     from repro_torch.optim import AdamWConfig, global_norm
     from repro_torch.runtime.steps import make_train_step, place_batch, step_seed
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    hybrid = arch == "recurrentgemma_2b"
-    tag = "[hybrid train]" if hybrid else "[train]"
-    n_batch, n_seq = (HYBRID_BATCH, HYBRID_SEQ) if hybrid else (TRAIN_BATCH, TRAIN_SEQ)
-    leaves = HYBRID_LEAVES if hybrid else TRAIN_LEAVES
+    tag, n_batch, n_seq, leaves, master, n_layers = TRAIN_SETUPS[arch]
     cfg = dataclasses.replace(configs.get_config(arch),
                               dtype=torch.float32, dropout_rate=0.1, remat=True)
-    # recurrentgemma-2b: 3.55 B f32 params, grads, m and v are 56.8 GB; an
-    # f32 master copy of f32 params (the same update) would add 14.2 GB
-    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-4, keep_master=not hybrid),
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-4, keep_master=master),
                            impl="kernel", total_steps=TRAIN_STEPS, warmup_steps=1,
                            torch_chunk=256, device="cuda")
     t0 = time.perf_counter()
@@ -1549,7 +1959,7 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
           f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head dim {cfg.head_dim}, "
           f"window {cfg.attn_window}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
           f"{n_params / 1e9:.3f} B params f32 + AdamW m, v"
-          f"{'' if hybrid else ', master'} (random, seed 0) in "
+          f"{', master' if master else ''} (random, seed 0) in "
           f"{time.perf_counter() - t0:.1f} s; remat {cfg.remat}, dropout "
           f"{cfg.dropout_rate}; batch {n_batch} x {n_seq} tokens from make_batch",
           flush=True)
@@ -1557,16 +1967,29 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
                     global_batch=n_batch, seed=0)
     batch = place_batch(make_batch(dc, 0), "cuda")
 
-    # (a) one loss-and-grad pass per impl on the same params and batch
+    # (a) one loss-and-grad pass per impl on the same params and batch; an
+    # MoE arch's torch pass routes as the kernel pass did, so the two differ
+    # by the attention kernels' sums only (a flipped choice would move its
+    # token's expert gradients far more)
+    routes = {}
+
     def loss_and_grads(impl):
         ctx = Ctx(impl=impl, deterministic=False, seed=step_seed(0),
                   torch_chunk=256)
         kfwd.launches = kbwd.launches_bwd = 0
         t0 = time.perf_counter()
-        loss = lm.loss_fn(cfg, params, batch, ctx)[0]
-        loss.backward()
+        with RouteRecorder(routes.get("kernel")) as rec:
+            loss = lm.loss_fn(cfg, params, batch, ctx)[0]
+            loss.backward()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        routes[impl] = rec.calls
+        if rec.decisions:
+            print(f"{tag} (a) impl={impl} routed as the kernel pass: {rec.flips} "
+                  f"of {rec.decisions} choices would have flipped "
+                  f"({rec.flips / rec.decisions:.2e}, tol {MOE_FLIP_TOL:.0e})")
+            if rec.flips > MOE_FLIP_TOL * rec.decisions:
+                fail(f"{arch} training pass: {rec.flips} routing choices flipped")
         counts = (kfwd.launches, kbwd.launches_bwd)
         named = dict(params.named_parameters())
         out = (float(loss.detach()),
@@ -1612,10 +2035,12 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
         loss = float(m["loss"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        moe_metrics = (f"moe_aux {float(m['moe_aux']):.6f}, moe_dropped "
+                       f"{float(m['moe_dropped']):.6f}, " if "moe_aux" in m else "")
         print(f"{tag} (b) step {step}: loss {loss:.6f}, grad norm "
-              f"{float(m['grad_norm']):.4f}, lr reported {m['lr']:.2e} (the "
-              f"update applies AdamWConfig.lr, as the JAX step does), "
-              f"{times[-1]:.3f} s", flush=True)
+              f"{float(m['grad_norm']):.4f}, {moe_metrics}lr reported "
+              f"{m['lr']:.2e} (the update applies AdamWConfig.lr, as the JAX "
+              f"step does), {times[-1]:.3f} s", flush=True)
         if not math.isfinite(loss):
             fail(f"training step {step}: loss {loss}")
     counts = {"flash_fwd": kfwd.launches, "flash_bwd": kbwd.launches_bwd}
@@ -1634,7 +2059,7 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
         make_batch(dc, TRAIN_STEPS), "cuda"), TRAIN_STEPS)[2]["loss"]), tag)
     del params, opt, arts, batch
     torch.cuda.empty_cache()
-    if hybrid:
+    if arch != "granite_3_2b":
         return counts
 
     # (c) the Trainer at SMOKE size: 2 steps, a preemption, 2 more on resume
@@ -1676,13 +2101,13 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
     return counts
 
 
-def profile_step(torch, step, tag="[train]") -> None:
-    """One more training step under ``torch.profiler``: device time by kernel
-    group (the port's attention kernels, cuBLAS GEMMs, the rest) and the
-    device's busy share of the step's wall time. ``step()`` returns the
-    step's loss; the step's own errors and a non-finite loss fail the run.
-    A profiler that fails or records no device time is reported as not
-    measured."""
+def profile_step(torch, step, tag="[train]", what="loss") -> None:
+    """One more step (training, or a decode step) under ``torch.profiler``:
+    device time by kernel group (the port's attention kernels, cuBLAS
+    GEMMs, the rest) and the device's busy share of the step's wall time.
+    ``step()`` returns a number of its output (``what``: the loss); the
+    step's own errors and a non-finite number fail the run. A profiler that
+    fails or records no device time is reported as not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1698,8 +2123,8 @@ def profile_step(torch, step, tag="[train]") -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not math.isfinite(loss):
-        fail(f"the profiled training step: loss {loss}")
-    print(f"{tag} profiled step: loss {loss:.6f}")
+        fail(f"the profiled step: {what} {loss}")
+    print(f"{tag} profiled step: {what} {loss:.6f}")
     if prof is None:
         return
     try:
@@ -1715,7 +2140,8 @@ def profile_step(torch, step, tag="[train]") -> None:
         us = e.self_device_time_total
         name = e.key
         g = ("attention kernels" if any(k in name for k in
-                                        ("fwd_kernel", "bwd_kernel"))
+                                        ("fwd_kernel", "bwd_kernel",
+                                         "decode_kernel"))
              else "GEMMs" if "gemm" in name.lower() else "other")
         groups[g] += us / 1e6
         names.append((us / 1e6, name))
@@ -2317,6 +2743,199 @@ def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches,
           f"{pag['chunk_shape_bound_ms']:.5f} ms", flush=True)
     torch.cuda.empty_cache()
     return [fwd, dec, pag]
+
+
+def moe_times_phase(torch, kfwd, kbwd, kdecode, serve, train):
+    """Phase 6 at deepseek-moe-16b's attention geometry (16/16 heads, D 128,
+    a GQA group of 1), f32 as its paths run and bf16, each kernel beside its
+    plain version (f32 for the backward), one PyTorch library call and its
+    bound at the dtype's tensor-core peak: row 1 at prefill (B 4, S 512,
+    causal; ``dbrx_shape_``: dbrx-132b's B 2, 48/8 heads, S 256) and at
+    training (B 2, S 2048, causal, dropout 0.1), rows 2-3 at training, row
+    4 at decode (B 4, 528 of 544 slots; ``dbrx_shape_``: B 2, 264 of 272)
+    and row 5 at the paged engine's decode (8 slots, page 16, T 37, kv_len
+    128-576). Every kernel is held to its plain version on the inputs it
+    is timed on (``TOL``, the backward ``BWD_TOL``), as in phase 3.
+    Returns the five rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.perf import decode_times
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    hq, hkv, d = 16, 16, 128
+    src = "src/repro_torch/kernels/csrc/"
+    dtypes = ((torch.float32, ""), (torch.bfloat16, "bf16_"))
+
+    def hold(what, dtype, err, tol):
+        if not err <= tol:
+            fail(f"{what} {str(dtype).split('.')[-1]} at the MoE shape: "
+                 f"{err:.3e} from its plain version (tol {tol:.1e})")
+
+    def fwd_case(b, hq, hkv, s, dtype, dropout=0.0, plain=True):
+        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+        kw = dict(causal=True, dropout_rate=dropout, dropout_seed=3)
+        el = q.element_size()
+        r = {"ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, **kw), 10),
+             **bounds(4 * b * hq * d * (s * (s + 1) // 2),
+                      el * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+                      + 4 * b * hq * s, str(dtype).split(".")[-1]),
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, dropout_p=dropout, enable_gqa=True), 10)}
+        if plain:
+            r["max_abs_err"] = _maxerr(kfwd.flash_fwd(q, k, v, **kw)[0],
+                                       kfwd.flash_fwd_torch(q, k, v, **kw)[0])
+            hold(f"flash_fwd B {b}, {hq}/{hkv} heads, S {s}", dtype,
+                 r["max_abs_err"], TOL[str(dtype).split(".")[-1]])
+            r["plain_ms"] = time_ms(torch, lambda: kfwd.flash_fwd_torch(
+                q, k, v, **kw), 2, warmup=1)
+        return r
+
+    def bwd_case(b, s, dtype, dropout):
+        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+        do = _rand(torch, gen, (b, hq, s, d), dtype)
+        kw = dict(causal=True, dropout_rate=dropout, dropout_seed=3)
+        o, lse = kfwd.flash_fwd(q, k, v, **kw)
+        delta = kbwd.row_delta(o, do)
+        el = q.element_size()
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             dropout_p=dropout)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 10)
+        call = lambda: kbwd.launch_bwd(q, k, v, lse, do, delta,  # noqa: E731
+                                       scale=d ** -0.5, **kw)
+        got, again = call(), call()
+        flops = 10 * d * b * hq * (s * (s + 1) // 2)
+        r = {"ms": time_ms(torch, call, 10), "library_ms": lib_ms,
+             **bounds(flops, el * (3 * b * hq * s * d + 4 * b * hkv * s * d)
+                      + 4 * 2 * b * hq * s, str(dtype).split(".")[-1]),
+             "dq_rerun_max_abs_diff": _maxerr(got[0], again[0])}
+        plain = kbwd.flash_bwd_torch(q, k, v, lse, do, delta, scale=d ** -0.5,
+                                     **kw)
+        r["max_abs_err"] = max(_maxerr(g, gp) for g, gp in zip(got, plain))
+        hold("flash_bwd, relative to max(1, max|plain|),", dtype,
+             max(_maxerr(g, gp) / max(1.0, float(gp.float().abs().max()))
+                 for g, gp in zip(got, plain)),
+             BWD_TOL[str(dtype).split(".")[-1]])
+        del plain
+        if dtype == torch.float32:
+            r["plain_ms"] = time_ms(torch, lambda: kbwd.flash_bwd_torch(
+                q, k, v, lse, do, delta, scale=d ** -0.5, **kw), 2, warmup=1)
+            r["bound_ms_3xtf32"] = 3 * flops / PEAK_FLOPS["float32"] * 1e3
+        return r
+
+    def decode_case(b, hq, hkv, cap, n, dtype):
+        q = _rand(torch, gen, (b, hq, d), dtype)
+        kc, vc = (_rand(torch, gen, (b, hkv, cap, d), dtype) for _ in range(2))
+        kv_len = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        el = q.element_size()
+        ks, vs = kc[:, :, :n], vc[:, :, :n]
+        err = _maxerr(kdecode.flash_decode(q, kc, vc, kv_len=kv_len),
+                      kdecode.flash_decode_torch(q, kc, vc, kv_len=kv_len))
+        hold(f"flash_decode B {b}, {hq}/{hkv} heads, {n} of {cap} slots", dtype,
+             err, TOL[str(dtype).split(".")[-1]])
+        return {"max_abs_err": err,
+                "ms": time_ms(torch, lambda: kdecode.flash_decode(
+                    q, kc, vc, kv_len=kv_len), 50),
+                "plain_ms": time_ms(torch, lambda: kdecode.flash_decode_torch(
+                    q, kc, vc, kv_len=kv_len), 10),
+                **bounds(4 * b * hq * d * n,
+                         el * (2 * b * hq * d + 2 * b * hkv * n * d) + 4 * b,
+                         str(dtype).split(".")[-1]),
+                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], ks, vs, enable_gqa=True), 50)}
+
+    def paged_case(dtype):
+        geometry = (hq, hkv, d, 16, 37)
+        kv_len = torch.randint(128, 577, (8,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        q, kp, vp, bt, _ = decode_times.paged_inputs(kv_len, seed=5,
+                                                     geometry=geometry)
+        q, kp, vp, bt = q.to(dtype), kp.to(dtype), vp.to(dtype), bt[0]
+        kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
+        allowed = (torch.arange(kc.shape[2], device="cuda")[None, :]
+                   < kv_len[:, None])[:, None, None, :]
+        el = q.element_size()
+        nbytes = (el * (2 * hkv * d * int(kv_len.sum()) + 2 * 8 * hq * d)
+                  + 4 * 8 * (37 + 1))
+        err = _maxerr(kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, row_tokens=1),
+                      kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len))
+        hold("flash_paged_decode", dtype, err, TOL[str(dtype).split(".")[-1]])
+        return {"max_abs_err": err,
+                "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
+                    q, kp, vp, bt, kv_len, row_tokens=1), 50),
+                "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
+                    q, kp, vp, bt, kv_len=kv_len), 5, warmup=1),
+                **bounds(4 * hq * d * int(kv_len.sum()), nbytes,
+                         str(dtype).split(".")[-1]),
+                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc, vc, attn_mask=allowed, enable_gqa=True), 50)}
+
+    fwd_src = {"route": "cuda", "source": src + "flash_fwd.cu",
+               "replaces": "src/repro/kernels/flash_fwd.py:46"}
+    prefill = {"name": "flash_fwd (deepseek-moe-16b prefill)", **fwd_src,
+               "launches": (serve["serve"]["flash_fwd"] + serve["paged"]["flash_fwd"]
+                            + serve["dbrx"]["flash_fwd"]),
+               "launches_by_path": {"moe_serve": serve["serve"]["flash_fwd"],
+                                    "moe_paged_serve": serve["paged"]["flash_fwd"],
+                                    "dbrx_serve": serve["dbrx"]["flash_fwd"]},
+               "shape": "B 4, 16/16 heads, S 512, D 128, causal; dbrx_shape_: "
+                        "B 2, 48/8 heads, S 256, D 128, causal (f32)"}
+    training = {"name": "flash_fwd (deepseek-moe-16b training)", **fwd_src,
+                "launches": train["flash_fwd"],
+                "launches_by_path": {"moe_train": train["flash_fwd"]},
+                "shape": "B 2, 16/16 heads, S 2048, D 128, causal, dropout 0.1"}
+    bwd = {"name": "flash_bwd (deepseek-moe-16b training)", "route": "cuda",
+           "source": src + "flash_bwd.cu",
+           "replaces": "src/repro/kernels/flash_bwd.py:98, "
+                       "src/repro/kernels/flash_bwd.py:164",
+           "launches": train["flash_bwd"],
+           "shape": "B 2, 16/16 heads, S 2048, D 128, causal, dropout 0.1",
+           "library_note": "sdpa backward (dq, dk, dv) with dropout_p 0.1"}
+    dec = {"name": "flash_decode (deepseek-moe-16b decode)", "route": "cuda",
+           "source": src + "flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:131",
+           "launches": serve["serve"]["flash_decode"] + serve["dbrx"]["flash_decode"],
+           "launches_by_path": {"moe_serve": serve["serve"]["flash_decode"],
+                                "dbrx_serve": serve["dbrx"]["flash_decode"]},
+           "shape": "B 4, 16/16 heads, 528 of 544 slots, D 128; dbrx_shape_: "
+                    "B 2, 48/8 heads, 264 of 272 slots (f32)"}
+    pag = {"name": "flash_paged_decode (deepseek-moe-16b)", "route": "cuda",
+           "source": src + "flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:136",
+           "launches": serve["paged"]["flash_paged_decode"],
+           "launches_by_path": {"moe_paged_serve": serve["paged"]["by_mode"]},
+           "shape": "8 slots, 16/16 heads, D 128, page 16, T 37, kv_len 128-576",
+           "library_note": "sdpa on the gathered contiguous cache with kv_len "
+                           "as a mask, gather excluded"}
+    for dtype, pre in dtypes:
+        for row, r in ((prefill, fwd_case(4, hq, hkv, 512, dtype)),
+                       (training, fwd_case(2, hq, hkv, 2048, dtype, 0.1)),
+                       (bwd, bwd_case(2, 2048, dtype, 0.1)),
+                       (dec, decode_case(4, hq, hkv, 544, 528, dtype)),
+                       (pag, paged_case(dtype))):
+            row.update({pre + key: val for key, val in r.items()})
+    prefill.update({"dbrx_shape_" + key: val for key, val in
+                    fwd_case(2, 48, 8, 256, torch.float32).items()})
+    dec.update({"dbrx_shape_" + key: val for key, val in
+                decode_case(2, 48, 8, 272, 264, torch.float32).items()})
+    for row in (prefill, training, bwd, dec, pag):
+        for pre, dn in (("", "f32"), ("bf16_", "bf16")):
+            print(f"[times] {row['name']} {dn}: kernel {row[pre + 'ms']:.5f} ms"
+                  + (f", plain {row[pre + 'plain_ms']:.4f} ms"
+                     if pre + "plain_ms" in row else "")
+                  + f", library {row[pre + 'library_ms']:.5f} ms, bound "
+                  f"{row[pre + 'bound_ms']:.5f} ms ({row[pre + 'bound_by']})"
+                  + (f", max|kernel - plain| {row[pre + 'max_abs_err']:.3e}"
+                     if pre + "max_abs_err" in row else "")
+                  + f"; launches {row['launches']}", flush=True)
+    for row in (prefill, dec):
+        print(f"[times] {row['name']} at dbrx-132b's shape: kernel "
+              f"{row['dbrx_shape_ms']:.5f} ms, plain {row['dbrx_shape_plain_ms']:.4f} "
+              f"ms, library {row['dbrx_shape_library_ms']:.5f} ms, bound "
+              f"{row['dbrx_shape_bound_ms']:.5f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return [prefill, training, bwd, dec, pag]
 
 
 def device_times_phase(rows) -> None:

@@ -2,9 +2,9 @@
 
 ``get_config(id)`` returns an arch's full config and ``smoke_config(id)`` its
 reduced same-family variant for CPU tests. The port carries the four dense
-attention-only archs and the hybrid recurrentgemma-2b; the other families of
-``ARCHS`` come with their models and are named in ``UNPORTED_FAMILIES``
-until then.
+attention-only archs, the hybrid recurrentgemma-2b and the two MoE archs;
+the other families of ``ARCHS`` come with their models and are named in
+``UNPORTED_FAMILIES`` until then.
 """
 
 from __future__ import annotations
@@ -94,8 +94,8 @@ ARCHS = [
 
 #: archs of ``ARCHS`` whose family the port does not run yet → that family
 UNPORTED_FAMILIES = {
-    "llava_next_34b": "vlm", "hubert_xlarge": "encoder", "dbrx_132b": "moe",
-    "deepseek_moe_16b": "moe", "falcon_mamba_7b": "ssm",
+    "llava_next_34b": "vlm", "hubert_xlarge": "encoder",
+    "falcon_mamba_7b": "ssm",
 }
 
 
@@ -104,7 +104,7 @@ def _module(name: str):
     if name in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{name}: the {UNPORTED_FAMILIES[name]} family is not yet ported "
-            f"to repro_torch (dense and hybrid archs only)")
+            f"to repro_torch (dense, hybrid and moe archs only)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -34,6 +34,12 @@ both caches, not over ``--mesh``; ``--share-prefix`` and ``--speculate``
 exit with the engine's refusal, as in JAX:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
       --smoke --device cpu [--paged]
+
+The MoE archs (deepseek-moe-16b, dbrx-132b) serve on every path, the
+paged engine's modes and ``--mesh`` included (expert routing is stateless
+per token):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
+      --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ attention kernels at head dim 256):
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma_2b \\
       --steps 4 --batch 1 --seq 3072 --ckpt-every 1000
 
+deepseek-moe-16b at full width (the router f32 in any dtype; ``moe_aux``
+joins the loss at weight 0.01 and the log line), as on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_moe_16b \\
+      --smoke --device cpu --steps 3 --batch 2 --seq 32
+
 AdamW keeps an f32 master copy of bf16 params only: the copy of f32 params
 would be the params themselves (the same update, 4 bytes a parameter
 more; recurrentgemma-2b's 3.55 B f32 params, grads and moments already

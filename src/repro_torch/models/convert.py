@@ -8,7 +8,10 @@ The JAX params are a pytree of arrays (pass them as numpy arrays, e.g.
 ``[d_in, d_out]``, the port's orientation, so conversion is an unstack: no
 transposes. Hybrid archs (recurrentgemma: rec, rec, attn superblocks and a
 rec, rec tail) unstack the same way, each layer's leaves named as its
-block's parameters. Vocab padding is kept as it is. The AdamW moments and master
+block's parameters, and so do MoE archs' expert leaves (``mlp.router``
+[d, E], ``mlp.wi`` [E, d, 2f], ``mlp.wo`` [E, f, d], ``mlp.shared.*``);
+each leaf lands in its parameter's dtype, so the router (and the RG-LRU's
+lambda) stays f32 in a bf16 model. Vocab padding is kept as it is. The AdamW moments and master
 copy mirror the params tree and convert the same way. This module imports
 neither JAX nor ``repro``.
 """

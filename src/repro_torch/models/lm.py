@@ -1,6 +1,8 @@
 """The decoder LM of the port (counterpart of ``repro.models.lm``): the dense
-attention-only family and the hybrid one (recurrentgemma: RG-LRU blocks and
-local attention blocks in ``cfg.block_pattern``, cycled over the layers).
+attention-only family, the hybrid one (recurrentgemma: RG-LRU blocks and
+local attention blocks in ``cfg.block_pattern``, cycled over the layers) and
+the MoE one (``cfg.moe``: every layer's FFN a mixture of experts,
+``models/moe.py``).
 
 The JAX package scans stacked superblock params; here the layers are an
 ``nn.ModuleList`` walked by a plain loop, layer ``i`` of kind
@@ -10,11 +12,14 @@ and autograd on, each layer runs under ``torch.utils.checkpoint`` (JAX
 remats per superblock): only the layer inputs are kept, and the backward
 recomputes the layer, attention kernel included. Serving caches are a list
 of per-layer dicts: K/V (a ring of ``window`` slots, or page pools) for
-attention layers, state rows ``{"h", "conv"}`` for recurrent ones.
+attention layers, state rows ``{"h", "conv"}`` for recurrent ones. MoE
+layers report ``moe_aux`` (summed over the layers) and ``moe_dropped``
+(averaged) as JAX's forward does, in a forward without caches; the serving
+steps, which drop them, do not compute them.
 
 Public entry points:
   init_params(cfg, seed=, device=)                 → LM (random weights)
-  forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches)
+  forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches, metrics)
   loss_fn(cfg, params, batch, ctx)                 → (loss, metrics)
   init_cache / prefill / decode_step               → contiguous KV serving
   init_paged_cache / paged_prefill / paged_chunk_prefill /
@@ -31,11 +36,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.paged import pages_per_shard
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, moe, rglru
 from repro_torch.models.layers import Ctx
 
 #: the block kinds of ``cfg.block_pattern`` the port runs
 KINDS = ("attn", "rec")
+#: the weight of an MoE arch's load-balance loss in the training loss
+#: (JAX ``loss_fn``'s default, the value every JAX caller uses)
+MOE_AUX_WEIGHT = 0.01
 
 
 def block_kinds(cfg) -> List[str]:
@@ -46,7 +54,8 @@ def block_kinds(cfg) -> List[str]:
 
 class Block(nn.Module):
     """One pre-norm block, a mixer (attention, or the RG-LRU for ``kind``
-    "rec") and a gated MLP (JAX ``_init_block``'s leaves)."""
+    "rec") and a gated MLP, or a :class:`~repro_torch.models.moe.MoE` when
+    ``cfg.moe`` is set (JAX ``_init_block``'s leaves)."""
 
     def __init__(self, cfg, kind: str, dtype, device):
         super().__init__()
@@ -55,7 +64,8 @@ class Block(nn.Module):
         self.mixer = (layers.Attention(cfg, dtype, device) if kind == "attn"
                       else rglru.RGLRU(cfg, dtype, device))
         self.norm2 = layers._param((cfg.d_model,), dtype, device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.mlp = (moe.MoE(cfg, dtype, device) if cfg.moe is not None
+                    else layers.MLP(cfg.d_model, cfg.d_ff, dtype, device))
 
 
 class LM(nn.Module):
@@ -65,13 +75,14 @@ class LM(nn.Module):
 
     def __init__(self, cfg, vocab_padded: int, *, device, dtype=None):
         super().__init__()
-        if (cfg.family not in ("dense", "hybrid") or cfg.moe is not None
+        if (cfg.family not in ("dense", "hybrid", "moe")
+                or (cfg.family == "moe") != (cfg.moe is not None)
                 or cfg.frontend is not None or cfg.mlp_type != "gated_silu"
                 or not set(cfg.block_pattern) <= set(KINDS)
                 or ("rec" in cfg.block_pattern) != (cfg.rglru is not None)):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (dense and RG-LRU hybrid archs only)")
+                f"repro_torch (dense, RG-LRU hybrid and MoE archs only)")
         dtype = dtype or cfg.dtype
         self.embed = layers._param((vocab_padded, cfg.d_model), dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, kind, dtype, device)
@@ -94,7 +105,8 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
         blk.mixer = (layers.init_attention(gen, cfg, cfg.dtype)
                      if blk.kind == "attn"
                      else rglru.init_rglru(gen, cfg, cfg.dtype))
-        blk.mlp = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+        blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype) if cfg.moe is not None
+                   else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
     model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
                                         cfg.dtype, scale=0.02))
     model.final_norm.fill_(1.0)
@@ -105,6 +117,7 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
 
 def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
                  segment_ids=None, paged=None):
+    """→ (x, new_cache, metrics: the MoE's without a cache, or {})."""
     h = layers.rms_norm(x, p.norm1)
     if p.kind == "attn":
         mixed, new_cache = layers.apply_attention(
@@ -116,19 +129,29 @@ def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
         mixed, new_cache = rglru.apply_rglru(p.mixer, h, ctx, cfg, cache=cache,
                                              positions=positions, paged=paged)
     x = x + mixed
-    return x + layers.apply_mlp(p.mlp, layers.rms_norm(x, p.norm2)), new_cache
+    h = layers.rms_norm(x, p.norm2)
+    if cfg.moe is not None:
+        out, metrics = moe.apply_moe(p.mlp, h, ctx, cfg,
+                                     metrics=cache is None)
+        return x + out, new_cache, metrics
+    return x + layers.apply_mlp(p.mlp, h), new_cache, {}
 
 
 def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
                  layer_seed: int):
-    """One layer without a cache: what ``checkpoint`` recomputes."""
-    return _apply_block(p, x, ctx, cfg, positions=positions, cache=None,
-                        layer_seed=layer_seed, segment_ids=segment_ids)[0]
+    """One layer without a cache: what ``checkpoint`` recomputes.
+    → (x, metrics)."""
+    x, _, metrics = _apply_block(p, x, ctx, cfg, positions=positions,
+                                 cache=None, layer_seed=layer_seed,
+                                 segment_ids=segment_ids)
+    return x, metrics
 
 
 def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
             positions=None, segment_ids=None, paged=None):
-    """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None).
+    """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None,
+    metrics): metrics are {"moe_aux": sum over the layers, "moe_dropped":
+    mean over the layers} for MoE archs without caches, {} otherwise.
 
     positions: [B, S] or [S] RoPE positions (default ``arange(S)``).
     segment_ids [B, S]: packed-batch ids (int32); attention masks
@@ -141,19 +164,27 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
         positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches: Optional[List[dict]] = None if caches is None else []
+    layer_metrics = []
     for i, blk in enumerate(params.blocks):
         if remat:
-            x = checkpoint(_train_block, blk, x, ctx, cfg, positions,
-                           segment_ids, i * 1000003, use_reentrant=False)
-            continue
-        x, nc = _apply_block(blk, x, ctx, cfg, positions=positions,
-                             cache=None if caches is None else caches[i],
-                             layer_seed=i * 1000003, segment_ids=segment_ids,
-                             paged=paged)
-        if new_caches is not None:
-            new_caches.append(nc)
+            x, m = checkpoint(_train_block, blk, x, ctx, cfg, positions,
+                              segment_ids, i * 1000003, use_reentrant=False)
+        else:
+            x, nc, m = _apply_block(blk, x, ctx, cfg, positions=positions,
+                                    cache=None if caches is None else caches[i],
+                                    layer_seed=i * 1000003,
+                                    segment_ids=segment_ids, paged=paged)
+            if new_caches is not None:
+                new_caches.append(nc)
+        if m:
+            layer_metrics.append(m)
+    metrics = {}
+    if layer_metrics:
+        metrics = {"moe_aux": sum(m["moe_aux"] for m in layer_metrics),
+                   "moe_dropped": sum(m["moe_dropped"] for m in layer_metrics)
+                   / len(layer_metrics)}
     x = layers.rms_norm(x, params.final_norm)
-    return x @ params.lm_head, new_caches
+    return x @ params.lm_head, new_caches, metrics
 
 
 def loss_fn(cfg, params: LM, batch, ctx: Ctx):
@@ -161,10 +192,12 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
     "positions" for packed batches), tensors on the params' device.
     Next-token CE for causal LMs, per-position CE for encoders; a packed
     batch gives no weight to a segment's last token (it must not predict
-    the next segment) or to padding. Returns (loss, {"ce", "loss"})."""
+    the next segment) or to padding. MoE archs add ``MOE_AUX_WEIGHT ·
+    moe_aux``. Returns (loss, {"ce", "loss"} and the forward's metrics)."""
     seg = batch.get("segment_ids")
-    logits, _ = forward(cfg, params, ctx, tokens=batch["tokens"],
-                        positions=batch.get("positions"), segment_ids=seg)
+    logits, _, metrics = forward(cfg, params, ctx, tokens=batch["tokens"],
+                                 positions=batch.get("positions"),
+                                 segment_ids=seg)
     labels = batch["labels"]
     weights = None
     if cfg.causal:
@@ -175,7 +208,10 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
         weights = (seg >= 0).float()
     ce = layers.softmax_cross_entropy(logits, labels, cfg.vocab_size,
                                       weights=weights)
-    return ce, {"ce": ce, "loss": ce}
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + MOE_AUX_WEIGHT * metrics["moe_aux"]
+    return loss, dict(metrics, ce=ce, loss=loss)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
@@ -191,7 +227,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
 def prefill(cfg, params: LM, ctx: Ctx, tokens, caches):
     """Run the full prompt, filling the caches in place. Returns
     (last-position logits [B, Vpad], caches)."""
-    logits, caches = forward(cfg, params, ctx, tokens=tokens, caches=caches)
+    logits, caches, _ = forward(cfg, params, ctx, tokens=tokens, caches=caches)
     return logits[:, -1], caches
 
 
@@ -201,8 +237,8 @@ def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
     ctx = dataclasses.replace(ctx, decode=True)
     positions = torch.full((token.shape[0], 1), position, dtype=torch.int32,
                            device=token.device)
-    logits, caches = forward(cfg, params, ctx, tokens=token[:, None],
-                             caches=caches, positions=positions)
+    logits, caches, _ = forward(cfg, params, ctx, tokens=token[:, None],
+                                caches=caches, positions=positions)
     return logits[:, 0], caches
 
 
@@ -252,7 +288,8 @@ def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
     if state_slots is not None:
         paged.update(state_slots=state_slots, state_local=positions)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
-                   positions=positions, segment_ids=segment_ids, paged=paged)
+                   positions=positions, segment_ids=segment_ids,
+                   paged=paged)[:2]
 
 
 def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
@@ -276,7 +313,7 @@ def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
     if state_slots is not None:
         paged.update(state_slots=state_slots, state_local=state_local)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
-                   positions=positions, paged=paged)
+                   positions=positions, paged=paged)[:2]
 
 
 def paged_verify_step(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
@@ -298,7 +335,7 @@ def paged_decode_step(cfg, params: LM, ctx: Ctx, token, caches, block_tables,
     position kv_len; the engine increments it host-side).
     → (logits [B, Vpad], caches)."""
     ctx = dataclasses.replace(ctx, decode=True)
-    logits, caches = forward(
+    logits, caches, _ = forward(
         cfg, params, ctx, tokens=token[:, None], caches=caches,
         positions=kv_len[:, None],
         paged={"block_tables": block_tables, "kv_len": kv_len})

@@ -28,8 +28,9 @@ class TrainArtifacts:
     """The train step and its state's initialiser.
 
     step_fn(params, opt_state, batch, step: int) → (params, opt_state,
-        metrics {"ce", "loss", "grad_norm", "lr"}); params and opt_state are
-        updated in place and returned.
+        metrics {"ce", "loss", "grad_norm", "lr"}, and "moe_aux",
+        "moe_dropped" for MoE archs); params and opt_state are updated in
+        place and returned.
     init_fn(seed=0) → (params :class:`~repro_torch.models.lm.LM`,
         opt_state :class:`~repro_torch.optim.AdamWState`) on ``device``.
     from_jax(tree) → (params, opt_state) of a JAX ``Trainer`` checkpoint
@@ -64,10 +65,10 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
 
     microbatch: split the batch into rows of this size and accumulate:
     grads and loss are the means over microbatches, the other metrics those
-    of the last one (as JAX's scan). ``lr`` follows ``cosine_schedule`` and
-    is reported in the metrics but not applied: the update uses ``opt.lr``,
-    exactly as the JAX step does (it calls ``adamw_update`` without the
-    scheduled rate).
+    of the last one (as JAX's scan), MoE metrics included. ``lr`` follows
+    ``cosine_schedule`` and is reported in the metrics but not applied: the
+    update uses ``opt.lr``, exactly as the JAX step does (it calls
+    ``adamw_update`` without the scheduled rate).
     """
     def init_fn(seed: int = 0):
         params = lm.init_params(cfg, seed=seed, device=device)

@@ -135,9 +135,11 @@ class Trainer:
             self.monitor.observe(step, dt)
             self.metrics_log.append({"step": step, "loss": loss, "dt": dt})
             if step % self.tcfg.log_every == 0:
+                aux = (f"moe_aux {float(metrics['moe_aux']):7.4f} "
+                       if "moe_aux" in metrics else "")
                 print(f"step {step:6d} loss {loss:8.4f} "
                       f"gnorm {float(metrics.get('grad_norm', 0)):6.3f} "
-                      f"dt {dt*1e3:8.1f}ms", flush=True)
+                      f"{aux}dt {dt*1e3:8.1f}ms", flush=True)
             if (step + 1) % self.tcfg.ckpt_every == 0:
                 self._save(params, opt_state, step)
             step += 1

@@ -264,8 +264,9 @@ def test_lm_forward_matches_jax(num_layers):
         jcfg, p, JCtx(impl="xla", xla_chunk=16), tokens=t))(params, tokens)
     for impl in ("torch", "kernel"):
         with torch.no_grad():
-            tlog, _ = tlm.forward(tcfg, tparams, Ctx(impl=impl, torch_chunk=16),
-                                  tokens=_t(tokens))
+            tlog, _, _ = tlm.forward(tcfg, tparams,
+                                     Ctx(impl=impl, torch_chunk=16),
+                                     tokens=_t(tokens))
         assert _err(tlog, jlog) < LOGIT_TOL, impl
 
 
@@ -286,7 +287,7 @@ def test_prefill_and_decode_through_the_ring_match_jax():
                                                         pos))
     ctx = Ctx(impl="kernel", torch_chunk=16)
     with torch.no_grad():
-        full, _ = tlm.forward(tcfg, tparams, ctx, tokens=_t(tokens))
+        full, _, _ = tlm.forward(tcfg, tparams, ctx, tokens=_t(tokens))
         caches = tlm.init_cache(tcfg, b, s + n, device="cpu")
         assert caches[2]["k"].shape[2] == tcfg.attn_window
         assert set(caches[0]) == {"h", "conv"}

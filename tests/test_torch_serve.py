@@ -95,9 +95,11 @@ def test_convert_rejects_mismatched_params():
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_14b", "deepseek_67b",
-                                  "deepseek_coder_33b"])
+                                  "deepseek_coder_33b", "deepseek_moe_16b",
+                                  "dbrx_132b"])
 def test_configs_match_jax(arch):
-    """The port's copies of the dense configs carry the JAX fields."""
+    """The port's copies of the dense and MoE configs carry the JAX fields
+    (the MoE settings too)."""
     fields = ("name", "family", "num_layers", "d_model", "num_heads",
               "num_kv_heads", "d_ff", "vocab_size", "head_dim", "qk_norm",
               "causal", "attn_window", "block_pattern", "mlp_type",
@@ -106,6 +108,9 @@ def test_configs_match_jax(arch):
         j, t = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
         assert {f: getattr(t, f) for f in fields} == \
             {f: getattr(j, f) for f in fields}
+        assert (t.moe is None) == (j.moe is None)
+        if j.moe is not None:
+            assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
     assert tconfigs.ARCHS == jconfigs.ARCHS
 
 
@@ -114,8 +119,8 @@ def test_unported_family_is_named():
         assert jconfigs.get_config(arch).family == family
         with pytest.raises(NotImplementedError, match=family):
             tconfigs.get_config(arch)
-    with pytest.raises(SystemExit, match="moe family is not yet ported"):
-        tserve.main(["--arch", "dbrx_132b", "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ssm family is not yet ported"):
+        tserve.main(["--arch", "falcon_mamba_7b", "--smoke", "--device", "cpu"])
 
 
 def test_serve_cli_runs_on_cpu(capsys):
