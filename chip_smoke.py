@@ -64,13 +64,13 @@ Phases, each of which exits non-zero on failure:
              ``impl="kernel"`` and once with ``impl="torch"`` fed the kernel
              run's tokens; the launch counters must read 40 ``flash_fwd`` and
              40 × 31 ``flash_decode`` launches; (b) the paged path
-             (``serving.ServingEngine``, page 16, 8 slots) at the same size
-             on 16 seeded requests in four modes (eager; lazy on half the
+             (``serving.ServingEngine``, page 16, 8 slots) at full width and
+             20 of the 40 layers (``PAGED_LAYERS``) on 16 seeded requests in four modes (eager; lazy on half the
              pool, which must preempt; shared 256-token system prompt with
              256-token chunked prefill; speculation k 4 on motif prompts),
              each with ``impl="kernel"`` and ``impl="torch"``: every request
-             completes, ``flash_fwd`` launches 40 × prefill calls and the
-             paged kernel 40 × (decode + chunk + verify calls), and the
+             completes, ``flash_fwd`` launches 20 × prefill calls and the
+             paged kernel 20 × (decode + chunk + verify calls), and the
              tokens equal the torch run's up to a printed near-tie; (c) the
              distributed paged engine (``ServingEngine(mesh=)``): two ranks
              spawned on the one card with gloo (NCCL refuses two ranks on a
@@ -79,14 +79,27 @@ Phases, each of which exits non-zero on failure:
              a page copy across shards, then three of (b)'s modes (eager,
              lazy, prefix + chunk): tokens equal on both ranks and to (b)'s
              kernel run up to a printed near-tie, the gated kernel launched
-             40 × (decode + chunk + verify calls) on each rank and the
-             ungated one never; host time in the merge collectives;
+             20 × (decode + chunk + verify calls) on each rank and the
+             ungated one never; host time in the merge collectives; after
+             phase 4d the same for recurrentgemma-2b at full width and
+             depth in 4d's three paged modes, ``poison_reclaimed`` in each
+             (every rank keeps every recurrent state row beside its half
+             of the pools; out-of-window pages of the sharded pool
+             reclaimed; eager with ``autotune``: rank 0's plan for one
+             shard's launch, broadcast): every request completes, tokens
+             equal on both ranks and to 4d's kernel run up to a printed
+             near-tie, the gated kernel launched 8 × (decode + chunk calls)
+             at D 256 and a GQA group of 10 on each rank, every launch at
+             the mode's split count (the plan in eager, else 1), each
+             rank's peak memory printed;
 4d. hybrid — recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local
              attention; d_model 2560, 10/1 heads, head dim 256, window 2048,
              vocab 256000) at full width and depth, f32, random weights from
              seed 0: (a) the contiguous path, batch 4, prompt 3072 (past the
-             window: prefill masks, the ring rolls), 32 generated, kernel vs
-             torch impl (greedy tokens identical, logits within 1e-3 of
+             window: prefill masks, the ring rolls), 32 generated, the
+             kernel run at ``launch/serve.py --autotune``'s split count
+             (16 on the H100), every decode launch at it, vs the torch impl
+             at one split (greedy tokens identical, logits within 1e-3 of
              max|logit|, counters 8 ``flash_fwd`` and 8 x 31
              ``flash_decode``); (b) the paged engine (page 16, 8 slots) on
              12 seeded requests of 1024-3072 prompt and 16-48 new tokens in
@@ -115,6 +128,21 @@ Phases, each of which exits non-zero on failure:
              from the first flipped call on. Prints ``moe_dropped`` at
              prefill, prefill ms, decode tokens/s, a step's time beside the
              bound of reading the weights once, peak memory;
+4f. plan   — the split-KV planner (``perf/autotune.py``'s H100 record) at
+             each decode geometry the serving paths launch
+             (``perf/decode_split.py``: granite-3-2b contiguous and paged,
+             recurrentgemma-2b contiguous, paged and gated one shard of
+             two, deepseek-moe-16b paged, dbrx-132b contiguous): the plan
+             must be a valid candidate; at every candidate split the
+             record's cluster and resident clusters must be the launch's
+             and the kernel must agree with its plain version (``TOL``
+             f32, ``LSE_TOL`` for the gated state's lse); every candidate
+             split's device time (cold L2) is printed beside the prediction
+             and the plan's share of the best (not gated); then
+             ``ServingEngine(autotune=True)`` serves phase 4b's eager
+             requests: its paged-kernel launches at the planned split,
+             tokens equal to 4b's up to a printed near-tie (one JSON line
+             ``{"planner": ...}`` before the kernels' line);
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -170,9 +198,15 @@ Phases, each of which exits non-zero on failure:
              bf16 (``bf16_``): the prefill (B 4, S 512) and training (B 2,
              S 2048, dropout 0.1) forward, the backward at training, the
              decode (B 4, 544 slots) and the paged decode (8 slots), the
-             forward and decode also at dbrx-132b's (``dbrx_shape_``).
+             forward and decode also at dbrx-132b's (``dbrx_shape_``); and
+             row 6 at recurrentgemma-2b's engine decode, one shard of two
+             (8 slots, D 256, G 10, window 2048, page 16), with its device
+             and host time and rank 0's launches of phase 4c.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+After each phase a ``[clock]`` line gives the seconds since phase 1 began
+and the phase's own. Autotuned plans persist in ``build/autotune.json``
+(``REPRO_TORCH_AUTOTUNE_CACHE``; an entry of another card or record is a
+miss). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero before printing any result.
 
 ``python3 chip_smoke.py --dist-ranks 4 --dist-backend nccl`` on a machine
@@ -185,6 +219,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -192,13 +227,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s;
+# The card's published peaks live in src/repro_torch/perf/roofline.py (H100
+# SXM, NVIDIA data sheet, dense): device memory 3.35 TB/s (HBM_BYTES_PER_S);
 # tensor cores 495 TFLOP/s TF32 (the f32 rows: an f32 product on tensor
-# cores goes through TF32) and 989 TFLOP/s bf16; 67 TFLOP/s float32 without
-# tensor cores, kept beside each bound as ``bound_ms_no_tensor_cores``.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
-PEAK_FLOPS_NO_TENSOR_CORES = 67e12
+# cores goes through TF32) and 989 TFLOP/s bf16 (PEAK_FLOPS); 67 TFLOP/s
+# float32 without tensor cores (PEAK_FLOPS_NO_TENSOR_CORES), kept beside each
+# bound as ``bound_ms_no_tensor_cores``. main() binds the three names once
+# the checkout's src/ is on the path.
+HBM_BYTES_PER_S = PEAK_FLOPS = PEAK_FLOPS_NO_TENSOR_CORES = None
 
 # kernel vs plain version on the same inputs (module docstrings of
 # kernels/flash_fwd.py and kernels/decode.py): both compute in f32 and fold
@@ -236,6 +272,11 @@ HYBRID_LEAVES = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
                  "blocks.0.mixer.w_rec")
 # phase 5c, deepseek-moe-16b at full width and 4 layers: batch 2 x 2048
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
+# granite-3-2b's paged phases (4b, its ranks in 4c, 4f's autotuned engine)
+# at full width and 20 of its 40 layers: with phase 4c's hybrid and phase
+# 4f the run passed 860 s on a slow host, and these three share one
+# reference, so they are cut together (PERF.md, PR 21)
+PAGED_LAYERS = 20
 MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
               "lm_head")
 # the training phases: arch → (tag, batch, seq, leaves checked, AdamW's f32
@@ -281,8 +322,25 @@ def main(argv=None) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
+    global HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_FLOPS_NO_TENSOR_CORES
+    from repro_torch.perf.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.perf.roofline import (PEAK_FLOPS,
+                                           PEAK_FLOPS_NO_TENSOR_CORES)
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
+
+    # autotuned plans persist inside the checkout (ranks inherit this)
+    from repro_torch.perf.autotune import CACHE_ENV
+    os.environ[CACHE_ENV] = str(ROOT / "build" / "autotune.json")
+    t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        now = time.perf_counter() - t_start
+        print(f"[clock] {phase} done at {now:.1f} s ({now - clock.last:.1f} s)",
+              flush=True)
+        clock.last = now
+    clock.last = 0.0
 
     # ---------------- phase 1: device ----------------
     name = torch.cuda.get_device_name(0)
@@ -309,35 +367,50 @@ def main(argv=None) -> None:
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
           f"{time.perf_counter() - t0:.1f} s")
     build_report(_build)
+    clock("phase 2 (build)")
 
     # ---------------- phase 3: kernels vs plain versions ----------------
     errs = kernel_phase(torch, kfwd, kdecode)
     errs.update(paged_kernel_phase(torch, kdecode))
     errs.update(gated_kernel_phase(torch, kdecode))
     errs.update(bwd_kernel_phase(torch, kfwd, kbwd))
+    clock("phase 3 (kernels vs plain versions)")
 
     # ---------------- phase 4: the serving paths ----------------
     launches = serve_phase(torch, kfwd, kdecode)
     paged_launches, paged_tokens = paged_serve_phase(torch, kfwd, kdecode)
+    clock("phases 4 and 4b (granite-3-2b contiguous and paged)")
     dist_launches = dist_serve_phase(torch, paged_tokens, args.dist_ranks,
                                      args.dist_backend)
+    clock("phase 4c (granite-3-2b over the ranks)")
 
     # ---------------- phase 4d: the hybrid recurrentgemma-2b ----------------
     torch.cuda.reset_peak_memory_stats()
     hybrid_launches = serve_phase(torch, kfwd, kdecode, "recurrentgemma_2b",
                                   batch=4, prompt_len=3072, gen_len=32,
-                                  tag="hybrid")
-    hybrid_paged = hybrid_paged_phase(torch, kfwd, kdecode)
+                                  tag="hybrid", autotune=True)
+    hybrid_paged, hybrid_tokens = hybrid_paged_phase(torch, kfwd, kdecode)
     print(f"[hybrid] peak max_memory_allocated over phase 4d "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    clock("phase 4d (recurrentgemma-2b contiguous and paged)")
+    # phase 4c for the hybrid: its paged engine over the ranks
+    hybrid_dist = dist_serve_phase(torch, hybrid_tokens, args.dist_ranks,
+                                   args.dist_backend, "recurrentgemma_2b")
+    clock("phase 4c (recurrentgemma-2b over the ranks)")
 
     # ---------------- phase 4e: the MoE family ----------------
     moe_serve = moe_serve_phase(torch, kfwd, kdecode)
+    clock("phase 4e (the MoE family)")
+
+    # ---------------- phase 4f: the decode planner ----------------
+    plans = planner_phase(torch, kfwd, kdecode, paged_tokens)
+    clock("phase 4f (the decode planner)")
 
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
     hybrid_train = train_phase(torch, kfwd, kbwd, "recurrentgemma_2b")
     moe_train = train_phase(torch, kfwd, kbwd, "deepseek_moe_16b")      # 5c
+    clock("phase 5 (training)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -346,11 +419,14 @@ def main(argv=None) -> None:
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
     rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
     device_times_phase(rows)
+    rows.append(hybrid_gated_times_phase(torch, kdecode, hybrid_dist))
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     rows += hybrid_times_phase(torch, kfwd, kdecode, hybrid_launches,
                                hybrid_paged, hybrid_train, errs)
     rows.append(hybrid_bwd_times_phase(torch, kfwd, kbwd, hybrid_train))
     rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
+    clock("phase 6 (times)")
+    print(json.dumps({"planner": plans}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1034,12 +1110,15 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
 
 
 def serve_phase(torch, kfwd, kdecode, arch="granite_3_2b", batch=8,
-                prompt_len=512, gen_len=32, tag="serve"):
+                prompt_len=512, gen_len=32, tag="serve", autotune=False):
     """An arch at full width and depth through the port's contiguous serving
     path (granite-3-2b; phase 4d: recurrentgemma-2b, batch 4, prompt 3072
-    past its 2048-token window, so prefill masks and the ring rolls)."""
+    past its 2048-token window, so prefill masks and the ring rolls).
+    ``autotune``: the kernel run takes ``launch/serve.py --autotune``'s
+    split count, every decode launch must take it, and the torch impl it is
+    held to runs one split."""
     from repro_torch import configs
-    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.serve import autotuned_plan, greedy_generate
     from repro_torch.models import lm
     from repro_torch.runtime.steps import make_serve_steps
 
@@ -1059,15 +1138,31 @@ def serve_phase(torch, kfwd, kdecode, arch="granite_3_2b", batch=8,
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
                            device="cuda")
 
-    def steps(impl):
+    def steps(impl, num_splits=1):
         return make_serve_steps(cfg, impl=impl, max_len=prompt_len + gen_len,
-                                batch=batch, torch_chunk=prompt_len,
-                                device="cuda")
+                                batch=batch, num_splits=num_splits,
+                                torch_chunk=prompt_len, device="cuda")
+
+    splits = 1
+    if autotune:
+        plan = autotuned_plan(cfg, batch, prompt_len + gen_len, "cuda")
+        splits = plan.num_splits
+        print(f"[{tag}] --autotune's plan: {splits} split(s) ({plan.source}, "
+              f"predicted {plan.time_s * 1e6:.2f} us a layer)", flush=True)
+    launched, launch = [], kdecode._launch
+
+    def spy(q, k, v, kv_len, window, scale, num_splits, row_tokens):
+        launched.append(num_splits)
+        return launch(q, k, v, kv_len, window, scale, num_splits, row_tokens)
 
     torch.cuda.reset_peak_memory_stats()
     kfwd.launches = kdecode.launches = 0
-    run_k = greedy_generate(steps("kernel"), params, prompt, gen_len,
-                            cfg.vocab_size)
+    kdecode._launch = spy
+    try:
+        run_k = greedy_generate(steps("kernel", splits), params, prompt,
+                                gen_len, cfg.vocab_size)
+    finally:
+        kdecode._launch = launch
     launches = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_fwd": n_attn, "flash_decode": n_attn * (gen_len - 1)}
@@ -1076,10 +1171,15 @@ def serve_phase(torch, kfwd, kdecode, arch="granite_3_2b", batch=8,
           f"{run_k.decode_s * 1e3:.1f} ms "
           f"({(gen_len - 1) * batch / run_k.decode_s:.1f} tok/s); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    print(f"[{tag}] launch counters {launches} (expected {want})", flush=True)
+    print(f"[{tag}] launch counters {launches} (expected {want}); decode "
+          f"launches at splits {sorted(set(launched))} (expected [{splits}])",
+          flush=True)
     if launches != want:
         fail(f"{arch}: the serving path did not go through the kernels: "
              f"{launches}")
+    if set(launched) != {splits}:
+        fail(f"{arch}: decode launched at splits {sorted(set(launched))}, "
+             f"planned {splits}")
 
     print(f"[{tag}] tolerance kernel vs torch impl: max |d logit| <= "
           f"{LOGIT_REL_TOL:.0e} x max|logit| ({cfg.num_layers} layers of f32 "
@@ -1225,17 +1325,23 @@ def _paged_requests(np, vocab, mode, max_prompt, n=PAGED_REQUESTS):
     return reqs
 
 
+def granite_paged_config(torch):
+    """granite-3-2b at full width, ``PAGED_LAYERS`` layers, f32."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("granite_3_2b"),
+                               num_layers=PAGED_LAYERS, dtype=torch.float32)
+
+
 def paged_serve_phase(torch, kfwd, kdecode):
-    """granite-3-2b, full width and depth, through the port's paged serving
-    engine in four modes, kernel impl against torch impl. Returns the launch
-    counts of the kernel runs, and their tokens and top-2 margins by mode."""
+    """granite-3-2b, full width and ``PAGED_LAYERS`` layers, through the
+    port's paged serving engine in four modes, kernel impl against torch
+    impl. Returns the launch counts of the kernel runs, and their tokens and
+    top-2 margins by mode."""
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
-                              dtype=torch.float32)
+    cfg = granite_paged_config(torch)
     params = lm.init_params(cfg, seed=0, device="cuda")
     modes = _paged_modes(np, cfg, PAGED_REQUESTS, PAGED_MODES, "paged")
     counts, tokens, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
@@ -1463,7 +1569,8 @@ def hybrid_paged_phase(torch, kfwd, kdecode):
     ``HYBRID_MODES`` (``_engine_modes``: kernel impl against torch impl,
     launch counters 8 attention layers x calls, tokens equal up to a
     near-tie); eager must reclaim out-of-window pages; prefix sharing and
-    speculation are refused. Returns the kernel runs' launch counts."""
+    speculation are refused. Returns the kernel runs' launch counts, and
+    their tokens and top-2 margins by mode (for phase 4c)."""
     import numpy as np
 
     from repro_torch import configs
@@ -1495,13 +1602,13 @@ def hybrid_paged_phase(torch, kfwd, kdecode):
         if "fault_plan" in kw:
             kw["fault_plan"] = FaultPlan(**kw["fault_plan"])
         modes[mode] = (hybrid_pool(lazy), prefill_len, kw, reqs)
-    counts, _, stats = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
-                                     "hybrid", 512)
+    counts, tokens, stats = _engine_modes(torch, kfwd, kdecode, cfg, params,
+                                          modes, "hybrid", 512)
     if stats["eager"]["pages_reclaimed"] == 0:
         fail("hybrid eager: no page left the 2048-token window")
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, tokens
 
 
 # phase 4e: deepseek-moe-16b at full width and depth (contiguous batch 4 x
@@ -1744,23 +1851,15 @@ def _record_copies(eng, pairs):
     eng.scheduler.tables.drain_copies = spy
 
 
-def _dist_rank(mesh, device):
-    """One rank of phase 4c: probe the collectives on CUDA tensors, then
-    serve granite-3-2b at full size on this rank's shard of the pool in
-    each of ``DIST_MODES``. Returns per mode what the parent checks."""
-    import numpy as np
+def _collectives_probe(mesh, device) -> str:
+    """gloo's (or NCCL's) all_reduce on CUDA tensors, MAX and SUM, the
+    cross-shard page copy (copy-on-write) on the card, and the merge's two
+    collectives alone at granite's decode shape: a line for the parent."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.distributed import paged as dpaged
-    from repro_torch.kernels import decode as kdecode
-    from repro_torch.kernels import flash_fwd as kfwd
-    from repro_torch.models import lm
-    from repro_torch.serving import PagedCacheConfig, ServingEngine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # gloo's all_reduce on CUDA tensors, MAX and SUM, and the cross-shard
     # page copy (copy-on-write) on the card
     x = torch.full((4,), float(mesh.rank + 1), device=device)
@@ -1794,38 +1893,99 @@ def _dist_rank(mesh, device):
     probe = (f"all_reduce MAX/SUM on {device} ok, cross-shard page copy ok; "
              f"the merge's two collectives alone (m [8, 32], [acc | l] "
              f"[8, 32, 65] f32, idle stream): {merge_ms:.3f} ms a merge")
+    return probe
 
-    cfg = dataclasses.replace(configs.get_config("granite_3_2b"),
-                              dtype=torch.float32)
+
+def _dist_modes(np, cfg, n_shards: int) -> dict:
+    """Phase 4c's modes for ``cfg``: {mode: (pool config, prefill row, engine
+    kwargs, requests)}. granite-3-2b: ``DIST_MODES`` of phase 4b on its pool
+    with one trash page a shard; recurrentgemma-2b: phase 4d's
+    ``HYBRID_MODES`` on its pool so sharded, ``poison_reclaimed`` in each,
+    ``autotune`` in eager."""
+    from repro_torch.serving import FaultPlan, PagedCacheConfig
+
+    modes = {}
+    if cfg.name == "granite-3-2b":
+        for mode in DIST_MODES:
+            kw = PAGED_MODES[mode]
+            lazy = kw.get("lazy", False)
+            pages_per_seq, num_pages = _dist_pool(lazy, n_shards)
+            pcfg = PagedCacheConfig(page_size=16, max_batch=8,
+                                    max_pages_per_seq=pages_per_seq,
+                                    num_pages=num_pages, num_shards=n_shards)
+            modes[mode] = (pcfg, PAGED_PROMPT + PAGED_GEN if lazy else PAGED_PROMPT,
+                           kw, _paged_requests(np, cfg.vocab_size, mode,
+                                               pcfg.max_seq_len - PAGED_GEN - 1))
+        return modes
+    reqs = _hybrid_requests(np, cfg.vocab_size)
+    for mode, (kw, prefill_len, lazy) in HYBRID_MODES.items():
+        # eager takes the planner's split count (rank 0's, broadcast)
+        kw = dict(kw, poison_reclaimed=True, autotune=mode == "eager")
+        if "fault_plan" in kw:
+            kw["fault_plan"] = FaultPlan(**kw["fault_plan"])
+        one = hybrid_pool(lazy)
+        pcfg = dataclasses.replace(one, num_pages=n_shards + one.usable_pages,
+                                   num_shards=n_shards)
+        modes[mode] = (pcfg, prefill_len, kw, reqs)
+    return modes
+
+
+def _dist_rank(mesh, device, arch="granite_3_2b"):
+    """One rank of phase 4c: for granite-3-2b probe the collectives on CUDA
+    tensors; then serve ``arch`` at full size on this rank's shard of the
+    pool in each of its ``_dist_modes``. Returns per mode what the parent
+    checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import paged as dpaged
+    from repro_torch.kernels import decode as kdecode
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    if arch == "granite_3_2b":
+        results["probe"] = _collectives_probe(mesh, device)
+    cfg = (granite_paged_config(torch) if arch == "granite_3_2b" else
+           dataclasses.replace(configs.get_config(arch), dtype=torch.float32))
     params = lm.init_params(cfg, seed=0, device=device)
-    results = {"probe": probe, "num_layers": cfg.num_layers}
-    for mode in DIST_MODES:
-        kw = PAGED_MODES[mode]
-        lazy = kw.get("lazy", False)
-        pages_per_seq, num_pages = _dist_pool(lazy, mesh.size)
-        pcfg = PagedCacheConfig(page_size=16, max_batch=8,
-                                max_pages_per_seq=pages_per_seq,
-                                num_pages=num_pages, num_shards=mesh.size)
-        reqs = _paged_requests(np, cfg.vocab_size, mode,
-                               pcfg.max_seq_len - PAGED_GEN - 1)
+    results["num_layers"] = lm.block_kinds(cfg).count("attn")
+    launch = kdecode._launch_paged_valid
+    for mode, (pcfg, prefill_len, kw, reqs) in _dist_modes(
+            np, cfg, mesh.size).items():
         eng = ServingEngine(cfg, pcfg, params, impl="kernel", device=device,
-                            mesh=mesh, prefill_len=(PAGED_PROMPT + PAGED_GEN
-                                                    if lazy else PAGED_PROMPT),
-                            torch_chunk=PAGED_PROMPT, **kw)
+                            mesh=mesh, prefill_len=prefill_len,
+                            torch_chunk=512, **kw)
         rec = StepRecorder(torch, eng, cfg.vocab_size)
-        pairs = []
+        pairs, splits = [], set()
         _record_copies(eng, pairs)
+
+        def spy(*a):                        # a[8]: the launch's num_splits
+            splits.add(a[8])
+            return launch(*a)
+
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         kfwd.launches = kdecode.launches = 0
         kdecode.launches_paged = kdecode.launches_paged_valid = 0
         dpaged.merge_calls, dpaged.merge_s = 0, 0.0
-        out, stats = eng.run([(t, g) for t, g in reqs])
+        kdecode._launch_paged_valid = spy
+        try:
+            out, stats = eng.run([(t, g) for t, g in reqs])
+        finally:
+            kdecode._launch_paged_valid = launch
         torch.cuda.synchronize(device)
-        n_local = num_pages // mesh.size
+        n_local = pcfg.num_pages // mesh.size
         results[mode] = {
+            "num_splits": eng.num_splits, "launched_splits": sorted(splits),
+            "autotune": kw.get("autotune", False),
+            "decode_shape": eng.decode_shape(),
             "out": out, "stats": stats, "calls": dict(rec.calls),
-            "margin": rec.margin, "pool": (num_pages, n_local),
+            "margin": rec.margin, "pool": (pcfg.num_pages, n_local),
             "launches": {"flash_fwd": kfwd.launches,
                          "flash_decode": kdecode.launches,
                          "flash_paged_decode": kdecode.launches_paged,
@@ -1839,33 +1999,42 @@ def _dist_rank(mesh, device):
     return results
 
 
-def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
-    """granite-3-2b at full width and depth through the port's distributed
-    paged engine: ``n_ranks`` ranks (by default two sharing the card, gloo),
-    each holding 1/n of every layer's page pool and all the weights, in
-    three modes. Tokens equal on every rank and equal to phase 4b's
-    single-device kernel run (or a printed near-tie); the gated kernel
-    launched 40 × (decode + chunk + verify calls) on each rank, the ungated
-    one never. Returns rank 0's gated launches by mode."""
+def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str,
+                     arch: str = "granite_3_2b"):
+    """An arch at full width and depth through the port's distributed paged
+    engine: ``n_ranks`` ranks (by default two sharing the card, gloo), each
+    holding 1/n of every layer's page pool and all the weights (and, for
+    recurrentgemma-2b, every recurrent state row), in three modes
+    (``_dist_modes``). Tokens equal on every rank and equal to the
+    single-device kernel run of phase 4b (granite-3-2b) or 4d
+    (recurrentgemma-2b) (or a printed near-tie); every request completes;
+    the gated kernel launched (attention layers) × (decode + chunk + verify
+    calls) on each rank, the ungated one never. Returns rank 0's gated
+    launches by mode."""
     import numpy as np
 
     from repro_torch.launch.mesh import rank_device, run_ranks
+    from repro_torch.perf import autotune
 
+    hybrid = arch == "recurrentgemma_2b"
+    tag = "[dist hybrid]" if hybrid else "[dist]"
+    modes = tuple(HYBRID_MODES) if hybrid else DIST_MODES
     devices = [str(rank_device(r, "cuda")) for r in range(n_ranks)]
     how = ("gloo through host memory on one card, not NVLink; NCCL refuses "
            "two ranks on one card" if backend == "gloo" else
            f"{backend}, a card a rank")
-    print(f"[dist] {n_ranks} ranks on {', '.join(devices)} ({how}), each with "
-          f"granite-3-2b f32 (random, seed 0) and 1/{n_ranks} of every layer's "
-          f"page pool; modes {', '.join(DIST_MODES)}", flush=True)
+    print(f"{tag} {n_ranks} ranks on {', '.join(devices)} ({how}), each with "
+          f"{arch} f32 (random, seed 0) and 1/{n_ranks} of every layer's page "
+          f"pool{', every recurrent state row' if hybrid else ''}; modes "
+          f"{', '.join(modes)}", flush=True)
     t0 = time.perf_counter()
-    ranks = run_ranks(_dist_rank, n_ranks, backend=backend,
+    ranks = run_ranks(_dist_rank, n_ranks, (arch,), backend=backend,
                       device_type="cuda", timeout_s=900)
-    print(f"[dist] {ranks[0]['probe']}; ranks done in "
+    print(f"{tag} {ranks[0].get('probe', 'no probe')}; ranks done in "
           f"{time.perf_counter() - t0:.1f} s (spawn, weights, three modes)")
     n_layers = ranks[0]["num_layers"]
     launches = {"total": 0, "by_mode": {}}
-    for mode in DIST_MODES:
+    for mode in modes:
         r0 = ranks[0][mode]
         ref_out, ref_margin = paged_tokens[mode]
         for rank, res in enumerate(ranks):
@@ -1876,50 +2045,203 @@ def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
                     "flash_paged_decode": 0,
                     "flash_paged_decode_partials": n_layers * steps}
             per_step = res["merge_s"] / max(st["decode_steps"], 1)
-            print(f"[dist] {mode} rank {rank}: {st['generated_tokens']:.0f} "
+            print(f"{tag} {mode} rank {rank}: {st['generated_tokens']:.0f} "
                   f"tokens in {st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} "
                   f"tokens/s; {st['decode_steps']:.0f} decode steps; calls "
                   f"prefill {c['prefill']} / decode {c['decode']} / chunk "
                   f"{c['chunk']} / verify {c['verify']}; preemptions "
-                  f"{st['preemptions']:.0f}; pool {res['pool'][0]} pages "
+                  f"{st['preemptions']:.0f}; pages reclaimed "
+                  f"{st['pages_reclaimed']:.0f}; state releases "
+                  f"{st['state_releases']:.0f}; pool {res['pool'][0]} pages "
                   f"({res['pool'][1]} a shard); cow {res['cow_pairs']} "
                   f"({res['cow_across']} across shards); max_memory_allocated "
                   f"{res['peak_gib']:.2f} GiB; merges {res['merge_calls']}, host "
                   f"time in their collectives {res['merge_s']:.3f} s = "
-                  f"{per_step * 1e3:.2f} ms a step ({how}); launches {got}",
-                  flush=True)
+                  f"{per_step * 1e3:.2f} ms a step ({how}); launches {got} "
+                  f"at splits {res['launched_splits']}"
+                  + (f" (autotuned for {res['decode_shape'].key()})"
+                     if res["autotune"] else ""), flush=True)
             if got != want or steps == 0:
-                fail(f"dist {mode} rank {rank}: the path did not go through the "
-                     f"gated kernel: {got}, expected {want}")
-            if st["outcomes"]["completed"] != PAGED_REQUESTS:
-                fail(f"dist {mode} rank {rank}: outcomes {st['outcomes']}")
+                fail(f"{tag} {mode} rank {rank}: the path did not go through "
+                     f"the gated kernel: {got}, expected {want}")
+            planned = (autotune.plan_decode(res["decode_shape"]).num_splits
+                       if res["autotune"] else 1)
+            if res["num_splits"] != planned or \
+                    res["launched_splits"] != [planned]:
+                fail(f"{tag} {mode} rank {rank}: split count "
+                     f"{res['num_splits']}, launched at "
+                     f"{res['launched_splits']}, planned {planned}")
+            if st["outcomes"]["completed"] != len(ref_out):
+                fail(f"{tag} {mode} rank {rank}: outcomes {st['outcomes']}")
             if set(res["out"]) != set(r0["out"]) or any(
                     not np.array_equal(res["out"][k], r0["out"][k]) for k in r0["out"]):
-                fail(f"dist {mode}: rank {rank}'s tokens differ from rank 0's")
+                fail(f"{tag} {mode}: rank {rank}'s tokens differ from rank 0's")
         if mode == "lazy" and r0["stats"]["preemptions"] == 0:
-            fail("dist lazy: the half pool forced no preemption")
-        if mode == "prefix_chunk" and r0["calls"]["chunk"] == 0:
-            fail("dist prefix_chunk: no chunked prefill ran")
-        same, ties = 0, []
-        for rid, toks in ref_out.items():
-            diff = np.nonzero(r0["out"][rid] != toks)[0]
-            if diff.size == 0:
-                same += 1
-                continue
-            i = int(diff[0])
-            margin, peak = ref_margin[(rid, i)]
-            ties.append(f"request {rid} token {i}: sharded {r0['out'][rid][i]} "
-                        f"vs one device {toks[i]}, margin {margin:.3e} of "
-                        f"max|logit| {peak:.3e}")
-            if margin > LOGIT_REL_TOL * peak:
-                fail(f"dist {mode}: {ties[-1]}: not a near-tie")
-        print(f"[dist] {mode}: tokens equal on every rank; equal to the "
+            fail(f"{tag} lazy: no row was preempted")
+        if mode in ("prefix_chunk", "chunk_512") and r0["calls"]["chunk"] == 0:
+            fail(f"{tag} {mode}: no chunked prefill ran")
+        if hybrid and r0["stats"]["pages_reclaimed"] == 0:
+            fail(f"{tag} {mode}: no page of the sharded pool left the window")
+        same, ties = _near_ties(np, r0["out"], ref_out, ref_margin,
+                                f"{tag} {mode}", "sharded")
+        print(f"{tag} {mode}: tokens equal on every rank; equal to the "
               f"single-device kernel engine for {same} of {len(ref_out)} "
               f"requests" + "".join(f"; near-tie {t}" for t in ties), flush=True)
         n = r0["launches"]["flash_paged_decode_partials"]
         launches["by_mode"][mode] = n
         launches["total"] += n
     return launches
+
+
+def _near_ties(np, out, ref_out, ref_margin, where: str, label: str):
+    """``(requests equal, near-ties)`` of ``out`` against a single-device
+    kernel run's tokens ``ref_out``: a request's tokens may differ only
+    from a token whose top-2 margin in the reference run was within
+    ``LOGIT_REL_TOL`` of its max|logit|, else it fails."""
+    same, ties = 0, []
+    for rid, toks in ref_out.items():
+        diff = np.nonzero(out[rid] != toks)[0]
+        if diff.size == 0:
+            same += 1
+            continue
+        i = int(diff[0])
+        margin, peak = ref_margin[(rid, i)]
+        ties.append(f"request {rid} token {i}: {label} {out[rid][i]} vs one "
+                    f"device {toks[i]}, margin {margin:.3e} of max|logit| "
+                    f"{peak:.3e}")
+        if margin > LOGIT_REL_TOL * peak:
+            fail(f"{where}: {ties[-1]}: not a near-tie")
+    return same, ties
+
+
+def planner_phase(torch, kfwd, kdecode, paged_tokens):
+    """Phase 4f: the split-KV planner (``perf/autotune.py``, its H100
+    record) against the card. For each decode geometry the serving paths
+    launch (``perf/decode_split.GEOMETRIES``: granite-3-2b's contiguous and
+    paged decodes, recurrentgemma-2b's contiguous, paged and gated
+    one-shard-of-two decodes, deepseek-moe-16b's paged and dbrx-132b's
+    contiguous decode, every row at its full reach, f32): the plan must be
+    one of its candidates and a split ``split_layout`` keeps; at every
+    candidate split the record's cluster and resident clusters must be the
+    launch's (``launch_geometry``), and the kernel's output must agree with
+    its plain version at that split (``TOL``); then every candidate split's
+    device time (cold L2, ``decode_times``' method) is measured and the
+    plan's time printed as a share of the best (not gated). Last,
+    ``ServingEngine(autotune=True)`` serves phase 4b's eager requests on
+    granite-3-2b at phase 4b's size: its split count must be the plan of its
+    geometry, every paged-kernel launch of its decode steps must take it,
+    and its tokens must equal phase 4b's kernel run up to a printed
+    near-tie. Returns the measurements by geometry."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.perf import autotune, decode_split
+    from repro_torch.serving import ServingEngine
+
+    hw = autotune.H100
+    print(f"[plan] the H100 record: {hw.capacity} SMs, stream {hw.stream_bw:.4e} "
+          f"B/s a block, {hw.tile_s * 1e6:.3f} us a tile, c0 {hw.c0 * 1e6:.3f} "
+          f"us, c1 {hw.c1 * 1e6:.3f} us; resident clusters {hw.resident}",
+          flush=True)
+    out = {}
+    for name, g in decode_split.GEOMETRIES.items():
+        s = g.shape
+        plan = autotune.plan_decode(s)
+        cands = autotune.candidate_plans(s)
+        skv = g.pages * s.page_size if g.pages else s.kv_len
+        if (plan.num_splits, plan.block_kv) not in cands or \
+                kdecode.split_layout(s.kv_len, plan.num_splits)[1] != plan.num_splits:
+            fail(f"planner {name}: {plan} is not a valid candidate of {cands}")
+        geos = {}
+        for ns, _ in cands:
+            geo = kdecode.launch_geometry(s.batch, g.hq, s.hkv, skv, ns,
+                                          head_dim=s.head_dim,
+                                          dtype=torch.float32,
+                                          paged=g.kernel != "contig")
+            c = autotune.split_cluster(s, ns)
+            held = hw.resident_clusters(s.head_dim, s.dtype_bytes, c)
+            if (c, held) != (geo["cluster"], geo["resident_clusters"]):
+                fail(f"planner {name} at {ns} split(s): the record models "
+                     f"clusters of {c}, {held} resident; the card launches "
+                     f"{geo}")
+            geos[ns] = geo
+        errs = decode_split.check(name, [ns for ns, _ in cands])
+        bad = {ns: e for ns, e in errs.items()
+               if not (e[0] <= TOL["float32"] and e[1] <= LSE_TOL)}
+        if bad:
+            fail(f"planner {name}: the kernel disagrees with its plain version "
+                 f"at splits {bad} (tol {TOL['float32']:.0e}, lse "
+                 f"{LSE_TOL:.0e})")
+        timed = decode_split.sweep(name)
+        meas = {ns: timed(ns, bk) * 1e6 for ns, bk in cands}
+        best = min(meas, key=meas.get)
+        pred = {ns: autotune.predict_time(s, ns, bk) * 1e6 for ns, bk in cands}
+        geo = geos[plan.num_splits]
+        out[name] = {"shape": dataclasses.asdict(s), "hq": g.hq,
+                     "kernel": g.kernel, "plan": plan.num_splits,
+                     "predicted_us": pred, "measured_us": meas, "best": best,
+                     "plan_share": meas[best] / meas[plan.num_splits],
+                     "max_abs_err": errs, "geometry": geo}
+        print(f"[plan] {name} ({g.kernel}, {s.key()}): plan {plan.num_splits} "
+              f"split(s), predicted {plan.time_s * 1e6:.2f} us; launch "
+              f"{geo['blocks']} blocks in clusters of {geo['cluster']}, "
+              f"{geo['resident_clusters']} clusters resident (the record's, "
+              f"at every candidate split); f32 max|o - plain| (and |lse - "
+              f"plain| of the gated state) by split "
+              + ", ".join(f"{ns}: {e[0]:.2e}" + (f"/{e[1]:.2e}" if e[1] else "")
+                          for ns, e in errs.items())
+              + f" (tol {TOL['float32']:.0e}, lse {LSE_TOL:.0e}); measured us "
+              f"(device, cold L2) "
+              + ", ".join(f"{ns}: {t:.2f}" for ns, t in meas.items())
+              + f"; predicted us " + ", ".join(f"{ns}: {t:.2f}"
+                                               for ns, t in pred.items())
+              + f"; best {best} split(s) {meas[best]:.2f} us; the plan at "
+              f"{out[name]['plan_share']:.3f} of the best's speed", flush=True)
+
+    # the autotuned engine on granite-3-2b's eager mode (phase 4b's pool)
+    cfg = granite_paged_config(torch)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    pcfg, prefill_len, _, reqs = _paged_modes(np, cfg, PAGED_REQUESTS,
+                                              {"eager": {}}, "plan")["eager"]
+    launched = []
+    launch = kdecode._launch_paged
+
+    def spy(q, kp, vp, bt, kv_len, window, scale, num_splits, row_tokens):
+        launched.append(num_splits)
+        return launch(q, kp, vp, bt, kv_len, window, scale, num_splits,
+                      row_tokens)
+
+    try:
+        eng = ServingEngine(cfg, pcfg, params, impl="kernel", device="cuda",
+                            prefill_len=prefill_len, torch_chunk=PAGED_PROMPT,
+                            autotune=True)
+        want = autotune.plan_decode(eng.decode_shape())
+        kdecode._launch_paged = spy
+        res, stats = eng.run([(t, n) for t, n in reqs])
+        torch.cuda.synchronize()
+    finally:
+        kdecode._launch_paged = launch
+    key = eng.decode_shape().key()
+    entry = json.loads(autotune.AutotuneCache.default_path().read_text())[key]
+    print(f"[plan] ServingEngine(autotune=True), granite-3-2b eager: "
+          f"num_splits {eng.num_splits} (the plan of its geometry: "
+          f"{want.num_splits}); {len(launched)} paged-kernel launches at "
+          f"splits {sorted(set(launched))}; {stats['tokens_per_s']:.1f} "
+          f"tokens/s; persisted {entry}", flush=True)
+    if eng.num_splits != want.num_splits or set(launched) != {want.num_splits}:
+        fail(f"planner: the autotuned engine launched at {set(launched)}, "
+             f"planned {want.num_splits}")
+    if stats["outcomes"]["completed"] != len(reqs):
+        fail(f"planner: the autotuned engine's outcomes {stats['outcomes']}")
+    ref_out, ref_margin = paged_tokens["eager"]
+    same, ties = _near_ties(np, res, ref_out, ref_margin, "[plan] autotuned",
+                            "autotuned")
+    print(f"[plan] autotuned engine vs phase 4b's eager kernel run: tokens "
+          f"equal for {same} of {len(ref_out)} requests"
+          + "".join(f"; near-tie {t}" for t in ties), flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
@@ -2604,6 +2926,95 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
           f"(gate and two-shard checks, f32 and bf16) {worst:.3e}")
     torch.cuda.empty_cache()
     return result
+
+
+def hybrid_gated_times_phase(torch, kdecode, dist_launches):
+    """Row 6 at recurrentgemma-2b's geometry (10/1 heads, D 256, page 16, T
+    196, window 2048, f32): the gated kernel for one shard of two at the
+    hybrid engine's decode of 8 slots (kv_len 1040-3120, a random half of
+    the pages owned, foreign entries on the local trash page), beside its
+    plain version, its bound (the owned K/V rows inside kv_len and the
+    window, each once; q, the partial state, the tables), aten's
+    memory-efficient attention with its log-sum-exp on the owned rows in
+    the window (gathered and head-expanded outside the timing), its device
+    time alone with the cache cold and its host time a call
+    (``perf/decode_times.py``). Its launches: rank 0's in phase 4c."""
+    from repro_torch.perf import decode_times
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    hq, hkv, d, ps, t = decode_times.HYBRID
+    w = decode_times.HYBRID_WINDOW
+    kv_len = decode_times.hybrid_shapes(gen)["decode"][0]
+    b = kv_len.shape[0]
+    q, kp, vp, tables, valids = decode_times.paged_inputs(
+        kv_len, copies=decode_times._copies(4 * hkv * d * w * b), seed=11,
+        gated=True, geometry=decode_times.HYBRID)
+    bt, valid = tables[0], valids[0]
+    call = lambda: kdecode.flash_paged_decode_partials(      # noqa: E731
+        q, kp, vp, bt, kv_len, block_valid=valid, window=w)
+    plain = lambda: kdecode.flash_paged_decode_partials_torch(  # noqa: E731
+        q, kp, vp, bt, kv_len=kv_len, block_valid=valid, window=w)
+    err = _maxerr(_state_out(torch, *call())[0], _state_out(torch, *plain())[0])
+    if err > TOL["float32"]:
+        fail(f"rg gated kernel vs plain at the engine's decode shape: {err:.3e}")
+    pos = torch.arange(t * ps, device="cuda")
+    read = ((pos[None, :] < kv_len[:, None])
+            & (pos[None, :] > kv_len[:, None] - 1 - w)
+            & (valid[:, pos // ps] != 0))
+    slots = (bt.long()[:, pos // ps] * ps + pos % ps)[read]
+    rows = int(torch.unique(slots).numel())                  # owned K/V rows
+    nbytes = (4 * (2 * rows * hkv * d + b * hq * d)          # K/V rows, q
+              + 4 * (b * hq * d + 2 * b * hq)                # acc, m, l
+              + 4 * (2 * b * t + b))                         # tables, kv_len
+    dev = decode_times._case(
+        [lambda bt=bt, va=va: kdecode.flash_paged_decode_partials(
+            q, kp, vp, bt, kv_len, block_valid=va, window=w)
+         for bt, va in zip(tables, valids)], 50,
+        [(q, kv_len, bt, va) for bt, va in zip(tables, valids)])
+    row = {"name": "flash_paged_decode_partials (recurrentgemma-2b, one shard "
+                   "of two)", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:144",
+           "launches": dist_launches["total"],
+           "launches_by_path": {"dist_hybrid_paged_serve_rank0":
+                                dist_launches["by_mode"]},
+           "max_abs_err": err, "ms": dev["ms"],
+           "plain_ms": time_ms(torch, plain, 3, warmup=1),
+           **bounds(4 * hq * d * int(read.sum()), nbytes),
+           "library_ms": None,
+           "device_ms": dev["device_ms"],
+           "device_ms_method": dev["device_ms_method"],
+           "device_ms_copies": dev["device_ms_copies"],
+           "host_us": dev["host_us"],
+           "library_call": "aten._scaled_dot_product_efficient_attention "
+                           "(compute_log_sumexp) on the owned rows in the window",
+           "shape": f"8 slots, 10/1 heads, D 256, page 16, T 196, kv_len "
+                    f"{int(kv_len.min())}-{int(kv_len.max())}, window 2048, one "
+                    f"shard of two ({rows} owned K/V rows read), f32"}
+    try:   # the yardstick: (o, lse) over the owned rows, gather excluded
+        kc = kdecode.gather_pages(kp, bt).repeat_interleave(hq // hkv, dim=1)
+        vc = kdecode.gather_pages(vp, bt).repeat_interleave(hq // hkv, dim=1)
+        bias = torch.zeros((b, hq, 1, t * ps), device="cuda")
+        bias.masked_fill_(~read[:, None, None, :], float("-inf"))
+        q4 = q[:, :, None].contiguous()
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        eff(q4, kc, vc, bias, True)
+        row["library_ms"] = time_ms(torch, lambda: eff(q4, kc, vc, bias, True),
+                                    50)
+        del kc, vc, bias
+    except (RuntimeError, NotImplementedError) as e:
+        row["library_note"] = f"none: {type(e).__name__}: {str(e)[:200]}"
+    lib = (f"{row['library_ms']:.5f} ms" if row["library_ms"] is not None
+           else row["library_note"])
+    print(f"[times] {row['name']} ({row['shape']}): kernel {row['ms']:.5f} ms "
+          f"(device {row['device_ms']:.5f} ms, {row['device_ms_method']}, cold "
+          f"L2; host {row['host_us']:.2f} us a call), plain "
+          f"{row['plain_ms']:.4f} ms, efficient attention with lse {lib}, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}); launches a rank "
+          f"{row['launches']}; max|kernel - plain| {err:.3e}", flush=True)
+    del q, kp, vp, tables, valids
+    torch.cuda.empty_cache()
+    return row
 
 
 def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches,

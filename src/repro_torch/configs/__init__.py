@@ -4,7 +4,9 @@
 reduced same-family variant for CPU tests. The port carries the four dense
 attention-only archs, the hybrid recurrentgemma-2b and the two MoE archs;
 the other families of ``ARCHS`` come with their models and are named in
-``UNPORTED_FAMILIES`` until then.
+``UNPORTED_FAMILIES`` until then. ``arch_config(id)`` reads any arch's full
+config, ported or not, for the arithmetic on it (``param_count``, the
+roofline of ``perf/roofline.py``).
 """
 
 from __future__ import annotations
@@ -85,6 +87,45 @@ class ArchConfig:
         """Encoder-only archs have no autoregressive step."""
         return self.causal
 
+    def param_count(self) -> int:
+        """Approximate N for MODEL_FLOPS (embedding included once)."""
+        d, L = self.d_model, self.num_layers
+        n = self.vocab_size * d * 2  # embed + head (untied)
+        att = d * self.num_heads * self.head_dim * 2 \
+            + d * self.num_kv_heads * self.head_dim * 2
+        mlp = 3 * d * self.d_ff if self.mlp_type == "gated_silu" \
+            else 2 * d * self.d_ff
+        if self.moe:
+            m = self.moe
+            mlp = m.num_experts * 3 * d * m.d_ff_expert + d * m.num_experts \
+                + m.num_shared_experts * 3 * d * m.d_ff_expert
+        rec = 0
+        if self.rglru:
+            dr = self.rglru.d_rnn
+            rec = 3 * d * dr + 2 * dr * dr + 4 * dr
+        if self.mamba:
+            mc = self.mamba
+            rec = 3 * d * mc.d_inner + mc.d_inner * (
+                2 * mc.ssm_state + 2 * mc.dt_rank + mc.ssm_state)
+        total = 0
+        for i in range(L):
+            kind = self.block_pattern[i % len(self.block_pattern)]
+            total += {"attn": att + mlp, "rec": rec + mlp,
+                      "ssm": rec}[kind] + 2 * d
+        return n + total
+
+    def active_param_count(self) -> int:
+        """N_active for MoE MODEL_FLOPS."""
+        if not self.moe:
+            return self.param_count()
+        m = self.moe
+        d, L = self.d_model, self.num_layers
+        att = d * self.num_heads * self.head_dim * 2 \
+            + d * self.num_kv_heads * self.head_dim * 2
+        mlp_active = (m.top_k + m.num_shared_experts) * 3 * d * m.d_ff_expert
+        return (self.vocab_size * d * 2
+                + L * (att + mlp_active + d * m.num_experts + 2 * d))
+
 
 ARCHS = [
     "llava_next_34b", "granite_3_2b", "qwen3_14b", "deepseek_67b",
@@ -106,6 +147,13 @@ def _module(name: str):
             f"{name}: the {UNPORTED_FAMILIES[name]} family is not yet ported "
             f"to repro_torch (dense, hybrid and moe archs only)")
     return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def arch_config(name: str) -> ArchConfig:
+    """The full config of any arch of ``ARCHS``, its family ported or not
+    (parameter counts and rooflines need no model)."""
+    return importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_')}").CONFIG
 
 
 def get_config(name: str) -> ArchConfig:

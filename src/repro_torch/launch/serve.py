@@ -1,7 +1,9 @@
 """Serving launcher of the port: batched prefill + greedy decode on the
 contiguous cache, or continuous batching over a paged cache with
 ``--paged``, sharded over ``--mesh N`` ranks (counterpart of
-``repro.launch.serve`` without ``--autotune``).
+``repro.launch.serve``). ``--autotune`` picks the decode's split count with
+the planner of ``perf/autotune.py`` for the card's kernel, on both caches
+(an explicit ``--num-splits`` wins).
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
@@ -30,10 +32,11 @@ On the CPU, at smoke size (the kernels' plain versions):
       --requests 4 --prompt-len 16 --gen 4
 
 The hybrid recurrentgemma-2b (RG-LRU and local-attention blocks) serves on
-both caches, not over ``--mesh``; ``--share-prefix`` and ``--speculate``
-exit with the engine's refusal, as in JAX:
+both caches and over ``--mesh`` (every rank keeps every recurrent state
+row); ``--share-prefix`` and ``--speculate`` exit with the engine's
+refusal, as in JAX:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
-      --smoke --device cpu [--paged]
+      --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
 
 The MoE archs (deepseek-moe-16b, dbrx-132b) serve on every path, the
 paged engine's modes and ``--mesh`` included (expert routing is stateless
@@ -167,6 +170,10 @@ def main(argv=None):
                          "(serving/faults.py) injecting pool exhaustion, "
                          "preemption storms, freed-page poison, NaN logits "
                          "and cancellations (-1 = off)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="pick --num-splits from the perf/autotune.py cost "
+                         "model (persistent cache; explicit --num-splits "
+                         "wins)")
     args = ap.parse_args(argv)
 
     try:
@@ -183,15 +190,19 @@ def main(argv=None):
         raise SystemExit("--mesh shards the page pool: it needs --paged (the "
                          "contiguous cache over a mesh needs the sharding "
                          "rules, not yet ported)")
-    if n_ranks and "rec" in cfg.block_pattern:
-        raise SystemExit(f"{cfg.name}: serving recurrent blocks over --mesh "
-                         f"is not yet ported")
     if args.paged:
         return serve_paged(cfg, args, device, n_ranks)
 
-    arts = make_serve_steps(cfg, impl=args.impl,
-                            max_len=args.prompt_len + args.gen,
-                            batch=args.batch, num_splits=args.num_splits or 1,
+    max_len = args.prompt_len + args.gen
+    num_splits = args.num_splits or 1
+    if args.autotune and not args.num_splits:
+        plan = autotuned_plan(cfg, args.batch, max_len, device)
+        num_splits = plan.num_splits
+        print(f"autotune: num_splits={plan.num_splits} "
+              f"block_kv={plan.block_kv} ({plan.source}, "
+              f"predicted {plan.time_s*1e6:.1f}us/layer)")
+    arts = make_serve_steps(cfg, impl=args.impl, max_len=max_len,
+                            batch=args.batch, num_splits=num_splits,
                             torch_chunk=min(1024, args.prompt_len),
                             device=device)
     params = lm.init_params(cfg, seed=args.seed, device=device)
@@ -205,6 +216,20 @@ def main(argv=None):
           f"({steps*args.batch/max(res.decode_s,1e-9):.1f} tok/s)")
     print("generated (first row):", res.tokens[0, :16].cpu().numpy())
     return res
+
+
+def autotuned_plan(cfg, batch: int, max_len: int, device):
+    """``--autotune``'s plan for the contiguous cache's decode: the
+    ``perf/autotune.py`` planner at every row's full reach, through the
+    persistent cache, for ``device``'s kernel. A windowed arch keeps a ring
+    of window slots, every one of them read once it is full."""
+    from repro_torch.perf.autotune import (DecodeShape, device_name,
+                                           plan_decode_persistent)
+    shape = DecodeShape(batch=batch, hkv=cfg.num_kv_heads,
+                        group=cfg.num_heads // cfg.num_kv_heads,
+                        kv_len=min(max_len, cfg.attn_window or max_len),
+                        head_dim=cfg.head_dim, dtype_bytes=cfg.dtype.itemsize)
+    return plan_decode_persistent(shape, device=device_name(device))
 
 
 def paged_requests(cfg, pcfg, args, rs: np.random.RandomState):
@@ -283,6 +308,7 @@ def _run_engine(cfg, args, device, mesh=None):
         eng = ServingEngine(cfg, pcfg, params, impl=args.impl, device=device,
                             mesh=mesh, prefill_len=prefill_len, lazy=args.lazy,
                             num_splits=args.num_splits or None,
+                            autotune=args.autotune,
                             share_prefix=args.share_prefix,
                             prefill_chunk=args.prefill_chunk or None,
                             speculate_k=args.speculate or None,
@@ -298,9 +324,9 @@ def _run_engine(cfg, args, device, mesh=None):
 
 def _serve_rank(mesh, device, cfg, args):
     """One rank of ``--paged --mesh N``: what rank 0 prints, from every rank
-    (the parent checks that they agree)."""
+    (the parent checks that they agree), and its decode split count."""
     out, stats, eng = _run_engine(cfg, args, device, mesh)
-    return out, stats, eng.results
+    return out, stats, eng.results, eng.num_splits
 
 
 def serve_paged(cfg, args, device, n_ranks: int = 0):
@@ -313,8 +339,6 @@ def serve_paged(cfg, args, device, n_ranks: int = 0):
     if plan is not None:
         print(f"fault plan (seed {plan.seed}): "
               + " ".join(f"{e.kind}@{e.step}" for e in plan.events))
-    if args.num_splits:
-        print(f"decode num_splits: {args.num_splits}")
     if n_ranks:
         backend = args.dist_backend or pool_mesh.default_backend(device.type)
         ranks = pool_mesh.run_ranks(_serve_rank, n_ranks, (cfg, args),
@@ -323,18 +347,28 @@ def serve_paged(cfg, args, device, n_ranks: int = 0):
                             for r in range(n_ranks))
         print(f"mesh: {n_ranks} ranks on the pool axis, backend {backend}, "
               f"devices {devices}")
-        out, stats, results = ranks[0]
-        for r, (o, st, _) in enumerate(ranks[1:], 1):
+        out, stats, results, splits = ranks[0]
+        for r, (o, st, _, ns) in enumerate(ranks[1:], 1):
             same = set(o) == set(out) and all(np.array_equal(o[k], out[k])
                                               for k in out)
-            if not same or st != stats:
-                raise RuntimeError(f"rank {r} served other outputs or stats "
-                                   f"than rank 0")
+            if not same or st != stats or ns != splits:
+                raise RuntimeError(f"rank {r} served other outputs, stats or "
+                                   f"split counts than rank 0")
+        _print_splits(args, splits)
         _print_summary(args, out, stats, results)
         return out, stats, ranks
     out, stats, eng = _run_engine(cfg, args, device)
+    _print_splits(args, eng.num_splits)
     _print_summary(args, out, stats, eng.results)
     return out, stats, eng
+
+
+def _print_splits(args, num_splits: int) -> None:
+    """JAX's line naming the decode split count, when one was asked for."""
+    if args.autotune or args.num_splits:
+        print(f"decode num_splits: {num_splits}"
+              + (" (autotuned)" if args.autotune and not args.num_splits
+                 else ""))
 
 
 def _print_summary(args, out, stats, results):

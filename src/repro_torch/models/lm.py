@@ -255,13 +255,10 @@ def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda", mesh=None):
     per-slot state rows ``{"h", "conv"}`` [max_batch + 1, ...]: slot i backs
     decode slot i, and the trailing trash row absorbs padding tokens'
     gathers and scatters (host-side slot lifecycle in
-    ``serving/state_cache.py``). The recurrent rows over a mesh are not yet
-    ported."""
+    ``serving/state_cache.py``). Under a mesh every rank keeps all of them
+    beside its shard of the pools: each rank holds the whole model and sees
+    the same tokens, so its recurrent blocks compute the same state."""
     kinds = block_kinds(cfg)
-    if mesh is not None and "rec" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: serving recurrent blocks over a pool mesh is not "
-            f"yet ported")
     dtype = dtype or cfg.dtype
     n = 1 if mesh is None else mesh.size
     local = pages_per_shard(paged_cfg.num_pages, n) if n > 1 else None

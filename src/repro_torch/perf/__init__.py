@@ -1,9 +1,13 @@
-"""Measurement tools for the port's kernels on the card.
+"""Measurement tools for the port's kernels on the card, and the models
+that read the card's constants (``roofline.py``, where those constants
+live, and the decode planner ``autotune.py``).
 
-The bounds they compute use the H100 SXM's published dense rates (NVIDIA's
-data sheet): device memory 3.35 TB/s, tensor cores 495 TFLOP/s in TF32 (an
-f32 product on tensor cores) and 989 TFLOP/s in bf16.
+``HBM_BYTES_PER_S`` and ``PEAK_FLOPS`` are ``roofline``'s, under the names
+that older trees' ``perf/decode_times.py`` imports (a checkout of another
+commit is timed with this tree's script).
 """
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+from repro_torch.perf.roofline import HBM_BW as HBM_BYTES_PER_S
+from repro_torch.perf.roofline import PEAK_FLOPS
+
+__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS"]

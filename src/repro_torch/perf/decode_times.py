@@ -49,6 +49,7 @@ import inspect
 import json
 import subprocess
 import time
+from typing import Optional
 
 import torch
 
@@ -157,13 +158,14 @@ def host_us(fn, iters: int = 100, repeats: int = 7, warmup: int = 20) -> float:
     return sorted(runs)[repeats // 2]
 
 
-def device_ms(calls, reps: int = 200, kernel: str = KERNEL):
+def device_ms(calls, reps: int = 200, kernel: Optional[str] = KERNEL):
     """``(ms, method)``: the mean device time of one launch of the kernel
     whose name holds ``kernel`` over ``reps`` calls rotating over ``calls``
     (one a cache copy; each may launch other kernels too), from
     ``torch.profiler``; from CUDA events around a CUDA graph of the same
     calls where the profiler records no launch (the other kernels then
-    count)."""
+    count). ``kernel`` None: every kernel a call launches, summed a call
+    (a split launch's merge included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -177,13 +179,14 @@ def device_ms(calls, reps: int = 200, kernel: str = KERNEL):
                 calls[i % len(calls)]()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and kernel in e.key:
+            if e.device_type == DeviceType.CUDA and (kernel is None
+                                                     or kernel in e.key):
                 total += e.self_device_time_total
                 count += e.count
     except RuntimeError as e:   # no CUPTI: the graph below
         print(f"[decode_times] profiler: {type(e).__name__}: {e}")
     if count:
-        return total / count / 1e3, "torch.profiler"
+        return total / (count if kernel else reps) / 1e3, "torch.profiler"
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()

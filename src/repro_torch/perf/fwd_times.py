@@ -44,7 +44,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, flash_fwd, rng
-from repro_torch.perf import HBM_BYTES_PER_S, PEAK_FLOPS
+from repro_torch.perf.roofline import HBM_BW, PEAK_FLOPS
 from repro_torch.perf.decode_times import device_ms, time_ms
 
 #: shape -> (B, Hq, Hkv, S, D, window); every shape is causal
@@ -78,7 +78,7 @@ def bounds(shape: str, dtype) -> dict:
     flops = 4 * b * hq * d * causal_pairs(s, window)   # QK^T and PV on allowed pairs
     el = torch.tensor([], dtype=dtype).element_size()
     nbytes = el * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / HBM_BW
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
     out = {"bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops > t_bytes else "bytes"}

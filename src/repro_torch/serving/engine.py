@@ -88,10 +88,18 @@ Prefix sharing and speculation are attention-only (the index certifies KV
 pages, not state; cumulative state cannot roll back) and raise on
 recurrent archs.
 
-What the port leaves out, with a clear error: ``autotune=`` (the
-split-count cost model is seeded for a TPU) and recurrent archs over a
-pool mesh.  Every removal of an active sequence still records a typed
-outcome.
+Under a mesh the recurrent layers keep every state row on every rank, beside
+the rank's shard of the pools: each rank holds the whole model and sees the
+same tokens, so its recurrent blocks compute the same state, and the state
+hooks (admission, release, ``poison_reclaimed``) run on every rank as the
+host decisions do.  Every removal of an active sequence still records a
+typed outcome.
+
+Split-count autotuning (``autotune=``): the decode and verify steps run with
+the split count ``perf/autotune.py`` plans for the card's kernel at this
+engine's worst-case geometry (every slot at its full block-table reach;
+under a mesh one shard's launch over it, planned on rank 0 and broadcast so
+that every rank launches alike); an explicit ``num_splits`` wins.
 """
 
 from __future__ import annotations
@@ -137,7 +145,8 @@ class ServingEngine:
         attention impl (``core.attention.IMPLS``); torch_chunk: the KV chunk
         of ``impl="torch"``'s prefill. mesh: shard the page pool over the
         ranks of a ``distributed.mesh.PoolMesh`` (module docstring); ``device``
-        is then this rank's. autotune: not ported (raises).
+        is then this rank's. autotune: pick ``num_splits`` with the
+        ``perf/autotune.py`` planner (module docstring).
         lazy: admission policy (module docstring). reclaim: free
         fully-out-of-window pages each step — defaults to "whenever the arch
         has a sliding window"; pass False to pin pages for a model's whole
@@ -171,10 +180,6 @@ class ServingEngine:
         prefill, no completions) the livelock watchdog tolerates before it
         fails a stuck row with a diagnostic ``FAILED`` outcome."""
         assert cfg.causal, "serving needs an autoregressive arch"
-        if autotune:
-            raise NotImplementedError(
-                "autotune= is not yet ported: its cost model is seeded for a "
-                "TPU; pass num_splits")
         self.has_state = any(k != "attn" for k in cfg.block_pattern)
         if self.has_state and share_prefix:
             raise ValueError(
@@ -203,7 +208,9 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be at least one token")
         self.prefill_chunk = prefill_chunk
-        self.num_splits = num_splits = num_splits or 1
+        if num_splits is None:
+            num_splits = self._autotuned_splits() if autotune else 1
+        self.num_splits = num_splits
         if speculate_k is not None and speculate_k < 0:
             raise ValueError("speculate_k must be a non-negative draft width")
         self.speculate_k = int(speculate_k or 0)
@@ -253,6 +260,37 @@ class ServingEngine:
         self._nan_pending: List[int] = []          # fault args awaiting decode
         self._fault_pocket: List[Tuple[int, List[int]]] = []
         # (release-at iteration, pages) held by the "exhaust" fault
+
+    def decode_shape(self):
+        """The worst-case decode geometry this engine can see, as the
+        autotune planner takes it: every slot active at its full
+        block-table reach, with its window; under a mesh, one shard's
+        launch over that table (``DecodeShape.shards``)."""
+        from repro_torch.perf.autotune import DecodeShape
+        return DecodeShape(
+            batch=self.pcfg.max_batch,
+            hkv=self.cfg.num_kv_heads,
+            group=self.cfg.num_heads // self.cfg.num_kv_heads,
+            kv_len=self.pcfg.max_pages_per_seq * self.pcfg.page_size,
+            head_dim=self.cfg.head_dim,
+            page_size=self.pcfg.page_size,
+            dtype_bytes=self.cfg.dtype.itemsize,
+            window=self.window or 0,
+            shards=1 if self.mesh is None else self.mesh.size)
+
+    def _autotuned_splits(self) -> int:
+        """The decode step's split count from the autotune planner, for
+        :meth:`decode_shape`. Plans memoise in the persistent autotune
+        cache (``perf/autotune.py``), keyed by that geometry and the
+        device; under a mesh rank 0 plans and broadcasts its count."""
+        from repro_torch.perf.autotune import (device_name,
+                                               plan_decode_persistent)
+        mesh = self.mesh
+        if mesh is not None and mesh.rank != 0:
+            return mesh.broadcast_object(None)
+        splits = plan_decode_persistent(
+            self.decode_shape(), device=device_name(self.device)).num_splits
+        return splits if mesh is None else mesh.broadcast_object(splits)
 
     # -- request intake ----------------------------------------------------
     def submit(self, tokens, max_new_tokens: int, rid: Optional[int] = None,

@@ -17,7 +17,11 @@ on their shards, held against JAX's single-device ops on the whole pool;
 and the port's ``ServingEngine(mesh=, impl="torch")`` on qwen3-14b SMOKE
 with ``vocab_pad_to=2`` params from JAX, token for token against JAX's
 single-device ``ServingEngine(impl="xla")`` with the same pool
-configuration (as JAX's sharded-engine test holds its own), in five modes.
+configuration (as JAX's sharded-engine test holds its own), in five modes;
+and the hybrid recurrentgemma-2b SMOKE in three (eager, lazy with a
+storm-forced preemption, chunked prefill; ``poison_reclaimed`` and prompts
+past its 32-token window), against JAX's engine and the port's
+single-device one.
 The ranks' functions live here; a spawned rank imports this module.
 """
 
@@ -321,8 +325,16 @@ def _rank_job(mesh, device, job):
     tparams = convert_params(tcfg, job["params"], device=device)
     res["restore"] = _crash_restore_on_rank(mesh, device, tcfg, tparams,
                                             *job["engine"]["eager"])
-    for mode, (pcfg, prefill_len, kw, reqs) in job["engine"].items():
-        eng = tserving.ServingEngine(tcfg, pcfg, tparams, impl="torch",
+    hcfg, htree, hybrid = job["hybrid"]
+    hparams = convert_params(hcfg, htree, device=device)
+    pcfg, prefill_len, _, _ = hybrid["hybrid_eager"]
+    res["autotune"] = tserving.ServingEngine(
+        hcfg, pcfg, hparams, impl="torch", device=device, mesh=mesh,
+        prefill_len=prefill_len, autotune=True).num_splits
+    runs = [(tcfg, tparams, mode, j) for mode, j in job["engine"].items()]
+    runs += [(hcfg, hparams, mode, j) for mode, j in hybrid.items()]
+    for cfg, params, mode, (pcfg, prefill_len, kw, reqs) in runs:
+        eng = tserving.ServingEngine(cfg, pcfg, params, impl="torch",
                                      device=device, mesh=mesh,
                                      prefill_len=prefill_len, torch_chunk=16,
                                      **kw)
@@ -342,7 +354,10 @@ def _rank_job(mesh, device, job):
             "outcomes": {rid: r.outcome.value for rid, r in eng.results.items()},
             "allocated": alloc.num_allocated,
             "free_or_cached": alloc.num_free + alloc.num_cached,
-            "pool_shape": tuple(eng.caches[0]["k_pages"].shape)}
+            "pool_shape": next(tuple(c["k_pages"].shape) for c in eng.caches
+                               if "k_pages" in c),
+            "state_rows": [tuple(c["h"].shape) for c in eng.caches if "h" in c],
+            "state_free": eng.scheduler.tables.state.num_free}
     return res
 
 
@@ -381,6 +396,19 @@ MODES = {
     "speculate_3": ((8, 12, 2, 3), 24, {"speculate_k": 3}, {"motif": True}),
     "fault_plan": ((8, 12, 2, 3), 24, {"fault_plan": 17}, {}),
 }
+# recurrentgemma-2b SMOKE (window 32): prompts past the window, so pages of
+# the sharded pool are reclaimed (and poisoned) while every rank keeps every
+# recurrent state row; the lazy mode's preemptions forced by a storm plan
+_HYBRID_LENS = ((40, 6), (36, 8), (45, 1), (38, 5))
+HYBRID_MODES = {
+    "hybrid_eager": ((8, 16, 2, 7), 48, {"poison_reclaimed": True}, {}),
+    "hybrid_lazy": ((8, 16, 2, 7), 56,
+                    {"lazy": True, "poison_reclaimed": True,
+                     "fault_plan": dict(seed=3, horizon=16, events_per_kind=3,
+                                        kinds=("storm",))}, {}),
+    "hybrid_chunk": ((8, 16, 2, 7), 48,
+                     {"prefill_chunk": 12, "poison_reclaimed": True}, {}),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -396,29 +424,57 @@ def _qwen():
     return jcfg, tcfg, params, jax.tree.map(np.asarray, params)
 
 
+@functools.lru_cache(maxsize=None)
+def _hybrid():
+    """recurrentgemma-2b SMOKE, f32, params from JAX: as :func:`_qwen`."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("recurrentgemma_2b"),
+                               dtype=jnp.float32, remat=False)
+    tcfg = dataclasses.replace(tconfigs.smoke_config("recurrentgemma_2b"),
+                               dtype=torch.float32)
+    params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(3))
+    return jcfg, tcfg, params, jax.tree.map(np.asarray, params)
+
+
 def _mode(mode, fault_plan_cls):
-    (ps, n_pages, mb, mp), prefill_len, kw, rkw = MODES[mode]
+    (ps, n_pages, mb, mp), prefill_len, kw, rkw = {**MODES, **HYBRID_MODES}[mode]
     kw = dict(kw)
     if "fault_plan" in kw:
-        kw["fault_plan"] = fault_plan_cls(seed=kw["fault_plan"], horizon=24)
+        plan = kw["fault_plan"]
+        kw["fault_plan"] = (fault_plan_cls(**plan) if isinstance(plan, dict)
+                            else fault_plan_cls(seed=plan, horizon=24))
     return (ps, n_pages, mb, mp), prefill_len, kw, rkw
 
 
-@pytest.fixture(scope="module")
-def ranks():
-    """Both ranks' results, spawned once for the module."""
-    _, tcfg, _, tree = _qwen()
-    engine = {}
-    for mode in MODES:
-        (ps, n_pages, mb, mp), prefill_len, kw, rkw = _mode(mode, tserving.FaultPlan)
+def _engine_jobs(modes, vocab, lens, fault_plan_cls):
+    """{mode: (pool config of two shards, prefill_len, engine kwargs,
+    requests)} of the port for ``modes``."""
+    jobs = {}
+    for mode in modes:
+        (ps, n_pages, mb, mp), prefill_len, kw, rkw = _mode(mode, fault_plan_cls)
         pcfg = tserving.PagedCacheConfig(page_size=ps, num_pages=n_pages,
                                          max_batch=mb, max_pages_per_seq=mp,
                                          num_shards=N_RANKS)
-        engine[mode] = (pcfg, prefill_len, kw,
-                        _reqs(tcfg.vocab_size, _LENS, **rkw))
-    job = {"ops": _ops_inputs(), "cfg": tcfg, "params": tree, "engine": engine}
-    return tmesh.run_ranks(_rank_job, N_RANKS, (job,), backend="gloo",
-                           device_type="cpu", timeout_s=600)
+        jobs[mode] = (pcfg, prefill_len, kw, _reqs(vocab, lens, **rkw))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Both ranks' results, spawned once for the module (an autotuned
+    engine's plan persists under a temporary directory)."""
+    _, tcfg, _, tree = _qwen()
+    _, hcfg, _, htree = _hybrid()
+    job = {"ops": _ops_inputs(), "cfg": tcfg, "params": tree,
+           "engine": _engine_jobs(MODES, tcfg.vocab_size, _LENS,
+                                  tserving.FaultPlan),
+           "hybrid": (hcfg, htree, _engine_jobs(
+               HYBRID_MODES, hcfg.vocab_size, _HYBRID_LENS,
+               tserving.FaultPlan))}
+    cache = str(tmp_path_factory.mktemp("autotune") / "at.json")
+    with pytest.MonkeyPatch.context() as mp:   # the spawned ranks inherit it
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE", cache)
+        return tmesh.run_ranks(_rank_job, N_RANKS, (job,), backend="gloo",
+                               device_type="cpu", timeout_s=600)
 
 
 def _gathered(results, key, part=None):
@@ -491,22 +547,47 @@ def test_poison_pages_sharded(ranks):
         np.testing.assert_array_equal(_gathered(ranks, "poison", part), want)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("mode", list(MODES) + list(HYBRID_MODES))
 def test_sharded_engine_matches_jax_single_device(ranks, mode):
     """Token for token against JAX's single-device engine on the same pool
     configuration (num_shards=2 reserves the same trash pages), equal on
-    both ranks, every page returned at the end."""
-    jcfg, _, params, _ = _qwen()
+    both ranks, every page returned at the end. The hybrid's modes also
+    against the port's single-device engine, with every state row on each
+    rank and every one free at the end."""
+    hybrid = mode in HYBRID_MODES
+    jcfg, tcfg, params, tree = _hybrid() if hybrid else _qwen()
+    lens = _HYBRID_LENS if hybrid else _LENS
     (ps, n_pages, mb, mp), prefill_len, kw, rkw = _mode(mode, jserving.FaultPlan)
     pcfg = jserving.PagedCacheConfig(page_size=ps, num_pages=n_pages,
                                      max_batch=mb, max_pages_per_seq=mp,
                                      num_shards=N_RANKS)
     jeng = jserving.ServingEngine(jcfg, pcfg, params, impl="xla",
                                   prefill_len=prefill_len, xla_chunk=16, **kw)
-    jout, jstats = jeng.run(_reqs(jcfg.vocab_size, _LENS, **rkw))
+    reqs = _reqs(jcfg.vocab_size, lens, **rkw)
+    jout, jstats = jeng.run(list(reqs))
     r0, r1 = (r["engine"][mode] for r in ranks)
     assert r0["pool_shape"] == (jcfg.num_kv_heads, n_pages // N_RANKS, ps,
                                 jcfg.head_dim)
+    if hybrid:
+        _, _, tkw, _ = _mode(mode, tserving.FaultPlan)
+        single, _ = tserving.ServingEngine(
+            tcfg, tserving.PagedCacheConfig(page_size=ps, num_pages=n_pages,
+                                            max_batch=mb, max_pages_per_seq=mp,
+                                            num_shards=N_RANKS),
+            convert_params(tcfg, tree, device="cpu"), impl="torch",
+            device="cpu", prefill_len=prefill_len, torch_chunk=16,
+            **tkw).run(list(reqs))
+        assert jstats["pages_reclaimed"] > 0
+        for r in (r0, r1):
+            assert r["state_rows"] and all(rows[0] == mb + 1
+                                           for rows in r["state_rows"])
+            assert r["state_free"] == mb
+            assert r["stats"]["pages_reclaimed"] == jstats["pages_reclaimed"]
+            assert r["stats"]["state_releases"] == jstats["state_releases"]
+            assert set(r["out"]) == set(single)
+            for rid in single:
+                np.testing.assert_array_equal(r["out"][rid], single[rid],
+                                              err_msg=f"{mode}: request {rid}")
     for r in (r0, r1):
         assert set(r["out"]) == set(jout) and jout
         for rid in jout:
@@ -521,8 +602,10 @@ def test_sharded_engine_matches_jax_single_device(ranks, mode):
         assert r["allocated"] == 0
         assert r["free_or_cached"] == pcfg.usable_pages
     assert r0["stats"] == r1["stats"] and r0["cow_pairs"] == r1["cow_pairs"]
-    if mode == "lazy_preempt":
+    if mode in ("lazy_preempt", "hybrid_lazy"):
         assert r0["stats"]["preemptions"] >= 1 and r0["stats"]["pages_grown"] >= 1
+    if mode == "hybrid_chunk":
+        assert r0["stats"]["prefill_tokens"] == jstats["prefill_tokens"] > 0
     if mode == "prefix_chunk":
         n_local = n_pages // N_RANKS
         assert r0["stats"]["prefill_tokens_skipped"] > 0
@@ -531,6 +614,20 @@ def test_sharded_engine_matches_jax_single_device(ranks, mode):
             f"no copy-on-write crossed shards: {r0['cow_pairs']}"
     if mode == "speculate_3":
         assert r0["stats"]["accepted_tokens"] > 0
+
+
+def test_sharded_engine_autotune_plans_one_shard(ranks):
+    """Under a mesh, rank 0 plans for one shard's launch over the whole
+    reach (with the window) and every rank takes its split count."""
+    from repro_torch.perf.autotune import DecodeShape, plan_decode
+
+    _, hcfg, _, _ = _hybrid()
+    (ps, _, mb, mp), _, _, _ = HYBRID_MODES["hybrid_eager"]
+    shape = DecodeShape(batch=mb, hkv=hcfg.num_kv_heads,
+                        group=hcfg.num_heads // hcfg.num_kv_heads,
+                        kv_len=mp * ps, head_dim=hcfg.head_dim, page_size=ps,
+                        dtype_bytes=4, window=hcfg.attn_window, shards=N_RANKS)
+    assert [r["autotune"] for r in ranks] == [plan_decode(shape).num_splits] * 2
 
 
 def test_sharded_crash_snapshot_restore_resumes_token_identical(ranks):

@@ -4,7 +4,8 @@
 ``repro.serving.ServingEngine(impl="xla")`` on the same params (carried
 across by ``models/convert.py``), page-pool configuration and requests:
 token-identical generations and equal outcome counts in every mode the JAX
-suite serves an attention-only arch with. Also: the paged engine against
+suite serves an attention-only arch with, ``autotune=`` included (each
+engine plans for its own device). Also: the paged engine against
 the port's contiguous ``greedy_generate``, the copied numpy host layer
 against its JAX original, a crash / snapshot / restore, and the ``--paged``
 CLI.
@@ -81,6 +82,8 @@ _MODES = {
     "window_reclaim_poison": (6, (4, 8, 2, 8), 32,
                               {"lazy": True, "poison_reclaimed": True}, {}),
     "fault_plan": (None, (8, 11, 2, 3), 24, {"fault_plan": 17}, {}),
+    # each engine plans its split count for its own device's kernel
+    "autotune": (None, (4, 13, 2, 6), 24, {"autotune": True}, {}),
 }
 
 
@@ -104,7 +107,10 @@ def _engines(mode):
 
 
 @pytest.mark.parametrize("mode", list(_MODES))
-def test_engine_matches_jax(mode):
+def test_engine_matches_jax(mode, tmp_path, monkeypatch):
+    # autotuned plans persist under tmp_path, each package's in its own file
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "port.json"))
     jeng, teng, reqs = _engines(mode)
     jout, jstats = jeng.run(list(reqs))
     tout, tstats = teng.run(list(reqs))
@@ -128,6 +134,9 @@ def test_engine_matches_jax(mode):
         assert tstats["prefill_tokens_skipped"] > 0
     if mode == "speculate_3":
         assert tstats["accepted_tokens"] > 0
+    if mode == "autotune":
+        assert (tmp_path / "port.json").exists()
+        assert teng.num_splits >= 1 and jeng.num_splits >= 1
     alloc = teng.scheduler.tables.allocator
     assert alloc.num_allocated == 0
     assert alloc.num_free + alloc.num_cached == teng.pcfg.usable_pages
@@ -192,8 +201,6 @@ def test_engine_refuses_unported_modes():
                                          "model-axis size 2"):
         tserving.ServingEngine(tcfg, pcfg, tparams, device="cpu",
                                mesh=PoolMesh(group=None, rank=0, size=2))
-    with pytest.raises(NotImplementedError, match="autotune"):
-        tserving.ServingEngine(tcfg, pcfg, tparams, device="cpu", autotune=True)
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)

@@ -546,6 +546,47 @@ def test_paged_engine_kernel_matches_torch(cuda):
         assert (outs["kernel"][rid] == outs["torch"][rid]).all(), rid
 
 
+def test_autotuned_engine_on_the_card(cuda, tmp_path, monkeypatch):
+    """A SMOKE engine built with autotune=True on the card serves the tokens
+    of num_splits=1, and the plan it persisted names the card; a cached plan
+    of three splits is taken and serves them too."""
+    import json
+
+    from repro_torch.perf.autotune import AutotuneCache, DecodeShape, LaunchPlan
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    cfg = dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=n), g)
+            for n, g in ((140, 12), (25, 20), (133, 8), (150, 16), (12, 10))]
+    pcfg = PagedCacheConfig(page_size=8, num_pages=72, max_batch=3,
+                            max_pages_per_seq=22)
+    kw = dict(impl="kernel", device="cuda", prefill_len=176)
+    want, _ = ServingEngine(cfg, pcfg, params, num_splits=1, **kw).run(list(reqs))
+    name = torch.cuda.get_device_name(0)
+    shape = DecodeShape(batch=3, hkv=cfg.num_kv_heads,
+                        group=cfg.num_heads // cfg.num_kv_heads, kv_len=176,
+                        head_dim=cfg.head_dim, page_size=8, dtype_bytes=4)
+    eng = ServingEngine(cfg, pcfg, params, autotune=True, **kw)
+    raw = json.loads((tmp_path / "at.json").read_text())
+    assert raw[shape.key()]["device"] == name
+    assert raw[shape.key()]["num_splits"] == eng.num_splits
+    cache = AutotuneCache(device=name)
+    cache.put(shape, LaunchPlan(num_splits=3, block_kv=64, time_s=1e-5))
+    cache.save()
+    eng_3 = ServingEngine(cfg, pcfg, params, autotune=True, **kw)
+    assert eng_3.num_splits == 3
+    for e in (eng, eng_3):
+        before = kdecode.launches_paged
+        out, stats = e.run(list(reqs))
+        assert kdecode.launches_paged > before
+        assert stats["outcomes"]["completed"] == len(reqs)
+        for rid in want:
+            assert (out[rid] == want[rid]).all(), rid
+
+
 # ---- recurrentgemma-2b's attention: head dim 256, 10 query heads on one kv
 # head, a sliding window; the kernels take 32-row ring tiles there ----
 

@@ -482,5 +482,15 @@ def test_serve_cli_drives_the_hybrid(capsys):
                          (["--speculate", "3"], "speculative")):
         with pytest.raises(SystemExit, match=match):
             tserve.main(base + ["--paged", "--requests", "2"] + extra)
-    with pytest.raises(SystemExit, match="mesh"):
-        tserve.main(base + ["--paged", "--mesh", "2"])
+    # over --mesh every rank keeps every recurrent state row; prompts past
+    # the 32-token window reclaim pages of the sharded pool
+    mesh = ["--paged", "--requests", "4", "--prompt-len", "48", "--gen", "6"]
+    out_m, stats_m, ranks = tserve.main(base + mesh + [
+        "--mesh", "2", "--dist-backend", "gloo"])
+    assert "mesh: 2 ranks on the pool axis" in capsys.readouterr().out
+    assert len(ranks) == 2 and stats_m["outcomes"]["completed"] == 4
+    assert stats_m["pages_reclaimed"] > 0
+    out_1, _, _ = tserve.main(base + mesh)
+    assert set(out_m) == set(out_1)
+    for rid in out_1:
+        np.testing.assert_array_equal(out_m[rid], out_1[rid])
