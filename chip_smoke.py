@@ -143,6 +143,25 @@ Phases, each of which exits non-zero on failure:
              requests: its paged-kernel launches at the planned split,
              tokens equal to 4b's up to a printed near-tie (one JSON line
              ``{"planner": ...}`` before the kernels' line);
+4g. ssm    — falcon-mamba-7b (the ssm family: 64 mixer-only Mamba-1
+             blocks, no attention layer, so no kernel of the port; d_model
+             4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
+             65024; 7.27 B params) at full width and depth, f32, random
+             weights from seed 0: (a) the contiguous path, batch 4, prompt
+             1024, 32 generated, every decode step's logits held to one
+             full forward (the chunked scan) over prompt and generated
+             tokens at ``LOGIT_REL_TOL``, the step-equals-scan identity;
+             (b) the paged engine (page 16, 8 slots) on 8 seeded requests
+             of 256-1024 prompt tokens (multiples of 256, the scan's chunk)
+             and 32 new ones in three modes: eager; lazy on half the pool
+             with preemption forced by a seeded storm plan and
+             ``poison_reclaimed``; chunked prefill of 256: every request's
+             tokens equal to (a)'s single-sequence greedy run of its prompt
+             up to a printed near-tie; prefix sharing, speculation and
+             ``autotune`` refused. Prints prefill ms, decode ms a step
+             beside the bound of reading the weights and state rows once,
+             engine tokens/s a mode, peak memory and one profiled decode
+             step (busy and idle share, top kernels);
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -170,6 +189,13 @@ Phases, each of which exits non-zero on failure:
              counters 8 / 4; (b) 4 steps with ``moe_aux`` and
              ``moe_dropped`` each, step time, tokens/s, peak memory, then a
              profiled step;
+5d. ssm    — falcon-mamba-7b's training at full width and 8 of its 64
+             layers (f32, remat, batch 1 × 2048 from ``make_batch``, AdamW
+             without master): 4 steps, step time, tokens/s and peak memory,
+             then a profiled step; and one full-width Mamba layer (batch 1,
+             S 512) whose output and input and weight gradients from the
+             chunked scan are held to the sequential ``_ssm_step`` loop's
+             (``MAMBA_GRAD_TOL`` of each leaf's max);
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -279,6 +305,29 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
 PAGED_LAYERS = 20
 MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
               "lm_head")
+# phase 4g, falcon-mamba-7b at full width and depth: contiguous batch 4 x
+# (1024 + 32); the paged engine on 8 requests of 256-1024 prompt tokens, 32
+# new each. Every scan length is a multiple of the 256-token chunk (a
+# length that is not is scanned as one chunk: 1 GiB an operand for a
+# 2048-token row at this width)
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, MAMBA_REQUESTS = 4, 1024, 32, 8
+MAMBA_MODES = {
+    # name: (engine kwargs beyond page 16 and 8 slots, prefill row length
+    # (a multiple of 256), half the pool)
+    "eager": ({}, MAMBA_PROMPT, False),
+    # a preempted row re-prefills prompt + generated (up to 1055 tokens)
+    "lazy": ({"lazy": True, "poison_reclaimed": True,
+              "fault_plan": dict(seed=3, horizon=40, events_per_kind=3,
+                                 kinds=("storm",))},
+             1280, True),
+    "chunk_256": ({"prefill_chunk": 256}, 256, False),
+}
+# phase 5d, falcon-mamba-7b at full width and 8 layers: batch 1 x 2048; the
+# scan-vs-step check of one layer at batch 1 x 512 holds the output and
+# every gradient leaf to the JAX suite's f32 gradient tolerance of the
+# leaf's max
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 8, 1, 2048
+MAMBA_CHECK_SEQ, MAMBA_GRAD_TOL = 512, 5e-5
 # the training phases: arch → (tag, batch, seq, leaves checked, AdamW's f32
 # master copy, layers (None: the config's))
 TRAIN_SETUPS = {
@@ -406,11 +455,17 @@ def main(argv=None) -> None:
     plans = planner_phase(torch, kfwd, kdecode, paged_tokens)
     clock("phase 4f (the decode planner)")
 
+    # ---------------- phase 4g: the ssm family ----------------
+    mamba_serve_phase(torch)
+    clock("phase 4g (falcon-mamba-7b contiguous and paged)")
+
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
     hybrid_train = train_phase(torch, kfwd, kbwd, "recurrentgemma_2b")
     moe_train = train_phase(torch, kfwd, kbwd, "deepseek_moe_16b")      # 5c
     clock("phase 5 (training)")
+    mamba_train_phase(torch)                                            # 5d
+    clock("phase 5d (falcon-mamba-7b training)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -2421,6 +2476,294 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
     if not ok:
         fail("the trainer's preempt / resume run went wrong")
     return counts
+
+
+def _top2(logits, vocab: int):
+    """(top-2 margins, max |logit|) of each row of ``logits [B, Vpad]``."""
+    rows = logits[:, :vocab].float()
+    top = rows.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist(), rows.abs().amax(dim=-1).tolist()
+
+
+def mamba_pool(lazy: bool):
+    """Phase 4g's page pool: page 16, 8 slots, 67 pages a sequence; the
+    whole pool holds every slot's budget, the lazy one half of it. No layer
+    reads a page (the arch has no attention layer); the scheduler's page
+    lifecycle runs all the same."""
+    from repro_torch.serving import PagedCacheConfig
+
+    ps, slots = 16, 8
+    pages_per_seq = -(-(MAMBA_PROMPT + MAMBA_GEN) // ps) + 1         # 67
+    full = 1 + slots * pages_per_seq                                 # 537
+    return PagedCacheConfig(page_size=ps, max_batch=slots,
+                            max_pages_per_seq=pages_per_seq,
+                            num_pages=(full - 1) // 2 + 1 if lazy else full)
+
+
+def mamba_serve_phase(torch):
+    """Phase 4g: falcon-mamba-7b at full width and depth. (a) The contiguous
+    path at batch 4 x (1024 + 32): every step's logits held to one full
+    forward over prompt and fed tokens (padded to a multiple of the scan's
+    256-token chunk; the scan is causal, so the padding moves no earlier
+    position), at ``LOGIT_REL_TOL`` of max|logit|; a profiled decode step.
+    (b) The paged engine in ``MAMBA_MODES`` on ``MAMBA_REQUESTS`` seeded
+    requests against each prompt's single-sequence greedy run on the
+    contiguous path, tokens equal up to a printed near-tie; the engine's
+    refusals."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.runtime.steps import make_serve_steps
+    from repro_torch.serving import FaultPlan, ServingEngine
+
+    tag = "[ssm]"
+    cfg = dataclasses.replace(configs.get_config("falcon_mamba_7b"),
+                              dtype=torch.float32)   # as launch/serve.py forces
+    mc = cfg.mamba
+    if lm.block_kinds(cfg) != ["ssm"] * cfg.num_layers:
+        fail(f"falcon-mamba-7b: block kinds {set(lm.block_kinds(cfg))}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag} {cfg.name}: {cfg.num_layers} mixer-only Mamba layers (no "
+          f"attention layer, no kernel of the port), d_model {cfg.d_model}, "
+          f"d_inner {mc.d_inner}, ssm_state {mc.ssm_state}, conv "
+          f"{mc.conv_kernel}, dt_rank {mc.dt_rank}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B params f32 (random, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s; every scan length a multiple "
+          f"of the 256-token chunk", flush=True)
+
+    # (a) the contiguous path, then the step-equals-scan identity
+    b, s, g = MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN
+
+    def steps(batch, prompt_len):
+        return make_serve_steps(cfg, impl="kernel", max_len=prompt_len + g,
+                                batch=batch, device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    arts = steps(b, s)
+    run = greedy_generate(arts, params, prompt, g, cfg.vocab_size)
+    state_bytes = 4 * cfg.num_layers * b * (mc.d_inner * mc.ssm_state
+                                            + (mc.conv_kernel - 1) * mc.d_inner)
+    # a decode step reads every weight and state row once and writes the
+    # state rows and the logits once
+    step_bytes = 4 * n_params + 2 * state_bytes + 4 * b * cfg.vocab_size
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = run.decode_s / (g - 1) * 1e3
+    print(f"{tag} (a) contiguous: prefill {b}x{s} {run.prefill_s * 1e3:.1f} "
+          f"ms; decode {g - 1} steps {run.decode_s * 1e3:.1f} ms = "
+          f"{step_ms:.2f} ms a step ({(g - 1) * b / run.decode_s:.1f} "
+          f"tokens/s) against the bound of moving {step_bytes / 1e9:.2f} GB "
+          f"a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {bound_ms:.2f} ms "
+          f"({step_ms / bound_ms:.2f}x); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    fed = torch.cat([prompt, run.tokens[:, :g - 1]], dim=1)
+    width = -(-fed.shape[1] // 256) * 256
+    tokens = torch.cat([fed, fed.new_zeros((b, width - fed.shape[1]))], dim=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = lm.forward(cfg, params, Ctx(impl="kernel"), tokens=tokens)[0]
+    torch.cuda.synchronize()
+    worst = 0.0
+    for j, lk in enumerate(run.logits):
+        ref = full[:, s - 1 + j, :cfg.vocab_size]
+        if lk.shape != (b, cfg.vocab_size) or not bool(torch.isfinite(lk).all()):
+            fail(f"falcon-mamba-7b step {j}: logits of shape "
+                 f"{tuple(lk.shape)} or not finite")
+        rel = _maxerr(lk[:, :cfg.vocab_size], ref) / float(ref.abs().max())
+        worst = max(worst, rel)
+        if rel > LOGIT_REL_TOL:
+            fail(f"falcon-mamba-7b step {j}: the decode step's logits differ "
+                 f"from the full forward's by {rel:.3e} of max|logit| (tol "
+                 f"{LOGIT_REL_TOL:.0e})")
+    print(f"{tag} (a) step = scan: prefill + {g - 1} decode steps against one "
+          f"full forward over {b}x{width} tokens ({fed.shape[1]} fed, padded "
+          f"to the chunk; {time.perf_counter() - t0:.2f} s): max |d| / "
+          f"max|logit| {worst:.3e} (tol {LOGIT_REL_TOL:.0e})", flush=True)
+    del full
+    caches = arts.cache_init_fn()
+    tok = run.tokens[:, 0]
+    arts.decode_fn(params, tok, caches, s)
+    profile_step(torch, lambda: float(arts.decode_fn(params, tok, caches, s)[0]
+                                      .abs().max()), tag, "max|logit|")
+    del caches, run, arts
+    torch.cuda.empty_cache()
+
+    # (b) the paged engine against each prompt's single-sequence greedy run
+    rs = np.random.RandomState(2)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=256 * int(rs.randint(1, 5))),
+             g) for _ in range(MAMBA_REQUESTS)]
+    ref_out, ref_margin = {}, {}
+    t0 = time.perf_counter()
+    for rid, (toks, _) in enumerate(reqs):
+        one = greedy_generate(steps(1, len(toks)), params,
+                              torch.as_tensor(toks, device="cuda")[None], g,
+                              cfg.vocab_size)
+        ref_out[rid] = one.tokens[0].cpu().numpy()
+        for j, lk in enumerate(one.logits):
+            (m,), (p,) = _top2(lk, cfg.vocab_size)
+            ref_margin[(rid, j)] = (m, p)
+    pool = mamba_pool(False)
+    print(f"{tag} (b) {len(reqs)} requests, prompts "
+          f"{[len(t) for t, _ in reqs]} tokens, {g} generated each; their "
+          f"single-sequence greedy runs on the contiguous path in "
+          f"{time.perf_counter() - t0:.1f} s; page {pool.page_size}, "
+          f"{pool.max_batch} slots, pool {pool.num_pages} pages "
+          f"({mamba_pool(True).num_pages} lazy); near-tie tolerance: top-2 "
+          f"margin <= {LOGIT_REL_TOL:.0e} x max|logit|", flush=True)
+    for kw in ({"share_prefix": True}, {"speculate_k": 4}, {"autotune": True}):
+        try:
+            ServingEngine(cfg, pool, params, device="cuda", **kw)
+        except ValueError as e:
+            print(f"{tag} (b) {kw} refused: {e}")
+        else:
+            fail(f"falcon-mamba-7b: the engine accepted {kw}")
+    for mode, (kw, prefill_len, lazy) in MAMBA_MODES.items():
+        kw = dict(kw)
+        if "fault_plan" in kw:
+            kw["fault_plan"] = FaultPlan(**kw["fault_plan"])
+        eng = ServingEngine(cfg, mamba_pool(lazy), params, impl="kernel",
+                            device="cuda", prefill_len=prefill_len, **kw)
+        if eng._pools():
+            fail("falcon-mamba-7b: the engine holds a page pool")
+        torch.cuda.reset_peak_memory_stats()
+        out, stats = eng.run(list(reqs))
+        torch.cuda.synchronize()
+        print(f"{tag} (b) {mode}: {stats['generated_tokens']:.0f} tokens in "
+              f"{stats['wall_s']:.3f} s = {stats['tokens_per_s']:.1f} "
+              f"tokens/s; {stats['decode_steps']:.0f} decode steps; "
+              f"preemptions {stats['preemptions']:.0f}; state releases "
+              f"{stats['state_releases']:.0f}; prefill tokens "
+              f"{stats['prefill_tokens']:.0f}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if stats["outcomes"]["completed"] != len(reqs):
+            fail(f"falcon-mamba-7b {mode}: outcomes {stats['outcomes']}")
+        if lazy and stats["preemptions"] == 0:
+            fail(f"falcon-mamba-7b {mode}: the lazy mode preempted no row")
+        if stats["state_releases"] != len(reqs) + stats["preemptions"]:
+            fail(f"falcon-mamba-7b {mode}: {stats['state_releases']} state "
+                 f"releases for {len(reqs)} requests and "
+                 f"{stats['preemptions']} preemptions")
+        same, ties = _near_ties(np, out, ref_out, ref_margin,
+                                f"falcon-mamba-7b {mode}", "engine")
+        print(f"{tag} (b) {mode}: tokens equal to the single-sequence runs "
+              f"for {same} of {len(reqs)} requests"
+              + "".join(f"; near-tie {t}" for t in ties), flush=True)
+        del eng
+    print(f"{tag} peak max_memory_allocated of the last mode "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def mamba_train_phase(torch):
+    """Phase 5d: falcon-mamba-7b's training at full width and
+    ``MAMBA_TRAIN_LAYERS`` layers (4 steps, a profiled one), then one
+    full-width Mamba layer's output and input and weight gradients from the
+    chunked scan against the sequential step loop (``_ssm_steps``, swapped
+    in for ``_ssm_scan``), each within ``MAMBA_GRAD_TOL`` of the leaf's
+    max."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import mamba
+    from repro_torch.models.layers import Ctx
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import make_train_step, place_batch
+
+    tag = "[ssm train]"
+    cfg = dataclasses.replace(configs.get_config("falcon_mamba_7b"),
+                              dtype=torch.float32, remat=True,
+                              num_layers=MAMBA_TRAIN_LAYERS)
+    n_batch, n_seq = MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ
+    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-4, keep_master=False),
+                           impl="kernel", total_steps=TRAIN_STEPS,
+                           warmup_steps=1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = arts.init_fn(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag} {cfg.name}: {cfg.num_layers} of 64 layers at full width; "
+          f"{n_params / 1e9:.3f} B params f32 + AdamW m, v (random, seed 0) "
+          f"in {time.perf_counter() - t0:.1f} s; remat {cfg.remat}; batch "
+          f"{n_batch} x {n_seq} tokens from make_batch (scan chunks of 256)",
+          flush=True)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=n_seq,
+                    global_batch=n_batch, seed=0)
+    times = []
+    for step in range(TRAIN_STEPS):
+        batch = place_batch(make_batch(dc, step), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = arts.step_fn(params, opt, batch, step)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"{tag} step {step}: loss {loss:.6f}, grad norm "
+              f"{float(m['grad_norm']):.4f}, {times[-1]:.3f} s", flush=True)
+        if not math.isfinite(loss):
+            fail(f"falcon-mamba-7b training step {step}: loss {loss}")
+    warm = times[1:]
+    print(f"{tag} {TRAIN_STEPS} steps of make_train_step: step times "
+          f"{[round(t, 4) for t in times]} s; steps 1-{TRAIN_STEPS - 1} mean "
+          f"{sum(warm) / len(warm):.4f} s = "
+          f"{n_batch * n_seq * len(warm) / sum(warm):.1f} tokens/s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB", flush=True)
+    profile_step(torch, lambda: float(arts.step_fn(params, opt, place_batch(
+        make_batch(dc, TRAIN_STEPS), "cuda"), TRAIN_STEPS)[2]["loss"]), tag)
+    del params, opt, arts, batch
+    torch.cuda.empty_cache()
+
+    # one full-width layer: the chunked scan against the step loop
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    layer = mamba.init_mamba(gen, cfg, torch.float32)
+    x = torch.randn((1, MAMBA_CHECK_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def pass_with(scan):
+        mamba._ssm_scan = scan
+        xg = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mamba.apply_mamba(layer, xg, Ctx(impl="kernel"), cfg)[0]
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        grads = {n: q.grad for n, q in layer.named_parameters()}
+        grads["x"] = xg.grad
+        layer.zero_grad(set_to_none=True)
+        return out.detach(), grads, time.perf_counter() - t0
+
+    chunked = mamba._ssm_scan
+    try:
+        out_c, g_c, t_c = pass_with(chunked)
+        out_s, g_s, t_s = pass_with(mamba._ssm_steps)
+    finally:
+        mamba._ssm_scan = chunked
+    checks = [("output", _maxerr(out_c, out_s) / float(out_s.abs().max()))]
+    checks += [(f"grad {n}", _maxerr(g_c[n], g) / float(g.abs().max()))
+               for n, g in g_s.items()]
+    print(f"{tag} one layer at batch 1 x {MAMBA_CHECK_SEQ} (two scan chunks): "
+          f"chunked scan {t_c:.3f} s, step loop {t_s:.3f} s (forward and "
+          f"backward); relative to each leaf's max (tol "
+          f"{MAMBA_GRAD_TOL:.0e}): "
+          + ", ".join(f"{n} {e:.3e}" for n, e in checks), flush=True)
+    for what, err in checks:
+        if not err <= MAMBA_GRAD_TOL:
+            fail(f"falcon-mamba-7b layer, chunked scan vs step loop: {what} "
+                 f"differs by {err:.3e} of its max")
+    del layer, out_c, out_s, g_c, g_s
+    torch.cuda.empty_cache()
 
 
 def profile_step(torch, step, tag="[train]", what="loss") -> None:

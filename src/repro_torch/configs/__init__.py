@@ -2,9 +2,10 @@
 
 ``get_config(id)`` returns an arch's full config and ``smoke_config(id)`` its
 reduced same-family variant for CPU tests. The port carries the four dense
-attention-only archs, the hybrid recurrentgemma-2b and the two MoE archs;
-the other families of ``ARCHS`` come with their models and are named in
-``UNPORTED_FAMILIES`` until then. ``arch_config(id)`` reads any arch's full
+attention-only archs, the hybrid recurrentgemma-2b, the two MoE archs and
+the ssm falcon-mamba-7b; the other families of ``ARCHS`` (vlm, encoder)
+come with their frontends and are named in ``UNPORTED_FAMILIES`` until
+then. ``arch_config(id)`` reads any arch's full
 config, ported or not, for the arithmetic on it (``param_count``, the
 roofline of ``perf/roofline.py``).
 """
@@ -136,7 +137,6 @@ ARCHS = [
 #: archs of ``ARCHS`` whose family the port does not run yet → that family
 UNPORTED_FAMILIES = {
     "llava_next_34b": "vlm", "hubert_xlarge": "encoder",
-    "falcon_mamba_7b": "ssm",
 }
 
 
@@ -145,7 +145,7 @@ def _module(name: str):
     if name in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{name}: the {UNPORTED_FAMILIES[name]} family is not yet ported "
-            f"to repro_torch (dense, hybrid and moe archs only)")
+            f"to repro_torch (dense, hybrid, moe and ssm archs only)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -1,6 +1,6 @@
 """falcon-mamba-7b — assigned architecture config (see configs/__init__ for
-fields). The ssm family is not ported yet: ``arch_config`` reads this for
-parameter counts; ``get_config`` refuses it."""
+fields): 64 mixer-only Mamba-1 blocks (``models/mamba.py``), attention-free;
+dt_rank resolves to ceil(4096 / 16) = 256. 7.27 B parameters."""
 
 import dataclasses
 

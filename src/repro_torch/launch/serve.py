@@ -38,6 +38,13 @@ refusal, as in JAX:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
       --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
 
+falcon-mamba-7b (the ssm family, mixer-only Mamba blocks, no attention
+layer) serves on both caches and over ``--mesh`` (every rank keeps every
+state row; there is no pool to shard); ``--share-prefix``, ``--speculate``
+and ``--autotune`` exit with the engine's refusal:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+      --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
+
 The MoE archs (deepseek-moe-16b, dbrx-132b) serve on every path, the
 paged engine's modes and ``--mesh`` included (expert routing is stateless
 per token):
@@ -60,6 +67,7 @@ from repro_torch.core.attention import IMPLS
 from repro_torch.launch import mesh as pool_mesh
 from repro_torch.models import lm
 from repro_torch.runtime.steps import ServeArtifacts, make_serve_steps
+from repro_torch.serving.engine import no_attention_decode
 
 
 @dataclasses.dataclass
@@ -190,6 +198,8 @@ def main(argv=None):
         raise SystemExit("--mesh shards the page pool: it needs --paged (the "
                          "contiguous cache over a mesh needs the sharding "
                          "rules, not yet ported)")
+    if args.autotune and "attn" not in cfg.block_pattern:
+        raise SystemExit(no_attention_decode(cfg))
     if args.paged:
         return serve_paged(cfg, args, device, n_ranks)
 

@@ -1,8 +1,9 @@
 """The decoder LM of the port (counterpart of ``repro.models.lm``): the dense
 attention-only family, the hybrid one (recurrentgemma: RG-LRU blocks and
-local attention blocks in ``cfg.block_pattern``, cycled over the layers) and
+local attention blocks in ``cfg.block_pattern``, cycled over the layers),
 the MoE one (``cfg.moe``: every layer's FFN a mixture of experts,
-``models/moe.py``).
+``models/moe.py``) and the ssm one (falcon-mamba: mixer-only Mamba blocks,
+``models/mamba.py``, no attention layer).
 
 The JAX package scans stacked superblock params; here the layers are an
 ``nn.ModuleList`` walked by a plain loop, layer ``i`` of kind
@@ -12,10 +13,10 @@ and autograd on, each layer runs under ``torch.utils.checkpoint`` (JAX
 remats per superblock): only the layer inputs are kept, and the backward
 recomputes the layer, attention kernel included. Serving caches are a list
 of per-layer dicts: K/V (a ring of ``window`` slots, or page pools) for
-attention layers, state rows ``{"h", "conv"}`` for recurrent ones. MoE
-layers report ``moe_aux`` (summed over the layers) and ``moe_dropped``
-(averaged) as JAX's forward does, in a forward without caches; the serving
-steps, which drop them, do not compute them.
+attention layers, state rows ``{"h", "conv"}`` for recurrent (RG-LRU and
+Mamba) ones. MoE layers report ``moe_aux`` (summed over the layers) and
+``moe_dropped`` (averaged) as JAX's forward does, in a forward without
+caches; the serving steps, which drop them, do not compute them.
 
 Public entry points:
   init_params(cfg, seed=, device=)                 → LM (random weights)
@@ -36,11 +37,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.paged import pages_per_shard
-from repro_torch.models import layers, moe, rglru
+from repro_torch.models import layers, mamba, moe, rglru
 from repro_torch.models.layers import Ctx
 
 #: the block kinds of ``cfg.block_pattern`` the port runs
-KINDS = ("attn", "rec")
+KINDS = ("attn", "rec", "ssm")
+#: each kind's mixer: (module class, initialiser, serving state rows)
+_MIXERS = {
+    "attn": (layers.Attention, layers.init_attention, None),
+    "rec": (rglru.RGLRU, rglru.init_rglru, rglru.init_rglru_cache),
+    "ssm": (mamba.Mamba, mamba.init_mamba, mamba.init_mamba_cache),
+}
 #: the weight of an MoE arch's load-balance loss in the training loss
 #: (JAX ``loss_fn``'s default, the value every JAX caller uses)
 MOE_AUX_WEIGHT = 0.01
@@ -53,16 +60,19 @@ def block_kinds(cfg) -> List[str]:
 
 
 class Block(nn.Module):
-    """One pre-norm block, a mixer (attention, or the RG-LRU for ``kind``
-    "rec") and a gated MLP, or a :class:`~repro_torch.models.moe.MoE` when
-    ``cfg.moe`` is set (JAX ``_init_block``'s leaves)."""
+    """One pre-norm block, a mixer (attention, the RG-LRU for ``kind``
+    "rec", Mamba for "ssm") and a gated MLP, or a
+    :class:`~repro_torch.models.moe.MoE` when ``cfg.moe`` is set (JAX
+    ``_init_block``'s leaves). An "ssm" block is mixer-only: no ``norm2``
+    and no ``mlp`` (d_ff 0), as in JAX."""
 
     def __init__(self, cfg, kind: str, dtype, device):
         super().__init__()
         self.kind = kind
         self.norm1 = layers._param((cfg.d_model,), dtype, device)
-        self.mixer = (layers.Attention(cfg, dtype, device) if kind == "attn"
-                      else rglru.RGLRU(cfg, dtype, device))
+        self.mixer = _MIXERS[kind][0](cfg, dtype, device)
+        if kind == "ssm":
+            return
         self.norm2 = layers._param((cfg.d_model,), dtype, device)
         self.mlp = (moe.MoE(cfg, dtype, device) if cfg.moe is not None
                     else layers.MLP(cfg.d_model, cfg.d_ff, dtype, device))
@@ -75,14 +85,15 @@ class LM(nn.Module):
 
     def __init__(self, cfg, vocab_padded: int, *, device, dtype=None):
         super().__init__()
-        if (cfg.family not in ("dense", "hybrid", "moe")
+        if (cfg.family not in ("dense", "hybrid", "moe", "ssm")
                 or (cfg.family == "moe") != (cfg.moe is not None)
                 or cfg.frontend is not None or cfg.mlp_type != "gated_silu"
                 or not set(cfg.block_pattern) <= set(KINDS)
-                or ("rec" in cfg.block_pattern) != (cfg.rglru is not None)):
+                or ("rec" in cfg.block_pattern) != (cfg.rglru is not None)
+                or ("ssm" in cfg.block_pattern) != (cfg.mamba is not None)):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (dense, RG-LRU hybrid and MoE archs only)")
+                f"repro_torch (dense, RG-LRU hybrid, MoE and ssm archs only)")
         dtype = dtype or cfg.dtype
         self.embed = layers._param((vocab_padded, cfg.d_model), dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, kind, dtype, device)
@@ -101,10 +112,10 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
     model = LM(cfg, cfg.vocab_size, device=device)
     for blk in model.blocks:
         blk.norm1.fill_(1.0)
+        blk.mixer = _MIXERS[blk.kind][1](gen, cfg, cfg.dtype)
+        if blk.kind == "ssm":
+            continue
         blk.norm2.fill_(1.0)
-        blk.mixer = (layers.init_attention(gen, cfg, cfg.dtype)
-                     if blk.kind == "attn"
-                     else rglru.init_rglru(gen, cfg, cfg.dtype))
         blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype) if cfg.moe is not None
                    else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
     model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
@@ -126,9 +137,12 @@ def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
     else:
         # the recurrence carries state across a whole row whatever its
         # segments (packing is an attention-family feature, as in JAX)
-        mixed, new_cache = rglru.apply_rglru(p.mixer, h, ctx, cfg, cache=cache,
-                                             positions=positions, paged=paged)
+        apply = rglru.apply_rglru if p.kind == "rec" else mamba.apply_mamba
+        mixed, new_cache = apply(p.mixer, h, ctx, cfg, cache=cache,
+                                 positions=positions, paged=paged)
     x = x + mixed
+    if p.kind == "ssm":                    # mixer-only
+        return x, new_cache, {}
     h = layers.rms_norm(x, p.norm2)
     if cfg.moe is not None:
         out, metrics = moe.apply_moe(p.mlp, h, ctx, cfg,
@@ -157,7 +171,8 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
     segment_ids [B, S]: packed-batch ids (int32); attention masks
     cross-segment pairs — pass per-segment ``positions`` alongside.
     paged: the routing of paged caches, passed to every layer
-    (``layers.apply_attention``, ``rglru.apply_rglru``).
+    (``layers.apply_attention``, ``rglru.apply_rglru``,
+    ``mamba.apply_mamba``).
     """
     x = params.embed[tokens]
     if positions is None:
@@ -220,7 +235,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
     dtype = dtype or cfg.dtype
     eff = max_len if cfg.attn_window is None else min(max_len, cfg.attn_window)
     return [layers.init_attn_cache(cfg, batch, eff, dtype, device)
-            if kind == "attn" else rglru.init_rglru_cache(cfg, batch, device)
+            if kind == "attn" else _MIXERS[kind][2](cfg, batch, device)
             for kind in block_kinds(cfg)]
 
 
@@ -264,7 +279,7 @@ def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda", mesh=None):
     local = pages_per_shard(paged_cfg.num_pages, n) if n > 1 else None
     return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device, local)
             if kind == "attn"
-            else rglru.init_rglru_cache(cfg, paged_cfg.max_batch + 1, device)
+            else _MIXERS[kind][2](cfg, paged_cfg.max_batch + 1, device)
             for kind in kinds]
 
 

@@ -75,15 +75,16 @@ the sharded pool ops, and ``run()``'s wall time is rank 0's, so the stats
 are equal on every rank. ``snapshot``/``restore`` hold each rank's own
 shard of the pool.
 
-Hybrid recurrent archs (recurrentgemma's RG-LRU): every recurrent layer
-keeps one fixed state row per decode slot (plus a trailing trash row),
-admitted and released by the same scheduler calls that bind a slot's pages
-(``serving/state_cache.py``).  Prefill spans route through per-token
-``state_slots``/``state_local`` — the packed scan resets at span starts, a
-chunked continuation resumes the slot's stored state, and span-end state
-scatters back to the row; decode updates rows gated on ``kv_len > 0``.  A
-re-admitted slot's first span starts at position 0, which injects a fresh
-zero state (``poison_reclaimed`` clobbers released rows to prove it).
+Recurrent archs (recurrentgemma's RG-LRU, falcon-mamba's Mamba): every
+recurrent layer keeps one fixed state row per decode slot (plus a trailing
+trash row), admitted and released by the same scheduler calls that bind a
+slot's pages (``serving/state_cache.py``).  Prefill spans route through
+per-token ``state_slots``/``state_local`` — the packed scan resets at span
+starts, a chunked continuation resumes the slot's stored state, and
+span-end state scatters back to the row; decode updates rows gated on
+``kv_len > 0``.  A re-admitted slot's first span starts at position 0,
+which injects a fresh zero state (``poison_reclaimed`` clobbers released
+rows to prove it).
 Prefix sharing and speculation are attention-only (the index certifies KV
 pages, not state; cumulative state cannot roll back) and raise on
 recurrent archs.
@@ -99,7 +100,14 @@ Split-count autotuning (``autotune=``): the decode and verify steps run with
 the split count ``perf/autotune.py`` plans for the card's kernel at this
 engine's worst-case geometry (every slot at its full block-table reach;
 under a mesh one shard's launch over it, planned on rank 0 and broadcast so
-that every rank launches alike); an explicit ``num_splits`` wins.
+that every rank launches alike); an explicit ``num_splits`` wins. An
+attention-free arch (falcon-mamba) has no attention decode to split, and
+``autotune=True`` raises ``ValueError`` for it.
+
+The ssm family (falcon-mamba: every layer a Mamba mixer) has no attention
+layer: ``_pools()`` is empty and the state rows carry everything. The
+scheduler still allocates pages, which no layer reads, so the page
+lifecycle and its stats run as for any arch.
 """
 
 from __future__ import annotations
@@ -121,6 +129,15 @@ from repro_torch.serving.outcomes import Outcome, RequestResult, outcome_counts
 from repro_torch.serving.paged_cache import PagedCacheConfig, TRASH_PAGE
 from repro_torch.serving.scheduler import (AdmissionImpossible, ActiveSeq,
                                            Request, Scheduler)
+
+
+def no_attention_decode(cfg) -> str:
+    """Why autotuning refuses an attention-free arch (the ssm family): the
+    planner splits the attention decode's KV, and there is none. (JAX's
+    engine and launcher divide by the zero KV heads there instead.)"""
+    return (f"autotune plans the split count of the attention decode: "
+            f"{cfg.name} has no attention layer, so there is no attention "
+            f"decode to split")
 
 
 class ServingEngine:
@@ -208,6 +225,8 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be at least one token")
         self.prefill_chunk = prefill_chunk
+        if autotune and "attn" not in cfg.block_pattern:
+            raise ValueError(no_attention_decode(cfg))
         if num_splits is None:
             num_splits = self._autotuned_splits() if autotune else 1
         self.num_splits = num_splits

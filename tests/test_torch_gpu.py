@@ -1037,3 +1037,66 @@ def test_moe_full_width_layer_train_pass_kernel_matches_torch(cuda):
     assert abs(gk - gt) <= 1e-4 * gt
     for n in leaves:
         assert _err(dk[n], dt[n]) <= 1e-3 * float(dt[n].abs().max()), n
+
+
+def test_mamba_full_width_scan_matches_the_step_loop(cuda):
+    """One falcon-mamba-7b layer at full width (d 4096, Di 8192, N 16) on
+    the card, batch 1 x 512 (two scan chunks, the state carried between
+    them): the output and every input and weight gradient of the chunked
+    scan within 5e-5 of each leaf's max of the sequential ``_ssm_step``
+    loop's (the JAX suite's f32 gradient tolerance)."""
+    from repro_torch.models import mamba
+
+    cfg = dataclasses.replace(configs.get_config("falcon_mamba_7b"),
+                              dtype=torch.float32)
+    layer = mamba.init_mamba(cuda, cfg, torch.float32)
+    x = torch.randn((1, 512, cfg.d_model), generator=cuda, device="cuda")
+    w = torch.randn(x.shape, generator=cuda, device="cuda")
+
+    def grads():
+        xg = x.clone().requires_grad_()
+        out = mamba.apply_mamba(layer, xg, Ctx(impl="kernel"), cfg)[0]
+        (out * w).sum().backward()
+        g = {n: q.grad for n, q in layer.named_parameters()}
+        layer.zero_grad(set_to_none=True)
+        return dict(g, out=out.detach(), x=xg.grad)
+
+    chunked = grads()
+    scan = mamba._ssm_scan
+    mamba._ssm_scan = mamba._ssm_steps
+    try:
+        steps = grads()
+    finally:
+        mamba._ssm_scan = scan
+    for name, want in steps.items():
+        assert _err(chunked[name], want) <= 5e-5 * float(want.abs().max()), name
+
+
+def test_mamba_paged_engine_on_the_card(cuda):
+    """falcon-mamba-7b SMOKE through the paged engine on the card (lazy on
+    a tight pool with poisoned released rows, chunked prefill): every
+    request's tokens equal its single-sequence greedy run on the contiguous
+    path; no page pool is allocated."""
+    cfg = dataclasses.replace(configs.smoke_config("falcon_mamba_7b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=n), g)
+            for n, g in ((40, 12), (25, 20), (33, 8), (50, 16), (12, 10))]
+    want = {}
+    for rid, (toks, g) in enumerate(reqs):
+        arts = make_serve_steps(cfg, impl="kernel", max_len=len(toks) + g,
+                                batch=1, device="cuda")
+        want[rid] = greedy_generate(arts, params, torch.as_tensor(
+            toks, device="cuda")[None], g, cfg.vocab_size).tokens[0].cpu().numpy()
+    pcfg = PagedCacheConfig(page_size=8, num_pages=12, max_batch=3,
+                            max_pages_per_seq=10)
+    eng = ServingEngine(cfg, pcfg, params, impl="kernel", device="cuda",
+                        prefill_len=72, lazy=True, poison_reclaimed=True,
+                        prefill_chunk=32)
+    assert eng._pools() == []
+    out, stats = eng.run(list(reqs))
+    assert stats["outcomes"]["completed"] == len(reqs)
+    assert stats["state_releases"] == len(reqs) + stats["preemptions"]
+    for rid in want:
+        assert (out[rid] == want[rid]).all(), rid

@@ -119,8 +119,8 @@ def test_unported_family_is_named():
         assert jconfigs.get_config(arch).family == family
         with pytest.raises(NotImplementedError, match=family):
             tconfigs.get_config(arch)
-    with pytest.raises(SystemExit, match="ssm family is not yet ported"):
-        tserve.main(["--arch", "falcon_mamba_7b", "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="vlm family is not yet ported"):
+        tserve.main(["--arch", "llava_next_34b", "--smoke", "--device", "cpu"])
 
 
 def test_serve_cli_runs_on_cpu(capsys):
