@@ -12,12 +12,12 @@ Phases, each of which exits non-zero on failure:
 2. build   — nvcc builds the three CUDA kernel libraries from
              ``kernels/csrc`` in parallel and prints ptxas's registers and
              spills per instantiation (no forward instantiation, and not
-             the f32 and bf16 D=64 and D=256 backward kernels, granite's and
-             the hybrid's training paths', may spill; the D=128 ones,
-             deepseek-moe-16b's, spill and are printed) and the count of
-             tensor-core instructions (HMMA / HGMMA in ``cuobjdump -sass``)
-             of every forward instantiation and of those four backward
-             ones, which must not be 0;
+             the f32 and bf16 D=64, D=80 and D=256 backward kernels,
+             granite's, hubert-xlarge's and the hybrid's training paths',
+             may spill; the D=128 ones, deepseek-moe-16b's, spill and are
+             printed) and the count of tensor-core instructions (HMMA /
+             HGMMA in ``cuobjdump -sass``) of every forward instantiation
+             and of those six backward ones, which must not be 0;
 3. kernels — each CUDA kernel against its plain-torch version on the same
              inputs, f32 and bf16: the forward and decode at granite-3-2b's
              prefill / decode shapes, the fused backward kernel at its
@@ -56,7 +56,17 @@ Phases, each of which exits non-zero on failure:
              the contiguous decode over 544 slots, the paged and gated decode
              at page 16 (decode rows, 256 chunk rows, a mixed chunk row), and
              dbrx-132b's 48/8 heads (a group of 6) in the forward (B 2, S
-             256) and the decode over 272 slots;
+             256) and the decode over 272 slots; and rows 1 and 2-3 at
+             hubert-xlarge's training geometry (B 8, 16/16 heads, S 1024, D
+             80, non-causal) in f32 and bf16, with dropout 0.1, segments
+             and bf16-ACC (row 1 also with q a ragged suffix of a longer
+             kv), and against the naive oracle (autograd of it for the
+             backward) at D 80 non-causal; the non-causal path at
+             granite's training geometry (D 64); and llava-next-34b's 56/8
+             heads (a GQA group of 7, D 128) in the forward (B 4, S 1024),
+             the backward (B 1, S 2048), the contiguous decode over 1056
+             slots (kv_len with 0) and the paged decode at page 16 (decode
+             rows, a 256-row chunk), each case's launch geometry printed;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -146,7 +156,8 @@ Phases, each of which exits non-zero on failure:
 4g. ssm    — falcon-mamba-7b (the ssm family: 64 mixer-only Mamba-1
              blocks, no attention layer, so no kernel of the port; d_model
              4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
-             65024; 7.27 B params) at full width and depth, f32, random
+             65024; 7.27 B params) at full width and ``MAMBA_LAYERS`` (32)
+             of its 64 layers, f32, random
              weights from seed 0: (a) the contiguous path, batch 4, prompt
              1024, 32 generated, every decode step's logits held to one
              full forward (the chunked scan) over prompt and generated
@@ -162,6 +173,22 @@ Phases, each of which exits non-zero on failure:
              beside the bound of reading the weights and state rows once,
              engine tokens/s a mode, peak memory and one profiled decode
              step (busy and idle share, top kernels);
+4h. vlm    — llava-next-34b (d_model 7168, 56/8 heads, head dim 128,
+             d_ff 20480, vocab 64000, ``frontend_proj`` [1024, 7168]) at
+             full width and ``VLM_LAYERS`` of its 60 layers, f32, random
+             weights from seed 0, one set of params for both caches: (a)
+             the contiguous path, batch 4, prompt 1024, 32 generated, once
+             prefilled from tokens and once from patch embeddings
+             (``embeds`` [4, 1024, 1024], the vision path), decoding by
+             tokens; kernel impl, then torch impl fed the kernel run's
+             tokens: counters 24 ``flash_fwd`` and 24 x 31
+             ``flash_decode``, logits within ``LOGIT_REL_TOL``, every token
+             the torch run picks otherwise a near-tie of the kernel run;
+             (b) the paged engine (page 16, 8 slots) on 8 seeded requests
+             of 256-1024 prompt tokens and 32 new in two modes (eager,
+             chunks of 256) as phase 4b's; prints prefill ms, ms a decode
+             step beside the bound of reading the weights and the cache
+             once, tokens/s and peak memory;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -196,6 +223,15 @@ Phases, each of which exits non-zero on failure:
              S 512) whose output and input and weight gradients from the
              chunked scan are held to the sequential ``_ssm_step`` loop's
              (``MAMBA_GRAD_TOL`` of each leaf's max);
+5e. enc    — hubert-xlarge's training at full size (48 layers, d_model
+             1280, 16/16 heads, head dim 80, non-causal, GELU MLP, vocab
+             504; f32, remat, dropout 0.1, batch 8 x 1024 frames of
+             ``embeds`` from ``make_batch``, AdamW without master): as 5a
+             with the attention leaves, the MLP's ``wi`` and
+             ``frontend_proj``, counters 96 / 48 a pass; 4 steps, step
+             time, tokens/s, peak memory, a profiled step;
+5f. vlm    — llava-next-34b's training at full width and 4 layers (batch 1
+             x 2048 of patch embeddings, otherwise as 5e), counters 8 / 4;
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -227,7 +263,14 @@ Phases, each of which exits non-zero on failure:
              forward and decode also at dbrx-132b's (``dbrx_shape_``); and
              row 6 at recurrentgemma-2b's engine decode, one shard of two
              (8 slots, D 256, G 10, window 2048, page 16), with its device
-             and host time and rank 0's launches of phase 4c.
+             and host time and rank 0's launches of phase 4c; six more hold
+             rows 1 and 2-3 at hubert-xlarge's training shape (B 8, 16/16
+             heads, S 1024, D 80, non-causal, dropout 0.1; SDPA with
+             ``is_causal`` False) and rows 1 (``train_shape_``: B 1, S 2048,
+             dropout 0.1), 2-3, 4 and 5 at llava-next-34b's prefill (B 4,
+             56/8 heads, S 1024), training, decode (B 4, 1040 of 1056
+             slots) and paged decode (8 slots, kv_len 256-1056) shapes, in
+             f32 and bf16 (``bf16_``).
 
 After each phase a ``[clock]`` line gives the seconds since phase 1 began
 and the phase's own. Autotuned plans persist in ``build/autotune.json``
@@ -305,11 +348,14 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
 PAGED_LAYERS = 20
 MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
               "lm_head")
-# phase 4g, falcon-mamba-7b at full width and depth: contiguous batch 4 x
-# (1024 + 32); the paged engine on 8 requests of 256-1024 prompt tokens, 32
-# new each. Every scan length is a multiple of the 256-token chunk (a
-# length that is not is scanned as one chunk: 1 GiB an operand for a
-# 2048-token row at this width)
+# phase 4g, falcon-mamba-7b at full width and MAMBA_LAYERS of its 64 layers
+# (at 64 layers, 80 s of the run, the run with phases 4h, 5e and 5f reached
+# 991.5 s: cut, as granite's paged phases were; PERF.md §4): contiguous
+# batch 4 x (1024 + 32); the paged engine on 8 requests of 256-1024 prompt
+# tokens, 32 new each. Every scan length is a multiple of the 256-token
+# chunk (a length that is not is scanned as one chunk: 1 GiB an operand
+# for a 2048-token row at this width)
+MAMBA_LAYERS = 32
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, MAMBA_REQUESTS = 4, 1024, 32, 8
 MAMBA_MODES = {
     # name: (engine kwargs beyond page 16 and 8 slots, prefill row length
@@ -328,6 +374,24 @@ MAMBA_MODES = {
 # leaf's max
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 8, 1, 2048
 MAMBA_CHECK_SEQ, MAMBA_GRAD_TOL = 512, 5e-5
+# phase 4h, llava-next-34b at full width and VLM_LAYERS of its 60 layers (f32:
+# 57 GB of weights at 24 layers; the 60-layer f32 model, ~138 GB, does not
+# fit one card): contiguous batch 4 x (1024 + 32), by tokens and from patch
+# embeddings; the paged engine on 8 requests of 256-1024 prompt tokens, 32
+# new each, eager and in chunks of 256
+VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_REQUESTS = 24, 4, 1024, 32, 8
+VLM_MODES = {
+    # name: (engine kwargs beyond page 16 and 8 slots, prefill row length)
+    "eager": ({}, VLM_PROMPT),
+    "chunk_256": ({"prefill_chunk": 256}, 256),
+}
+# phase 5f, llava-next-34b at full width and 4 layers: batch 1 x 2048 of
+# patch embeddings
+VLM_TRAIN_LAYERS = 4
+ENC_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mixer.wk", "blocks.0.mixer.wv",
+              "blocks.0.mlp.wi", "frontend_proj", "lm_head")
+VLM_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mixer.wk", "blocks.0.mlp.wi",
+              "frontend_proj", "lm_head")
 # the training phases: arch → (tag, batch, seq, leaves checked, AdamW's f32
 # master copy, layers (None: the config's))
 TRAIN_SETUPS = {
@@ -339,6 +403,11 @@ TRAIN_SETUPS = {
                           HYBRID_LEAVES, False, None),
     "deepseek_moe_16b": ("[moe train]", MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
                          MOE_LEAVES, False, MOE_TRAIN_LAYERS),
+    # phase 5e, hubert-xlarge at full size (0.95 B params): batch 8 x 1024
+    # frames of embeddings, attention non-causal at head dim 80
+    "hubert_xlarge": ("[enc train]", 8, 1024, ENC_LEAVES, False, None),
+    "llava_next_34b": ("[vlm train]", 1, 2048, VLM_LEAVES, False,
+                       VLM_TRAIN_LAYERS),                               # 5f
 }
 
 
@@ -459,6 +528,10 @@ def main(argv=None) -> None:
     mamba_serve_phase(torch)
     clock("phase 4g (falcon-mamba-7b contiguous and paged)")
 
+    # ---------------- phase 4h: the vlm family ----------------
+    vlm_serve = vlm_serve_phase(torch, kfwd, kdecode)
+    clock("phase 4h (llava-next-34b contiguous and paged)")
+
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
     hybrid_train = train_phase(torch, kfwd, kbwd, "recurrentgemma_2b")
@@ -466,6 +539,10 @@ def main(argv=None) -> None:
     clock("phase 5 (training)")
     mamba_train_phase(torch)                                            # 5d
     clock("phase 5d (falcon-mamba-7b training)")
+    enc_train = train_phase(torch, kfwd, kbwd, "hubert_xlarge")         # 5e
+    clock("phase 5e (hubert-xlarge training)")
+    vlm_train = train_phase(torch, kfwd, kbwd, "llava_next_34b")        # 5f
+    clock("phase 5f (llava-next-34b training)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -480,6 +557,8 @@ def main(argv=None) -> None:
                                hybrid_paged, hybrid_train, errs)
     rows.append(hybrid_bwd_times_phase(torch, kfwd, kbwd, hybrid_train))
     rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
+    rows += frontend_times_phase(torch, kfwd, kbwd, kdecode, vlm_serve,
+                                 enc_train, vlm_train)
     clock("phase 6 (times)")
     print(json.dumps({"planner": plans}))
     print(json.dumps({"kernels": rows}))
@@ -501,17 +580,18 @@ def bounds(flops: float, nbytes: float, dtype: str = "float32") -> dict:
             "bound_ms_no_tensor_cores": max(t_cc, t_bytes) * 1e3}
 
 
-# the backward instantiations of the training paths: granite (D 64) and
-# recurrentgemma-2b (D 256)
+# the backward instantiations of the training paths that must not spill:
+# granite (D 64), hubert-xlarge (D 80) and recurrentgemma-2b (D 256)
 BWD_TRAIN = ("flash_bwd_kernel<f32, D64>", "flash_bwd_kernel<bf16, D64>",
+             "flash_bwd_kernel<f32, D80>", "flash_bwd_kernel<bf16, D80>",
              "flash_bwd_kernel<f32, D256>", "flash_bwd_kernel<bf16, D256>")
 
 
 def build_report(_build) -> None:
     """ptxas's registers and spills per kernel instantiation, and the
     tensor-core instructions of the forward and backward kernels; fails if
-    a forward instantiation or an f32 or bf16 D=64 or D=256 backward kernel
-    (the training paths') spills or has none."""
+    a forward instantiation or an f32 or bf16 D=64, D=80 or D=256 backward
+    kernel (the training paths') spills or has none."""
     import re
     for kname in _build.KERNELS:
         report = _build.ptxas_report.get(kname)
@@ -542,8 +622,9 @@ def build_report(_build) -> None:
                 print(f"[build] {kname} {entry}: {regs}; {spills}")
     mma = tensor_core_instructions(_build, "flash_bwd")
     fwd = tensor_core_instructions(_build, "flash_fwd")
-    want = [*BWD_TRAIN, *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
-                        for d in (16, 32, 64, 128, 256) for acc in ("", ", acc bf16"))]
+    want = [*BWD_TRAIN,
+            *(f"fwd_kernel<{t}, D{d}{acc}>" for t in ("f32", "bf16")
+              for d in (16, 32, 64, 80, 128, 256) for acc in ("", ", acc bf16"))]
     for entry in want:
         n = mma.get(entry, fwd.get(entry, 0))
         print(f"[build] {entry}: {n} tensor-core instructions (HMMA / HGMMA in "
@@ -633,6 +714,18 @@ def kernel_phase(torch, kfwd, kdecode):
         ("moe_train_g1_d128_dropout_0.1", 2, 16, 16, 2048, 2048, 128,
          dict(causal=True, dropout_rate=0.1, dropout_seed=-9)),
         ("dbrx_prefill_g6_d128", 2, 48, 8, 256, 256, 128, dict(causal=True)),
+        # hubert-xlarge's training geometry (16/16 heads, D 80, non-causal),
+        # with dropout 0.1, segments and q a ragged suffix of a longer kv
+        ("hubert_train_d80", 8, 16, 16, 1024, 1024, 80, {}),
+        ("hubert_d80_dropout_0.1", 8, 16, 16, 1024, 1024, 80,
+         dict(dropout_rate=0.1, dropout_seed=-13)),
+        ("hubert_d80_segments", 8, 16, 16, 1024, 1024, 80, dict(segments=True)),
+        ("hubert_d80_q_suffix_300_of_1000", 8, 16, 16, 300, 1000, 80, {}),
+        # the non-causal path apart from the head dim: granite's training
+        # geometry without the causal mask
+        ("granite_train_non_causal_d64", 4, 32, 8, 2048, 2048, 64, {}),
+        # llava-next-34b's prefill: 56/8 heads, a GQA group of 7, D 128
+        ("llava_prefill_g7_d128", 4, 56, 8, 1024, 1024, 128, dict(causal=True)),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -646,6 +739,10 @@ def kernel_phase(torch, kfwd, kdecode):
             torch.cuda.synchronize()
             o_ref, lse_ref = kfwd.flash_fwd_torch(q, k, v, **kw)
             e, el = _maxerr(o, o_ref), _maxerr(lse, lse_ref)
+            if dtype == torch.float32 and name.startswith(("hubert", "llava")):
+                print(f"[kernels] flash_fwd {name}: {-(-sq // 64)} q tiles x {hq} "
+                      f"heads x {b} = {-(-sq // 64) * hq * b} blocks of 4 warps, "
+                      f"{-(-skv // 64)} kv tiles of 64 rows")
             ok = e <= TOL[dn] and el <= LSE_TOL and bool(torch.isfinite(o).all())
             print(f"[kernels] flash_fwd {name} {dn}: max|o - plain| {e:.3e} "
                   f"(tol {TOL[dn]:.1e}), max|lse - plain| {el:.3e} "
@@ -706,15 +803,20 @@ def kernel_phase(torch, kfwd, kdecode):
         del q, k, v, o
 
         # the MoE family's decode at D 128: deepseek-moe-16b's 16/16 heads
-        # over 544 slots, dbrx-132b's 48/8 over 272 (kv_len with 0)
+        # over 544 slots, dbrx-132b's 48/8 over 272; llava-next-34b's 56/8
+        # (a GQA group of 7) over 1056 (kv_len with 0)
         for name, hq, hkv, lens in (("moe_g1_d128_544", 16, 16, [528, 0, 544, 301]),
-                                    ("dbrx_g6_d128_272", 48, 8, [264, 0])):
+                                    ("dbrx_g6_d128_272", 48, 8, [264, 0]),
+                                    ("llava_g7_d128_1056", 56, 8, [1056, 0, 700, 1055])):
             b, cap = len(lens), max(lens)
             kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
             q = _rand(torch, gen, (b, hq, 128), dtype)
             k = _rand(torch, gen, (b, hkv, cap, 128), dtype)
             v = _rand(torch, gen, (b, hkv, cap, 128), dtype)
             for ns in (1, 3):
+                if dtype == torch.float32 and name.startswith("llava"):
+                    _geometry_line(torch, kdecode, f"flash_decode {name}", b, hq,
+                                   hkv, cap, ns, 1, 128)
                 o = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=ns)
                 torch.cuda.synchronize()
                 e = _maxerr(o, kdecode.flash_decode_torch(q, k, v, kv_len=kv_len,
@@ -742,9 +844,14 @@ def kernel_phase(torch, kfwd, kdecode):
     kvl = torch.tensor([300, 77], dtype=torch.int32, device="cuda")
     od = kdecode.flash_decode(qd, k, v, kv_len=kvl, num_splits=3)
     ed = _maxerr(od, ops.decode_reference(qd, k, v, kv_len=kvl))
+    # hubert's head dim, non-causal, dropout, a q suffix
+    q, k, v = _fwd_inputs(torch, gen, 2, 4, 4, 100, 300, 80, torch.float32)
+    o, _ = kfwd.flash_fwd(q, k, v, dropout_rate=0.1, dropout_seed=5)
+    e80 = _maxerr(o, ref.naive_mha(q, k, v, dropout_rate=0.1, dropout_seed=5))
     print(f"[kernels] vs naive oracle (f32): flash_fwd {e:.3e}, "
-          f"flash_decode {ed:.3e} (tol {TOL['float32']:.0e})")
-    if max(e, ed) > TOL["float32"]:
+          f"flash_decode {ed:.3e}, flash_fwd at D 80 non-causal {e80:.3e} "
+          f"(tol {TOL['float32']:.0e})")
+    if max(e, ed, e80) > TOL["float32"]:
         fail("a kernel disagrees with the naive oracle")
     torch.cuda.empty_cache()
     return errs
@@ -798,9 +905,10 @@ def _token_rows_case(torch, gen, hq, hkv, d, ps, t, dtype, spans, pads):
 
 
 def _geometry_line(torch, kdecode, name, rows, hq, hkv, skv, ns, row_tokens, d):
-    """Print a launch's geometry (f32, paged); at the engine's decode shape
-    (8 rows of 8 kv heads) fail unless it puts a block on every SM in
-    clusters."""
+    """Print a launch's geometry (f32, paged); at granite's engine decode
+    shape (8 rows of 8 kv heads, D 64) fail unless it puts a block on every
+    SM in clusters, all resident at once. Elsewhere the waves are printed
+    (llava's 8 rows of 8 kv heads at D 128 take more than one, PERF.md)."""
     geo = kdecode.launch_geometry(rows, hq, hkv, skv, ns, row_tokens=row_tokens,
                                   head_dim=d)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -808,8 +916,9 @@ def _geometry_line(torch, kdecode, name, rows, hq, hkv, skv, ns, row_tokens, d):
     print(f"[kernels] {name} splits={ns}: {rows} rows (row_tokens {row_tokens}) -> "
           f"{geo['rows_per_block']} a block, {clusters} clusters of {geo['cluster']} ({geo['blocks']} "
           f"blocks on {sms} SMs; the card holds {geo['resident_clusters']} such "
-          f"clusters at once)", flush=True)
-    if rows * hkv == 64 and ns == 1 and (
+          f"clusters at once: {-(-clusters // geo['resident_clusters'])} "
+          f"wave(s))", flush=True)
+    if d == 64 and rows * hkv == 64 and ns == 1 and (
             geo["cluster"] < 2 or geo["blocks"] < sms
             or geo["resident_clusters"] < clusters):
         fail(f"{name}: the decode shape leaves SMs without a block ({geo})")
@@ -845,6 +954,12 @@ def paged_kernel_phase(torch, kdecode):
         ("chunk_256_rows_g1_d128", [0] * 16 + list(range(301, 541)), 16, 16,
          128, 16, 37, None),
         ("chunk_mixed_g1_d128", None, 16, 16, 128, 16, 37, None),
+        # llava-next-34b: 56/8 heads (a GQA group of 7), D 128, page 16 and
+        # 67 pages a sequence (1024 + 32 tokens); decode rows, a 256-row chunk
+        ("llava_ps16_g7_d128", [1056, 0, 256, 777, 1024, 17, 500, 900], 56, 8,
+         128, 16, 67, None),
+        ("chunk_256_rows_g7_d128", [0] * 16 + list(range(801, 1041)), 56, 8,
+         128, 16, 67, None),
     ]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1090,6 +1205,16 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
          dict(causal=True, dropout_rate=0.1, dropout_seed=-11)),
         ("moe_g1_d128_bf16_acc", 2, 16, 16, 2048, 2048, 128,
          dict(causal=True, acc_dtype=bf16)),
+        # hubert-xlarge's training geometry: 16/16 heads, D 80, non-causal
+        ("hubert_train_d80", 8, 16, 16, 1024, 1024, 80, {}),
+        ("hubert_d80_dropout_0.1", 8, 16, 16, 1024, 1024, 80,
+         dict(dropout_rate=0.1, dropout_seed=-13)),
+        ("hubert_d80_segments", 8, 16, 16, 1024, 1024, 80, dict(segments=True)),
+        ("hubert_d80_bf16_acc", 8, 16, 16, 1024, 1024, 80, dict(acc_dtype=bf16)),
+        # the non-causal path at granite's training geometry
+        ("granite_train_non_causal_d64", 4, 32, 8, 2048, 2048, 64, {}),
+        # llava-next-34b's training geometry: 56/8 heads, D 128, B 1 x 2048
+        ("llava_train_g7_d128", 1, 56, 8, 2048, 2048, 128, dict(causal=True)),
     ]
     errs = {}
     for dtype in (torch.float32, bf16):
@@ -1156,9 +1281,20 @@ def bwd_kernel_phase(torch, kfwd, kbwd):
     ref.naive_mha(*xs, **kw).backward(do)
     worst = max(_maxerr(g, x.grad) / max(1.0, float(x.grad.abs().max()))
                 for g, x in zip(grads, xs))
+    # hubert's head dim, non-causal, dropout, a q suffix
+    q, k, v = _fwd_inputs(torch, gen, 2, 4, 4, 100, 300, 80, torch.float32)
+    do = _rand(torch, gen, (2, 4, 100, 80), torch.float32)
+    kw = dict(dropout_rate=0.1, dropout_seed=5)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    grads = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref.naive_mha(*xs, **kw).backward(do)
+    worst80 = max(_maxerr(g, x.grad) / max(1.0, float(x.grad.abs().max()))
+                  for g, x in zip(grads, xs))
     print(f"[kernels] flash_bwd vs autograd of the naive oracle (f32, window, "
-          f"segments, dropout, q suffix): {worst:.3e} (tol {BWD_TOL['float32']:.0e})")
-    if worst > BWD_TOL["float32"]:
+          f"segments, dropout, q suffix): {worst:.3e}; at D 80 non-causal "
+          f"(dropout, q suffix): {worst80:.3e} (tol {BWD_TOL['float32']:.0e})")
+    if max(worst, worst80) > BWD_TOL["float32"]:
         fail("the backward kernel disagrees with autograd of the naive oracle")
     torch.cuda.empty_cache()
     return errs
@@ -2341,7 +2477,7 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
           f"{cfg.dropout_rate}; batch {n_batch} x {n_seq} tokens from make_batch",
           flush=True)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=n_seq,
-                    global_batch=n_batch, seed=0)
+                    global_batch=n_batch, seed=0, frontend=cfg.frontend)
     batch = place_batch(make_batch(dc, 0), "cuda")
 
     # (a) one loss-and-grad pass per impl on the same params and batch; an
@@ -2369,8 +2505,10 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
                 fail(f"{arch} training pass: {rec.flips} routing choices flipped")
         counts = (kfwd.launches, kbwd.launches_bwd)
         named = dict(params.named_parameters())
+        # a frontend arch's embedding is not reached from embeds: no grad
         out = (float(loss.detach()),
-               float(global_norm(p.grad for p in params.parameters())),
+               float(global_norm(p.grad for p in params.parameters()
+                                 if p.grad is not None)),
                {n: named[n].grad.clone() for n in leaves}, counts, dt)
         params.zero_grad(set_to_none=True)
         return out
@@ -2501,7 +2639,8 @@ def mamba_pool(lazy: bool):
 
 
 def mamba_serve_phase(torch):
-    """Phase 4g: falcon-mamba-7b at full width and depth. (a) The contiguous
+    """Phase 4g: falcon-mamba-7b at full width and ``MAMBA_LAYERS`` layers.
+    (a) The contiguous
     path at batch 4 x (1024 + 32): every step's logits held to one full
     forward over prompt and fed tokens (padded to a multiple of the scan's
     256-token chunk; the scan is causal, so the padding moves no earlier
@@ -2521,6 +2660,7 @@ def mamba_serve_phase(torch):
 
     tag = "[ssm]"
     cfg = dataclasses.replace(configs.get_config("falcon_mamba_7b"),
+                              num_layers=MAMBA_LAYERS,
                               dtype=torch.float32)   # as launch/serve.py forces
     mc = cfg.mamba
     if lm.block_kinds(cfg) != ["ssm"] * cfg.num_layers:
@@ -2764,6 +2904,152 @@ def mamba_train_phase(torch):
                  f"differs by {err:.3e} of its max")
     del layer, out_c, out_s, g_c, g_s
     torch.cuda.empty_cache()
+
+
+def vlm_serve_phase(torch, kfwd, kdecode):
+    """Phase 4h: llava-next-34b (the vlm family) at full width and
+    ``VLM_LAYERS`` layers, f32, random weights from seed 0, one set of
+    params for both caches. (a) The contiguous path at batch 4 x (1024 +
+    32), prefilled from a token prompt and then from patch embeddings
+    (``embeds`` [4, 1024, 1024] from ``make_batch``, the vision path),
+    decoding by tokens: kernel impl, then torch impl fed the kernel run's
+    tokens; counters one ``flash_fwd`` a layer and one ``flash_decode`` a
+    layer a step; logits within ``LOGIT_REL_TOL``; where the torch run's
+    token differs, the kernel run's top-2 margin must be a near-tie. (b) The
+    paged engine on ``VLM_REQUESTS`` seeded requests in ``VLM_MODES``
+    (``_engine_modes``). Prints prefill ms, ms a decode step beside the
+    bound of reading the weights and the cache once, tokens/s, peak memory.
+    Returns the kernel runs' launch counts by path."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import lm
+    from repro_torch.runtime.steps import make_serve_steps
+    from repro_torch.serving import PagedCacheConfig
+
+    tag = "[vlm]"
+    cfg = dataclasses.replace(configs.get_config("llava_next_34b"),
+                              num_layers=VLM_LAYERS, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag} {cfg.name}: {cfg.num_layers} of 60 layers at full width, "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} (a "
+          f"GQA group of {cfg.num_heads // cfg.num_kv_heads}), head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, frontend_proj "
+          f"[{lm.FRONTEND_DIM}, {cfg.d_model}]; {n_params / 1e9:.3f} B params f32 "
+          f"= {4 * n_params / 1e9:.2f} GB (random, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    b, s, g, n = VLM_BATCH, VLM_PROMPT, VLM_GEN, cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    embeds = torch.as_tensor(make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0,
+        frontend=cfg.frontend), 0)["embeds"], device="cuda")
+    # a decode step reads every weight but the embedding and frontend_proj,
+    # and the K/V cache at the middle step's length, once
+    weight_bytes = 4 * sum(p.numel() for name, p in params.named_parameters()
+                           if name not in ("embed", "frontend_proj"))
+    kv_bytes = 4 * n * b * 2 * cfg.num_kv_heads * cfg.head_dim * (s + g // 2)
+    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+
+    def steps(impl):
+        return make_serve_steps(cfg, impl=impl, max_len=s + g, batch=b,
+                                torch_chunk=s, device="cuda")
+
+    counts = {"flash_fwd": 0, "flash_decode": 0}
+    want = {"flash_fwd": n, "flash_decode": n * (g - 1)}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for source, (pr, em) in (("tokens", (prompt, None)),
+                             ("embeds", (None, embeds))):
+        kfwd.launches = kdecode.launches = 0
+        run_k = greedy_generate(steps("kernel"), params, pr, g, cfg.vocab_size,
+                                embeds=em)
+        got = {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches}
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = run_k.decode_s * 1e3 / (g - 1)
+        print(f"{tag} (a) from {source}, impl=kernel: prefill {b}x{s} "
+              f"{run_k.prefill_s * 1e3:.1f} ms; decode {g - 1} steps "
+              f"{run_k.decode_s * 1e3:.1f} ms = {step_ms:.2f} ms a step "
+              f"({(g - 1) * b / run_k.decode_s:.1f} tokens/s) against the bound "
+              f"of reading {(weight_bytes + kv_bytes) / 1e9:.2f} GB a step (the "
+              f"weights but embed and frontend_proj, and the cache at "
+              f"{s + g // 2} slots) at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+              f"{bound_ms:.2f} ms ({step_ms / bound_ms:.2f}x); "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB of "
+              f"{total / 2**30:.2f}", flush=True)
+        print(f"{tag} (a) from {source}: launch counters {got} (expected "
+              f"{want})", flush=True)
+        if got != want:
+            fail(f"llava-next-34b from {source}: the serving path did not go "
+                 f"through the kernels: {got}")
+        for key in counts:
+            counts[key] += got[key]
+        run_t = greedy_generate(steps("torch"), params, pr, g, cfg.vocab_size,
+                                embeds=em, feed=run_k.tokens)
+        if {"flash_fwd": kfwd.launches, "flash_decode": kdecode.launches} != want:
+            fail("impl='torch' launched a CUDA kernel")
+        worst, ties = 0.0, []
+        for j, (lk, lt) in enumerate(zip(run_k.logits, run_t.logits)):
+            if lk.shape != (b, cfg.vocab_size) or \
+                    not bool(torch.isfinite(lk).all()):
+                fail(f"llava-next-34b step {j}: logits of shape "
+                     f"{tuple(lk.shape)} or not finite")
+            rel = _maxerr(lk, lt) / float(lt.abs().max())
+            worst = max(worst, rel)
+            if rel > LOGIT_REL_TOL:
+                fail(f"llava-next-34b from {source} step {j}: kernel vs torch "
+                     f"logits differ by {rel:.3e} of max|logit|")
+            rows = (run_k.tokens[:, j] != run_t.tokens[:, j]).nonzero()[:, 0]
+            if rows.numel():
+                margin, top = _top2(lk, cfg.vocab_size)
+                for r in rows.tolist():
+                    ties.append(f"row {r} step {j}: kernel "
+                                f"{int(run_k.tokens[r, j])} vs torch "
+                                f"{int(run_t.tokens[r, j])}, margin "
+                                f"{margin[r]:.3e} of max|logit| {top[r]:.3e}")
+                    if margin[r] > LOGIT_REL_TOL * top[r]:
+                        fail(f"llava-next-34b from {source}: {ties[-1]}: not a "
+                             f"near-tie")
+        print(f"{tag} (a) from {source}, impl=torch (fed the kernel run's "
+              f"tokens): prefill {run_t.prefill_s * 1e3:.1f} ms, decode "
+              f"{run_t.decode_s * 1e3:.1f} ms; kernel vs torch logits over "
+              f"prefill + {g - 1} steps: max |d| / max|logit| {worst:.3e} (tol "
+              f"{LOGIT_REL_TOL:.0e}); greedy tokens equal for "
+              f"{b * g - len(ties)} of {b * g} (row, step) pairs"
+              + "".join(f"; near-tie {t}" for t in ties), flush=True)
+        del run_k, run_t
+    del embeds
+    torch.cuda.empty_cache()
+
+    # (b) the paged engine
+    ps, slots = 16, 8
+    pages_per_seq = -(-(s + g) // ps) + 1                            # 67
+    pcfg = PagedCacheConfig(page_size=ps, max_batch=slots,
+                            max_pages_per_seq=pages_per_seq,
+                            num_pages=1 + slots * pages_per_seq)
+    rs = np.random.RandomState(3)
+    reqs = [(rs.randint(0, cfg.vocab_size, size=int(rs.randint(s // 4, s + 1))),
+             g) for _ in range(VLM_REQUESTS)]
+    print(f"{tag} (b) paged: page {ps}, {slots} slots, {pages_per_seq} pages a "
+          f"sequence, pool {pcfg.num_pages} pages; {len(reqs)} requests, prompts "
+          f"{[len(t) for t, _ in reqs]} tokens, {g} generated each; near-tie "
+          f"tolerance: top-2 margin <= {LOGIT_REL_TOL:.0e} x max|logit|",
+          flush=True)
+    modes = {mode: (pcfg, prefill_len, kw, reqs)
+             for mode, (kw, prefill_len) in VLM_MODES.items()}
+    paged, _, _ = _engine_modes(torch, kfwd, kdecode, cfg, params, modes,
+                                "vlm paged", s)
+    print(f"{tag} peak max_memory_allocated over phase 4h "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"serve": counts, "paged": paged}
 
 
 def profile_step(torch, step, tag="[train]", what="loss") -> None:
@@ -3499,6 +3785,144 @@ def hybrid_times_phase(torch, kfwd, kdecode, launches, paged_launches,
     return [fwd, dec, pag]
 
 
+def _dn(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _hold(what, dtype, err, tol, where):
+    if not err <= tol:
+        fail(f"{what} {_dn(dtype)} at {where}: {err:.3e} from its plain version "
+             f"(tol {tol:.1e})")
+
+
+def fwd_time_case(torch, kfwd, gen, b, hq, hkv, s, d, dtype, causal=True,
+                  dropout=0.0, where=""):
+    """Row 1 on seeded inputs at one shape (q all of kv): held to its plain
+    version (``TOL``), then the kernel's and the plain version's times, SDPA's
+    in the same dtype with the same mask and dropout rate, and the bounds."""
+    import torch.nn.functional as F
+
+    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+    kw = dict(causal=causal, dropout_rate=dropout, dropout_seed=3)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    err = _maxerr(kfwd.flash_fwd(q, k, v, **kw)[0],
+                  kfwd.flash_fwd_torch(q, k, v, **kw)[0])
+    _hold(f"flash_fwd B {b}, {hq}/{hkv} heads, S {s}, D {d}", dtype, err,
+          TOL[_dn(dtype)], where)
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, **kw), 10),
+            "plain_ms": time_ms(torch, lambda: kfwd.flash_fwd_torch(
+                q, k, v, **kw), 2, warmup=1),
+            **bounds(4 * b * hq * d * pairs,
+                     q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+                     + 4 * b * hq * s, _dn(dtype)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, dropout_p=dropout, enable_gqa=True), 10)}
+
+
+def bwd_time_case(torch, kfwd, kbwd, gen, b, hq, hkv, s, d, dtype, causal=True,
+                  dropout=0.0, where=""):
+    """Rows 2-3 on seeded inputs at one shape: the kernel (CUDA events around
+    ``launch_bwd``) launched twice (dK, dV bit-equal), held to its plain
+    version (``BWD_TOL`` relative to max(1, max|plain|)), SDPA's whole
+    backward in the same dtype, the bounds; f32 also the plain version's
+    time and the 3xTF32 bound."""
+    import torch.nn.functional as F
+
+    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
+    do = _rand(torch, gen, (b, hq, s, d), dtype)
+    kw = dict(causal=causal, dropout_rate=dropout, dropout_seed=3)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    delta = kbwd.row_delta(o, do)
+    el = q.element_size()
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                         dropout_p=dropout, enable_gqa=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 10)
+    del qg, kg, vg, out
+    call = lambda: kbwd.launch_bwd(q, k, v, lse, do, delta,  # noqa: E731
+                                   scale=d ** -0.5, **kw)
+    got, again = call(), call()
+    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+        fail(f"flash_bwd {_dn(dtype)} at {where}: dK, dV differ on a second launch")
+    flops = 10 * d * b * hq * (s * (s + 1) // 2 if causal else s * s)
+    r = {"ms": time_ms(torch, call, 10), "library_ms": lib_ms,
+         **bounds(flops, el * (3 * b * hq * s * d + 4 * b * hkv * s * d)
+                  + 4 * 2 * b * hq * s, _dn(dtype)),
+         "dq_rerun_max_abs_diff": _maxerr(got[0], again[0])}
+    plain = kbwd.flash_bwd_torch(q, k, v, lse, do, delta, scale=d ** -0.5, **kw)
+    r["max_abs_err"] = max(_maxerr(g, gp) for g, gp in zip(got, plain))
+    _hold(f"flash_bwd B {b}, {hq}/{hkv} heads, S {s}, D {d}, relative to max(1, "
+          f"max|plain|),", dtype,
+          max(_maxerr(g, gp) / max(1.0, float(gp.float().abs().max()))
+              for g, gp in zip(got, plain)), BWD_TOL[_dn(dtype)], where)
+    del plain
+    if dtype == torch.float32:
+        r["plain_ms"] = time_ms(torch, lambda: kbwd.flash_bwd_torch(
+            q, k, v, lse, do, delta, scale=d ** -0.5, **kw), 2, warmup=1)
+        r["bound_ms_3xtf32"] = 3 * flops / PEAK_FLOPS["float32"] * 1e3
+    return r
+
+
+def decode_time_case(torch, kdecode, gen, b, hq, hkv, d, cap, n, dtype,
+                     where=""):
+    """Row 4 at ``n`` of ``cap`` slots on every row: held to its plain
+    version, times, SDPA on the filled slots, the bound."""
+    import torch.nn.functional as F
+
+    q = _rand(torch, gen, (b, hq, d), dtype)
+    kc, vc = (_rand(torch, gen, (b, hkv, cap, d), dtype) for _ in range(2))
+    kv_len = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    ks, vs = kc[:, :, :n], vc[:, :, :n]
+    err = _maxerr(kdecode.flash_decode(q, kc, vc, kv_len=kv_len),
+                  kdecode.flash_decode_torch(q, kc, vc, kv_len=kv_len))
+    _hold(f"flash_decode B {b}, {hq}/{hkv} heads, {n} of {cap} slots", dtype,
+          err, TOL[_dn(dtype)], where)
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: kdecode.flash_decode(
+                q, kc, vc, kv_len=kv_len), 50),
+            "plain_ms": time_ms(torch, lambda: kdecode.flash_decode_torch(
+                q, kc, vc, kv_len=kv_len), 10),
+            **bounds(4 * b * hq * d * n, q.element_size() * (
+                2 * b * hq * d + 2 * b * hkv * n * d) + 4 * b, _dn(dtype)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ks, vs, enable_gqa=True), 50)}
+
+
+def paged_time_case(torch, kdecode, gen, hq, hkv, d, t, lens, dtype, where=""):
+    """Row 5 at an engine's decode: 8 slots, page 16, tables of ``t`` pages,
+    kv_len drawn from ``lens`` (low, high); held to its plain version, times,
+    SDPA on the gathered cache with kv_len as a mask (gather excluded), the
+    bound over each slot's distinct K/V rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.perf import decode_times
+
+    kv_len = torch.randint(*lens, (8,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    q, kp, vp, bt, _ = decode_times.paged_inputs(kv_len, seed=5,
+                                                 geometry=(hq, hkv, d, 16, t))
+    q, kp, vp, bt = q.to(dtype), kp.to(dtype), vp.to(dtype), bt[0]
+    kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
+    allowed = (torch.arange(kc.shape[2], device="cuda")[None, :]
+               < kv_len[:, None])[:, None, None, :]
+    n = int(kv_len.sum())
+    err = _maxerr(kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, row_tokens=1),
+                  kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len))
+    _hold("flash_paged_decode", dtype, err, TOL[_dn(dtype)], where)
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
+                q, kp, vp, bt, kv_len, row_tokens=1), 50),
+            "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
+                q, kp, vp, bt, kv_len=kv_len), 5, warmup=1),
+            **bounds(4 * hq * d * n, q.element_size() * (2 * hkv * d * n
+                                                          + 2 * 8 * hq * d)
+                     + 4 * 8 * (t + 1), _dn(dtype)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=allowed, enable_gqa=True), 50)}
+
+
 def moe_times_phase(torch, kfwd, kbwd, kdecode, serve, train):
     """Phase 6 at deepseek-moe-16b's attention geometry (16/16 heads, D 128,
     a GQA group of 1), f32 as its paths run and bf16, each kernel beside its
@@ -3511,119 +3935,27 @@ def moe_times_phase(torch, kfwd, kbwd, kdecode, serve, train):
     128-576). Every kernel is held to its plain version on the inputs it
     is timed on (``TOL``, the backward ``BWD_TOL``), as in phase 3.
     Returns the five rows."""
-    import torch.nn.functional as F
-
-    from repro_torch.perf import decode_times
-
     gen = torch.Generator(device="cuda").manual_seed(20)
     hq, hkv, d = 16, 16, 128
     src = "src/repro_torch/kernels/csrc/"
     dtypes = ((torch.float32, ""), (torch.bfloat16, "bf16_"))
+    where = "the MoE shape"
 
-    def hold(what, dtype, err, tol):
-        if not err <= tol:
-            fail(f"{what} {str(dtype).split('.')[-1]} at the MoE shape: "
-                 f"{err:.3e} from its plain version (tol {tol:.1e})")
-
-    def fwd_case(b, hq, hkv, s, dtype, dropout=0.0, plain=True):
-        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
-        kw = dict(causal=True, dropout_rate=dropout, dropout_seed=3)
-        el = q.element_size()
-        r = {"ms": time_ms(torch, lambda: kfwd.flash_fwd(q, k, v, **kw), 10),
-             **bounds(4 * b * hq * d * (s * (s + 1) // 2),
-                      el * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-                      + 4 * b * hq * s, str(dtype).split(".")[-1]),
-             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                 q, k, v, is_causal=True, dropout_p=dropout, enable_gqa=True), 10)}
-        if plain:
-            r["max_abs_err"] = _maxerr(kfwd.flash_fwd(q, k, v, **kw)[0],
-                                       kfwd.flash_fwd_torch(q, k, v, **kw)[0])
-            hold(f"flash_fwd B {b}, {hq}/{hkv} heads, S {s}", dtype,
-                 r["max_abs_err"], TOL[str(dtype).split(".")[-1]])
-            r["plain_ms"] = time_ms(torch, lambda: kfwd.flash_fwd_torch(
-                q, k, v, **kw), 2, warmup=1)
-        return r
+    def fwd_case(b, hq, hkv, s, dtype, dropout=0.0):
+        return fwd_time_case(torch, kfwd, gen, b, hq, hkv, s, d, dtype,
+                             dropout=dropout, where=where)
 
     def bwd_case(b, s, dtype, dropout):
-        q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, dtype)
-        do = _rand(torch, gen, (b, hq, s, d), dtype)
-        kw = dict(causal=True, dropout_rate=dropout, dropout_seed=3)
-        o, lse = kfwd.flash_fwd(q, k, v, **kw)
-        delta = kbwd.row_delta(o, do)
-        el = q.element_size()
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             dropout_p=dropout)
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), 10)
-        call = lambda: kbwd.launch_bwd(q, k, v, lse, do, delta,  # noqa: E731
-                                       scale=d ** -0.5, **kw)
-        got, again = call(), call()
-        flops = 10 * d * b * hq * (s * (s + 1) // 2)
-        r = {"ms": time_ms(torch, call, 10), "library_ms": lib_ms,
-             **bounds(flops, el * (3 * b * hq * s * d + 4 * b * hkv * s * d)
-                      + 4 * 2 * b * hq * s, str(dtype).split(".")[-1]),
-             "dq_rerun_max_abs_diff": _maxerr(got[0], again[0])}
-        plain = kbwd.flash_bwd_torch(q, k, v, lse, do, delta, scale=d ** -0.5,
-                                     **kw)
-        r["max_abs_err"] = max(_maxerr(g, gp) for g, gp in zip(got, plain))
-        hold("flash_bwd, relative to max(1, max|plain|),", dtype,
-             max(_maxerr(g, gp) / max(1.0, float(gp.float().abs().max()))
-                 for g, gp in zip(got, plain)),
-             BWD_TOL[str(dtype).split(".")[-1]])
-        del plain
-        if dtype == torch.float32:
-            r["plain_ms"] = time_ms(torch, lambda: kbwd.flash_bwd_torch(
-                q, k, v, lse, do, delta, scale=d ** -0.5, **kw), 2, warmup=1)
-            r["bound_ms_3xtf32"] = 3 * flops / PEAK_FLOPS["float32"] * 1e3
-        return r
+        return bwd_time_case(torch, kfwd, kbwd, gen, b, hq, hkv, s, d, dtype,
+                             dropout=dropout, where=where)
 
     def decode_case(b, hq, hkv, cap, n, dtype):
-        q = _rand(torch, gen, (b, hq, d), dtype)
-        kc, vc = (_rand(torch, gen, (b, hkv, cap, d), dtype) for _ in range(2))
-        kv_len = torch.full((b,), n, dtype=torch.int32, device="cuda")
-        el = q.element_size()
-        ks, vs = kc[:, :, :n], vc[:, :, :n]
-        err = _maxerr(kdecode.flash_decode(q, kc, vc, kv_len=kv_len),
-                      kdecode.flash_decode_torch(q, kc, vc, kv_len=kv_len))
-        hold(f"flash_decode B {b}, {hq}/{hkv} heads, {n} of {cap} slots", dtype,
-             err, TOL[str(dtype).split(".")[-1]])
-        return {"max_abs_err": err,
-                "ms": time_ms(torch, lambda: kdecode.flash_decode(
-                    q, kc, vc, kv_len=kv_len), 50),
-                "plain_ms": time_ms(torch, lambda: kdecode.flash_decode_torch(
-                    q, kc, vc, kv_len=kv_len), 10),
-                **bounds(4 * b * hq * d * n,
-                         el * (2 * b * hq * d + 2 * b * hkv * n * d) + 4 * b,
-                         str(dtype).split(".")[-1]),
-                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], ks, vs, enable_gqa=True), 50)}
+        return decode_time_case(torch, kdecode, gen, b, hq, hkv, d, cap, n,
+                                dtype, where)
 
     def paged_case(dtype):
-        geometry = (hq, hkv, d, 16, 37)
-        kv_len = torch.randint(128, 577, (8,), generator=gen, device="cuda",
-                               dtype=torch.int32)
-        q, kp, vp, bt, _ = decode_times.paged_inputs(kv_len, seed=5,
-                                                     geometry=geometry)
-        q, kp, vp, bt = q.to(dtype), kp.to(dtype), vp.to(dtype), bt[0]
-        kc, vc = kdecode.gather_pages(kp, bt), kdecode.gather_pages(vp, bt)
-        allowed = (torch.arange(kc.shape[2], device="cuda")[None, :]
-                   < kv_len[:, None])[:, None, None, :]
-        el = q.element_size()
-        nbytes = (el * (2 * hkv * d * int(kv_len.sum()) + 2 * 8 * hq * d)
-                  + 4 * 8 * (37 + 1))
-        err = _maxerr(kdecode.flash_paged_decode(q, kp, vp, bt, kv_len, row_tokens=1),
-                      kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len))
-        hold("flash_paged_decode", dtype, err, TOL[str(dtype).split(".")[-1]])
-        return {"max_abs_err": err,
-                "ms": time_ms(torch, lambda: kdecode.flash_paged_decode(
-                    q, kp, vp, bt, kv_len, row_tokens=1), 50),
-                "plain_ms": time_ms(torch, lambda: kdecode.flash_paged_decode_torch(
-                    q, kp, vp, bt, kv_len=kv_len), 5, warmup=1),
-                **bounds(4 * hq * d * int(kv_len.sum()), nbytes,
-                         str(dtype).split(".")[-1]),
-                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], kc, vc, attn_mask=allowed, enable_gqa=True), 50)}
+        return paged_time_case(torch, kdecode, gen, hq, hkv, d, 37, (128, 577),
+                               dtype, where)
 
     fwd_src = {"route": "cuda", "source": src + "flash_fwd.cu",
                "replaces": "src/repro/kernels/flash_fwd.py:46"}
@@ -3690,6 +4022,110 @@ def moe_times_phase(torch, kfwd, kbwd, kdecode, serve, train):
               f"{row['dbrx_shape_bound_ms']:.5f} ms", flush=True)
     torch.cuda.empty_cache()
     return [prefill, training, bwd, dec, pag]
+
+
+def frontend_times_phase(torch, kfwd, kbwd, kdecode, vlm_serve, enc_train,
+                         vlm_train):
+    """Phase 6 at the frontend families' shapes, f32 as their paths run and
+    bf16 (``bf16_``), each kernel beside its plain version (f32 for the
+    backward), one PyTorch library call and its bound at the dtype's
+    tensor-core peak: rows 1 and 2-3 at hubert-xlarge's training shape (B
+    8, 16/16 heads, S 1024, D 80, non-causal, dropout 0.1), row 1 at
+    llava-next-34b's prefill (B 4, 56/8 heads, S 1024, D 128, causal;
+    ``train_shape_``: B 1, S 2048, dropout 0.1), rows 2-3 at its training
+    shape, row 4 at its decode (B 4, 1040 of 1056 slots) and row 5 at its
+    paged engine's decode (8 slots, page 16, T 67, kv_len 256-1056). Every
+    kernel is held to its plain version on the inputs it is timed on.
+    Returns the six rows."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    src = "src/repro_torch/kernels/csrc/"
+    where = "the frontend shapes"
+
+    def fwd_case(b, hq, hkv, s, d, dtype, causal, dropout):
+        return fwd_time_case(torch, kfwd, gen, b, hq, hkv, s, d, dtype, causal,
+                             dropout, where)
+
+    def bwd_case(b, hq, hkv, s, d, dtype, causal, dropout):
+        return bwd_time_case(torch, kfwd, kbwd, gen, b, hq, hkv, s, d, dtype,
+                             causal, dropout, where)
+
+    def decode_case(dtype):
+        return decode_time_case(torch, kdecode, gen, 4, 56, 8, 128, 1056, 1040,
+                                dtype, where)
+
+    def paged_case(dtype):
+        return paged_time_case(torch, kdecode, gen, 56, 8, 128, 67, (256, 1057),
+                               dtype, where)
+
+    fwd_src = {"route": "cuda", "source": src + "flash_fwd.cu",
+               "replaces": "src/repro/kernels/flash_fwd.py:46"}
+    bwd_src = {"route": "cuda", "source": src + "flash_bwd.cu",
+               "replaces": "src/repro/kernels/flash_bwd.py:98, "
+                           "src/repro/kernels/flash_bwd.py:164"}
+    serve, paged = vlm_serve["serve"], vlm_serve["paged"]
+    enc_fwd = {"name": "flash_fwd (hubert-xlarge training)", **fwd_src,
+               "launches": enc_train["flash_fwd"],
+               "shape": "B 8, 16/16 heads, S 1024, D 80, non-causal, dropout 0.1",
+               "library_note": "sdpa, is_causal False, dropout_p 0.1"}
+    enc_bwd = {"name": "flash_bwd (hubert-xlarge training)", **bwd_src,
+               "launches": enc_train["flash_bwd"], "shape": enc_fwd["shape"],
+               "library_note": "sdpa backward (dq, dk, dv), is_causal False, "
+                               "dropout_p 0.1"}
+    vlm_fwd = {"name": "flash_fwd (llava-next-34b prefill)", **fwd_src,
+               "launches": (serve["flash_fwd"] + paged["flash_fwd"]
+                            + vlm_train["flash_fwd"]),
+               "launches_by_path": {"vlm_serve": serve["flash_fwd"],
+                                    "vlm_paged_serve": paged["flash_fwd"],
+                                    "vlm_train": vlm_train["flash_fwd"]},
+               "shape": "B 4, 56/8 heads, S 1024, D 128, causal; train_shape_: "
+                        "B 1, S 2048, causal, dropout 0.1"}
+    vlm_bwd = {"name": "flash_bwd (llava-next-34b training)", **bwd_src,
+               "launches": vlm_train["flash_bwd"],
+               "shape": "B 1, 56/8 heads, S 2048, D 128, causal, dropout 0.1",
+               "library_note": "sdpa backward (dq, dk, dv), GQA by enable_gqa, "
+                               "dropout_p 0.1"}
+    vlm_dec = {"name": "flash_decode (llava-next-34b decode)", "route": "cuda",
+               "source": src + "flash_decode.cu",
+               "replaces": "src/repro/kernels/decode.py:131",
+               "launches": serve["flash_decode"],
+               "shape": "B 4, 56/8 heads, 1040 of 1056 slots, D 128"}
+    vlm_pag = {"name": "flash_paged_decode (llava-next-34b)", "route": "cuda",
+               "source": src + "flash_decode.cu",
+               "replaces": "src/repro/kernels/decode.py:136",
+               "launches": paged["flash_paged_decode"],
+               "launches_by_path": {"vlm_paged_serve": paged["by_mode"]},
+               "shape": "8 slots, 56/8 heads, D 128, page 16, T 67, kv_len 256-1056",
+               "library_note": "sdpa on the gathered contiguous cache with kv_len "
+                               "as a mask, gather excluded"}
+    rows = (enc_fwd, enc_bwd, vlm_fwd, vlm_bwd, vlm_dec, vlm_pag)
+    for dtype, pre in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+        for row, r in (
+                (enc_fwd, fwd_case(8, 16, 16, 1024, 80, dtype, False, 0.1)),
+                (enc_bwd, bwd_case(8, 16, 16, 1024, 80, dtype, False, 0.1)),
+                (vlm_fwd, fwd_case(4, 56, 8, 1024, 128, dtype, True, 0.0)),
+                (vlm_bwd, bwd_case(1, 56, 8, 2048, 128, dtype, True, 0.1)),
+                (vlm_dec, decode_case(dtype)),
+                (vlm_pag, paged_case(dtype))):
+            row.update({pre + key: val for key, val in r.items()})
+        vlm_fwd.update({pre + "train_shape_" + key: val for key, val in
+                        fwd_case(1, 56, 8, 2048, 128, dtype, True, 0.1).items()})
+    for row in rows:
+        for pre, name in (("", "f32"), ("bf16_", "bf16"),
+                          *((("train_shape_", "f32 at training"),
+                             ("bf16_train_shape_", "bf16 at training"))
+                            if row is vlm_fwd else ())):
+            print(f"[times] {row['name']} {name}: kernel {row[pre + 'ms']:.5f} ms"
+                  + (f", plain {row[pre + 'plain_ms']:.4f} ms"
+                     if pre + "plain_ms" in row else "")
+                  + f", library {row[pre + 'library_ms']:.5f} ms "
+                  f"({row[pre + 'ms'] / row[pre + 'library_ms']:.2f}x), bound "
+                  f"{row[pre + 'bound_ms']:.5f} ms ({row[pre + 'bound_by']})"
+                  + (f", 3xTF32 {row[pre + 'bound_ms_3xtf32']:.5f} ms"
+                     if pre + "bound_ms_3xtf32" in row else "")
+                  + f", max|kernel - plain| {row[pre + 'max_abs_err']:.3e}; "
+                  f"launches {row['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    return list(rows)
 
 
 def device_times_phase(rows) -> None:

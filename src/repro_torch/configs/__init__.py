@@ -1,13 +1,13 @@
 """Architecture configs of the port (counterpart of ``repro.configs``).
 
 ``get_config(id)`` returns an arch's full config and ``smoke_config(id)`` its
-reduced same-family variant for CPU tests. The port carries the four dense
-attention-only archs, the hybrid recurrentgemma-2b, the two MoE archs and
-the ssm falcon-mamba-7b; the other families of ``ARCHS`` (vlm, encoder)
-come with their frontends and are named in ``UNPORTED_FAMILIES`` until
-then. ``arch_config(id)`` reads any arch's full
-config, ported or not, for the arithmetic on it (``param_count``, the
-roofline of ``perf/roofline.py``).
+reduced same-family variant for CPU tests. The port carries every arch of
+``ARCHS``: the four dense attention-only archs, the hybrid
+recurrentgemma-2b, the two MoE archs, the ssm falcon-mamba-7b, the vlm
+llava-next-34b and the encoder hubert-xlarge (both fed precomputed
+``FRONTEND_DIM``-wide embeddings by their stub frontends).
+``arch_config(id)`` reads an arch's full config for the arithmetic on it
+(``param_count``, the roofline of ``perf/roofline.py``).
 """
 
 from __future__ import annotations
@@ -134,26 +134,16 @@ ARCHS = [
     "recurrentgemma_2b", "falcon_mamba_7b",
 ]
 
-#: archs of ``ARCHS`` whose family the port does not run yet → that family
-UNPORTED_FAMILIES = {
-    "llava_next_34b": "vlm", "hubert_xlarge": "encoder",
-}
-
 
 def _module(name: str):
-    name = name.replace("-", "_")
-    if name in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{name}: the {UNPORTED_FAMILIES[name]} family is not yet ported "
-            f"to repro_torch (dense, hybrid, moe and ssm archs only)")
-    return importlib.import_module(f"repro_torch.configs.{name}")
+    return importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_')}")
 
 
 def arch_config(name: str) -> ArchConfig:
-    """The full config of any arch of ``ARCHS``, its family ported or not
-    (parameter counts and rooflines need no model)."""
-    return importlib.import_module(
-        f"repro_torch.configs.{name.replace('-', '_')}").CONFIG
+    """The full config of any arch of ``ARCHS`` (parameter counts and
+    rooflines need no model)."""
+    return _module(name).CONFIG
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,6 +1,5 @@
 """hubert-xlarge — assigned architecture config (see configs/__init__ for
-fields). The encoder family is not ported yet: ``arch_config`` reads this
-for parameter counts; ``get_config`` refuses it."""
+fields)."""
 
 import dataclasses
 

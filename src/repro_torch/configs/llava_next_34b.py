@@ -1,6 +1,5 @@
 """llava-next-34b — assigned architecture config (see configs/__init__ for
-fields). The vlm family is not ported yet: ``arch_config`` reads this for
-parameter counts; ``get_config`` refuses it."""
+fields)."""
 
 import dataclasses
 

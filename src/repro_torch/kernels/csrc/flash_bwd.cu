@@ -62,6 +62,14 @@
 // Q/dO and the P~^T/dS^T tiles fit in shared memory, else 64 (4 warps) with
 // one stage (f32 at D 128). Rows are padded by 16 bytes, so the fragment
 // loads along rows are free of bank conflicts (those across rows 2-way).
+// - Head dim 80 (hubert-xlarge, non-causal) keeps the D <= 128 shape: 64 kv
+//   rows and 4 warps for f32 (128 rows with two Q/dO stages would need 238
+//   KB), 128 rows and 8 warps for bf16. Rows are copied as rows x chunks
+//   flat (mma.cuh load_rows: 20 or 10 chunks a row do not divide the
+//   block). The dQ product gives each of the 4 warps of 16 q rows 10
+//   n-tiles (f32), or each of the 8 warps 5 (bf16, the odd one through
+//   ld_b1), and its 16-byte atomics land at columns dn0 + 8 j + {0, 4}, dn0
+//   0 or 40: multiples of four floats, so every float4 is aligned.
 // - Head dim 256 (recurrentgemma-2b: 10 q heads on one kv head, window 2048)
 //   takes its own shape. One warp's dK and dV over 16 kv rows and all 256
 //   columns would be 256 f32 accumulators a lane before the tile products'
@@ -432,6 +440,7 @@ int launch_d(const BwdParams& p, int d, cudaStream_t stream) {
     case 16: return launch<T, 16, ACC16>(p, stream);
     case 32: return launch<T, 32, ACC16>(p, stream);
     case 64: return launch<T, 64, ACC16>(p, stream);
+    case 80: return launch<T, 80, ACC16>(p, stream);
     case 128: return launch<T, 128, ACC16>(p, stream);
     case 256: return launch<T, 256, ACC16>(p, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -47,6 +47,13 @@
 //   64-row f32 stage alone is 133 KB: Q 64 x 260 words and two stages of
 //   32-row K and V take 195 KB (bf16 99 KB). The fold's tile is then 32
 //   rows, which the plain version follows (flash_fwd.py kv_tile).
+// - Head dim 80 (hubert-xlarge, non-causal) keeps the D <= 128 shape: an
+//   80-wide row is 20 f32 or 10 bf16 16-byte chunks, which a block's 128
+//   threads do not divide, so the copies walk rows x chunks flat
+//   (mma.cuh load_rows); O's 10 n-tiles of 8 take one P V pass; Q's f32
+//   fragments (320 bytes a row) are reread from shared memory, bf16 ones
+//   stay in registers; rows of 84 words (f32) and 88 halves (bf16) keep the
+//   ldmatrix rows on distinct banks.
 // - Each tile's P V is summed into zeroed fragments and folded into the f32
 //   accumulator as acc * alpha + pv (bf16-rounded first under ACC16): JAX's
 //   fold, and a chain of mma into one accumulator over a long sequence would
@@ -180,7 +187,9 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
   constexpr int BQ = C::BQ, NT = C::NT, LD = C::LD, NST = C::NST, BKV = C::BKV, DW = C::DW;
   constexpr int KQ = D / M::K;                    // k-steps of S = Q K^T
   constexpr int KP = BKV / M::K;                  // k-steps of P V
-  constexpr int NC = DW / 8 < 8 ? DW / 8 : 8;     // n-tiles of P V a pass (pv's registers)
+  // n-tiles of P V a pass (pv's registers): all of them up to D 64 and at
+  // D 80 (10), else 8
+  constexpr int NC = DW / 8 <= 8 || DW / 8 % 8 ? DW / 8 : 8;
   constexpr int NQF = C::QREG ? KQ : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);             // [BQ][LD]
@@ -427,6 +436,7 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
     case 16: return launch<T, 16, ACC16>(p, stream);
     case 32: return launch<T, 32, ACC16>(p, stream);
     case 64: return launch<T, 64, ACC16>(p, stream);
+    case 80: return launch<T, 80, ACC16>(p, stream);
     case 128: return launch<T, 128, ACC16>(p, stream);
     case 256: return launch<T, 256, ACC16>(p, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -438,7 +448,7 @@ int launch_d(const FwdParams& p, int d, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; acc_bf16: round each tile product to
-// bf16 (bf16-ACC); D 16, 32, 64, 128 or 256. Segment pointers are all null
+// bf16 (bf16-ACC); D 16, 32, 64, 80, 128 or 256. Segment pointers are all null
 // or all set; the segment bounds are over 64-row tiles. q, k, v, o are contiguous [B, H, S, D] of
 // dtype, 16-byte aligned; lse [B, Hq, Sq] f32.
 // Returns the cudaError_t of the launch (0 = success).

@@ -37,22 +37,33 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // rows [row0, row0 + rows) of a [*, D] tensor into shared [rows][ld] by the
 // block's NT threads, 16 bytes a request; rows past `valid` become zeros.
-// A thread keeps one 16-byte column and steps NT / CH rows at a time (NT a
-// multiple of the CH chunks of a row), so a request costs two adds and a
-// compare.
+// Where NT is a multiple of the CH chunks of a row, a thread keeps one
+// 16-byte column and steps NT / CH rows at a time, so a request costs two
+// adds and a compare. Else (D 80: 20 f32 or 10 bf16 chunks a row) the
+// block walks the rows x CH chunks flat, NT at a time.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
                                           int valid, int tid) {
   constexpr int CH = D * (int)sizeof(T) / 16;         // 16-byte chunks a row
-  constexpr int RS = NT / CH;                         // rows a step
-  static_assert(NT % CH == 0, "a thread keeps one column");
-  const int r = tid / CH, c = (tid % CH) * (16 / (int)sizeof(T));
-  const T* s = src + (size_t)(row0 + r) * D + c;
-  T* d = dst + r * ld + c;
+  constexpr int E = 16 / (int)sizeof(T);              // elements a chunk
+  static_assert(D * (int)sizeof(T) % 16 == 0, "rows of whole 16-byte chunks");
+  if constexpr (NT % CH == 0) {
+    constexpr int RS = NT / CH;                       // rows a step
+    const int r = tid / CH, c = (tid % CH) * E;
+    const T* s = src + (size_t)(row0 + r) * D + c;
+    T* d = dst + r * ld + c;
 #pragma unroll 4
-  for (int i = 0; r + i < rows; i += RS) {
-    const bool ok = row0 + r + i < valid;
-    cp_async16(d + i * ld, ok ? s + (size_t)i * D : src, ok ? 16 : 0);
+    for (int i = 0; r + i < rows; i += RS) {
+      const bool ok = row0 + r + i < valid;
+      cp_async16(d + i * ld, ok ? s + (size_t)i * D : src, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < rows * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * E;
+      const bool ok = row0 + r < valid;
+      cp_async16(dst + r * ld + c, ok ? src + (size_t)(row0 + r) * D + c : src, ok ? 16 : 0);
+    }
   }
 }
 

@@ -53,9 +53,12 @@ from repro_torch.core import online_softmax as osm
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import online_fold
-from repro_torch.kernels.flash_fwd import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_fwd import DTYPES
 
 TILE = 64        # BKV in csrc/flash_decode.cu: the split layout's tile
+#: head dims ``csrc/flash_decode.cu`` is instantiated for: the forward's but
+#: 80, whose one arch (hubert-xlarge, an encoder) has no decode step
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def max_group(head_dim: int) -> int:

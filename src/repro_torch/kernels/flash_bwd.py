@@ -14,9 +14,9 @@ it is reproducible to f32 rounding only. On a CPU tensor it runs the plain
 version, :func:`flash_bwd_torch`: the kernel's sums in its order of q tiles,
 over kv tiles of ``flash_fwd.kv_tile(D)`` rows (64, and 32 at D 256). The
 kernel takes 128 kv rows a block (``csrc/flash_bwd.cu`` ``Cfg::BKV``, 64
-where shared memory is short: f32 at D 128) and adds one dQ update per block
-(``KCQ``; per 64 kv rows with bf16-ACC); the plain version adds one per kv
-tile. At D 256 (recurrentgemma-2b) the kernel's block is 32 kv rows, four
+where shared memory is short: f32 at D 80 and D 128) and adds one dQ
+update per block (``KCQ``; per 64 kv rows with bf16-ACC); the plain
+version adds one per kv tile. At D 256 (recurrentgemma-2b) the kernel's block is 32 kv rows, four
 warps on each 16, so both add, and with bf16-ACC round, one dQ update per 32
 kv rows. The two differ only in the order of f32 rounding.
 """
@@ -37,7 +37,7 @@ from repro_torch.kernels.ref import _expand_kv
 
 #: head dims the kernel is instantiated for (``csrc/flash_bwd.cu``
 #: ``launch_d``), the forward's
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 #: kernel launches since the last reset (the plain version does not count)
 launches_bwd = 0

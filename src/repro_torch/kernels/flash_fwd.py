@@ -26,7 +26,8 @@ from repro_torch.kernels.common import online_fold, round_acc
 from repro_torch.kernels.ref import _expand_kv
 
 TILE = 64                      # KV tile of the segment bounds (and of the fold to D 128)
-HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernel is instantiated for
+#: head dims the kernel is instantiated for (80: hubert-xlarge)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACC_DTYPES = (torch.float32, torch.bfloat16)   # accumulate types of a product
 

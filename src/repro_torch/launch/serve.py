@@ -50,6 +50,13 @@ paged engine's modes and ``--mesh`` included (expert routing is stateless
 per token):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
       --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
+
+The vlm llava-next-34b serves by tokens on every path, as in JAX (its
+vision path, a prefill from patch embeddings, is ``greedy_generate``'s
+``embeds=``); the encoder hubert-xlarge has no decode step and exits with
+JAX's refusal:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava_next_34b \\
+      --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
 """
 
 from __future__ import annotations
@@ -88,20 +95,24 @@ def _sync(device) -> None:
 
 
 def greedy_generate(arts: ServeArtifacts, params, prompt, gen: int,
-                    vocab_size: int, *, feed: Optional[torch.Tensor] = None
-                    ) -> Generation:
+                    vocab_size: int, *, feed: Optional[torch.Tensor] = None,
+                    embeds: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``prompt [B, S]``, then ``gen - 1`` greedy decode steps.
 
     feed: optional [B, gen] tokens to feed to the decode steps in place of
     this run's own argmax (teacher forcing), so two impls can be compared
     step by step on one token stream; ``tokens`` stays this run's argmax.
+    embeds: an arch with a frontend prefills from ``embeds [B, S,
+    FRONTEND_DIM]`` in place of a prompt (pass ``prompt`` None); the
+    decode steps take tokens.
     """
-    b, s = prompt.shape
+    first = prompt if embeds is None else embeds
+    s = first.shape[1]
     caches = arts.cache_init_fn()
-    _sync(prompt.device)
+    _sync(first.device)
     t0 = time.perf_counter()
-    logits, caches = arts.prefill_fn(params, prompt, caches)
-    _sync(prompt.device)
+    logits, caches = arts.prefill_fn(params, prompt, caches, embeds=embeds)
+    _sync(first.device)
     prefill_s = time.perf_counter() - t0
     out_logits = [logits]
     toks = [logits[:, :vocab_size].argmax(dim=-1)]
@@ -111,7 +122,7 @@ def greedy_generate(arts: ServeArtifacts, params, prompt, gen: int,
         logits, caches = arts.decode_fn(params, tok, caches, s + i)
         out_logits.append(logits)
         toks.append(logits[:, :vocab_size].argmax(dim=-1))
-    _sync(prompt.device)
+    _sync(first.device)
     decode_s = time.perf_counter() - t0
     return Generation(torch.stack(toks, dim=1), out_logits, prefill_s, decode_s)
 
@@ -184,11 +195,8 @@ def main(argv=None):
                          "wins)")
     args = ap.parse_args(argv)
 
-    try:
-        cfg = (configs.smoke_config(args.arch) if args.smoke
-               else configs.get_config(args.arch))
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    cfg = (configs.smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")

@@ -15,6 +15,15 @@ joins the loss at weight 0.01 and the log line), as on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_moe_16b \\
       --smoke --device cpu --steps 3 --batch 2 --seq 32
 
+The frontend archs train from the stub frontends' embeddings
+(``DataConfig(frontend=...)``: ``embeds`` [B, S, 1024] and labels):
+hubert-xlarge (the encoder: per-position loss, non-causal attention at head
+dim 80) at full size, and llava-next-34b (the vlm) the same way:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert_xlarge \\
+      --steps 3 --batch 8 --seq 1024 --ckpt-every 1000
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert_xlarge \\
+      --smoke --device cpu --steps 3
+
 AdamW keeps an f32 master copy of bf16 params only: the copy of f32 params
 would be the params themselves (the same update, 4 bytes a parameter
 more; recurrentgemma-2b's 3.55 B f32 params, grads and moments already
@@ -68,11 +77,8 @@ def main(argv=None):
                          "plain versions)")
     args = ap.parse_args(argv)
 
-    try:
-        cfg = (configs.smoke_config(args.arch) if args.smoke
-               else configs.get_config(args.arch))
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    cfg = (configs.smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
     cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     arts = make_train_step(cfg, opt=AdamWConfig(
                                lr=args.lr, keep_master=cfg.dtype != torch.float32),

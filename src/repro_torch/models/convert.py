@@ -11,9 +11,10 @@ rec, rec tail) unstack the same way, each layer's leaves named as its
 block's parameters, and so do MoE archs' expert leaves (``mlp.router``
 [d, E], ``mlp.wi`` [E, d, 2f], ``mlp.wo`` [E, f, d], ``mlp.shared.*``), and
 the ssm family's mixer-only layers (``norm1`` and ``mixer.*``, no ``norm2``
-or ``mlp``); each leaf lands in its parameter's dtype, so the router (and
-the RG-LRU's lambda, Mamba's ``dt_bias``, ``A_log`` and ``D``) stays f32 in
-a bf16 model. Vocab padding is kept as it is. The AdamW moments and master
+or ``mlp``), and the frontend families' ``frontend_proj`` [1024, d] and
+ungated ``mlp.wi`` [d, f]; each leaf lands in its parameter's dtype, so the
+router (and the RG-LRU's lambda, Mamba's ``dt_bias``, ``A_log`` and ``D``)
+stays f32 in a bf16 model. Vocab padding is kept as it is. The AdamW moments and master
 copy mirror the params tree and convert the same way. This module imports
 neither JAX nor ``repro``.
 """
@@ -62,7 +63,12 @@ def _named_arrays(cfg, tree: Mapping[str, Any], model: LM) -> Dict[str, Any]:
     """A JAX params-shaped tree as ``{port parameter name: array}``, in the
     order of ``model.named_parameters()``. Raises if a leaf is missing or
     left over."""
-    out = {name: tree[name] for name in ("embed", "final_norm", "lm_head")}
+    top = [n for n, _ in model.named_parameters() if not n.startswith("blocks.")]
+    extra = set(tree) - {"blocks", "tail"} - set(top)
+    if extra or not set(top) <= set(tree):
+        raise ValueError(f"top-level leaves {sorted(set(tree) - {'blocks', 'tail'})} "
+                         f"for the port's {top}")
+    out = {name: tree[name] for name in top}
     for i, blk in enumerate(model.blocks):
         layer = _layer_tree(cfg, tree, i)
         named = [n for n, _ in blk.named_parameters()]

@@ -121,25 +121,34 @@ def softmax_cross_entropy(logits, labels, vocab_size: int, weights=None):
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """Gated-SiLU FFN weights: ``wi [d_model, 2·d_ff]`` (gate | up) and
-    ``wo [d_ff, d_model]``. The ungated GELU FFN comes with the encoder
-    family."""
+    """Dense FFN weights: gated-SiLU ``wi [d_model, 2·d_ff]`` (gate | up),
+    or ungated GELU ``wi [d_model, d_ff]`` (the encoder family's
+    ``mlp_type`` "gelu"), and ``wo [d_ff, d_model]``."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype, device):
+    def __init__(self, d_model: int, d_ff: int, dtype, device,
+                 gated: bool = True):
         super().__init__()
-        self.wi = _param((d_model, 2 * d_ff), dtype, device)
+        self.gated = gated
+        self.wi = _param((d_model, (2 if gated else 1) * d_ff), dtype, device)
         self.wo = _param((d_ff, d_model), dtype, device)
 
 
-def init_mlp(gen, d_model, d_ff, dtype) -> MLP:
+def init_mlp(gen, d_model, d_ff, dtype, gated: bool = True) -> MLP:
     """An :class:`MLP` with ``dense_init`` weights on the generator's device."""
-    return init_dense_(MLP(d_model, d_ff, dtype, gen.device), gen)
+    return init_dense_(MLP(d_model, d_ff, dtype, gen.device, gated), gen)
 
 
 def apply_mlp(p: MLP, x):
-    """Gated-SiLU FFN: ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``."""
-    g, u = (x @ p.wi).chunk(2, dim=-1)
-    return (F.silu(g) * u) @ p.wo
+    """Gated-SiLU FFN ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``, or the
+    ungated ``gelu(x @ wi) @ wo`` with GELU's tanh form, which is
+    ``jax.nn.gelu``'s default."""
+    h = x @ p.wi
+    if p.gated:
+        g, u = h.chunk(2, dim=-1)
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p.wo
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 attention-only family, the hybrid one (recurrentgemma: RG-LRU blocks and
 local attention blocks in ``cfg.block_pattern``, cycled over the layers),
 the MoE one (``cfg.moe``: every layer's FFN a mixture of experts,
-``models/moe.py``) and the ssm one (falcon-mamba: mixer-only Mamba blocks,
-``models/mamba.py``, no attention layer).
+``models/moe.py``), the ssm one (falcon-mamba: mixer-only Mamba blocks,
+``models/mamba.py``, no attention layer) and the two frontend families:
+the vlm llava-next-34b (a dense decoder) and the encoder hubert-xlarge
+(non-causal attention, the ungated GELU MLP), both also fed precomputed
+``FRONTEND_DIM``-wide patch or frame embeddings through ``frontend_proj``.
 
 The JAX package scans stacked superblock params; here the layers are an
 ``nn.ModuleList`` walked by a plain loop, layer ``i`` of kind
@@ -20,7 +23,8 @@ caches; the serving steps, which drop them, do not compute them.
 
 Public entry points:
   init_params(cfg, seed=, device=)                 → LM (random weights)
-  forward(cfg, params, ctx, tokens=, caches=, ...) → (logits, caches, metrics)
+  forward(cfg, params, ctx, tokens= or embeds=, caches=, ...)
+                                                   → (logits, caches, metrics)
   loss_fn(cfg, params, batch, ctx)                 → (loss, metrics)
   init_cache / prefill / decode_step               → contiguous KV serving
   init_paged_cache / paged_prefill / paged_chunk_prefill /
@@ -42,6 +46,12 @@ from repro_torch.models.layers import Ctx
 
 #: the block kinds of ``cfg.block_pattern`` the port runs
 KINDS = ("attn", "rec", "ssm")
+#: the families and dense FFNs the port runs (every arch of ``configs.ARCHS``)
+FAMILIES = ("dense", "hybrid", "moe", "ssm", "vlm", "encoder")
+MLP_TYPES = ("gated_silu", "gelu")
+#: the width of the embeddings the stub frontends hand over (JAX's
+#: ``lm.FRONTEND_DIM``)
+FRONTEND_DIM = 1024
 #: each kind's mixer: (module class, initialiser, serving state rows)
 _MIXERS = {
     "attn": (layers.Attention, layers.init_attention, None),
@@ -61,7 +71,8 @@ def block_kinds(cfg) -> List[str]:
 
 class Block(nn.Module):
     """One pre-norm block, a mixer (attention, the RG-LRU for ``kind``
-    "rec", Mamba for "ssm") and a gated MLP, or a
+    "rec", Mamba for "ssm") and a dense MLP (gated unless ``cfg.mlp_type``
+    is "gelu"), or a
     :class:`~repro_torch.models.moe.MoE` when ``cfg.moe`` is set (JAX
     ``_init_block``'s leaves). An "ssm" block is mixer-only: no ``norm2``
     and no ``mlp`` (d_ff 0), as in JAX."""
@@ -75,31 +86,39 @@ class Block(nn.Module):
             return
         self.norm2 = layers._param((cfg.d_model,), dtype, device)
         self.mlp = (moe.MoE(cfg, dtype, device) if cfg.moe is not None
-                    else layers.MLP(cfg.d_model, cfg.d_ff, dtype, device))
+                    else layers.MLP(cfg.d_model, cfg.d_ff, dtype, device,
+                                    gated=cfg.mlp_type == "gated_silu"))
 
 
 class LM(nn.Module):
-    """Parameters of the decoder: ``embed [Vpad, d]``, ``blocks``,
-    ``final_norm [d]`` and ``lm_head [d, Vpad]``, allocated uninitialised
-    on ``device``; :func:`init_params` or ``convert.convert_params`` fill them."""
+    """Parameters of the model: ``embed [Vpad, d]``, ``blocks``,
+    ``final_norm [d]``, ``lm_head [d, Vpad]`` and, for an arch with a
+    frontend, ``frontend_proj [FRONTEND_DIM, d]``, allocated uninitialised
+    on ``device``; :func:`init_params` or ``convert.convert_params`` fill
+    them. Refuses a config that no arch of ``configs.ARCHS`` has."""
 
     def __init__(self, cfg, vocab_padded: int, *, device, dtype=None):
         super().__init__()
-        if (cfg.family not in ("dense", "hybrid", "moe", "ssm")
+        if (cfg.family not in FAMILIES or cfg.mlp_type not in MLP_TYPES
                 or (cfg.family == "moe") != (cfg.moe is not None)
-                or cfg.frontend is not None or cfg.mlp_type != "gated_silu"
+                or (cfg.family in ("vlm", "encoder")) != (cfg.frontend is not None)
                 or not set(cfg.block_pattern) <= set(KINDS)
                 or ("rec" in cfg.block_pattern) != (cfg.rglru is not None)
                 or ("ssm" in cfg.block_pattern) != (cfg.mamba is not None)):
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (dense, RG-LRU hybrid, MoE and ssm archs only)")
+                f"{cfg.name}: the {cfg.family} family with frontend "
+                f"{cfg.frontend} and mlp_type {cfg.mlp_type} is not an arch "
+                f"of repro_torch (families {', '.join(FAMILIES)}; mlp_type "
+                f"{' or '.join(MLP_TYPES)})")
         dtype = dtype or cfg.dtype
         self.embed = layers._param((vocab_padded, cfg.d_model), dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, kind, dtype, device)
                                     for kind in block_kinds(cfg))
         self.final_norm = layers._param((cfg.d_model,), dtype, device)
         self.lm_head = layers._param((cfg.d_model, vocab_padded), dtype, device)
+        if cfg.frontend is not None:
+            self.frontend_proj = layers._param((FRONTEND_DIM, cfg.d_model),
+                                               dtype, device)
 
 
 @torch.no_grad()
@@ -117,12 +136,16 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
             continue
         blk.norm2.fill_(1.0)
         blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype) if cfg.moe is not None
-                   else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype))
+                   else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                                        gated=cfg.mlp_type == "gated_silu"))
     model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
                                         cfg.dtype, scale=0.02))
     model.final_norm.fill_(1.0)
     model.lm_head.copy_(layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                           cfg.dtype))
+    if cfg.frontend is not None:
+        model.frontend_proj.copy_(layers.dense_init(gen, FRONTEND_DIM,
+                                                    cfg.d_model, cfg.dtype))
     return model
 
 
@@ -161,11 +184,13 @@ def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
     return x, metrics
 
 
-def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
-            positions=None, segment_ids=None, paged=None):
-    """tokens [B, S] int → (logits [B, S, Vpad], new_caches or None,
-    metrics): metrics are {"moe_aux": sum over the layers, "moe_dropped":
-    mean over the layers} for MoE archs without caches, {} otherwise.
+def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
+            caches=None, positions=None, segment_ids=None, paged=None):
+    """tokens [B, S] int or embeds [B, S, FRONTEND_DIM] (an arch with a
+    frontend; cast to the model's dtype, then ``@ frontend_proj``) →
+    (logits [B, S, Vpad], new_caches or None, metrics): metrics are
+    {"moe_aux": sum over the layers, "moe_dropped": mean over the layers}
+    for MoE archs without caches, {} otherwise.
 
     positions: [B, S] or [S] RoPE positions (default ``arange(S)``).
     segment_ids [B, S]: packed-batch ids (int32); attention masks
@@ -174,7 +199,14 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
     (``layers.apply_attention``, ``rglru.apply_rglru``,
     ``mamba.apply_mamba``).
     """
-    x = params.embed[tokens]
+    if (tokens is None) == (embeds is None):
+        raise ValueError("forward takes tokens or embeds, one of the two")
+    if embeds is None:
+        x = params.embed[tokens]
+    elif cfg.frontend is None:
+        raise ValueError(f"{cfg.name} has no frontend: it takes tokens")
+    else:
+        x = embeds.to(params.frontend_proj.dtype) @ params.frontend_proj
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -203,14 +235,16 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens, caches=None,
 
 
 def loss_fn(cfg, params: LM, batch, ctx: Ctx):
-    """batch: {"tokens", "labels"} [B, S] (+ optional "segment_ids",
-    "positions" for packed batches), tensors on the params' device.
+    """batch: {"tokens" [B, S] or "embeds" [B, S, FRONTEND_DIM], "labels"
+    [B, S]} (+ optional "segment_ids", "positions" for packed batches),
+    tensors on the params' device.
     Next-token CE for causal LMs, per-position CE for encoders; a packed
     batch gives no weight to a segment's last token (it must not predict
     the next segment) or to padding. MoE archs add ``MOE_AUX_WEIGHT ·
     moe_aux``. Returns (loss, {"ce", "loss"} and the forward's metrics)."""
     seg = batch.get("segment_ids")
-    logits, _, metrics = forward(cfg, params, ctx, tokens=batch["tokens"],
+    logits, _, metrics = forward(cfg, params, ctx, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
                                  positions=batch.get("positions"),
                                  segment_ids=seg)
     labels = batch["labels"]
@@ -239,10 +273,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
             for kind in block_kinds(cfg)]
 
 
-def prefill(cfg, params: LM, ctx: Ctx, tokens, caches):
-    """Run the full prompt, filling the caches in place. Returns
-    (last-position logits [B, Vpad], caches)."""
-    logits, caches, _ = forward(cfg, params, ctx, tokens=tokens, caches=caches)
+def prefill(cfg, params: LM, ctx: Ctx, tokens=None, caches=None, *,
+            embeds=None):
+    """Run the full prompt, tokens [B, S] or ``embeds`` [B, S,
+    FRONTEND_DIM], filling the caches in place. Returns (last-position
+    logits [B, Vpad], caches)."""
+    logits, caches, _ = forward(cfg, params, ctx, tokens=tokens,
+                                embeds=embeds, caches=caches)
     return logits[:, -1], caches
 
 

@@ -53,7 +53,7 @@ def step_seed(step: int) -> int:
 def place_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A host batch (numpy arrays from ``data.make_batch``) as tensors on
     ``device``: ids stay int32 (the kernels take int32 segment ids), floats
-    stay f32."""
+    (a frontend arch's ``embeds``) stay f32."""
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
@@ -91,7 +91,11 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
         loss.backward()
         grads = {}
         for n, p in params.named_parameters():
-            grads[n], p.grad = p.grad, None
+            # a leaf the loss does not reach (the embedding of a batch of
+            # embeds, frontend_proj of one of tokens) has a zero gradient,
+            # as in JAX
+            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
+            p.grad = None
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def step_fn(params, opt_state, batch, step: int):
@@ -126,7 +130,9 @@ class ServeArtifacts:
     """The serving callables (see :func:`make_serve_steps` for the paged
     signatures).
 
-    prefill_fn(params, tokens [B,S], caches) → (logits [B,Vpad], caches)
+    prefill_fn(params, tokens [B,S], caches, embeds=None)
+        → (logits [B,Vpad], caches); an arch with a frontend may prefill
+        from ``embeds`` [B,S,FRONTEND_DIM] with tokens None
     decode_fn(params, token [B], caches, position: int)
         → (logits [B,Vpad], caches)
     cache_init_fn() → fresh per-layer caches
@@ -192,9 +198,9 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
             return lm.init_cache(cfg, batch, max_len, device=device)
 
     @torch.inference_mode()
-    def prefill_fn(params, tokens, caches):
+    def prefill_fn(params, tokens, caches, embeds=None):
         ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
-        return lm.prefill(cfg, params, ctx, tokens, caches)
+        return lm.prefill(cfg, params, ctx, tokens, caches, embeds=embeds)
 
     @torch.inference_mode()
     def decode_fn(params, token, caches, position):

@@ -272,9 +272,10 @@ def test_backward_kernel_refuses_head_dim_256(monkeypatch):
     """The backward kernel takes the forward's head dims, 256
     (recurrentgemma-2b) among them: the wrapper hands a D 256 launch to the
     kernel library (a stand-in here, which records the arguments), and
-    refuses a head dim that no kernel is instantiated for, such as 80
-    (hubert), with the plain message before it touches a card."""
-    assert tbwd.HEAD_DIMS == tfwd.HEAD_DIMS == (16, 32, 64, 128, 256)
+    refuses a head dim that no kernel is instantiated for, such as 96
+    (80, hubert's, has its instantiation), with the plain message before
+    it touches a card."""
+    assert tbwd.HEAD_DIMS == tfwd.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     q = torch.zeros((1, 10, 8, 256))
     kv = torch.zeros((1, 1, 8, 256))
     lse = torch.zeros((1, 10, 8))
@@ -293,6 +294,7 @@ def test_backward_kernel_refuses_head_dim_256(monkeypatch):
     # B, Hq, Hkv, Sq, Skv, D, dtype, acc_bf16, scale, causal, window
     assert args[15:26] == (1, 10, 1, 8, 8, 256, 0, 0, 256 ** -0.5, 1, 40)
     assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
-    with pytest.raises(ValueError, match=r"must be in \(16, 32, 64, 128, 256\), got 80$"):
-        tbwd.launch_bwd(q[..., :80], kv[..., :80], kv[..., :80], lse,
-                        q[..., :80], lse)
+    with pytest.raises(ValueError,
+                       match=r"must be in \(16, 32, 64, 80, 128, 256\), got 96$"):
+        tbwd.launch_bwd(q[..., :96], kv[..., :96], kv[..., :96], lse,
+                        q[..., :96], lse)

@@ -1100,3 +1100,125 @@ def test_mamba_paged_engine_on_the_card(cuda):
     assert stats["state_releases"] == len(reqs) + stats["preemptions"]
     for rid in want:
         assert (out[rid] == want[rid]).all(), rid
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["full", "kv_longer", "dropout_segments"])
+def test_flash_fwd_d80_non_causal(cuda, case, dtype, acc):
+    """hubert-xlarge's attention (D 80, 16/16 heads, non-causal) at 300
+    tokens: every kv tile read by every row, a ragged q suffix of a longer
+    kv, and dropout with packed segments and padding."""
+    if case == "full":
+        _fwd_check(cuda, 2, 16, 16, 300, 300, 80, dtype, acc)
+    elif case == "kv_longer":
+        _fwd_check(cuda, 2, 16, 16, 130, 301, 80, dtype, acc)
+    else:
+        seg = (torch.arange(300, device="cuda", dtype=torch.int32) // 90).repeat(2, 1)
+        seg[:, -25:] = -1
+        o, lse = _fwd_check(cuda, 2, 16, 16, 300, 300, 80, dtype, acc,
+                            segment_ids=seg, dropout_rate=0.1, dropout_seed=9)
+        assert float(o[:, :, -25:].abs().max()) == 0.0
+        assert bool((lse[:, :, -25:] == -1e30).all())
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["full", "kv_longer", "dropout_segments"])
+def test_flash_bwd_d80_non_causal(cuda, case, dtype, acc):
+    """The backward at hubert-xlarge's geometry (D 80, non-causal): 64-row
+    f32 / 128-row bf16 kv blocks, the dQ atomics at columns 0 and 40."""
+    if case == "full":
+        _bwd_check(cuda, 2, 16, 16, 300, 300, 80, dtype, acc)
+    elif case == "kv_longer":
+        _bwd_check(cuda, 2, 16, 16, 130, 301, 80, dtype, acc)
+    else:
+        seg = (torch.arange(300, device="cuda", dtype=torch.int32) // 90).repeat(2, 1)
+        seg[:, -25:] = -1
+        _bwd_check(cuda, 2, 16, 16, 300, 300, 80, dtype, acc, segment_ids=seg,
+                   dropout_rate=0.1, dropout_seed=9)
+
+
+def test_flash_bwd_d80_matches_naive_autograd(cuda):
+    """ops.mha at D 80, non-causal, dropout 0.1 and a q suffix: the fused
+    backward kernel against autograd of the naive oracle."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 4, 4, 70, 150, 80, torch.float32)
+    cfg = ops.AttnConfig(causal=False, dropout_rate=0.1)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.mha(*xs, seed=3, config=cfg).backward(do)
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref.naive_mha(*ys, causal=False, dropout_rate=0.1,
+                  dropout_seed=3).backward(do)
+    for x, y in zip(xs, ys):
+        assert _err(x.grad, y.grad) <= 5e-5 * max(1.0, float(y.grad.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_flash_decode_llava_g7(cuda, num_splits, dtype):
+    """llava-next-34b's decode geometry (56/8 heads, a GQA group of 7, D
+    128): the contiguous cache with ragged lengths and a 0, and the paged
+    cache on a poisoned trash page, against their plain versions."""
+    b, hq, hkv, s, d = 3, 56, 8, 300, 128
+    q = _rand(cuda, (b, hq, d), dtype)
+    k = _rand(cuda, (b, hkv, s, d), dtype)
+    v = _rand(cuda, (b, hkv, s, d), dtype)
+    kv_len = torch.tensor([300, 0, 129], dtype=torch.int32, device="cuda")
+    o = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert _err(o, kdecode.flash_decode_torch(q, k, v, kv_len=kv_len,
+                                              num_splits=num_splits)) <= TOL[dtype]
+    assert float(o[1].abs().max()) == 0.0
+    q, kp, vp, bt = _paged(cuda, 4, hq, hkv, d, 16, 12, dtype)
+    kv_len = torch.tensor([192, 0, 17, 100], dtype=torch.int32, device="cuda")
+    for row, n in enumerate(kv_len.tolist()):     # past each row: the trash page
+        bt[row, -(-n // 16):] = TRASH_PAGE
+    kp[:, TRASH_PAGE] = 1e6
+    vp[:, TRASH_PAGE] = 1e6
+    o = kdecode.flash_paged_decode(q, kp, vp, bt, kv_len,
+                                   num_splits=num_splits)
+    torch.cuda.synchronize()
+    o_ref = kdecode.flash_paged_decode_torch(q, kp, vp, bt, kv_len=kv_len,
+                                             num_splits=num_splits)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert float(o[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "llava_next_34b"])
+def test_frontend_train_pass_kernel_matches_torch(cuda, arch):
+    """Two layers of hubert-xlarge at full width (D 80, non-causal, GELU)
+    or one of llava-next-34b (D 128, G 7), f32, remat, dropout 0.1, over a
+    batch of embeds: a loss-and-grad pass through the kernels against
+    impl="torch"; the kernels launch 2 forward and 1 backward a layer."""
+    from repro_torch.optim import global_norm
+
+    layers = 2 if arch == "hubert_xlarge" else 1
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers,
+                              dtype=torch.float32, dropout_rate=0.1, remat=True)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=512, global_batch=2,
+                    seed=0, frontend=cfg.frontend)
+    batch = place_batch(make_batch(dc, 0), "cuda")
+    leaves = ("blocks.0.mixer.wq", "blocks.0.mlp.wi", "frontend_proj",
+              "lm_head")
+    out = {}
+    for impl in ("kernel", "torch"):
+        ctx = Ctx(impl=impl, deterministic=False, seed=-5, torch_chunk=256)
+        before = (kfwd.launches, kbwd.launches_bwd)
+        loss, _ = lm.loss_fn(cfg, params, batch, ctx)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (kfwd.launches - before[0], kbwd.launches_bwd - before[1])
+        assert launched == ((2 * layers, layers) if impl == "kernel" else (0, 0))
+        named = dict(params.named_parameters())
+        assert named["embed"].grad is None
+        out[impl] = (float(loss.detach()),
+                     float(global_norm(p.grad for p in params.parameters()
+                                       if p.grad is not None)),
+                     {n: named[n].grad.clone() for n in leaves})
+        params.zero_grad(set_to_none=True)
+    (lk, gk, dk), (lt, gt, dt) = out["kernel"], out["torch"]
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    assert abs(gk - gt) <= 1e-4 * gt
+    for n in leaves:
+        assert _err(dk[n], dt[n]) <= 1e-3 * float(dt[n].abs().max()), n

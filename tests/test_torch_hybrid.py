@@ -86,7 +86,7 @@ def test_config_matches_jax():
                   "attn_window", "block_pattern", "causal", "mlp_type"):
             assert getattr(t, f) == getattr(j, f), f
         assert t.rglru.d_rnn == j.rglru.d_rnn
-    assert ARCH not in tconfigs.UNPORTED_FAMILIES
+    assert tconfigs.get_config(ARCH).family == "hybrid"
 
 
 @pytest.mark.parametrize("num_layers", [3, 5])

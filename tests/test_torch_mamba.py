@@ -84,7 +84,7 @@ def test_config_matches_jax():
         assert t.mamba.dt_rank == -(-t.d_model // 16)
         assert t.param_count() == j.param_count()
     assert tconfigs.get_config(ARCH).mamba.dt_rank == 256
-    assert ARCH not in tconfigs.UNPORTED_FAMILIES
+    assert tconfigs.get_config(ARCH).family == "ssm"
 
 
 @pytest.mark.parametrize("num_layers", [2, 3])

@@ -115,12 +115,45 @@ def test_configs_match_jax(arch):
 
 
 def test_unported_family_is_named():
-    for arch, family in tconfigs.UNPORTED_FAMILIES.items():
-        assert jconfigs.get_config(arch).family == family
-        with pytest.raises(NotImplementedError, match=family):
-            tconfigs.get_config(arch)
-    with pytest.raises(SystemExit, match="vlm family is not yet ported"):
-        tserve.main(["--arch", "llava_next_34b", "--smoke", "--device", "cpu"])
+    """No family of the JAX package is left unported: the configs name no
+    refused arch, llava-next-34b (vlm) serves, and hubert-xlarge (encoder)
+    exits with JAX's encoder-only refusal."""
+    assert not hasattr(tconfigs, "UNPORTED_FAMILIES")
+    assert {tconfigs.get_config(a).family for a in tconfigs.ARCHS} == \
+        {jconfigs.get_config(a).family for a in jconfigs.ARCHS}
+    res = tserve.main(["--arch", "llava_next_34b", "--smoke", "--device",
+                       "cpu", "--batch", "1", "--prompt-len", "8", "--gen", "2"])
+    assert res.tokens.shape == (1, 2)
+    with pytest.raises(SystemExit, match="encoder-only: no decode step"):
+        tserve.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_every_arch_builds_an_lm(arch):
+    """Every arch of ``ARCHS`` builds the port's ``LM``: its SMOKE config
+    with random weights on the CPU, its full config on the meta device
+    (shapes only); a frontend arch carries ``frontend_proj [1024, d]``."""
+    for cfg, device in ((tconfigs.smoke_config(arch), "cpu"),
+                        (tconfigs.get_config(arch), "meta")):
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        model = (tlm.init_params(cfg, seed=0, device=device) if device == "cpu"
+                 else tlm.LM(cfg, cfg.vocab_size, device=device))
+        assert len(model.blocks) == cfg.num_layers
+        assert hasattr(model, "frontend_proj") == (cfg.frontend is not None)
+        if cfg.frontend is not None:
+            assert model.frontend_proj.shape == (tlm.FRONTEND_DIM, cfg.d_model)
+
+
+@pytest.mark.parametrize("change", [dict(family="audio_lm"),
+                                    dict(mlp_type="swiglu"),
+                                    dict(frontend=None),
+                                    dict(family="dense", frontend="vision")])
+def test_lm_guard_refuses_configs_no_arch_has(change):
+    """The ``LM`` guard refuses a made-up family or ``mlp_type``, an encoder
+    without a frontend and a dense arch with one."""
+    cfg = dataclasses.replace(tconfigs.smoke_config("hubert_xlarge"), **change)
+    with pytest.raises(NotImplementedError, match="not an arch of repro_torch"):
+        tlm.LM(cfg, cfg.vocab_size, device="meta")
 
 
 def test_serve_cli_runs_on_cpu(capsys):
