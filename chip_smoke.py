@@ -75,12 +75,12 @@ Phases, each of which exits non-zero on failure:
              run's tokens; the launch counters must read 40 ``flash_fwd`` and
              40 × 31 ``flash_decode`` launches; (b) the paged path
              (``serving.ServingEngine``, page 16, 8 slots) at full width and
-             20 of the 40 layers (``PAGED_LAYERS``) on 16 seeded requests in four modes (eager; lazy on half the
+             10 of the 40 layers (``PAGED_LAYERS``) on 16 seeded requests in four modes (eager; lazy on half the
              pool, which must preempt; shared 256-token system prompt with
              256-token chunked prefill; speculation k 4 on motif prompts),
              each with ``impl="kernel"`` and ``impl="torch"``: every request
-             completes, ``flash_fwd`` launches 20 × prefill calls and the
-             paged kernel 20 × (decode + chunk + verify calls), and the
+             completes, ``flash_fwd`` launches 10 × prefill calls and the
+             paged kernel 10 × (decode + chunk + verify calls), and the
              tokens equal the torch run's up to a printed near-tie; (c) the
              distributed paged engine (``ServingEngine(mesh=)``): two ranks
              spawned on the one card with gloo (NCCL refuses two ranks on a
@@ -89,16 +89,16 @@ Phases, each of which exits non-zero on failure:
              a page copy across shards, then three of (b)'s modes (eager,
              lazy, prefix + chunk): tokens equal on both ranks and to (b)'s
              kernel run up to a printed near-tie, the gated kernel launched
-             20 × (decode + chunk + verify calls) on each rank and the
+             10 × (decode + chunk + verify calls) on each rank and the
              ungated one never; host time in the merge collectives; after
              phase 4d the same for recurrentgemma-2b at full width and
-             depth in 4d's three paged modes, ``poison_reclaimed`` in each
+             7 of its 26 layers in 4d's three paged modes, ``poison_reclaimed`` in each
              (every rank keeps every recurrent state row beside its half
              of the pools; out-of-window pages of the sharded pool
              reclaimed; eager with ``autotune``: rank 0's plan for one
              shard's launch, broadcast): every request completes, tokens
              equal on both ranks and to 4d's kernel run up to a printed
-             near-tie, the gated kernel launched 8 × (decode + chunk calls)
+             near-tie, the gated kernel launched 2 × (decode + chunk calls)
              at D 256 and a GQA group of 10 on each rank, every launch at
              the mode's split count (the plan in eager, else 1), each
              rank's peak memory printed;
@@ -111,20 +111,22 @@ Phases, each of which exits non-zero on failure:
              (16 on the H100), every decode launch at it, vs the torch impl
              at one split (greedy tokens identical, logits within 1e-3 of
              max|logit|, counters 8 ``flash_fwd`` and 8 x 31
-             ``flash_decode``); (b) the paged engine (page 16, 8 slots) on
+             ``flash_decode``); (b) the paged engine (page 16, 8 slots) at
+             7 of the 26 layers (2 attention) on
              12 seeded requests of 1024-3072 prompt and 16-48 new tokens in
              three modes: eager with window reclaim, lazy on half the pool
              with preemption forced by a seeded storm plan and
              ``poison_reclaimed``, chunked prefill of 512: tokens equal to
-             the torch impl's up to a printed near-tie, counters 8 x calls;
+             the torch impl's up to a printed near-tie, counters 2 x calls;
              prefix sharing and speculation refused; peak memory;
-4e. moe    — deepseek-moe-16b (28 layers, d_model 2048, 16/16 heads, head
-             dim 128, 64 experts top 6 and 2 shared, capacity factor 1.25,
-             groups of 256, vocab 102400) at full width and depth, f32,
+4e. moe    — deepseek-moe-16b (d_model 2048, 16/16 heads, head dim 128,
+             64 experts top 6 and 2 shared, capacity factor 1.25, groups of
+             256, vocab 102400) at full width and 14 of its 28 layers
+             (``MOE_SERVE_LAYERS``), f32,
              random weights from seed 0, one set of params for both impls
              and both caches: (a) the contiguous path, batch 4, prompt 512,
              32 generated, kernel vs torch impl fed the kernel run's
-             tokens, counters 28 ``flash_fwd`` and 28 x 31 ``flash_decode``;
+             tokens, counters 14 ``flash_fwd`` and 14 x 31 ``flash_decode``;
              (b) the paged engine on 8 of (b)'s seeded requests in its four
              modes (the lazy one with a storm-forced preemption); (c)
              dbrx-132b (48/8 heads, D 128, 16 experts top 4) at full width
@@ -232,6 +234,28 @@ Phases, each of which exits non-zero on failure:
              time, tokens/s, peak memory, a profiled step;
 5f. vlm    — llava-next-34b's training at full width and 4 layers (batch 1
              x 2048 of patch embeddings, otherwise as 5e), counters 8 / 4;
+5g. mesh   — granite-3-2b trained over a mesh at full width and 2 of its 40
+             layers (``MESH_TRAIN_LAYERS``, or ``--mesh-layers``; ``--only-5g``
+             builds the kernels and runs this phase alone; f32, remat, dropout 0.1, batch
+             4 x 2048, AdamW without master): the single-device reference
+             from ``init_params(0, vocab_pad_to=2)`` (6 steps, and the
+             step-0 gradients, also with cuBLASLt's GEMMs to show the f32
+             noise of another order of sums); 4 gloo ranks sharing the card
+             on ``--mesh 2x2`` (data 2, model 2: 16 q and 4 kv heads a rank)
+             through the ``Trainer`` for 3 steps and a checkpoint, after a
+             probe of ``all_gather_into_tensor`` / ``reduce_scatter_tensor``
+             on CUDA tensors (values checked) and ``quantize_psum`` over
+             the 4 ranks; an elastic resume on ``--mesh 2`` (2 ranks) to
+             step 6, with no checkpoint at its end: the step-0 loss (1e-5) and every gathered gradient
+             leaf (2e-5 of its max) against the reference, the loss
+             trajectory (1e-4), each rank's launches of rows 1-3 (counters
+             reset just before the Trainer; 2 x layers x steps forward, 1 x
+             backward), its step times, collectives (calls, bytes, host
+             seconds; a step's), peak memory; then rows 1-3 on the shard
+             of rank (data 1, model 1) with its ``batch_offset`` /
+             ``head_offset``: o, lse, dK, dV bit for bit against the full
+             call's slice at the training shape with dropout, dQ within
+             its atomics' rounding;
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -342,10 +366,11 @@ HYBRID_LEAVES = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
 # phase 5c, deepseek-moe-16b at full width and 4 layers: batch 2 x 2048
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
 # granite-3-2b's paged phases (4b, its ranks in 4c, 4f's autotuned engine)
-# at full width and 20 of its 40 layers: with phase 4c's hybrid and phase
-# 4f the run passed 860 s on a slow host, and these three share one
-# reference, so they are cut together (PERF.md, PR 21)
-PAGED_LAYERS = 20
+# at full width and 10 of its 40 layers: these three share one reference,
+# so they are cut together, first to 20 (with phase 4c's hybrid and phase
+# 4f the run had passed 860 s on a slow host), then to 10 (phase 5g took
+# the run past 1000 s; PERF.md)
+PAGED_LAYERS = 10
 MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
               "lm_head")
 # phase 4g, falcon-mamba-7b at full width and MAMBA_LAYERS of its 64 layers
@@ -411,6 +436,20 @@ TRAIN_SETUPS = {
 }
 
 
+# phase 5g, training over a mesh: granite-3-2b at full width and
+# MESH_TRAIN_LAYERS of its 40 layers, batch 4 x 2048, f32, dropout 0.1,
+# AdamW without a master copy: the single-device reference (vocab padded to
+# the model axis, 49156), then 4 gloo ranks sharing the card on (data 2,
+# model 2) for MESH_STEPS steps and a checkpoint, then 2 ranks on (model 2)
+# resuming it to step MESH_RESUME_STEPS. The first step's loss 1e-5
+# relative, every gathered gradient leaf MESH_LEAF_TOL of its max |g|, the
+# trajectory 1e-4 (the CPU suite's, tests/test_torch_mesh_train.py)
+MESH_TRAIN_LAYERS, MESH_BATCH, MESH_SEQ = 2, 4, 2048
+MESH_SHAPE, MESH_RESUME_SHAPE = {"data": 2, "model": 2}, {"model": 2}
+MESH_STEPS, MESH_RESUME_STEPS = 3, 6
+MESH_LEAF_TOL, MESH_TRAJ_TOL = 2e-5, 1e-4
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -433,6 +472,11 @@ def main(argv=None) -> None:
     ap.add_argument("--dist-backend", default="gloo", choices=("gloo", "nccl"),
                     help="phase 4c's backend: gloo for ranks sharing a card, "
                          "nccl for a card a rank")
+    ap.add_argument("--mesh-layers", type=int, default=MESH_TRAIN_LAYERS,
+                    help="granite's depth in phase 5g")
+    ap.add_argument("--only-5g", action="store_true",
+                    help="build the kernels, run phase 5g alone and print no "
+                         "result line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py: run it from "
@@ -486,6 +530,10 @@ def main(argv=None) -> None:
           f"{time.perf_counter() - t0:.1f} s")
     build_report(_build)
     clock("phase 2 (build)")
+    if args.only_5g:
+        mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)
+        clock(f"phase 5g at {args.mesh_layers} layers, alone")
+        return
 
     # ---------------- phase 3: kernels vs plain versions ----------------
     errs = kernel_phase(torch, kfwd, kdecode)
@@ -543,6 +591,8 @@ def main(argv=None) -> None:
     clock("phase 5e (hubert-xlarge training)")
     vlm_train = train_phase(torch, kfwd, kbwd, "llava_next_34b")        # 5f
     clock("phase 5f (llava-next-34b training)")
+    mesh_train = mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)  # 5g
+    clock("phase 5g (granite-3-2b over a mesh)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -559,6 +609,10 @@ def main(argv=None) -> None:
     rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
     rows += frontend_times_phase(torch, kfwd, kbwd, kdecode, vlm_serve,
                                  enc_train, vlm_train)
+    for row in rows:           # the forward's and the backward's granite rows
+        if row["name"] in ("flash_fwd", "flash_bwd"):
+            row.setdefault("launches_by_path", {})["mesh_train_by_rank"] = [
+                r[row["name"]] for r in mesh_train]
     clock("phase 6 (times)")
     print(json.dumps({"planner": plans}))
     print(json.dumps({"kernels": rows}))
@@ -1717,6 +1771,10 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
 # phase 4d: recurrentgemma-2b, 12 seeded requests of 1024-3072 prompt and
 # 16-48 new tokens on page 16 and 8 slots (the pool of a sequence: 196 pages)
 HYBRID_REQUESTS, HYBRID_PROMPT, HYBRID_GEN = 12, 3072, 48
+# its paged phases (4d's engine, 4c's ranks, which share 4d's reference) at
+# full width and 7 of its 26 layers (2 attention): at 26 they took 272 s of
+# the run, which phase 5g took past 1000 s (PERF.md)
+HYBRID_PAGED_LAYERS = 7
 HYBRID_MODES = {
     # name: (engine kwargs beyond page 16 and 8 slots, prefill row length,
     # half the pool); window reclaim is on in every mode (the arch has a
@@ -1755,21 +1813,28 @@ def hybrid_pool(lazy: bool):
                             num_pages=(full - 1) // 2 + 1 if lazy else full)
 
 
+def hybrid_paged_config(torch):
+    """recurrentgemma-2b at full width, ``HYBRID_PAGED_LAYERS`` layers, f32."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("recurrentgemma_2b"),
+                               num_layers=HYBRID_PAGED_LAYERS,
+                               dtype=torch.float32)
+
+
 def hybrid_paged_phase(torch, kfwd, kdecode):
-    """recurrentgemma-2b at full width and depth through the paged engine in
-    ``HYBRID_MODES`` (``_engine_modes``: kernel impl against torch impl,
-    launch counters 8 attention layers x calls, tokens equal up to a
-    near-tie); eager must reclaim out-of-window pages; prefix sharing and
-    speculation are refused. Returns the kernel runs' launch counts, and
-    their tokens and top-2 margins by mode (for phase 4c)."""
+    """recurrentgemma-2b at full width and ``HYBRID_PAGED_LAYERS`` layers
+    through the paged engine in ``HYBRID_MODES`` (``_engine_modes``: kernel
+    impl against torch impl, launch counters attention layers x calls,
+    tokens equal up to a near-tie); eager must reclaim out-of-window pages;
+    prefix sharing and speculation are refused. Returns the kernel runs'
+    launch counts, and their tokens and top-2 margins by mode (for phase
+    4c)."""
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.serving import FaultPlan, ServingEngine
 
-    cfg = dataclasses.replace(configs.get_config("recurrentgemma_2b"),
-                              dtype=torch.float32)
+    cfg = hybrid_paged_config(torch)
     params = lm.init_params(cfg, seed=0, device="cuda")
     reqs = _hybrid_requests(np, cfg.vocab_size)
     for kw in ({"share_prefix": True}, {"speculate_k": 4}):
@@ -1802,10 +1867,13 @@ def hybrid_paged_phase(torch, kfwd, kdecode):
     return counts, tokens
 
 
-# phase 4e: deepseek-moe-16b at full width and depth (contiguous batch 4 x
-# (512 + 32); the paged engine on 8 of phase 4b's requests in its four
-# modes, the lazy one with a storm-forced preemption) and dbrx-132b at full
-# width and 2 layers (contiguous batch 2 x (256 + 16))
+# phase 4e: deepseek-moe-16b at full width and MOE_SERVE_LAYERS of its 28
+# layers (contiguous batch 4 x (512 + 32); the paged engine on 8 of phase
+# 4b's requests in its four modes, the lazy one with a storm-forced
+# preemption) and dbrx-132b at full width and 2 layers (contiguous batch 2 x
+# (256 + 16)); cut from 28 layers when phase 5g went to 2 layers and the
+# run passed 1000 s (PERF.md)
+MOE_SERVE_LAYERS = 14
 MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_REQUESTS = 4, 512, 32, 8
 DBRX_LAYERS, DBRX_BATCH, DBRX_PROMPT, DBRX_GEN = 2, 2, 256, 16
 MOE_PAGED_MODES = dict(PAGED_MODES, lazy={
@@ -1818,10 +1886,10 @@ MOE_FLIP_TOL = 1e-3
 
 
 def moe_serve_phase(torch, kfwd, kdecode):
-    """Phase 4e: deepseek-moe-16b at full width and depth (28 layers, f32,
-    random weights from seed 0) on the contiguous path and through the
-    paged engine on one set of params, then dbrx-132b at full width and 2
-    layers on the contiguous path. Returns the kernel runs' launch counts
+    """Phase 4e: deepseek-moe-16b at full width and ``MOE_SERVE_LAYERS``
+    layers (f32, random weights from seed 0) on the contiguous path and
+    through the paged engine on one set of params, then dbrx-132b at full
+    width and 2 layers on the contiguous path. Returns the kernel runs' launch counts
     by path."""
     import numpy as np
 
@@ -1829,7 +1897,7 @@ def moe_serve_phase(torch, kfwd, kdecode):
     from repro_torch.serving import FaultPlan
 
     cfg = dataclasses.replace(configs.get_config("deepseek_moe_16b"),
-                              dtype=torch.float32)
+                              num_layers=MOE_SERVE_LAYERS, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats()
     params = _moe_params(torch, cfg, "moe")
     contiguous = _moe_contiguous(torch, kfwd, kdecode, cfg, params, MOE_BATCH,
@@ -2129,7 +2197,6 @@ def _dist_rank(mesh, device, arch="granite_3_2b"):
     import numpy as np
     import torch
 
-    from repro_torch import configs
     from repro_torch.distributed import paged as dpaged
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
@@ -2142,7 +2209,7 @@ def _dist_rank(mesh, device, arch="granite_3_2b"):
     if arch == "granite_3_2b":
         results["probe"] = _collectives_probe(mesh, device)
     cfg = (granite_paged_config(torch) if arch == "granite_3_2b" else
-           dataclasses.replace(configs.get_config(arch), dtype=torch.float32))
+           hybrid_paged_config(torch))
     params = lm.init_params(cfg, seed=0, device=device)
     results["num_layers"] = lm.block_kinds(cfg).count("attn")
     launch = kdecode._launch_paged_valid
@@ -2614,6 +2681,322 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
     if not ok:
         fail("the trainer's preempt / resume run went wrong")
     return counts
+
+
+def _mesh_cfg(torch, layers):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("granite_3_2b"),
+                               num_layers=layers, dtype=torch.float32,
+                               dropout_rate=0.1, remat=True)
+
+
+def _mesh_opt():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=1e-4, keep_master=False)
+
+
+def _mesh_arts(torch, cfg, mesh, device):
+    from repro_torch.runtime.steps import make_train_step
+    return make_train_step(cfg, mesh=mesh, opt=_mesh_opt(), impl="kernel",
+                           total_steps=MESH_RESUME_STEPS, warmup_steps=1,
+                           torch_chunk=256, device=device)
+
+
+def _mesh_data(cfg):
+    from repro_torch.data import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH, seed=0)
+
+
+def _mesh_probe(torch, mesh, device) -> str:
+    """all_gather_into_tensor and reduce_scatter_tensor on CUDA tensors
+    under the ranks' backend, values checked (the collectives' gather and
+    reduce-scatter), and ``quantize_psum`` over every rank."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compression
+
+    axes = tuple(mesh.shape)
+    n = mesh.world
+    x = torch.arange(6, dtype=torch.float32, device=device).view(2, 3) + 10 * mesh.rank
+    full = C.gather_nograd(x, 0, mesh, axes)
+    want = torch.cat([torch.arange(6, dtype=torch.float32, device=device).view(2, 3)
+                      + 10 * r for r in range(n)])
+    part = C.reduce_scatter_nograd(want, 0, mesh, axes)
+    if not (torch.equal(full, want) and torch.equal(part, n * want[2 * mesh.rank:
+                                                                  2 * mesh.rank + 2])):
+        raise RuntimeError("all_gather_into_tensor / reduce_scatter_tensor on "
+                           f"CUDA tensors gave wrong values on rank {mesh.rank}")
+    gen = torch.Generator(device=device).manual_seed(100 + mesh.rank)
+    g = torch.randn((64, 64), generator=gen, device=device) * 0.01
+    exact = C.all_reduce_(g.clone(), mesh, axes) / n
+    mean, err = compression.quantize_psum(g, None, torch.zeros_like(g))
+    acc = mean.clone()
+    for _ in range(19):
+        mean_i, err = compression.quantize_psum(g, None, err)
+        acc += mean_i
+    one = float((mean - exact).abs().max())
+    avg = float((acc / 20 - exact).abs().max())
+    if not (one < 5e-4 and avg < one and bool(torch.isfinite(mean).all())):
+        raise RuntimeError(f"quantize_psum on CUDA tensors: one step {one:.3e}, "
+                           f"20 error-fed steps {avg:.3e}")
+    return (f"all_gather_into_tensor / reduce_scatter_tensor on {device} values "
+            f"ok; quantize_psum over {n} ranks: one step {one:.3e} from the "
+            f"exact mean, the mean of 20 error-fed steps {avg:.3e}")
+
+
+def _mesh_rank(pool, device, shape, ckpt_dir, grad_dir, steps, layers):
+    """One rank of phase 5g on ``shape`` at ``layers`` layers: with
+    ``grad_dir``, the collectives probe and the first step's loss and
+    gradients (gathered, rank 0 saves them there as .npy by leaf), then the
+    Trainer up to ``steps``, ending with a checkpoint; without, the Trainer
+    from ``ckpt_dir``'s checkpoint up to ``steps``, writing none (nothing
+    reads it). Launch counters reset to 0 just before the Trainer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.mesh import join_train_mesh
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.runtime.steps import place_batch
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = join_train_mesh(shape)
+    cfg = _mesh_cfg(torch, layers)
+    arts = _mesh_arts(torch, cfg, mesh, device)
+    dc = _mesh_data(cfg)
+    plan = arts.plan
+    out = {"rank": mesh.rank, "coords": mesh.coords, "hq_local": plan.hq_local,
+           "head_offset": plan.head_offset,
+           "kv_local": (cfg.num_kv_heads // mesh.size("model") if plan.kv
+                        else cfg.num_kv_heads)}
+    if grad_dir is not None:
+        out["probe"] = _mesh_probe(torch, mesh, device)
+        t0 = time.perf_counter()
+        params, opt = arts.init_fn(0)
+        batch = place_batch(make_batch(dc, 0), device, arts.shardings["batch"])
+        loss, _, grads = arts.grad_fn(params, batch, 0)
+        out["loss0"] = float(loss)
+        for n, g in grads.items():
+            full = arts.shardings["params"][n].gather(g)
+            if mesh.rank == 0:
+                np.save(os.path.join(grad_dir, n + ".npy"), full.cpu().numpy())
+            del full
+        out["check_s"] = time.perf_counter() - t0
+        del params, opt, grads, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    marks = []
+    tr = Trainer(arts=arts, data_cfg=dc, batch_shardings=arts.shardings["batch"],
+                 tcfg=TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=1000,
+                                    log_every=1000,
+                                    final_ckpt=grad_dir is not None),
+                 hooks={"pre_step": lambda s: marks.append(dict(C.stats))})
+    C.stats.update(calls=0, bytes=0, seconds=0.0)
+    kfwd.launches = kbwd.launches_bwd = 0
+    t0 = time.perf_counter()
+    res = tr.run(steps)
+    torch.cuda.synchronize(device)
+    out.update(
+        wall=time.perf_counter() - t0, start_s=time.perf_counter() - t_start,
+        flash_fwd=kfwd.launches,
+        flash_bwd=kbwd.launches_bwd, stop=res["stop_step"],
+        losses=[(m["step"], m["loss"]) for m in tr.metrics_log],
+        step_s=[m["dt"] for m in tr.metrics_log],
+        step_bytes=[b["bytes"] - a["bytes"] for a, b in zip(marks, marks[1:])],
+        step_coll_s=[b["seconds"] - a["seconds"] for a, b in zip(marks, marks[1:])],
+        coll=dict(C.stats), peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    return out
+
+
+def _leaf_errs(torch, got, want):
+    """{leaf: max |got - want| / max |want|} over ``want``'s leaves."""
+    return {n: float((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for n, w in want.items()}
+
+
+def _worst(errs, k=3):
+    return ", ".join(f"{n} {e:.3e}" for n, e in
+                     sorted(errs.items(), key=lambda kv: -kv[1])[:k])
+
+
+def mesh_train_phase(torch, kfwd, kbwd, smi, layers=MESH_TRAIN_LAYERS):
+    """Phase 5g: granite-3-2b at full width and ``layers`` layers
+    trained over a mesh of gloo ranks sharing the card (``MESH_SHAPE`` for
+    ``MESH_STEPS`` steps and a checkpoint, then an elastic resume on
+    ``MESH_RESUME_SHAPE`` to ``MESH_RESUME_STEPS``), held against the
+    single-device run of the same state: the step-0 loss, every gathered
+    gradient leaf (and, to read the gap, the single-device gradients with
+    cuBLASLt's GEMMs, which differ from cuBLAS's only in the order of their
+    sums), the loss trajectory; then the kernels' batch
+    and head offsets bit for bit at the training shape. Returns each rank's
+    launch counts of the 2x2 run."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data import make_batch
+    from repro_torch.distributed.sharding import vocab_pad_for
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import place_batch
+
+    tag = "[mesh train]"
+    cfg = _mesh_cfg(torch, layers)
+    dc = _mesh_data(cfg)
+    pad = vocab_pad_for(type("M", (), {"shape": MESH_SHAPE}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arts = _mesh_arts(torch, cfg, None, "cuda")
+    params = lm.init_params(cfg, seed=0, device="cuda", vocab_pad_to=pad)
+    opt = adamw_init(params, _mesh_opt())
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag} {cfg.name}: {cfg.num_layers} of 40 layers at full width "
+          f"(heads {cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{lm.padded_vocab(cfg, pad)}), {n_params / 1e9:.3f} B params f32, "
+          f"dropout {cfg.dropout_rate}, remat; batch {MESH_BATCH} x {MESH_SEQ}; "
+          f"AdamW without a master copy", flush=True)
+    b0 = place_batch(make_batch(dc, 0), "cuda")
+    loss0, _, grads = arts.grad_fn(params, b0, 0)
+    loss0 = float(loss0)
+    ref = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    # the same step with cuBLASLt's GEMMs: its sums in another order
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    _, _, grads = arts.grad_fn(params, b0, 0)
+    torch.backends.cuda.preferred_blas_library("cublas")
+    floor = _leaf_errs(torch, {n: g.cpu() for n, g in grads.items()}, ref)
+    del grads
+    ref_losses, ref_dt = [], []
+    for step in range(MESH_RESUME_STEPS):
+        b = place_batch(make_batch(dc, step), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = arts.step_fn(params, opt, b, step)
+        ref_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ref_dt.append(time.perf_counter() - t1)
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, opt, arts, b, m, b0
+    torch.cuda.empty_cache()
+    print(f"{tag} single-device reference: loss {loss0:.6f} at step 0; "
+          f"{MESH_RESUME_STEPS} steps, losses "
+          f"{[round(x, 6) for x in ref_losses]}, step times "
+          f"{[round(x, 4) for x in ref_dt]} s, max_memory_allocated "
+          f"{ref_peak:.2f} GiB ({smi}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"{tag} single device, cuBLASLt's GEMMs against cuBLAS's (the same "
+          f"step, its sums in another order): worst leaves {_worst(floor)}",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        grad_dir, ckpt_dir = os.path.join(tmp, "grads"), os.path.join(tmp, "ckpt")
+        os.makedirs(grad_dir)
+        t1 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, 4, (MESH_SHAPE, ckpt_dir, grad_dir,
+                                          MESH_STEPS, layers),
+                          backend="gloo", device_type="cuda", timeout_s=900)
+        t_2x2 = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        resumed = run_ranks(_mesh_rank, 2, (MESH_RESUME_SHAPE, ckpt_dir, None,
+                                            MESH_RESUME_STEPS, layers),
+                            backend="gloo", device_type="cuda", timeout_s=900)
+        t_resume = time.perf_counter() - t1
+        got = {n: torch.from_numpy(np.load(os.path.join(grad_dir, n + ".npy")))
+               for n in ref}
+    r0 = ranks[0]
+    print(f"{tag} {r0['probe']}", flush=True)
+    print(f"{tag} --mesh 2x2 (4 gloo ranks on one card, through host memory): "
+          f"{t_2x2:.1f} s (spawn, init, the step-0 gradients, {MESH_STEPS} "
+          f"steps, the checkpoint); --mesh 2 resume (2 ranks) to step "
+          f"{MESH_RESUME_STEPS}: {t_resume:.1f} s", flush=True)
+    n_attn = cfg.num_layers
+    for label, group, n_steps in (("2x2", ranks, MESH_STEPS),
+                                  ("2 (resumed)", resumed,
+                                   MESH_RESUME_STEPS - MESH_STEPS)):
+        for r in group:
+            want = {"flash_fwd": 2 * n_attn * n_steps, "flash_bwd": n_attn * n_steps}
+            got_l = {"flash_fwd": r["flash_fwd"], "flash_bwd": r["flash_bwd"]}
+            per = [f"{b / 2**30:.3f}" for b in r["step_bytes"]]
+            print(f"{tag} --mesh {label} rank {r['rank']} {r['coords']}: q heads "
+                  f"{r['hq_local']} from {r['head_offset']}, kv heads "
+                  f"{r['kv_local']}; launches {got_l} (expected {want}); losses "
+                  f"{[round(l, 6) for _, l in r['losses']]}; step times "
+                  f"{[round(x, 4) for x in r['step_s']]} s; Trainer.run "
+                  f"{r['wall']:.1f} s of the rank's {r['start_s']:.1f} s"
+                  + (f" (step-0 gradients {r['check_s']:.1f} s)" if "check_s" in r else "")
+                  + f"; collectives {r['coll']['calls']} calls, "
+                  f"{r['coll']['bytes'] / 2**30:.3f} GiB, {r['coll']['seconds']:.3f} "
+                  f"host s (the checkpoint's gathers included); a step {per} GiB "
+                  f"in {[round(x, 3) for x in r['step_coll_s']]} host s; "
+                  f"max_memory_allocated {r['peak_gib']:.2f} GiB ({smi})", flush=True)
+            if got_l != want:
+                fail(f"the mesh training path did not go through the kernels on "
+                     f"rank {r['rank']}: {got_l}, expected {want}")
+            if any(not math.isfinite(l) for _, l in r["losses"]):
+                fail(f"rank {r['rank']}: loss {r['losses']}")
+            if r["losses"] != group[0]["losses"]:
+                fail(f"rank {r['rank']}'s losses differ from rank 0's")
+    errs = _leaf_errs(torch, got, ref)
+    print(f"{tag} mesh against the whole batch's gradients: worst leaves "
+          f"{_worst(errs)}", flush=True)
+    losses = dict(r0["losses"])
+    losses.update(dict(resumed[0]["losses"]))
+    if sorted(losses) != list(range(MESH_RESUME_STEPS)) or \
+            resumed[0]["stop"] != MESH_RESUME_STEPS:
+        fail(f"the resumed run stopped at {resumed[0]['stop']}: steps {sorted(losses)}")
+    traj = max(abs(losses[s] - ref_losses[s]) / abs(ref_losses[s])
+               for s in range(MESH_RESUME_STEPS))
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    checks = [("step-0 loss", abs(r0["loss0"] - loss0) / abs(loss0), 1e-5),
+              (f"gathered gradient leaves ({len(errs)}, worst {worst[0]})",
+               worst[1], MESH_LEAF_TOL),
+              (f"loss trajectory over {MESH_RESUME_STEPS} steps", traj,
+               MESH_TRAJ_TOL)]
+    for what, err, tol in checks:
+        print(f"{tag} mesh vs single device {what}: {err:.3e} (tol {tol:.0e}) "
+              f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+        if not err <= tol:
+            fail(f"training over the mesh: {what} differs by {err:.3e}")
+    mesh_offsets_check(torch, kfwd, kbwd, tag)
+    return ranks
+
+
+def mesh_offsets_check(torch, kfwd, kbwd, tag):
+    """Rows 1-3 at granite's training shape (B 4, 32/8 heads, S 2048, D 64,
+    causal, dropout 0.1) on the shard of rank (data 1, model 1) of the 2x2
+    mesh: batch rows 2-3, q heads 16-31, kv heads 4-7, with its offsets; o,
+    lse, dK and dV bit for bit against the full call's slice, dQ within the
+    f32 rounding of its atomic adds (``BWD_TOL``)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, s, d = MESH_BATCH, 32, 8, MESH_SEQ, 64
+    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.float32)
+    do = _rand(torch, gen, (b, hq, s, d), torch.float32)
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=-1234567)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    sl, kl = (slice(2, 4), slice(16, 32)), (slice(2, 4), slice(4, 8))
+    qs, dos = q[sl].contiguous(), do[sl].contiguous()
+    ks, vs = k[kl].contiguous(), v[kl].contiguous()
+    off = dict(batch_offset=2, head_offset=16)
+    os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw, **off)
+    dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw, **off)
+    dq_err = _maxerr(dqs, dq[sl]) / max(1.0, float(dq.abs().max()))
+    bits = (torch.equal(os_, o[sl]) and torch.equal(lses, lse[sl])
+            and torch.equal(dks, dk[kl]) and torch.equal(dvs, dv[kl]))
+    other = not torch.equal(kfwd.flash_fwd(qs, ks, vs, **kw)[0], o[sl])
+    print(f"{tag} offsets (batch 2, head 16) on the card: o, lse, dK, dV "
+          f"{'bit for bit' if bits else 'DIFFER'}; dQ {dq_err:.3e} (tol "
+          f"{BWD_TOL['float32']:.0e}, atomic adds); without the offsets the "
+          f"shard's o {'differs' if other else 'is EQUAL'}", flush=True)
+    if not (bits and other and dq_err <= BWD_TOL["float32"]):
+        fail("the kernels' batch / head offsets do not give the full call's masks")
 
 
 def _top2(logits, vocab: int):

@@ -16,6 +16,16 @@ Python ints; ``None`` leaves are absent. Keys join the path with
 ``/``. numpy has no bfloat16, so a bf16 tensor is stored as its uint16 bits
 and recorded as ``"bfloat16"`` in ``dtypes``.
 
+* **Mesh-agnostic**: on a training mesh (``shardings=``, a tree of
+  ``distributed.parallel.NamedSharding`` by the state's keys) ``save``
+  gathers the full tensors leaf by leaf (a collective every rank joins),
+  only rank 0 keeps each on the host and writes, and the others wait at a
+  barrier until the rename has committed it; ``restore`` reads the full
+  arrays and keeps each rank's part. The files are those of one device, so
+  a checkpoint of one mesh resumes on one device or on another mesh; a
+  full shape that differs from the one a rank's part implies (another
+  padded vocab) raises :class:`CheckpointShapeError`.
+
 A checkpoint that the JAX package's ``Trainer`` wrote has the same files but
 JAX's tree: stacked superblock params (``params/blocks/sub_0/mixer/wq``)
 and the optimizer state as a NamedTuple, whose fields JAX's key paths spell
@@ -47,6 +57,12 @@ class CorruptCheckpointError(RuntimeError):
     ring holds several) rather than deserialise garbage."""
 
 
+class CheckpointShapeError(ValueError):
+    """A checkpoint's array is not of the shape the state restoring it has
+    (for ``embed`` and ``lm_head``: a vocab padded for another model
+    axis)."""
+
+
 def _digest_file(path: str) -> str:
     h = hashlib.blake2b(digest_size=16)
     with open(path, "rb") as f:
@@ -63,15 +79,21 @@ def _children(node):
     return None
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """{"a/b/c": leaf} over every non-None leaf, in the tree's order."""
-    kids = _children(tree)
+def _flatten(tree, prefix: str = "", leaf=None) -> Dict[str, Any]:
+    """{"a/b/c": leaf} over every non-None leaf, in the tree's order
+    (``leaf``: a type to keep whole, though a dataclass)."""
+    kids = None if leaf is not None and isinstance(tree, leaf) else _children(tree)
     if kids is None:
         return {} if tree is None else {prefix: tree}
     flat = {}
     for k, v in kids.items():
-        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
+        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k), leaf))
     return flat
+
+
+def _flat_shardings(shardings) -> Dict[str, Any]:
+    from repro_torch.distributed.parallel import NamedSharding
+    return {} if shardings is None else _flatten(shardings, leaf=NamedSharding)
 
 
 def _to_host(leaf):
@@ -96,26 +118,59 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _snapshot(tree):
+def _snapshot(tree, shardings=None):
+    """(host arrays, dtype names, the mesh or None); on a mesh only rank 0
+    keeps the arrays (each gathered, then copied off the device, one leaf at
+    a time)."""
     flat, dtypes = {}, {}
+    sh = _flat_shardings(shardings)
+    mesh = next(iter(sh.values())).mesh if sh else None
     for k, leaf in _flatten(tree).items():
-        flat[k], dtypes[k] = _to_host(leaf)
-    return flat, dtypes
+        if k in sh and isinstance(leaf, torch.Tensor):
+            leaf = sh[k].gather(leaf)
+        if mesh is None or mesh.rank == 0:
+            flat[k], dtypes[k] = _to_host(leaf)
+        del leaf
+    return flat, dtypes, mesh
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
-    """Blocking atomic save. Returns the committed directory."""
-    flat, dtypes = _snapshot(tree)
-    return _write(ckpt_dir, step, flat, dtypes, keep)
+class _MeshSave:
+    """A save on a mesh: rank 0's writer thread (None elsewhere); ``join``
+    waits for it, then every rank meets at a barrier."""
+
+    def __init__(self, thread: Optional[threading.Thread]):
+        self.thread = thread
+
+    def join(self):
+        if self.thread is not None:
+            self.thread.join()
+        torch.distributed.barrier()
 
 
-def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> threading.Thread:
-    """Host copy now; disk write on a background thread (join it)."""
-    flat, dtypes = _snapshot(tree)
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, flat, dtypes, keep),
-                         daemon=True)
-    t.start()
-    return t
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+         shardings=None) -> Optional[str]:
+    """Blocking atomic save. Returns the committed directory (None on the
+    ranks of a mesh other than 0, which return once it is committed)."""
+    flat, dtypes, mesh = _snapshot(tree, shardings)
+    if mesh is None:
+        return _write(ckpt_dir, step, flat, dtypes, keep)
+    final = _write(ckpt_dir, step, flat, dtypes, keep) if mesh.rank == 0 else None
+    torch.distributed.barrier()
+    return final
+
+
+def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+               shardings=None):
+    """Host copy now (on a mesh: gathered, every rank taking part); disk
+    write on a background thread. Returns a handle to ``join()``: on a mesh
+    every rank joins it, and it returns once the step is committed."""
+    flat, dtypes, mesh = _snapshot(tree, shardings)
+    t = None
+    if mesh is None or mesh.rank == 0:
+        t = threading.Thread(target=_write,
+                             args=(ckpt_dir, step, flat, dtypes, keep), daemon=True)
+        t.start()
+    return t if mesh is None else _MeshSave(t)
 
 
 def _write(ckpt_dir, step, flat, dtypes, keep):
@@ -143,29 +198,35 @@ def _gc(ckpt_dir, keep):
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
 
 
-def _from_host(a: np.ndarray, dtype_name: str, like):
+def _from_host(a: np.ndarray, dtype_name: str, like, key: str, sharding=None):
     if isinstance(like, torch.Tensor):
         t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
              if dtype_name == "bfloat16" else torch.from_numpy(a))
-        if tuple(t.shape) != tuple(like.shape):
-            raise ValueError(f"checkpoint shape {tuple(t.shape)} != "
-                             f"{tuple(like.shape)}")
-        return t
+        want = (tuple(like.shape) if sharding is None
+                else sharding.global_shape(like.shape))
+        if tuple(t.shape) != want:
+            raise CheckpointShapeError(
+                f"{key}: checkpoint shape {tuple(t.shape)} != {want}"
+                + (" (the vocab is padded for another model axis)"
+                   if key.split(_SEP)[-1] in ("embed", "lm_head") else ""))
+        return t if sharding is None else sharding.shard(t)
     return type(like)(a.item())
 
 
 @torch.no_grad()
-def _fill(like, arrays, dtypes, prefix: str = ""):
+def _fill(like, arrays, dtypes, sh, prefix: str = ""):
     kids = _children(like)
     if kids is None:
         if like is None:
             return None
-        src = _from_host(arrays[prefix], dtypes.get(prefix, ""), like)
+        src = _from_host(arrays[prefix], dtypes.get(prefix, ""), like, prefix,
+                         sh.get(prefix))
         if isinstance(like, torch.Tensor):
             like.copy_(src)                    # in place: no second tree
             return like
         return src
-    out = {k: _fill(v, arrays, dtypes, f"{prefix}{_SEP}{k}" if prefix else str(k))
+    out = {k: _fill(v, arrays, dtypes, sh,
+                    f"{prefix}{_SEP}{k}" if prefix else str(k))
            for k, v in kids.items()}
     if dataclasses.is_dataclass(like):
         for k, v in out.items():
@@ -221,16 +282,18 @@ def read_tree(ckpt_dir: str, step: int) -> Dict[str, Any]:
     return tree
 
 
-def restore(ckpt_dir: str, step: int, like):
+def restore(ckpt_dir: str, step: int, like, *, shardings=None):
     """Restore step ``step`` into the structure of ``like``. Tensor leaves of
     ``like`` are overwritten **in place** (dtype and device kept), so a
     restore at full width needs no second copy of the state; int leaves are
-    replaced. Returns the filled tree."""
+    replaced. ``shardings`` (a tree of ``NamedSharding`` by ``like``'s keys,
+    None leaves replicated): ``like`` holds this rank's parts, and each is
+    filled with its part of the full array. Returns the filled tree."""
     d, meta = _checked(ckpt_dir, step)
     with np.load(os.path.join(d, "arrays.npz")) as z:
         keys = list(_flatten(like))
         missing = set(keys) - set(z.files)
         if missing:
             raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]}")
-        arrays = {k: z[k] for k in keys}
-    return _fill(like, arrays, meta.get("dtypes", {}))
+        # npz members load as they are read: one full array at a time
+        return _fill(like, z, meta.get("dtypes", {}), _flat_shardings(shardings))

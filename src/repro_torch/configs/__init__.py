@@ -49,9 +49,16 @@ class MambaConfig:
 class ArchConfig:
     """One architecture; fields as in ``repro.configs.ArchConfig``.
 
-    The sharding fields of the JAX config (fsdp, sharding profile, context
-    parallelism, scan) have no counterpart on one device and are left out;
-    ``remat`` checkpoints each layer in training; ``dtype`` is a torch dtype.
+    The JAX config's three sharding fields are kept with its values and
+    read by ``distributed/sharding.py`` on a training mesh: ``fsdp`` (shard
+    every parameter's embed dim over the data axis too, ZeRO-3),
+    ``sharding_profile`` ("tp_sp", or "fsdp": no tensor parallelism, batch
+    and params over (data, model), taken only with ``fsdp`` as well) and
+    ``ctx_parallel_attn`` (shard attention's query rows over the model axis
+    where the heads do not divide it; the port does not do that yet and
+    keeps such attention replicated). JAX's ``scan_layers`` has no
+    counterpart (the port loops over its layers); ``remat`` checkpoints each
+    layer in training; ``dtype`` is a torch dtype.
     """
     name: str
     family: str                      # dense | moe | hybrid | ssm | encoder | vlm
@@ -74,6 +81,10 @@ class ArchConfig:
     dropout_rate: float = 0.0
     remat: bool = True               # checkpoint each layer in training
     dtype: Any = torch.bfloat16
+    fsdp: bool = False               # shard params over the data axis too (ZeRO-3)
+    sharding_profile: str = "tp_sp"  # "tp_sp" or "fsdp" (no TP; with fsdp only)
+    ctx_parallel_attn: bool = False  # shard attention queries over model where
+                                     # the heads do not divide it (JAX only)
     notes: str = ""
 
     def __post_init__(self):

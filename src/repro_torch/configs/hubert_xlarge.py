@@ -12,6 +12,7 @@ CONFIG = ArchConfig(
     causal=False,                 # encoder-only: no decode shapes
     frontend="audio",             # frame embeddings provided by the stub
     mlp_type="gelu",
+    sharding_profile="fsdp",   # annotation only: without fsdp=True the rules keep TP
     notes="encoder-only audio backbone, w2v2 arch [arXiv:2106.07447; "
           "unverified]. head_dim=80. Loss = masked-unit CE over 504 units.",
 )

@@ -9,6 +9,8 @@ CONFIG = ArchConfig(
     num_layers=40, d_model=5120, num_heads=40, num_kv_heads=8,
     d_ff=17408, vocab_size=151936, head_dim=128,
     qk_norm=True,
+    fsdp=True,
+    ctx_parallel_attn=True,
     notes="qk-norm + GQA [hf:Qwen/Qwen3-8B; hf].",
 )
 SMOKE = dataclasses.replace(

@@ -12,6 +12,7 @@ CONFIG = ArchConfig(
     attn_window=2048,                      # local attention
     block_pattern=("rec", "rec", "attn"),  # Griffin 2:1 pattern
     rglru=RGLRUConfig(d_rnn=2560),
+    ctx_parallel_attn=True,
     notes="RG-LRU + local attn 1:2 [arXiv:2402.19427; hf].",
 )
 SMOKE = dataclasses.replace(

@@ -31,27 +31,33 @@ def spark_attention(q, k, v, *, impl: str = "kernel", seed=0,
                     causal: bool = False, window: Optional[int] = None,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
                     segment_ids=None, acc_dtype=torch.float32,
-                    bwd_acc_dtype=torch.float32, torch_chunk: int = 1024):
+                    bwd_acc_dtype=torch.float32, torch_chunk: int = 1024,
+                    batch_offset: int = 0, head_offset: int = 0):
     """Fused MHA. q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] → [B,Hq,Sq,D].
 
     segment_ids: optional [B, Skv] int32 per-token segment ids for packed
     batches — attention never crosses a segment boundary, negative ids mark
     padding tokens that attend to nothing. ``acc_dtype`` / ``bwd_acc_dtype``
     (bf16-ACC) reach the kernels' forward and backward; the plain paths
-    compute in f32, as JAX's.
+    compute in f32, as JAX's. ``batch_offset`` / ``head_offset``: the
+    global batch row and q head of ``q[0, 0]`` that the dropout mask hashes
+    (a rank's shard of the batch and the heads draws the single-device
+    masks), on every impl.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    off = dict(batch_offset=batch_offset, head_offset=head_offset)
     cfg = AttnConfig(causal=causal, window=window, scale=scale,
                      dropout_rate=dropout_rate, acc_dtype=acc_dtype,
                      bwd_acc_dtype=bwd_acc_dtype)
     if impl == "kernel":
-        return ops.mha(q, k, v, seed=seed, segment_ids=segment_ids, config=cfg)
+        return ops.mha(q, k, v, seed=seed, segment_ids=segment_ids, config=cfg,
+                       **off)
     if impl == "torch":
         return ops.mha_torch(q, k, v, seed=seed, segment_ids=segment_ids,
-                             config=cfg, chunk=torch_chunk)
+                             config=cfg, chunk=torch_chunk, **off)
     return ops.mha_reference(q, k, v, seed=seed, segment_ids=segment_ids,
-                             config=cfg)
+                             config=cfg, **off)
 
 
 def spark_decode(q, k, v, *, impl: str = "kernel", kv_len=None,

@@ -1,0 +1,318 @@
+"""Training over a mesh: how one rank holds and runs its shard of the model
+(what the JAX package leaves to GSPMD under ``make_train_step(mesh=)``).
+
+:class:`NamedSharding` is a spec on a :class:`~repro_torch.distributed.mesh.TrainMesh`
+(JAX's ``NamedSharding``): which part of a full tensor this rank holds
+(:meth:`~NamedSharding.shard`) and how to rebuild the full tensor from
+every rank's part (:meth:`~NamedSharding.gather`, a collective).
+
+:class:`ShardPlan` carries the specs of ``distributed.sharding`` out in
+the layers of the attention families (dense, vlm, encoder):
+
+* **tensor parallel over ``model``** (heads, kv heads, mlp and vocab dims
+  sharded): ``wq/wk/wv`` column-parallel on the rank's heads, ``wo``
+  row-parallel and summed over ``model``; the MLP the same way, ``wi``'s
+  ``[gate | up]`` columns sharded half by half, so every rank holds the
+  same slice of both; the embedding looked up on the rank's vocab rows
+  (the others give zeros) and summed; ``lm_head`` column-parallel with a
+  vocab-parallel cross-entropy (a global max and sum-exp over ``model``,
+  padded columns masked). The residual stream stays replicated over
+  ``model`` (JAX's sequence-parallel residuals change its layout, not its
+  values; they are not ported).
+* kv heads that ``model`` does not divide, under heads that it does: the
+  rules replicate ``wk/wv``, and each rank projects the kv heads its own
+  q heads read (``global q head // group``), expanding them to one a q
+  head where the group does not split evenly.
+* a weight whose ``embed`` dim is sharded (over ``data`` with
+  ``cfg.fsdp``, over (data, model) in the FSDP profile) is gathered before
+  use; its gradient comes back summed over those ranks and scattered.
+* weights replicated over ``model`` but used on the rank's heads only
+  (``q_norm``/``k_norm``, replicated ``wk/wv``) enter through
+  ``collectives.copy_to``, so their gradients are whole on every rank.
+* the batch: a rank holds rows ``[i·b, (i+1)·b)`` of every microbatch (i
+  its position along the batch axes), and passes ``i·b`` and its first q
+  head to the attention kernels (``batch_offset``, ``head_offset``) so
+  dropout draws the single-device masks. The loss is the global weighted
+  mean: each rank's weighted sum over the global weight sum, whose
+  gradients :meth:`ShardPlan.reduce_grads` sums over the batch axes a
+  leaf is not sharded over.
+
+The hybrid, MoE and ssm families raise :class:`MeshFamilyError`: their
+rules shard ``rnn``, ``experts`` and ``moe_groups``, which are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.online_softmax import NEG_INF
+from repro_torch.distributed import collectives as C
+
+#: the families a training mesh takes
+MESH_FAMILIES = ("dense", "vlm", "encoder")
+#: gradients all-reduced at once (elements), a bucket
+BUCKET = 1 << 26
+
+
+class MeshFamilyError(NotImplementedError):
+    """A family whose sharding rules the port does not carry out."""
+
+
+def check_family(cfg) -> None:
+    """Raise :class:`MeshFamilyError` unless ``cfg``'s family trains on a
+    mesh."""
+    if cfg.family not in MESH_FAMILIES:
+        raise MeshFamilyError(
+            f"{cfg.name}: the {cfg.family} family does not train on a mesh "
+            f"in repro_torch (its rules shard rnn, experts and moe_groups, "
+            f"not ported); mesh families: {', '.join(MESH_FAMILIES)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """``spec`` on ``mesh``: entry ``d`` names the axes dim ``d`` is split
+    over (missing trailing entries: replicated). ``block[d]``, where given,
+    cuts dim ``d`` into blocks of that many elements, each split on its
+    own (``collectives``)."""
+    mesh: Any
+    spec: tuple
+    block: tuple = ()
+
+    def _dims(self):
+        for d, entry in enumerate(self.spec):
+            if entry is not None and self.mesh.size(entry) > 1:
+                yield d, entry, (self.block[d] if d < len(self.block) else None)
+
+    def shard(self, x):
+        """This rank's part of the full ``x`` (numpy or torch)."""
+        for d, entry, block in self._dims():
+            x = C.shard(x, d, self.mesh, entry, block)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's part (a collective: every rank
+        calls it)."""
+        for d, entry, block in self._dims():
+            x = C.gather_nograd(x, d, self.mesh, entry, block)
+        return x
+
+    def global_shape(self, local_shape) -> Tuple[int, ...]:
+        shape = list(local_shape)
+        for d, entry, _ in self._dims():
+            shape[d] *= self.mesh.size(entry)
+        return tuple(shape)
+
+
+def _layer_key(name: str) -> str:
+    """``blocks.3.mixer.wq`` → ``mixer.wq``; top-level names as they are."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+
+
+class ShardPlan:
+    """One rank's plan for its shard of ``cfg`` on ``mesh`` under ``rules``
+    (``specs``/``logical``: port parameter name → spec / logical axes)."""
+
+    def __init__(self, cfg, mesh, rules, specs: Dict[str, tuple],
+                 logical: Dict[str, tuple]):
+        check_family(cfg)
+        self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self._spec = {_layer_key(n): s for n, s in specs.items()}
+        self._logical = {_layer_key(n): a for n, a in logical.items()}
+        self.batch = rules.rules["batch"]
+        self.heads = self._spec["mixer.wq"][1] == "model"
+        self.kv = self._spec["mixer.wk"][1] == "model"
+        self.mlp = self._spec["mlp.wi"][1] == "model"
+        self.vocab = self._spec["embed"][0] == "model"
+        if cfg.mlp_type == "gated_silu" and self.mlp and \
+                cfg.d_ff % mesh.size("model"):
+            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
+                             f"model={mesh.size('model')} half by half")
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        m = mesh.size("model") if self.heads else 1
+        self.hq_local = hq // m
+        self.head_offset = mesh.index("model") * self.hq_local if self.heads else 0
+        self.kv_cols = None      # wk/wv columns this rank projects, if sliced
+        self.partial = set()     # replicated over model, used on local heads
+        if self.heads:
+            if cfg.qk_norm:
+                self.partial |= {"mixer.q_norm", "mixer.k_norm"}
+            if not self.kv:
+                self.partial |= {"mixer.wk", "mixer.wv"}
+                group = hq // hkv
+                idx = [(self.head_offset + i) // group
+                       for i in range(self.hq_local)]
+                uniq = sorted(set(idx))
+                g = self.hq_local // len(uniq)
+                if g * len(uniq) != self.hq_local or \
+                        idx != [uniq[i // g] for i in range(self.hq_local)]:
+                    uniq = idx             # one kv head a q head
+                self.kv_cols = torch.cat([torch.arange(h * hd, (h + 1) * hd)
+                                          for h in uniq])
+
+    # -- sharding objects --------------------------------------------------
+    def block(self, name: str) -> tuple:
+        """Per-dim blocks of a parameter: the gated MLP's ``wi`` columns are
+        ``[gate | up]``, each half split on its own."""
+        if _layer_key(name) == "mlp.wi" and self.cfg.mlp_type == "gated_silu":
+            return (None, self.cfg.d_ff)
+        return ()
+
+    def sharding(self, name: str) -> NamedSharding:
+        return NamedSharding(self.mesh, self.specs[name], self.block(name))
+
+    # -- weights -----------------------------------------------------------
+    def weight(self, w: torch.Tensor, key: str) -> torch.Tensor:
+        """The weight ``w`` (parameter ``key``, as ``mixer.wq`` or
+        ``embed``) as the layer computes with it: its sharded ``embed`` dims
+        gathered, and entered through ``copy_to`` over ``model`` where its
+        gradient would otherwise be partial."""
+        spec, logical = self._spec[key], self._logical[key]
+        for d, name in enumerate(logical):
+            if name == "embed" and spec[d] is not None:
+                w = C.gather(w, d, self.mesh, spec[d])
+        if key in self.partial:
+            w = C.copy_to(w, self.mesh, "model")
+        return w
+
+    def kv_weight(self, w: torch.Tensor, key: str) -> torch.Tensor:
+        """``wk``/``wv`` for this rank's q heads: sharded, or the replicated
+        weight's columns of the kv heads its q heads read."""
+        w = self.weight(w, key)
+        return w if self.kv_cols is None else w[:, self.kv_cols.to(w.device)]
+
+    # -- activations -------------------------------------------------------
+    def enter(self, x, split: bool):
+        """A replicated activation entering work split over ``model``."""
+        return C.copy_to(x, self.mesh, "model") if split else x
+
+    def leave(self, x, split: bool):
+        """Partial results of work split over ``model``, summed."""
+        return C.reduce_from(x, self.mesh, "model") if split else x
+
+    def batch_offset(self, rows: int) -> int:
+        """The global row (within the microbatch) of this rank's first."""
+        return self.mesh.index(self.batch) * rows
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup, vocab-parallel where the vocab is sharded."""
+        w = self.weight(table, "embed")
+        if not self.vocab:
+            return w[tokens]
+        rows = w.shape[0]
+        local = tokens.long() - self.mesh.index("model") * rows
+        own = (local >= 0) & (local < rows)
+        x = w[local.clamp(0, rows - 1)] * own[..., None].to(w.dtype)
+        return C.reduce_from(x, self.mesh, "model")
+
+    def logits(self, xn: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        """``xn @ lm_head``: this rank's vocab columns where sharded."""
+        return self.enter(xn, self.vocab) @ self.weight(head, "lm_head")
+
+    def cross_entropy(self, logits, labels, vocab_size: int, weights=None):
+        """``layers.softmax_cross_entropy`` over the mesh. Returns (this
+        rank's term of the loss: its weighted CE sum over the global weight
+        sum, differentiable; the global loss, detached, equal on every
+        rank)."""
+        logits = logits.float()
+        cols = logits.shape[-1]
+        v0 = self.mesh.index("model") * cols if self.vocab else 0
+        col = torch.arange(v0, v0 + cols, device=logits.device)
+        if v0 + cols > vocab_size:
+            logits = logits.masked_fill(col >= vocab_size, NEG_INF)
+        if self.vocab:
+            m = C.all_reduce_(logits.detach().amax(dim=-1), self.mesh, "model",
+                              "max")
+            se = C.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1),
+                               self.mesh, "model")
+            lse = m + torch.log(se)
+            local = labels.long() - v0
+            own = (local >= 0) & (local < cols)
+            g = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+            gold = C.reduce_from(torch.where(own, g, 0.0), self.mesh, "model")
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        ce = lse - gold
+        if weights is None:
+            num = ce.sum()
+            den = torch.tensor(float(ce.numel()), device=ce.device)
+        else:
+            w = weights.float()
+            num = (ce * w).sum()
+            den = w.sum()
+        den = C.all_reduce_(den.detach().clone(), self.mesh, self.batch)
+        if weights is not None:
+            den = torch.clamp(den, min=1.0)
+        term = num / den
+        return term, C.all_reduce_(term.detach().clone(), self.mesh, self.batch)
+
+    # -- gradients ---------------------------------------------------------
+    def _axes(self, name: str) -> Tuple[str, ...]:
+        got = set()
+        for entry in self.specs[name]:
+            got.update(self.mesh.axes(entry))
+        return tuple(a for a in self.mesh.shape if a in got)
+
+    def reduce_entry(self, name: str) -> Tuple[str, ...]:
+        """The batch axes a leaf is replicated over: its gradient is summed
+        over them."""
+        own = self._axes(name)
+        return tuple(a for a in self.mesh.axes(self.batch) if a not in own)
+
+    def norm_entry(self, name: str) -> Tuple[str, ...]:
+        """The axes a leaf is sharded over (its sum of squares is summed
+        over them; a replicated leaf counts once)."""
+        return self._axes(name)
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum every gradient over the batch axes its leaf is replicated
+        over, in place, in buckets of up to :data:`BUCKET` elements."""
+        by_entry: Dict[tuple, list] = {}
+        for n in grads:
+            entry = self.reduce_entry(n)
+            if self.mesh.size(entry) > 1:
+                by_entry.setdefault(entry, []).append(n)
+        for entry, names in by_entry.items():
+            start = 0
+            while start < len(names):
+                chunk, size = [], 0
+                while start < len(names) and (not chunk or size + grads[
+                        names[start]].numel() <= BUCKET):
+                    chunk.append(names[start])
+                    size += grads[names[start]].numel()
+                    start += 1
+                flat = torch.cat([grads[n].reshape(-1).float() for n in chunk])
+                C.all_reduce_(flat, self.mesh, entry)
+                for n, part in zip(chunk, flat.split(
+                        [grads[n].numel() for n in chunk])):
+                    grads[n] = part.view(grads[n].shape).to(grads[n].dtype)
+
+
+def shard_batch(batch: Dict[str, Any], shardings: Dict[str, NamedSharding],
+                device=None) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a batch (host arrays or tensors) as tensors on
+    ``device`` (default: where they are): only those rows are copied."""
+    out = {}
+    for k, v in batch.items():
+        part = shardings[k].shard(v) if k in shardings else v
+        t = torch.as_tensor(part) if not isinstance(part, torch.Tensor) else part
+        out[k] = t.contiguous() if device is None else t.to(device).contiguous()
+    return out
+
+
+def batch_shardings(mesh, rules, microbatch: Optional[int] = None
+                    ) -> Dict[str, NamedSharding]:
+    """The batch's shardings (``tokens``, ``labels``, ``embeds``,
+    ``segment_ids``, ``positions``): rows over the rules' batch axes, in
+    blocks of ``microbatch`` rows where given (a rank holds its slice of
+    every microbatch)."""
+    rows = rules.spec_for(("batch",))[0]
+    block = (microbatch,) if microbatch else ()
+    sh = NamedSharding(mesh, (rows, None), block)
+    return {"tokens": sh, "labels": sh, "segment_ids": sh, "positions": sh,
+            "embeds": NamedSharding(mesh, (rows, None, None), block)}

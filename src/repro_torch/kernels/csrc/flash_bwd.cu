@@ -132,6 +132,8 @@ struct BwdParams {
   float scale;
   int causal, window;                                       // window <= 0: none
   int dropout; uint32_t seed, threshold; float keep_div;    // keep_div = 1 - rate
+  int b_off, h_off;     // global batch row and q head of local (0, 0): the mask's
+                        // coordinates on a rank that holds a shard of B or Hq
 };
 
 // Shared-memory plan of one (T, D): kv rows a block, Q/dO stages, threads.
@@ -194,7 +196,8 @@ __device__ __forceinline__ void probs(const BwdParams& p, float (&s)[NJ][4],
                                       int r0, int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int q_shift = p.Skv - p.Sq;
-  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
+  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)(b + p.b_off) * M3) ^
+                      ((uint32_t)(h + p.h_off) + GOLDEN);
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -455,6 +458,8 @@ extern "C" {
 // bf16. Segment pointers are all null or all set. q, k, v, dout, dk, dv are
 // contiguous [B, H, S, D] of dtype, 16-byte aligned; dq is a zeroed f32
 // [B, Hq, Sq, D] that the kernel adds into; lse and delta [B, Hq, Sq] f32.
+// batch_offset, head_offset: the global batch row and q head of the tensors'
+// first ones, which the dropout mask hashes (a rank's shard of B or Hq).
 // Returns the cudaError_t of the launch (0 = success).
 int flash_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, float* dq, void* dk, void* dv,
@@ -462,7 +467,7 @@ int flash_bwd_launch(const void* q, const void* k, const void* v, const void* do
                      const int* ks_min, const int* ks_max, int B, int Hq, int Hkv, int Sq,
                      int Skv, int D, int dtype, int acc_bf16, float scale, int causal,
                      int window, int dropout, int seed, unsigned int threshold, float keep_div,
-                     void* stream) {
+                     int batch_offset, int head_offset, void* stream) {
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv;
@@ -474,6 +479,7 @@ int flash_bwd_launch(const void* q, const void* k, const void* v, const void* do
   p.scale = scale; p.causal = causal; p.window = window;
   p.dropout = dropout; p.seed = (uint32_t)seed; p.threshold = threshold;
   p.keep_div = keep_div;
+  p.b_off = batch_offset; p.h_off = head_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return acc_bf16 ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);

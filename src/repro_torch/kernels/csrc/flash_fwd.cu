@@ -124,6 +124,8 @@ struct FwdParams {
   float scale;
   int causal, window;                                       // window <= 0: none
   int dropout; uint32_t seed, threshold; float keep_div;    // keep_div = 1 - rate
+  int b_off, h_off;     // global batch row and q head of local (0, 0): the mask's
+                        // coordinates on a rank that holds a shard of B or Hq
 };
 
 // The layout of one (T, D): warps, the ring, shared memory.
@@ -278,7 +280,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT, Cfg<T, D>::MINB) fwd_kernel(con
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[DW / 8][4];
   zero(acc);
-  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)b * M3) ^ ((uint32_t)h + GOLDEN);
+  const uint32_t hs = (p.seed * GOLDEN + (uint32_t)(b + p.b_off) * M3) ^
+                      ((uint32_t)(h + p.h_off) + GOLDEN);
   const float inv_keep = 1.f / p.keep_div;
   const float sl2 = p.scale * LOG2E;
 
@@ -451,6 +454,8 @@ extern "C" {
 // bf16 (bf16-ACC); D 16, 32, 64, 80, 128 or 256. Segment pointers are all null
 // or all set; the segment bounds are over 64-row tiles. q, k, v, o are contiguous [B, H, S, D] of
 // dtype, 16-byte aligned; lse [B, Hq, Sq] f32.
+// batch_offset, head_offset: the global batch row and q head of the tensors'
+// first ones, which the dropout mask hashes (a rank's shard of B or Hq).
 // Returns the cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      float* lse, const int* q_seg, const int* kv_seg,
@@ -459,7 +464,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      int D, int dtype, int acc_bf16, float scale, int causal,
                      int window,
                      int dropout, int seed, unsigned int threshold,
-                     float keep_div, void* stream) {
+                     float keep_div, int batch_offset, int head_offset,
+                     void* stream) {
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.q_seg = q_seg; p.kv_seg = kv_seg;
@@ -471,6 +477,7 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   p.scale = scale; p.causal = causal; p.window = window;
   p.dropout = dropout; p.seed = (uint32_t)seed; p.threshold = threshold;
   p.keep_div = keep_div;
+  p.b_off = batch_offset; p.h_off = head_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return acc_bf16 ? launch_d<float, true>(p, D, s) : launch_d<float, false>(p, D, s);

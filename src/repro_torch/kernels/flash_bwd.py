@@ -45,17 +45,19 @@ launches_bwd = 0
 _P = ctypes.c_void_p
 _ARGTYPES = ([_P] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-             ctypes.c_float, _P])
+             ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False,
               window: Optional[int] = None, scale: Optional[float] = None,
               dropout_rate: float = 0.0, dropout_seed: int = 0,
-              segment_ids=None, acc_dtype=torch.float32):
+              segment_ids=None, acc_dtype=torch.float32,
+              batch_offset: int = 0, head_offset: int = 0):
     """Returns ``(dq, dk, dv)`` with the shapes and dtypes of q, k, v.
 
     q/o/do [B,Hq,Sq,D], k/v [B,Hkv,Skv,D], lse [B,Hq,Sq] f32 from
-    ``flash_fwd`` with the same options (dropout replays its keep mask).
+    ``flash_fwd`` with the same options (dropout replays its keep mask,
+    offsets included: ``flash_fwd``'s ``batch_offset`` / ``head_offset``).
     ``acc_dtype=bfloat16`` rounds every tile product to bf16 (bf16-ACC). A
     CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, D in ``HEAD_DIMS``) or raises. On the card dQ
@@ -79,7 +81,8 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     return fn(q, k, v, lse, do, row_delta(o, do), causal=causal, window=window,
               scale=(q.shape[-1] ** -0.5) if scale is None else float(scale),
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-              segment_ids=segment_ids, acc_dtype=acc_dtype)
+              segment_ids=segment_ids, acc_dtype=acc_dtype,
+              batch_offset=batch_offset, head_offset=head_offset)
 
 
 def row_delta(o, do):
@@ -90,7 +93,7 @@ def row_delta(o, do):
 
 def launch_bwd(q, k, v, lse, do, delta, *, causal=False, window=None,
                scale=None, dropout_rate=0.0, dropout_seed=0, segment_ids=None,
-               acc_dtype=torch.float32):
+               acc_dtype=torch.float32, batch_offset=0, head_offset=0):
     """Launch the fused kernel on CUDA tensors; returns ``(dq, dk, dv)``.
     The keywords are :func:`flash_bwd`'s. dQ is added into a zeroed f32
     buffer (``dq`` itself for f32 inputs, cast to bf16 afterwards else).
@@ -124,6 +127,7 @@ def launch_bwd(q, k, v, lse, do, delta, *, causal=False, window=None,
         int(acc_dtype == torch.bfloat16), scale, int(causal), window or 0,
         int(dropout_rate > 0.0), rng.int32(dropout_seed),
         rng.keep_threshold(dropout_rate), 1.0 - dropout_rate,
+        int(batch_offset), int(head_offset),
         torch.cuda.current_stream(q.device).cuda_stream))
     del keep
     launches_bwd += 1
@@ -146,7 +150,7 @@ def _tile_needed(lo_q, lo_k, q_offset, causal, window, bkv=TILE) -> bool:
 def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
                     scale=None, dropout_rate=0.0, dropout_seed=0,
                     segment_ids=None, acc_dtype=torch.float32,
-                    matmul=torch.matmul):
+                    matmul=torch.matmul, batch_offset=0, head_offset=0):
     """The kernel in plain torch: ``(dq, dk, dv)`` given ``delta =
     row_delta(o, do)``; the keywords are :func:`flash_bwd`'s.
 
@@ -160,7 +164,7 @@ def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
     their products, and with bf16 ``acc_dtype`` each tile product is
     rounded to bf16 (the dQ update per kv tile). ``matmul`` computes every
     tile product (S, dP, dV, dK, dQ); the tests pass ``common.tf32_matmul``
-    to copy the kernel's 3xTF32.
+    to copy the kernel's 3xTF32. The offsets are ``flash_fwd``'s.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -172,8 +176,8 @@ def flash_bwd_torch(q, k, v, lse, do, delta, *, causal=False, window=None,
     kf, vf = _expand_kv(k, hq).float(), _expand_kv(v, hq).float()
     lse_safe = torch.where(lse == NEG_INF, torch.zeros_like(lse), lse)
     seg = None if segment_ids is None else segment_ids.to(torch.int32)
-    bi = torch.arange(b, device=dev)[:, None, None, None]
-    hi_ = torch.arange(hq, device=dev)[None, :, None, None]
+    bi = torch.arange(b, device=dev)[:, None, None, None] + batch_offset
+    hi_ = torch.arange(hq, device=dev)[None, :, None, None] + head_offset
 
     def tile(lq, hq_, lk, hk):
         """(P~, dS) of one (q tile, kv tile), rounded to the input dtype."""

@@ -37,7 +37,7 @@ launches = 0
 _P = ctypes.c_void_p
 _ARGTYPES = ([_P] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-             ctypes.c_float, _P])
+             ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
 
 
 def kv_tile(d: int) -> int:
@@ -73,7 +73,8 @@ def _check_inputs(q, k, v, segment_ids, window, acc_dtype=torch.float32):
 def flash_fwd(q, k, v, *, causal: bool = False, window: Optional[int] = None,
               scale: Optional[float] = None, dropout_rate: float = 0.0,
               dropout_seed: int = 0, segment_ids=None,
-              acc_dtype=torch.float32):
+              acc_dtype=torch.float32, batch_offset: int = 0,
+              head_offset: int = 0):
     """Returns ``(o [B,Hq,Sq,D] in q.dtype, lse [B,Hq,Sq] f32)``.
 
     q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] (Hq % Hkv == 0, q the suffix of kv).
@@ -82,6 +83,10 @@ def flash_fwd(q, k, v, *, causal: bool = False, window: Optional[int] = None,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, D in ``HEAD_DIMS``) or raises.
     acc_dtype: float32, or bfloat16 to round every tile product to bf16.
+    batch_offset, head_offset: the global batch row and q head of
+    ``q[0, 0]``, the coordinates the dropout mask hashes: a rank holding
+    rows ``[b0, ...)`` and q heads ``[h0, ...)`` of a sharded batch passes
+    ``b0`` and ``h0`` and draws the single-device run's masks.
     """
     _check_inputs(q, k, v, segment_ids, window, acc_dtype)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
@@ -89,11 +94,14 @@ def flash_fwd(q, k, v, *, causal: bool = False, window: Optional[int] = None,
         return flash_fwd_torch(q, k, v, causal=causal, window=window,
                                scale=scale, dropout_rate=dropout_rate,
                                dropout_seed=dropout_seed,
-                               segment_ids=segment_ids, acc_dtype=acc_dtype)
+                               segment_ids=segment_ids, acc_dtype=acc_dtype,
+                               batch_offset=batch_offset,
+                               head_offset=head_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     return _launch(q, k, v, causal, window, scale, dropout_rate,
-                   rng.int32(dropout_seed), segment_ids, acc_dtype)
+                   rng.int32(dropout_seed), segment_ids, acc_dtype,
+                   batch_offset, head_offset)
 
 
 def _tile_minmax(seg: torch.Tensor):
@@ -119,7 +127,7 @@ def segment_tiles(segment_ids, sq: int, skv: int, device):
 
 
 def _launch(q, k, v, causal, window, scale, dropout_rate, seed, segment_ids,
-            acc_dtype):
+            acc_dtype, batch_offset=0, head_offset=0):
     global launches
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_fwd kernel takes float32 or bfloat16, got {q.dtype}")
@@ -141,6 +149,7 @@ def _launch(q, k, v, causal, window, scale, dropout_rate, seed, segment_ids,
              lse.data_ptr(), *seg_ptrs, b, hq, hkv, sq, skv, d, DTYPES[q.dtype],
              int(acc_dtype == torch.bfloat16), scale, int(causal), window or 0, int(dropout_rate > 0.0), seed,
              rng.keep_threshold(dropout_rate), 1.0 - dropout_rate,
+             int(batch_offset), int(head_offset),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_fwd", err)
     launches += 1
@@ -151,11 +160,13 @@ def _launch(q, k, v, causal, window, scale, dropout_rate, seed, segment_ids,
 def flash_fwd_torch(q, k, v, *, causal: bool = False,
                     window: Optional[int] = None, scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                    segment_ids=None, acc_dtype=torch.float32):
+                    segment_ids=None, acc_dtype=torch.float32,
+                    batch_offset: int = 0, head_offset: int = 0):
     """The kernel's plain-torch version: the same KV tiles (:func:`kv_tile`)
     folded in the same order through ``common.online_fold``, every q row at once.
     bf16 ``acc_dtype`` rounds each score tile (before the scale) and each
-    tile's P·V to bf16, as the kernel does."""
+    tile's P·V to bf16, as the kernel does. The offsets are
+    :func:`flash_fwd`'s."""
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     scale = (d ** -0.5) if scale is None else scale
@@ -195,8 +206,8 @@ def flash_fwd_torch(q, k, v, *, causal: bool = False,
             def p_transform(p, kp=kp):
                 keep = rng.dropout_keep_mask(
                     dropout_rate, dropout_seed,
-                    torch.arange(b, device=dev)[:, None, None, None],
-                    torch.arange(hq, device=dev)[None, :, None, None],
+                    torch.arange(b, device=dev)[:, None, None, None] + batch_offset,
+                    torch.arange(hq, device=dev)[None, :, None, None] + head_offset,
                     qp[None, None], kp[None, None])
                 return torch.where(keep, p / (1.0 - dropout_rate), 0.0)
         state = online_fold(state, s, _expand_kv(v[:, :, lo:hi], hq),

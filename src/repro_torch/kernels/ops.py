@@ -48,13 +48,14 @@ class _MHA(torch.autograd.Function):
     and the seed: S and P are recomputed, never stored (paper §3.3)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, segment_ids, config):
+    def forward(ctx, q, k, v, seed, segment_ids, config, offsets):
         o, lse = flash_fwd(q, k, v, causal=config.causal, window=config.window,
                            scale=config.scale, dropout_rate=config.dropout_rate,
                            dropout_seed=seed, segment_ids=segment_ids,
-                           acc_dtype=config.acc_dtype)
+                           acc_dtype=config.acc_dtype, batch_offset=offsets[0],
+                           head_offset=offsets[1])
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
-        ctx.seed, ctx.config = seed, config
+        ctx.seed, ctx.config, ctx.offsets = seed, config, offsets
         return o
 
     @staticmethod
@@ -67,35 +68,44 @@ class _MHA(torch.autograd.Function):
                                causal=cfg.causal, window=cfg.window,
                                scale=cfg.scale, dropout_rate=cfg.dropout_rate,
                                dropout_seed=ctx.seed, segment_ids=segment_ids,
-                               acc_dtype=cfg.bwd_acc_dtype)
-        return dq, dk, dv, None, None, None
+                               acc_dtype=cfg.bwd_acc_dtype,
+                               batch_offset=ctx.offsets[0],
+                               head_offset=ctx.offsets[1])
+        return dq, dk, dv, None, None, None, None
 
 
 def mha(q, k, v, *, seed=0, segment_ids=None,
-        config: AttnConfig = AttnConfig()):
+        config: AttnConfig = AttnConfig(), batch_offset: int = 0,
+        head_offset: int = 0):
     """Fused multi-head attention, differentiable. q [B,Hq,Sq,D], k/v
     [B,Hkv,Skv,D] → o [B,Hq,Sq,D]. segment_ids: optional [B, Skv] int32
-    packed-batch ids; seed: the int dropout seed (wrapped to int32)."""
+    packed-batch ids; seed: the int dropout seed (wrapped to int32);
+    batch_offset / head_offset: the global coordinates of ``q[0, 0]`` that
+    the dropout mask hashes (``flash_fwd``), in both directions."""
     return _MHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), int(seed),
-                      segment_ids, config)
+                      segment_ids, config, (int(batch_offset), int(head_offset)))
 
 
 def mha_reference(q, k, v, *, seed=0, segment_ids=None,
-                  config: AttnConfig = AttnConfig()):
+                  config: AttnConfig = AttnConfig(), batch_offset: int = 0,
+                  head_offset: int = 0):
     """The unfused oracle with identical semantics."""
     return ref.naive_mha(q, k, v, causal=config.causal, window=config.window,
                          scale=config.scale, dropout_rate=config.dropout_rate,
-                         dropout_seed=seed, segment_ids=segment_ids)
+                         dropout_seed=seed, segment_ids=segment_ids,
+                         batch_offset=batch_offset, head_offset=head_offset)
 
 
 def mha_torch(q, k, v, *, seed=0, segment_ids=None,
-              config: AttnConfig = AttnConfig(), chunk: int = 1024):
+              config: AttnConfig = AttnConfig(), chunk: int = 1024,
+              batch_offset: int = 0, head_offset: int = 0):
     """The fused algorithm in plain torch ops, chunked over KV, with the
     chunked recompute backward. Products in f32, as JAX's ``mha_xla``."""
     return ref.online_mha(q, k, v, causal=config.causal, window=config.window,
                           scale=config.scale, dropout_rate=config.dropout_rate,
                           dropout_seed=seed, segment_ids=segment_ids,
-                          chunk=chunk)
+                          chunk=chunk, batch_offset=batch_offset,
+                          head_offset=head_offset)
 
 
 def decode(q, k, v, *, kv_len=None, window=None, scale=None,

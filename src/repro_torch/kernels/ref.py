@@ -59,9 +59,12 @@ def mask_bias(sq: int, skv: int, *, causal: bool, window: Optional[int],
 def naive_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
               scale: Optional[float] = None, dropout_rate: float = 0.0,
               dropout_seed: int = 0, segment_ids=None,
-              acc_dtype=torch.float32, return_residuals: bool = False):
+              acc_dtype=torch.float32, return_residuals: bool = False,
+              batch_offset: int = 0, head_offset: int = 0):
     """Unfused attention oracle; softmax math in f32, products in f32
-    rounded to ``acc_dtype``. Differentiable by plain autograd.
+    rounded to ``acc_dtype``. Differentiable by plain autograd. The dropout
+    mask hashes batch row ``batch_offset + b`` and q head ``head_offset +
+    h`` (a shard's global coordinates).
 
     Fully-masked rows produce o == 0 and lse == NEG_INF (matching the fused
     kernels' l == 0 finalize path), never NaN or a uniform average.
@@ -91,8 +94,8 @@ def naive_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
     p = p / l_safe
     if dropout_rate > 0.0:
         dev = q.device
-        bi = torch.arange(b, device=dev)[:, None, None, None]
-        hi = torch.arange(hq, device=dev)[None, :, None, None]
+        bi = torch.arange(b, device=dev)[:, None, None, None] + batch_offset
+        hi = torch.arange(hq, device=dev)[None, :, None, None] + head_offset
         qp = (torch.arange(sq, device=dev) + (skv - sq))[None, None, :, None]
         kp = torch.arange(skv, device=dev)[None, None, None, :]
         keep = rng.dropout_keep_mask(dropout_rate, dropout_seed, bi, hi, qp, kp)
@@ -124,7 +127,7 @@ def _unfold_gqa(x, hq, sq):
 
 def _block_masks(b, hkv, g, sq, lo, hi, *, q_offset, causal, window,
                  dropout_rate, dropout_seed, q_seg_rows=None, seg_blk=None,
-                 device=None):
+                 device=None, batch_offset=0, head_offset=0):
     """(allowed, keep) for folded-GQA score blocks over kv positions
     ``[lo, hi)``; row order is sq-major: qp = row // g, group = row % g."""
     row = torch.arange(sq * g, device=device)
@@ -142,9 +145,10 @@ def _block_masks(b, hkv, g, sq, lo, hi, *, q_offset, causal, window,
         allowed = seg_ok if allowed is None else (allowed & seg_ok)
     keep = None
     if dropout_rate > 0.0:
-        bi = torch.arange(b, device=device)[:, None, None, None]
+        bi = torch.arange(b, device=device)[:, None, None, None] + batch_offset
         hk = torch.arange(hkv, device=device)[None, :, None, None]
-        hq_row = hk * g + (row % g)[None, None, :, None]   # global q head
+        hq_row = (hk * g + (row % g)[None, None, :, None]
+                  + head_offset)                         # global q head
         keep = rng.dropout_keep_mask(dropout_rate, dropout_seed, bi, hq_row,
                                      qp[None, None], kp[None, None])
     return allowed, keep
@@ -160,7 +164,7 @@ def _seg_rows(segment_ids, q_offset, g):
 
 
 def _online_fwd(q, k, v, segment_ids, *, causal, window, scale, dropout_rate,
-                dropout_seed, chunk, acc_dtype):
+                dropout_seed, chunk, acc_dtype, batch_offset=0, head_offset=0):
     """The chunked forward: returns (o [B,Hq,Sq,D] in q.dtype, lse f32)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -181,7 +185,8 @@ def _online_fwd(q, k, v, segment_ids, *, causal, window, scale, dropout_rate,
             b, hkv, g, sq, lo, hi, q_offset=q_offset, causal=causal,
             window=window, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, q_seg_rows=q_seg_rows,
-            seg_blk=None if seg is None else seg[:, lo:hi], device=dev)
+            seg_blk=None if seg is None else seg[:, lo:hi], device=dev,
+            batch_offset=batch_offset, head_offset=head_offset)
         if allowed is not None:
             s = torch.where(allowed, s, NEG_INF)
         m_new = torch.maximum(state.m, s.amax(dim=-1))
@@ -199,7 +204,8 @@ def _online_fwd(q, k, v, segment_ids, *, causal, window, scale, dropout_rate,
 
 
 def _online_bwd(q, k, v, o, lse, do, segment_ids, *, causal, window, scale,
-                dropout_rate, dropout_seed, chunk, acc_dtype):
+                dropout_rate, dropout_seed, chunk, acc_dtype, batch_offset=0,
+                head_offset=0):
     """Chunked recompute backward (``repro.kernels.ref._online_bwd``): S and
     P are recomputed per KV chunk from the saved lse, so memory stays
     O(chunk). Returns (dq, dk, dv) in the dtypes of q, k, v."""
@@ -226,7 +232,8 @@ def _online_bwd(q, k, v, o, lse, do, segment_ids, *, causal, window, scale,
             b, hkv, g, sq, lo, hi, q_offset=q_offset, causal=causal,
             window=window, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, q_seg_rows=q_seg_rows,
-            seg_blk=None if seg is None else seg[:, lo:hi], device=dev)
+            seg_blk=None if seg is None else seg[:, lo:hi], device=dev,
+            batch_offset=batch_offset, head_offset=head_offset)
         if allowed is not None:
             s = torch.where(allowed, s, NEG_INF)
         p = torch.exp(s - lsef_safe[..., None])           # recomputed probs
@@ -266,7 +273,8 @@ class _OnlineMHA(torch.autograd.Function):
 def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
                scale: Optional[float] = None, dropout_rate: float = 0.0,
                dropout_seed: int = 0, segment_ids=None, chunk: int = 1024,
-               acc_dtype=torch.float32, return_residuals: bool = False):
+               acc_dtype=torch.float32, return_residuals: bool = False,
+               batch_offset: int = 0, head_offset: int = 0):
     """Chunked online-softmax attention in plain torch (the kernel's algorithm).
 
     Scans KV chunks carrying (m, l, acc) in f32; GQA folds the q-head group
@@ -278,7 +286,8 @@ def online_mha(q, k, v, *, causal: bool = False, window: Optional[int] = None,
     statics = dict(causal=causal, window=window,
                    scale=(d ** -0.5) if scale is None else scale,
                    dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                   chunk=chunk, acc_dtype=acc_dtype)
+                   chunk=chunk, acc_dtype=acc_dtype, batch_offset=batch_offset,
+                   head_offset=head_offset)
     if return_residuals:
         return _online_fwd(q, k, v, segment_ids, **statics)
     return _OnlineMHA.apply(q, k, v, segment_ids, statics)

@@ -1,5 +1,22 @@
-"""Training launcher of the port (counterpart of ``repro.launch.train``
-without ``--mesh``): one device.
+"""Training launcher of the port (counterpart of ``repro.launch.train``):
+one device, or a mesh of ranks with ``--mesh``.
+
+``--mesh`` takes JAX's forms: ``N`` is the mesh ``("model",)``, ``DxM``
+``("data", "model")`` and ``PxDxM`` ``("pod", "data", "model")``: one
+process a mesh position (``launch.mesh.run_ranks``), the data and pod axes
+data-parallel, the model axis tensor-parallel, the config's FSDP settings
+as JAX's rules take them (``distributed/sharding.py``). ``--dist-backend``:
+``nccl`` (the default on cuda) needs a card a rank; ranks that share a card,
+or run on the CPU, take ``gloo``. The dense, vlm and encoder families train
+on a mesh; the hybrid, MoE and ssm families are refused by name. On the
+CPU, four ranks at smoke size:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
+      --smoke --device cpu --mesh 2x2 --dist-backend gloo --steps 3 \\
+      --batch 4 --seq 32
+and on the card, four ranks sharing it (``chip_smoke.py`` phase 5g trains
+granite-3-2b so at full width and 1 of its 40 layers):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
+      --smoke --mesh 2x2 --dist-backend gloo --steps 3 --batch 4 --seq 256
 
 On the card (the default device), granite-3-2b at full width and depth:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
@@ -49,14 +66,68 @@ import torch
 from repro_torch import configs
 from repro_torch.core.attention import IMPLS
 from repro_torch.data import DataConfig
+from repro_torch.distributed.mesh import join_train_mesh
+from repro_torch.distributed.parallel import check_family
+from repro_torch.launch.mesh import BACKENDS, default_backend, run_ranks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
+#: the axes of ``--mesh`` by its number of dims (JAX's ``parse_mesh``)
+MESH_FORMS = {1: ("model",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def parse_mesh(s: str):
+    """``"16x16"`` → ``{"data": 16, "model": 16}`` (None for ``""``)."""
+    if not s:
+        return None
+    try:
+        dims = [int(x) for x in s.split("x")]
+    except ValueError:
+        raise ValueError(f"--mesh {s!r}: dims are integers joined by 'x'")
+    if len(dims) not in MESH_FORMS or min(dims) < 1:
+        raise ValueError(f"--mesh {s!r}: N, DxM or PxDxM of positive sizes")
+    return dict(zip(MESH_FORMS[len(dims)], dims))
+
+
+def _config(args):
+    cfg = (configs.smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    return dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
+
+
+def _train(args, device, mesh=None):
+    """Build the step and the trainer of ``args`` and train."""
+    cfg = _config(args)
+    arts = make_train_step(cfg, mesh=mesh, opt=AdamWConfig(
+                               lr=args.lr, keep_master=cfg.dtype != torch.float32),
+                           impl=args.impl,
+                           total_steps=args.steps, warmup_steps=args.warmup,
+                           microbatch=args.microbatch,
+                           torch_chunk=min(1024, args.seq), device=device)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                          global_batch=args.batch, frontend=cfg.frontend)
+    tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    trainer = Trainer(arts=arts, data_cfg=data_cfg, tcfg=tcfg,
+                      batch_shardings=(arts.shardings or {}).get("batch"))
+    return trainer, trainer.run(args.steps)
+
+
+def _rank(pool, device, shape, args):
+    """One rank of a ``--mesh`` run: its summary (no tensors). Ranks on the
+    CPU share its cores out."""
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // pool.size))
+    trainer, result = _train(args, device, join_train_mesh(shape))
+    return {"stop_step": result["stop_step"], "preempted": result["preempted"],
+            "stragglers": result["stragglers"],
+            "losses": [m["loss"] for m in trainer.metrics_log]}
+
 
 def main(argv=None):
     """Parse arguments, build the step and the trainer, train, and return
-    the trainer's result."""
+    the trainer's result (with ``--mesh``: rank 0's, without tensors, plus
+    ``"ranks"``: every rank's)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--smoke", action="store_true",
@@ -74,23 +145,31 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
-                         "plain versions)")
+                         "plain versions); with --mesh, cuda or cpu")
+    ap.add_argument("--mesh", default="",
+                    help="N, DxM or PxDxM: ranks over (model), (data, model) "
+                         "or (pod, data, model)")
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="the ranks' backend (default nccl on cuda, gloo on "
+                         "cpu; ranks sharing a card need gloo)")
     args = ap.parse_args(argv)
 
-    cfg = (configs.smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
-    cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
-    arts = make_train_step(cfg, opt=AdamWConfig(
-                               lr=args.lr, keep_master=cfg.dtype != torch.float32),
-                           impl=args.impl,
-                           total_steps=args.steps, warmup_steps=args.warmup,
-                           microbatch=args.microbatch,
-                           torch_chunk=min(1024, args.seq),
-                           device=torch.device(args.device))
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                          global_batch=args.batch, frontend=cfg.frontend)
-    tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    result = Trainer(arts=arts, data_cfg=data_cfg, tcfg=tcfg).run(args.steps)
+    shape = parse_mesh(args.mesh)
+    if shape is None:
+        result = _train(args, torch.device(args.device))[1]
+    else:
+        check_family(_config(args))
+        device_type = torch.device(args.device).type
+        size = 1
+        for n in shape.values():
+            size *= n
+        print(f"mesh: {size} ranks over "
+              f"{' x '.join(f'{a} {n}' for a, n in shape.items())} "
+              f"({args.dist_backend or default_backend(device_type)}, "
+              f"{device_type})", flush=True)
+        ranks = run_ranks(_rank, size, (shape, args),
+                          backend=args.dist_backend, device_type=device_type)
+        result = dict(ranks[0], ranks=ranks)
     print(f"done at step {result['stop_step']} "
           f"(preempted={result['preempted']}, "
           f"stragglers={len(result['stragglers'])})")

@@ -26,7 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, set_param
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -85,46 +85,56 @@ def _named_arrays(cfg, tree: Mapping[str, Any], model: LM) -> Dict[str, Any]:
 
 @torch.no_grad()
 def convert_params(cfg, params: Mapping[str, Any], *, device="cuda",
-                   dtype=None) -> LM:
+                   dtype=None, keep=None) -> LM:
     """JAX params (pytree of numpy arrays) → the port's :class:`LM` on
     ``device`` in ``dtype`` (default ``cfg.dtype``). Raises if a leaf is
-    missing, left over or of another shape."""
+    missing, left over or of another shape. ``keep(name, full) → tensor``:
+    the model is built on "meta" and each parameter becomes what ``keep``
+    returns for its full leaf, converted on the host, before the next is
+    converted (a mesh rank keeps its shard)."""
     dtype = dtype or cfg.dtype
     vpad = np.asarray(params["embed"]).shape[0]
-    model = LM(cfg, vpad, device=device, dtype=dtype)
+    model = LM(cfg, vpad, device=device if keep is None else "meta",
+               dtype=dtype)
     named = dict(model.named_parameters())
     for name, arr in _named_arrays(cfg, params, model).items():
         # each leaf in its parameter's dtype: the RG-LRU's lambda stays f32
-        _copy(named[name], arr, name, named[name].dtype, device)
+        w = named[name]
+        if keep is None:
+            w.copy_(_checked(arr, name, w, device))
+        else:
+            set_param(model, name, keep(name, _checked(arr, name, w, "cpu")))
     return model
 
 
 @torch.no_grad()
-def convert_opt_state(cfg, opt_state, model: LM, *, device="cuda") -> AdamWState:
+def convert_opt_state(cfg, opt_state, model: LM, *, device="cuda",
+                      keep=None) -> AdamWState:
     """JAX ``AdamWState`` (``step``, and ``m``/``v``/``master`` trees of numpy
     arrays, ``master`` possibly None) → the port's :class:`AdamWState` for
-    ``model``, every tensor f32 on ``device``."""
+    ``model`` (whose parameters give the names and full shapes; it may be
+    on "meta"), every tensor f32 on ``device``; ``keep`` as
+    :func:`convert_params`' (each leaf converted on the host)."""
     def tree(t):
         if t is None:
             return None
         named = dict(model.named_parameters())
-        out = {}
-        for name, arr in _named_arrays(cfg, t, model).items():
-            x = _tensor(arr, torch.float32, device)
-            if x.shape != named[name].shape:
-                raise ValueError(f"{name}: JAX shape {tuple(x.shape)} != port "
-                                 f"shape {tuple(named[name].shape)}")
-            out[name] = x
-        return out
+        put, where = (keep, "cpu") if keep else ((lambda n, x: x), device)
+        return {name: put(name, _checked(arr, name, named[name], where,
+                                         torch.float32))
+                for name, arr in _named_arrays(cfg, t, model).items()}
 
     step, m, v, master = opt_state
     return AdamWState(step=int(np.asarray(step)), m=tree(m), v=tree(v),
                       master=tree(master))
 
 
-def _copy(w: torch.Tensor, arr, what: str, dtype, device) -> None:
-    t = _tensor(arr, dtype, device)
+def _checked(arr, what: str, w: torch.Tensor, device,
+             dtype=None) -> torch.Tensor:
+    """``arr`` as a tensor in ``dtype`` (default ``w``'s) on ``device``;
+    raises unless it has ``w``'s shape."""
+    t = _tensor(arr, dtype or w.dtype, device)
     if t.shape != w.shape:
         raise ValueError(f"{what}: JAX shape {tuple(t.shape)} != port shape "
                          f"{tuple(w.shape)}")
-    w.copy_(t)
+    return t

@@ -27,8 +27,8 @@ from repro_torch.kernels import rng
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call context: attention impl, mode flags, dropout seed and the
-    pool mesh."""
+    """Per-call context: attention impl, mode flags, dropout seed, the
+    pool mesh of serving and the shard plan of training."""
     impl: str = "kernel"             # attention impl (core.attention.IMPLS)
     deterministic: bool = True       # disables dropout
     seed: int = 0                    # dropout seed (an int32 value)
@@ -39,6 +39,8 @@ class Ctx:
     bwd_acc_dtype: Any = torch.float32   # backward product rounding
     mesh: Any = None                 # distributed.mesh.PoolMesh: the paged
                                      # serving steps' pool is sharded over it
+    plan: Any = None                 # distributed.parallel.ShardPlan: the
+                                     # params are a training mesh's shards
 
 
 # ---------------------------------------------------------------------------
@@ -60,20 +62,41 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 @torch.no_grad()
-def init_dense_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+def init_dense_(module: nn.Module, gen: torch.Generator,
+                keep=None) -> nn.Module:
     """Fill every parameter in place: norm weights (1-D) with ones, matrices
-    ``[d_in, d_out]`` with :func:`dense_init`."""
-    for w in module.parameters():
+    ``[d_in, d_out]`` with :func:`dense_init`. ``keep(name, full) → tensor``
+    (a module built on "meta"): each parameter becomes what ``keep``
+    returns for its full draw, before the next is drawn."""
+    def draw(w):
         if w.dim() == 1:
-            w.fill_(1.0)
+            return torch.ones(w.shape, dtype=w.dtype, device=gen.device)
+        return dense_init(gen, w.shape[0], w.shape[1], w.dtype)
+
+    for name, w in list(module.named_parameters()):
+        if keep is None:
+            w.copy_(draw(w))
         else:
-            w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+            setattr(module, name, nn.Parameter(keep(name, draw(w))))
     return module
 
 
 # ---------------------------------------------------------------------------
 # primitive ops
 # ---------------------------------------------------------------------------
+
+def weight(ctx: Optional[Ctx], w, key: str):
+    """Parameter ``w`` (named ``key`` in its block, as ``mixer.wq``, or at
+    the top, as ``embed``) as the layer computes with it: itself on one
+    device, the shard plan's view of it on a training mesh."""
+    return w if ctx is None or ctx.plan is None else ctx.plan.weight(w, key)
+
+
+def kv_weight(ctx: Ctx, w, key: str):
+    """``wk``/``wv`` as :func:`weight` gives them, cut on a training mesh
+    to the columns of the kv heads this rank's q heads read."""
+    return w if ctx.plan is None else ctx.plan.kv_weight(w, key)
+
 
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm over the last dim, computed in f32, returned in x.dtype."""
@@ -133,22 +156,32 @@ class MLP(nn.Module):
         self.wo = _param((d_ff, d_model), dtype, device)
 
 
-def init_mlp(gen, d_model, d_ff, dtype, gated: bool = True) -> MLP:
-    """An :class:`MLP` with ``dense_init`` weights on the generator's device."""
-    return init_dense_(MLP(d_model, d_ff, dtype, gen.device, gated), gen)
+def init_mlp(gen, d_model, d_ff, dtype, gated: bool = True,
+             keep=None) -> MLP:
+    """An :class:`MLP` with ``dense_init`` weights on the generator's device
+    (``keep``: as :func:`init_dense_`'s)."""
+    device = gen.device if keep is None else "meta"
+    return init_dense_(MLP(d_model, d_ff, dtype, device, gated), gen, keep)
 
 
-def apply_mlp(p: MLP, x):
+def apply_mlp(p: MLP, x, ctx: Optional[Ctx] = None):
     """Gated-SiLU FFN ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``, or the
     ungated ``gelu(x @ wi) @ wo`` with GELU's tanh form, which is
-    ``jax.nn.gelu``'s default."""
-    h = x @ p.wi
+    ``jax.nn.gelu``'s default. On a training mesh whose ``model`` axis
+    splits the FFN, ``wi`` holds this rank's slice of each half and the
+    partial ``@ wo`` is summed over ``model``."""
+    plan = None if ctx is None else ctx.plan
+    split = plan is not None and plan.mlp
+    if plan is not None:
+        x = plan.enter(x, split)
+    h = x @ weight(ctx, p.wi, "mlp.wi")
     if p.gated:
         g, u = h.chunk(2, dim=-1)
         h = F.silu(g) * u
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p.wo
+    out = h @ weight(ctx, p.wo, "mlp.wo")
+    return out if plan is None else plan.leave(out, split)
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +214,11 @@ def paged_decode_window(cfg) -> Optional[int]:
     return cfg.attn_window
 
 
-def init_attention(gen, cfg, dtype) -> Attention:
-    """An :class:`Attention` with ``dense_init`` weights and unit norms."""
-    return init_dense_(Attention(cfg, dtype, gen.device), gen)
+def init_attention(gen, cfg, dtype, keep=None) -> Attention:
+    """An :class:`Attention` with ``dense_init`` weights and unit norms
+    (``keep``: as :func:`init_dense_`'s)."""
+    device = gen.device if keep is None else "meta"
+    return init_dense_(Attention(cfg, dtype, device), gen, keep)
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype, device):
@@ -244,18 +279,25 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     * prefill (cache given, not decode): fill the cache from position 0 — a
       windowed ring keeps the last ``cap`` tokens by slot — then fused
       attention over the prompt.
+    * on a training mesh (``ctx.plan``; no cache): this rank's q heads (all
+      of them where ``model`` does not split the heads) and the kv heads
+      they read, the kernel told the global coordinates of its first batch
+      row and q head (dropout draws the single-device masks), ``wo``
+      row-parallel and summed over ``model``.
     """
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)
-
-    q = (x @ p.wq).view(b, s, hq, hd)
-    k = (x @ p.wk).view(b, s, hkv, hd)
-    v = (x @ p.wv).view(b, s, hkv, hd)
+    plan = ctx.plan
+    if plan is not None:
+        x = plan.enter(x, plan.heads)
+    q = (x @ weight(ctx, p.wq, "mixer.wq")).view(b, s, -1, hd)
+    k = (x @ kv_weight(ctx, p.wk, "mixer.wk")).view(b, s, -1, hd)
+    v = (x @ kv_weight(ctx, p.wv, "mixer.wv")).view(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
-        k = rms_norm(k, p.k_norm)
+        q = rms_norm(q, weight(ctx, p.q_norm, "mixer.q_norm"))
+        k = rms_norm(k, weight(ctx, p.k_norm, "mixer.k_norm"))
     q = rope(q, positions).transpose(1, 2)
     k = rope(k, positions).transpose(1, 2)
     v = v.transpose(1, 2)
@@ -302,10 +344,12 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                             dropout_rate=drop, segment_ids=segment_ids,
                             acc_dtype=ctx.acc_dtype,
                             bwd_acc_dtype=ctx.bwd_acc_dtype,
-                            torch_chunk=ctx.torch_chunk)
+                            torch_chunk=ctx.torch_chunk,
+                            batch_offset=0 if plan is None else plan.batch_offset(b),
+                            head_offset=0 if plan is None else plan.head_offset)
 
-    out = o.transpose(1, 2).reshape(b, s, hq * hd) @ p.wo
-    return out, new_cache
+    out = o.transpose(1, 2).reshape(b, s, -1) @ weight(ctx, p.wo, "mixer.wo")
+    return (out if plan is None else plan.leave(out, plan.heads)), new_cache
 
 
 def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,

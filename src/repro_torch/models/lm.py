@@ -21,8 +21,15 @@ Mamba) ones. MoE layers report ``moe_aux`` (summed over the layers) and
 ``moe_dropped`` (averaged) as JAX's forward does, in a forward without
 caches; the serving steps, which drop them, do not compute them.
 
+On a training mesh (``ctx.plan``, a ``distributed.parallel.ShardPlan``)
+the parameters are the rank's shards and every layer runs its part:
+tensor-parallel over ``model``, FSDP weights gathered before use, the
+vocab-parallel embedding, logits and cross-entropy; ``loss_fn`` then
+returns this rank's term of the global loss (see the plan).
+
 Public entry points:
-  init_params(cfg, seed=, device=)                 → LM (random weights)
+  init_params(cfg, seed=, device=, vocab_pad_to=, keep=) → LM (random weights)
+  param_specs(cfg)                                 → {name: logical axes}
   forward(cfg, params, ctx, tokens= or embeds=, caches=, ...)
                                                    → (logits, caches, metrics)
   loss_fn(cfg, params, batch, ctx)                 → (loss, metrics)
@@ -61,6 +68,37 @@ _MIXERS = {
 #: the weight of an MoE arch's load-balance loss in the training loss
 #: (JAX ``loss_fn``'s default, the value every JAX caller uses)
 MOE_AUX_WEIGHT = 0.01
+#: each parameter's logical axes by its name in a block (JAX's specs from
+#: ``init_params`` and the layers' ``dense_init``, the stacked ``layers``
+#: lead dropped), and the top-level ones
+_SPECS_TOP = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+              "lm_head": ("embed", "vocab"), "frontend_proj": (None, "embed")}
+_SPECS_BLOCK = {
+    "norm1": ("embed",), "norm2": ("embed",),
+    # attention
+    "mixer.wq": ("embed", "q_proj"), "mixer.wk": ("embed", "kv_proj"),
+    "mixer.wv": ("embed", "kv_proj"), "mixer.q_norm": ("head_dim",),
+    "mixer.k_norm": ("head_dim",),
+    # the RG-LRU
+    "mixer.wx": ("embed", "rnn"), "mixer.wg": ("embed", "rnn"),
+    "mixer.w_inp": ("rnn", "rnn"), "mixer.w_rec": ("rnn", "rnn"),
+    "mixer.lambda": ("rnn",),
+    # Mamba
+    "mixer.in_proj": ("embed", "rnn"), "mixer.w_bc": ("rnn", "state"),
+    "mixer.w_dt1": ("rnn", None), "mixer.w_dt2": (None, "rnn"),
+    "mixer.dt_bias": ("rnn",), "mixer.A_log": ("rnn", "state"),
+    "mixer.D": ("rnn",), "mixer.out_proj": ("rnn", "embed"),
+    "mixer.conv": (None, "rnn"),
+    # dense MLP
+    "mlp.wi": ("embed", "mlp"), "mlp.wo": ("mlp", "embed"),
+    # MoE
+    "mlp.router": ("embed", "experts"),
+    "mlp.shared.wi": ("embed", "mlp"), "mlp.shared.wo": ("mlp", "embed"),
+}
+_SPECS_KIND = {("attn", "mixer.wo"): ("q_proj", "embed"),
+               ("rec", "mixer.wo"): ("rnn", "embed")}
+_SPECS_MOE = {"mlp.wi": ("experts", "embed", "expert_mlp"),
+              "mlp.wo": ("experts", "expert_mlp", "embed")}
 
 
 def block_kinds(cfg) -> List[str]:
@@ -121,38 +159,101 @@ class LM(nn.Module):
                                                dtype, device)
 
 
+def padded_vocab(cfg, vocab_pad_to: int) -> int:
+    """The vocab rounded up to a multiple of ``vocab_pad_to``."""
+    return -(-cfg.vocab_size // vocab_pad_to) * vocab_pad_to
+
+
+def param_specs(cfg) -> dict:
+    """The logical axes of every parameter of ``cfg``'s :class:`LM`, by
+    its name (JAX's specs, the stacked ``layers`` lead dropped)."""
+    model = LM(cfg, cfg.vocab_size, device="meta")
+    kinds = block_kinds(cfg)
+    out = {}
+    for name, _ in model.named_parameters():
+        if not name.startswith("blocks."):
+            out[name] = _SPECS_TOP[name]
+            continue
+        _, i, key = name.split(".", 2)
+        if cfg.moe is not None and key in _SPECS_MOE:
+            out[name] = _SPECS_MOE[key]
+        else:
+            out[name] = _SPECS_KIND.get((kinds[int(i)], key)) or _SPECS_BLOCK[key]
+    return out
+
+
 @torch.no_grad()
-def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
+def init_params(cfg, *, seed: int = 0, device="cuda",
+                vocab_pad_to: int = 1, keep=None) -> LM:
     """Random weights with the JAX package's shapes and scales (normal ·
     d_in**-0.5 matrices, 0.02 embedding, unit norms), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. The draws differ
-    from JAX's; ``convert.convert_params`` carries JAX weights over."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``; the vocab
+    padded to a multiple of ``vocab_pad_to`` (the padded rows and columns
+    drawn too, as JAX's are). The draws differ from JAX's;
+    ``convert.convert_params`` carries JAX weights over.
+
+    keep(name, full) → tensor (the attention families with dense MLPs): the
+    model is built on "meta" and each parameter becomes what ``keep``
+    returns for its full draw before the next is drawn, in the same order
+    and so with the same values; a mesh rank keeps its shard, and at most
+    one full parameter is alive at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = LM(cfg, cfg.vocab_size, device=device)
-    for blk in model.blocks:
-        blk.norm1.fill_(1.0)
-        blk.mixer = _MIXERS[blk.kind][1](gen, cfg, cfg.dtype)
+    vpad = padded_vocab(cfg, vocab_pad_to)
+    if keep is not None and (cfg.moe is not None
+                             or set(cfg.block_pattern) != {"attn"}):
+        raise ValueError(f"{cfg.name}: init_params(keep=) draws the attention "
+                         f"families with dense MLPs only")
+    model = LM(cfg, vpad, device=device if keep is None else "meta")
+
+    def put(name, full):
+        if keep is None:
+            model.get_parameter(name).copy_(full)
+        else:
+            set_param(model, name, keep(name, full))
+
+    def under(prefix):
+        return None if keep is None else (lambda n, t: keep(prefix + n, t))
+
+    def ones(name):
+        w = model.get_parameter(name)
+        return torch.ones(w.shape, dtype=w.dtype, device=device)
+
+    for i, blk in enumerate(model.blocks):
+        pre = f"blocks.{i}."
+        put(pre + "norm1", ones(pre + "norm1"))
+        if keep is None:
+            blk.mixer = _MIXERS[blk.kind][1](gen, cfg, cfg.dtype)
+        else:
+            blk.mixer = layers.init_attention(gen, cfg, cfg.dtype,
+                                              keep=under(pre + "mixer."))
         if blk.kind == "ssm":
             continue
-        blk.norm2.fill_(1.0)
+        put(pre + "norm2", ones(pre + "norm2"))
         blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype) if cfg.moe is not None
                    else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
-                                        gated=cfg.mlp_type == "gated_silu"))
-    model.embed.copy_(layers.dense_init(gen, cfg.vocab_size, cfg.d_model,
-                                        cfg.dtype, scale=0.02))
-    model.final_norm.fill_(1.0)
-    model.lm_head.copy_(layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                          cfg.dtype))
+                                        gated=cfg.mlp_type == "gated_silu",
+                                        keep=under(pre + "mlp.")))
+    put("embed", layers.dense_init(gen, vpad, cfg.d_model, cfg.dtype,
+                                   scale=0.02))
+    put("final_norm", ones("final_norm"))
+    put("lm_head", layers.dense_init(gen, cfg.d_model, vpad, cfg.dtype))
     if cfg.frontend is not None:
-        model.frontend_proj.copy_(layers.dense_init(gen, FRONTEND_DIM,
-                                                    cfg.d_model, cfg.dtype))
+        put("frontend_proj", layers.dense_init(gen, FRONTEND_DIM, cfg.d_model,
+                                               cfg.dtype))
     return model
+
+
+def set_param(model: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Replace parameter ``name`` (dotted, as ``blocks.3.mixer.wq``) of
+    ``model`` by a new parameter holding ``t``."""
+    mod, _, attr = name.rpartition(".")
+    setattr(model.get_submodule(mod) if mod else model, attr, nn.Parameter(t))
 
 
 def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
                  segment_ids=None, paged=None):
     """→ (x, new_cache, metrics: the MoE's without a cache, or {})."""
-    h = layers.rms_norm(x, p.norm1)
+    h = layers.rms_norm(x, layers.weight(ctx, p.norm1, "norm1"))
     if p.kind == "attn":
         mixed, new_cache = layers.apply_attention(
             p.mixer, h, ctx, cfg, positions=positions, cache=cache,
@@ -166,12 +267,12 @@ def _apply_block(p: Block, x, ctx: Ctx, cfg, *, positions, cache, layer_seed,
     x = x + mixed
     if p.kind == "ssm":                    # mixer-only
         return x, new_cache, {}
-    h = layers.rms_norm(x, p.norm2)
+    h = layers.rms_norm(x, layers.weight(ctx, p.norm2, "norm2"))
     if cfg.moe is not None:
         out, metrics = moe.apply_moe(p.mlp, h, ctx, cfg,
                                      metrics=cache is None)
         return x + out, new_cache, metrics
-    return x + layers.apply_mlp(p.mlp, h), new_cache, {}
+    return x + layers.apply_mlp(p.mlp, h, ctx), new_cache, {}
 
 
 def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
@@ -201,12 +302,17 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
     """
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes tokens or embeds, one of the two")
+    plan = ctx.plan
+    if plan is not None and caches is not None:
+        raise NotImplementedError("a training mesh runs forward without caches")
     if embeds is None:
-        x = params.embed[tokens]
+        x = params.embed[tokens] if plan is None else plan.embed(params.embed,
+                                                                 tokens)
     elif cfg.frontend is None:
         raise ValueError(f"{cfg.name} has no frontend: it takes tokens")
     else:
-        x = embeds.to(params.frontend_proj.dtype) @ params.frontend_proj
+        x = embeds.to(params.frontend_proj.dtype) @ layers.weight(
+            ctx, params.frontend_proj, "frontend_proj")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -230,7 +336,9 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
         metrics = {"moe_aux": sum(m["moe_aux"] for m in layer_metrics),
                    "moe_dropped": sum(m["moe_dropped"] for m in layer_metrics)
                    / len(layer_metrics)}
-    x = layers.rms_norm(x, params.final_norm)
+    x = layers.rms_norm(x, layers.weight(ctx, params.final_norm, "final_norm"))
+    if plan is not None:
+        return plan.logits(x, params.lm_head), new_caches, metrics
     return x @ params.lm_head, new_caches, metrics
 
 
@@ -241,7 +349,12 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
     Next-token CE for causal LMs, per-position CE for encoders; a packed
     batch gives no weight to a segment's last token (it must not predict
     the next segment) or to padding. MoE archs add ``MOE_AUX_WEIGHT ·
-    moe_aux``. Returns (loss, {"ce", "loss"} and the forward's metrics)."""
+    moe_aux``. Returns (loss, {"ce", "loss"} and the forward's metrics).
+
+    On a training mesh (``ctx.plan``) the batch is this rank's rows and the
+    returned loss this rank's term of the global one (its weighted sum over
+    the global weight sum: the terms' gradients sum to the loss's); the
+    metrics hold the global loss."""
     seg = batch.get("segment_ids")
     logits, _, metrics = forward(cfg, params, ctx, tokens=batch.get("tokens"),
                                  embeds=batch.get("embeds"),
@@ -255,6 +368,10 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
             weights = ((seg[:, :-1] == seg[:, 1:]) & (seg[:, 1:] >= 0)).float()
     elif seg is not None:
         weights = (seg >= 0).float()
+    if ctx.plan is not None:
+        term, ce = ctx.plan.cross_entropy(logits, labels, cfg.vocab_size,
+                                          weights)
+        return term, dict(metrics, ce=ce, loss=ce)
     ce = layers.softmax_cross_entropy(logits, labels, cfg.vocab_size,
                                       weights=weights)
     loss = ce

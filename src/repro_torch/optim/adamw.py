@@ -9,6 +9,12 @@ as in JAX. Unlike JAX, which returns new trees, :func:`adamw_update` works
 **in place**, leaf by leaf: the gradients are scaled in place and each
 leaf's temporaries are freed before the next, so an update at full width
 (granite-3-2b: 10.5 GB a tree in f32) adds no second tree of state.
+
+On a training mesh every tensor is the rank's shard and the update is
+elementwise, so it runs on the shard as it is; only the global norm of the
+clipping needs the mesh: ``plan`` (a ``distributed.parallel.ShardPlan``)
+sums each leaf's squares over the axes the leaf is sharded over and counts
+a replicated leaf once, so clipping sees the single-device norm.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.collectives import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +67,28 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack([t.float().square().sum() for t in tensors]).sum())
 
 
+def mesh_global_norm(grads: Dict[str, torch.Tensor], plan) -> torch.Tensor:
+    """:func:`global_norm` of the full tree whose shards ``grads`` are on
+    ``plan``'s mesh: each leaf's sum of squares summed over the axes it is
+    sharded over (one all-reduce a set of axes), every replicated leaf
+    counted once. Equal on every rank."""
+    sums: Dict[tuple, list] = {}
+    for n, g in grads.items():
+        sums.setdefault(plan.norm_entry(n), []).append(g.float().square().sum())
+    total = 0.0
+    for entry, parts in sums.items():
+        total = total + all_reduce_(torch.stack(parts).sum(), plan.mesh, entry)
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        plan=None):
     """Scale every gradient (in place, as f32) by ``min(1, max_norm / (norm
-    + 1e-9))``; returns (grads, norm before clipping)."""
-    norm = global_norm(grads.values())
+    + 1e-9))``; returns (grads, norm before clipping). ``plan``: the
+    gradients are shards on its mesh (:func:`mesh_global_norm`)."""
+    norm = (global_norm(grads.values()) if plan is None
+            else mesh_global_norm(grads, plan))
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for n, g in grads.items():
         grads[n] = g.float().mul_(scale)
@@ -72,11 +97,12 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
-                 params: nn.Module, cfg: AdamWConfig, lr=None):
+                 params: nn.Module, cfg: AdamWConfig, lr=None, plan=None):
     """One AdamW step in place. ``grads`` maps parameter names to gradients
-    (consumed: scaled in place). Returns (params, state, {"grad_norm"})."""
+    (consumed: scaled in place). Returns (params, state, {"grad_norm"}).
+    ``plan``: params, grads and state are shards on its mesh."""
     lr = cfg.lr if lr is None else lr
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, plan)
     state.step += 1
     b1c = 1.0 - cfg.b1 ** state.step
     b2c = 1.0 - cfg.b2 ** state.step

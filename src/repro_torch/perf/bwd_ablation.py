@@ -137,7 +137,7 @@ def main(argv=None) -> None:
                          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                          dk.data_ptr(), dv.data_ptr(), *([None] * 6), b, hq, hkv,
                          s, s, d, flash_fwd.DTYPES[dtype], 0, d ** -0.5, 1,
-                         window or 0, 0, 0, 0, 1.0,
+                         window or 0, 0, 0, 0, 1.0, 0, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"variant {name!r}: CUDA error {err}")

@@ -103,7 +103,7 @@ def raw_call(fn, q, k, v, o, lse, dropout_rate: float = 0.0, seed: int = 0,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
              *([None] * 6), b, hq, hkv, sq, skv, d, flash_fwd.DTYPES[q.dtype], 0,
              d ** -0.5, 1, window or 0, int(dropout_rate > 0.0), seed,
-             rng.keep_threshold(dropout_rate), 1.0 - dropout_rate,
+             rng.keep_threshold(dropout_rate), 1.0 - dropout_rate, 0, 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_fwd_launch: CUDA error {err}")

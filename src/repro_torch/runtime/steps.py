@@ -1,5 +1,7 @@
 """Train, prefill and decode steps (counterpart of ``repro.runtime.steps``):
-on one device, and the paged serving steps also over a pool mesh.
+on one device; the train step also over a training mesh (the attention
+families; ``distributed/parallel.py``), the paged serving steps over a pool
+mesh.
 
 PyTorch runs eagerly: there is no jit. The train step updates the params and
 the optimizer state in place; the serving steps run under
@@ -15,6 +17,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.parallel import (NamedSharding, ShardPlan,
+                                             batch_shardings, check_family,
+                                             shard_batch)
+from repro_torch.distributed.sharding import (ShardingRules, default_rules,
+                                             vocab_pad_for)
+from repro_torch.checkpoint import CheckpointShapeError
 from repro_torch.models import lm
 from repro_torch.kernels.rng import int32
 from repro_torch.models.convert import convert_opt_state, convert_params
@@ -31,17 +39,35 @@ class TrainArtifacts:
         metrics {"ce", "loss", "grad_norm", "lr"}, and "moe_aux",
         "moe_dropped" for MoE archs); params and opt_state are updated in
         place and returned.
+    grad_fn(params, batch, step: int) → (loss, metrics, grads {name:
+        gradient}): the step before its update (on a mesh, each gradient
+        the rank's shard, summed over the batch axes).
     init_fn(seed=0) → (params :class:`~repro_torch.models.lm.LM`,
         opt_state :class:`~repro_torch.optim.AdamWState`) on ``device``.
     from_jax(tree) → (params, opt_state) of a JAX ``Trainer`` checkpoint
         (``checkpoint.read_tree``: ``{"params", "opt"}`` in JAX's layout),
         through ``models.convert``; its master copy is dropped where the
         optimizer keeps none.
+
+    On a training mesh (``mesh`` given), every tensor of the state is this
+    rank's shard: ``init_fn`` draws the single-device ``init_params(seed,
+    vocab_pad_to=)`` tensors and ``from_jax`` converts the leaves on the
+    host, each rank keeping its part of a leaf before the next is made
+    (the device never holds more than one full leaf); ``step_fn`` takes this rank's rows of the
+    batch (``place_batch(batch, device, shardings["batch"])``).
+    ``shardings``: ``{"params": {name: NamedSharding}, "opt": {"step":
+    None, "m", "v", "master": the params' (None without a master)},
+    "batch": {key: NamedSharding}}``; ``rules`` the sharding rules and
+    ``plan`` the ``ShardPlan``; all None on one device.
     """
     step_fn: Any
     init_fn: Any
     device: Any
     from_jax: Any
+    grad_fn: Any = None
+    shardings: Optional[Dict[str, Any]] = None
+    rules: Optional[ShardingRules] = None
+    plan: Optional[ShardPlan] = None
 
 
 def step_seed(step: int) -> int:
@@ -50,26 +76,41 @@ def step_seed(step: int) -> int:
     return int32((int(step) % 2**32) * 2654435761 % 2**32)
 
 
-def place_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+def place_batch(batch: Dict[str, Any], device,
+                shardings: Optional[Dict[str, NamedSharding]] = None
+                ) -> Dict[str, torch.Tensor]:
     """A host batch (numpy arrays from ``data.make_batch``) as tensors on
     ``device``: ids stay int32 (the kernels take int32 segment ids), floats
-    (a frontend arch's ``embeds``) stay f32."""
+    (a frontend arch's ``embeds``) stay f32. With a mesh's batch
+    ``shardings``, only this rank's rows (cut on the host)."""
+    if shardings is not None:
+        return shard_batch({k: np.asarray(v) if not isinstance(v, torch.Tensor)
+                            else v for k, v in batch.items()}, shardings, device)
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
+def make_train_step(cfg, *, mesh=None, opt: AdamWConfig = AdamWConfig(),
                     impl: str = "kernel", total_steps: int = 10000,
                     warmup_steps: int = 100, microbatch: Optional[int] = None,
                     torch_chunk: int = 1024, device="cuda") -> TrainArtifacts:
-    """The single-device training step of ``cfg`` with attention ``impl``.
+    """The training step of ``cfg`` with attention ``impl``, on one device
+    or, with ``mesh`` (this rank's ``distributed.mesh.TrainMesh``), over a
+    mesh of ranks (``default_rules(mesh, cfg)``, the vocab padded to the
+    model axis; the dense, vlm and encoder families, the others raise
+    ``parallel.MeshFamilyError``).
 
     microbatch: split the batch into rows of this size and accumulate:
     grads and loss are the means over microbatches, the other metrics those
-    of the last one (as JAX's scan), MoE metrics included. ``lr`` follows
-    ``cosine_schedule`` and is reported in the metrics but not applied: the
-    update uses ``opt.lr``, exactly as the JAX step does (it calls
-    ``adamw_update`` without the scheduled rate).
+    of the last one (as JAX's scan), MoE metrics included; on a mesh a
+    microbatch is ``microbatch`` rows of the global batch, of which a rank
+    holds its share. ``lr`` follows ``cosine_schedule`` and is reported in
+    the metrics but not applied: the update uses ``opt.lr``, exactly as the
+    JAX step does (it calls ``adamw_update`` without the scheduled rate).
     """
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh, opt, impl, total_steps,
+                                warmup_steps, microbatch, torch_chunk, device)
+
     def init_fn(seed: int = 0):
         params = lm.init_params(cfg, seed=seed, device=device)
         return params, adamw_init(params, opt)
@@ -84,9 +125,19 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
         return params, convert_opt_state(
             cfg, (o["step"], o["m"], o["v"], master), params, device=device)
 
+    grad_fn, step_fn = _step_fns(cfg, opt, impl, total_steps, warmup_steps,
+                                 microbatch, torch_chunk, device, None)
+    return TrainArtifacts(step_fn=step_fn, init_fn=init_fn, device=device,
+                          from_jax=from_jax, grad_fn=grad_fn)
+
+
+def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
+              torch_chunk, device, plan):
+    """(grad_fn, step_fn) of :func:`make_train_step`; ``plan``: on a mesh,
+    whose batch axes hold ``microbatch // size`` rows of each microbatch."""
     def loss_and_grads(params, batch, seed):
         ctx = Ctx(impl=impl, deterministic=(cfg.dropout_rate == 0.0),
-                  seed=seed, torch_chunk=torch_chunk)
+                  seed=seed, torch_chunk=torch_chunk, plan=plan)
         loss, metrics = lm.loss_fn(cfg, params, batch, ctx)
         loss.backward()
         grads = {}
@@ -96,18 +147,22 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
             # as in JAX
             grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
             p.grad = None
+        # on a mesh the loss is this rank's term; the metrics hold the total
+        loss = metrics["loss"] if plan is not None else loss
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def step_fn(params, opt_state, batch, step: int):
+    def grad_fn(params, batch, step: int):
         seed = step_seed(step)
+        rows = microbatch
+        if plan is not None and microbatch is not None:
+            rows = microbatch // plan.mesh.size(plan.batch)
         if microbatch is None:
             loss, metrics, grads = loss_and_grads(params, batch, seed)
         else:
-            n_micro = batch["labels"].shape[0] // microbatch
+            n_micro = batch["labels"].shape[0] // rows
             grads, loss = {}, torch.zeros((), dtype=torch.float32, device=device)
             for i in range(n_micro):
-                mb = {k: v[i * microbatch:(i + 1) * microbatch]
-                      for k, v in batch.items()}
+                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
                 l, metrics, g = loss_and_grads(params, mb, seed)
                 loss = loss + l
                 for n, gi in g.items():          # summed in f32, as JAX's scan
@@ -116,13 +171,76 @@ def make_train_step(cfg, *, opt: AdamWConfig = AdamWConfig(),
             for g in grads.values():
                 g.div_(n_micro)
             loss = loss / n_micro
+        if plan is not None:
+            plan.reduce_grads(grads)
+        return loss, metrics, grads
+
+    def step_fn(params, opt_state, batch, step: int):
+        loss, metrics, grads = grad_fn(params, batch, step)
         lr = cosine_schedule(step, warmup_steps, total_steps, opt.lr)
-        params, opt_state, om = adamw_update(grads, opt_state, params, opt)
+        params, opt_state, om = adamw_update(grads, opt_state, params, opt,
+                                             plan=plan)
         metrics = dict(metrics, **om, lr=lr, loss=loss)
         return params, opt_state, metrics
 
+    return grad_fn, step_fn
+
+
+def _mesh_train_step(cfg, mesh, opt, impl, total_steps, warmup_steps,
+                     microbatch, torch_chunk, device) -> TrainArtifacts:
+    check_family(cfg)
+    rules = default_rules(mesh, cfg)
+    vpad_to = vocab_pad_for(mesh)
+    vpad = lm.padded_vocab(cfg, vpad_to)
+    logical = lm.param_specs(cfg)
+    shapes = {n: tuple(p.shape) for n, p in
+              lm.LM(cfg, vpad, device="meta").named_parameters()}
+    plan = ShardPlan(cfg, mesh, rules, rules.tree_specs(shapes, logical),
+                     logical)
+    dp = mesh.size(plan.batch)
+    if microbatch is not None and microbatch % dp:
+        raise ValueError(f"microbatch {microbatch} does not split over the "
+                         f"{dp} ranks of the batch axes")
+    p_sh = {n: plan.sharding(n) for n in shapes}
+    shardings = {"params": p_sh,
+                 "opt": {"step": None, "m": p_sh, "v": p_sh,
+                         "master": p_sh if opt.keep_master else None},
+                 "batch": batch_shardings(mesh, rules, microbatch)}
+
+    def local(name, t):
+        """This rank's part of the full leaf ``t``, a tensor of its own on
+        ``device`` (the full one is dropped by the caller)."""
+        part = p_sh[name].shard(t)
+        out = torch.empty(part.shape, dtype=part.dtype, device=device)
+        return out.copy_(part)
+
+    def init_fn(seed: int = 0):
+        params = lm.init_params(cfg, seed=seed, device=device,
+                                vocab_pad_to=vpad_to, keep=local)
+        return params, adamw_init(params, opt)
+
+    def from_jax(tree):
+        o = tree["opt"]
+        got = np.asarray(tree["params"]["embed"]).shape[0]
+        if got != vpad:
+            raise CheckpointShapeError(
+                f"the checkpoint's vocab is padded to {got}, this mesh trains "
+                f"{cfg.vocab_size} padded to {vpad} (a multiple of the model "
+                f"axis {vpad_to})")
+        if opt.keep_master and "master" not in o:
+            raise ValueError("the JAX checkpoint has no f32 master copy for "
+                             "an optimizer with keep_master=True")
+        params = convert_params(cfg, tree["params"], keep=local)
+        master = o["master"] if opt.keep_master else None
+        return params, convert_opt_state(
+            cfg, (o["step"], o["m"], o["v"], master),
+            lm.LM(cfg, vpad, device="meta"), keep=local)
+
+    grad_fn, step_fn = _step_fns(cfg, opt, impl, total_steps, warmup_steps,
+                                 microbatch, torch_chunk, device, plan)
     return TrainArtifacts(step_fn=step_fn, init_fn=init_fn, device=device,
-                          from_jax=from_jax)
+                          from_jax=from_jax, grad_fn=grad_fn,
+                          shardings=shardings, rules=rules, plan=plan)
 
 
 @dataclasses.dataclass

@@ -1222,3 +1222,113 @@ def test_frontend_train_pass_kernel_matches_torch(cuda, arch):
     assert abs(gk - gt) <= 1e-4 * gt
     for n in leaves:
         assert _err(dk[n], dt[n]) <= 1e-3 * float(dt[n].abs().max()), n
+
+
+# ---------------------------------------------------------------------------
+# the dropout mask's global coordinates (a rank's shard of the batch and heads)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_offsets_give_the_full_calls_masks(cuda, dtype):
+    """Rows 1-3 on a shard: ``kernel(q[b0:, h0:h1], batch_offset=b0,
+    head_offset=h0)`` equals the full call's slice with dropout on, the
+    forward's o and lse and the backward's dK and dV bit for bit, dQ to f32
+    rounding (its atomic adds run in another order from launch to launch)."""
+    b, hq, hkv, s, d = 3, 8, 2, 192, 64
+    q, do = (_rand(cuda, (b, hq, s, d), dtype) for _ in range(2))
+    k, v = (_rand(cuda, (b, hkv, s, d), dtype) for _ in range(2))
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=-77)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    b0, h0, h1 = 1, 4, 8                    # q heads 4-7 share kv head 1
+    sl, kl = (slice(b0, b), slice(h0, h1)), (slice(b0, b), slice(1, 2))
+    qs, dos = q[sl].contiguous(), do[sl].contiguous()
+    ks, vs = k[kl].contiguous(), v[kl].contiguous()
+    off = dict(batch_offset=b0, head_offset=h0)
+    os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw, **off)
+    assert torch.equal(os_, o[sl]) and torch.equal(lses, lse[sl])
+    dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw, **off)
+    assert torch.equal(dks, dk[kl]) and torch.equal(dvs, dv[kl])
+    assert _err(dqs, dq[sl]) <= BWD_TOL[dtype] * max(1.0, float(dq.abs().max()))
+    # without the offsets the shard draws other masks
+    assert not torch.equal(kfwd.flash_fwd(qs, ks, vs, **kw)[0], o[sl])
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_gpu_cfg():
+    return dataclasses.replace(configs.smoke_config("granite_3_2b"),
+                               dtype=torch.float32, dropout_rate=0.1)
+
+
+def _mesh_gpu_batch(cfg):
+    return make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                 global_batch=4, seed=2, pack=True,
+                                 min_seg_len=5, max_seg_len=30), 0)
+
+
+def _mesh_gpu_rank(pool, device, shape):
+    """A rank of a (data 1, model 2) mesh on the card: the step-0 loss and
+    gathered gradients from ``init_fn(0)`` (numpy: tensors would leave
+    through the queue's shared memory after the rank has exited), and the
+    kernels' launches."""
+    from repro_torch.distributed.mesh import join_train_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = join_train_mesh(shape)
+    cfg = _mesh_gpu_cfg()
+    arts = make_train_step(cfg, mesh=mesh, opt=AdamWConfig(lr=1e-3),
+                           impl="kernel", device=device)
+    params, _ = arts.init_fn(0)
+    batch = place_batch(_mesh_gpu_batch(cfg), device, arts.shardings["batch"])
+    kfwd.launches = kbwd.launches_bwd = 0
+    loss, _, grads = arts.grad_fn(params, batch, 0)
+    return {"loss": float(loss), "launches": (kfwd.launches, kbwd.launches_bwd),
+            "grads": {n: arts.shardings["params"][n].gather(g).cpu().numpy()
+                      for n, g in grads.items()}}
+
+
+def test_two_rank_gloo_mesh_step_on_the_card(cuda):
+    """Two gloo ranks sharing the card on (data 1, model 2), at smoke width
+    with dropout and packing, against one device on the same state: the
+    loss 1e-5 relative, every gathered gradient leaf 2e-5 of its max (the
+    backward's dQ adds run in another order on each launch); every rank
+    launched rows 1-3."""
+    from repro_torch.launch.mesh import run_ranks
+    shape = {"data": 1, "model": 2}
+    ranks = run_ranks(_mesh_gpu_rank, 2, (shape,), backend="gloo",
+                      device_type="cuda", timeout_s=600)
+    cfg = _mesh_gpu_cfg()
+    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-3), impl="kernel",
+                           device="cuda")
+    params = lm.init_params(cfg, seed=0, device="cuda", vocab_pad_to=2)
+    loss, _, grads = arts.grad_fn(params, place_batch(_mesh_gpu_batch(cfg),
+                                                      "cuda"), 0)
+    layers = cfg.num_layers
+    for r in ranks:
+        assert r["launches"] == (2 * layers, layers)
+        assert abs(r["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    for n, g in grads.items():
+        got = torch.from_numpy(ranks[0]["grads"][n])
+        assert _err(got, g.cpu()) <= 2e-5 * float(g.abs().max()), n
+
+
+def test_prefetch_loader_on_the_card(cuda):
+    """The loader's side-stream copies land on the card, this rank's rows
+    of the sharded keys, and the caller's stream waits for them."""
+    from repro_torch.data import PrefetchLoader
+    from repro_torch.distributed.mesh import TrainMesh
+    from repro_torch.distributed.parallel import NamedSharding
+    mesh = TrainMesh(shape={"data": 2, "model": 2}, rank=2,
+                     coords={"data": 1, "model": 0}, groups={})
+    sh = {"tokens": NamedSharding(mesh, ("data", None))}
+    dc = DataConfig(vocab_size=251, seq_len=4096, global_batch=8, seed=5)
+    host = [make_batch(dc, s) for s in range(4)]
+    got = list(PrefetchLoader(iter(host), sh, prefetch=2, device="cuda"))
+    assert len(got) == 4
+    for b, h in zip(got, host):
+        assert b["tokens"].device.type == "cuda"
+        # used at once on the current stream: the wait makes it safe
+        assert int((b["tokens"].long() + 0).sum()) == int(h["tokens"][4:].sum())
+        assert np.array_equal(b["labels"].cpu().numpy(), h["labels"])

@@ -338,6 +338,20 @@ def test_trainer_resume_after_preemption_is_identical(tmp_path):
     _preempt_and_resume(tmp_path, functools.partial(_trainer))
 
 
+def test_trainer_without_final_ckpt_writes_only_its_cadence(tmp_path):
+    """``final_ckpt=False``: a run to its last step commits the cadence's
+    checkpoints and no final one; a preempted run still commits one."""
+    t = _trainer(tmp_path, ckpt_every=2)
+    t.tcfg = dataclasses.replace(t.tcfg, final_ckpt=False)
+    assert t.run(3)["stop_step"] == 3
+    assert tckpt.latest_step(str(tmp_path)) == 1
+    t = _trainer(tmp_path, ckpt_every=100)
+    t.tcfg = dataclasses.replace(t.tcfg, final_ckpt=False)
+    t.hooks["pre_step"] = lambda s: s == 4 and t.request_preemption()
+    assert t.run(6)["preempted"]
+    assert tckpt.latest_step(str(tmp_path)) == 4
+
+
 def test_hybrid_trainer_resume_after_preemption_is_identical(tmp_path):
     """The same for recurrentgemma-2b SMOKE (rec, rec, attn), its RG-LRU
     leaves (lambda f32) and their AdamW state restored in place."""
