@@ -75,7 +75,7 @@ Phases, each of which exits non-zero on failure:
              run's tokens; the launch counters must read 40 ``flash_fwd`` and
              40 × 31 ``flash_decode`` launches; (b) the paged path
              (``serving.ServingEngine``, page 16, 8 slots) at full width and
-             10 of the 40 layers (``PAGED_LAYERS``) on 16 seeded requests in four modes (eager; lazy on half the
+             5 of the 40 layers (``PAGED_LAYERS``) on 16 seeded requests in four modes (eager; lazy on half the
              pool, which must preempt; shared 256-token system prompt with
              256-token chunked prefill; speculation k 4 on motif prompts),
              each with ``impl="kernel"`` and ``impl="torch"``: every request
@@ -121,7 +121,7 @@ Phases, each of which exits non-zero on failure:
              prefix sharing and speculation refused; peak memory;
 4e. moe    — deepseek-moe-16b (d_model 2048, 16/16 heads, head dim 128,
              64 experts top 6 and 2 shared, capacity factor 1.25, groups of
-             256, vocab 102400) at full width and 14 of its 28 layers
+             256, vocab 102400) at full width and 7 of its 28 layers
              (``MOE_SERVE_LAYERS``), f32,
              random weights from seed 0, one set of params for both impls
              and both caches: (a) the contiguous path, batch 4, prompt 512,
@@ -158,7 +158,7 @@ Phases, each of which exits non-zero on failure:
 4g. ssm    — falcon-mamba-7b (the ssm family: 64 mixer-only Mamba-1
              blocks, no attention layer, so no kernel of the port; d_model
              4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
-             65024; 7.27 B params) at full width and ``MAMBA_LAYERS`` (32)
+             65024; 7.27 B params) at full width and ``MAMBA_LAYERS`` (16)
              of its 64 layers, f32, random
              weights from seed 0: (a) the contiguous path, batch 4, prompt
              1024, 32 generated, every decode step's logits held to one
@@ -256,6 +256,24 @@ Phases, each of which exits non-zero on failure:
              ``head_offset``: o, lse, dK, dV bit for bit against the full
              call's slice at the training shape with dropout, dQ within
              its atomics' rounding;
+5h. mesh families — recurrentgemma-2b (3 layers: rec, rec, attn; batch
+             2 x 3072, past the window), deepseek-moe-16b (2 layers, 2 x
+             2048) and falcon-mamba-7b (2 layers, 2 x 2048) at full width,
+             f32, remat, dropout 0.1, AdamW without master, each trained on
+             4 gloo ranks sharing the card (data 2, model 2; one launch for
+             the three): rank 0's single-device run of the same state
+             first (the step-0 gradients, also with cuBLASLt's GEMMs, and
+             ``MESH_FAMILY_STEPS`` steps), then every rank's step-0
+             gradients (the MoE replaying rank 0's routes, each rank its
+             groups) against it shard by shard, then ``MESH_FAMILY_STEPS``
+             steps with the counters reset just before them: the step-0
+             loss (1e-5), every gradient leaf (2e-5 of its max) beside the
+             cuBLASLt floor, the MoE's routing flips (1e-3), the losses
+             (1e-4), each rank's launches of rows 1-3, step times,
+             collectives, peak memory; then rows 1-3 on the shards of the
+             ranks at data index 1 at rg's (5/1 heads a rank, G 5, D 256,
+             window 2048) and deepseek's (8/8 heads a rank, D 128) training
+             shapes with their offsets (``mesh_offsets_check``);
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -366,21 +384,22 @@ HYBRID_LEAVES = ("blocks.2.mixer.wq", "blocks.2.mixer.wk", "blocks.2.mixer.wv",
 # phase 5c, deepseek-moe-16b at full width and 4 layers: batch 2 x 2048
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2, 2048
 # granite-3-2b's paged phases (4b, its ranks in 4c, 4f's autotuned engine)
-# at full width and 10 of its 40 layers: these three share one reference,
+# at full width and 5 of its 40 layers: these three share one reference,
 # so they are cut together, first to 20 (with phase 4c's hybrid and phase
 # 4f the run had passed 860 s on a slow host), then to 10 (phase 5g took
-# the run past 1000 s; PERF.md)
-PAGED_LAYERS = 10
+# the run past 1000 s), then to 5 (phase 5h took it to 987 s; PERF.md)
+PAGED_LAYERS = 5
 MOE_LEAVES = ("blocks.0.mixer.wq", "blocks.0.mlp.router", "blocks.0.mlp.wi",
               "lm_head")
 # phase 4g, falcon-mamba-7b at full width and MAMBA_LAYERS of its 64 layers
 # (at 64 layers, 80 s of the run, the run with phases 4h, 5e and 5f reached
-# 991.5 s: cut, as granite's paged phases were; PERF.md §4): contiguous
+# 991.5 s: cut to 32, as granite's paged phases were; to 16 for phase 5h;
+# PERF.md §4): contiguous
 # batch 4 x (1024 + 32); the paged engine on 8 requests of 256-1024 prompt
 # tokens, 32 new each. Every scan length is a multiple of the 256-token
 # chunk (a length that is not is scanned as one chunk: 1 GiB an operand
 # for a 2048-token row at this width)
-MAMBA_LAYERS = 32
+MAMBA_LAYERS = 16
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_GEN, MAMBA_REQUESTS = 4, 1024, 32, 8
 MAMBA_MODES = {
     # name: (engine kwargs beyond page 16 and 8 slots, prefill row length
@@ -400,11 +419,11 @@ MAMBA_MODES = {
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 8, 1, 2048
 MAMBA_CHECK_SEQ, MAMBA_GRAD_TOL = 512, 5e-5
 # phase 4h, llava-next-34b at full width and VLM_LAYERS of its 60 layers (f32:
-# 57 GB of weights at 24 layers; the 60-layer f32 model, ~138 GB, does not
-# fit one card): contiguous batch 4 x (1024 + 32), by tokens and from patch
+# 57 GB of weights at 24 layers, its depth before phase 5h; the 60-layer f32
+# model, ~138 GB, does not fit one card): contiguous batch 4 x (1024 + 32), by tokens and from patch
 # embeddings; the paged engine on 8 requests of 256-1024 prompt tokens, 32
 # new each, eager and in chunks of 256
-VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_REQUESTS = 24, 4, 1024, 32, 8
+VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_REQUESTS = 12, 4, 1024, 32, 8
 VLM_MODES = {
     # name: (engine kwargs beyond page 16 and 8 slots, prefill row length)
     "eager": ({}, VLM_PROMPT),
@@ -448,6 +467,25 @@ MESH_TRAIN_LAYERS, MESH_BATCH, MESH_SEQ = 2, 4, 2048
 MESH_SHAPE, MESH_RESUME_SHAPE = {"data": 2, "model": 2}, {"model": 2}
 MESH_STEPS, MESH_RESUME_STEPS = 3, 6
 MESH_LEAF_TOL, MESH_TRAJ_TOL = 2e-5, 1e-4
+# phase 5h, the hybrid, MoE and ssm families trained over a mesh: each at
+# full width and reduced depth, f32, remat, dropout 0.1, AdamW without a
+# master copy, on 4 gloo ranks sharing the card (MESH_SHAPE), the three in
+# one run_ranks launch: arch -> (layers, batch, seq). recurrentgemma-2b's
+# 3 layers are rec, rec, attn and its rows run past the 2048 window; each
+# rank of 4 holds ~0.8 B params of rg and of deepseek (the vocab over
+# model, the experts 32 a rank), 12.5-12.8 GB with grads, m and v
+MESH_FAMILIES = {"recurrentgemma_2b": (3, 2, 3072),
+                 "deepseek_moe_16b": (2, 2, 2048),
+                 "falcon_mamba_7b": (2, 2, 2048)}
+MESH_FAMILY_STEPS = 2
+# rows 1-3 on the shards of data index 1 at each family's training shape:
+# (b, hq, hkv, s, d, window, batch rows)
+MESH_FAMILY_SHARDS = {
+    # 5 q heads a rank over the one replicated kv head: G 5, D 256
+    "recurrentgemma_2b": (2, 10, 1, 3072, 256, 2048, (1, 2)),
+    # 8 q and 8 kv heads a rank: G 1, D 128
+    "deepseek_moe_16b": (2, 16, 16, 2048, 128, None, (1, 2)),
+}
 
 
 def fail(msg: str) -> None:
@@ -593,6 +631,8 @@ def main(argv=None) -> None:
     clock("phase 5f (llava-next-34b training)")
     mesh_train = mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)  # 5g
     clock("phase 5g (granite-3-2b over a mesh)")
+    mesh_families = mesh_families_phase(torch, kfwd, kbwd, smi)         # 5h
+    clock("phase 5h (the hybrid, MoE and ssm families over a mesh)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -613,6 +653,9 @@ def main(argv=None) -> None:
         if row["name"] in ("flash_fwd", "flash_bwd"):
             row.setdefault("launches_by_path", {})["mesh_train_by_rank"] = [
                 r[row["name"]] for r in mesh_train]
+            row["launches_by_path"]["mesh_families_by_rank"] = {
+                arch: [r[row["name"]] for r in group]
+                for arch, group in mesh_families.items() if group[0][row["name"]]}
     clock("phase 6 (times)")
     print(json.dumps({"planner": plans}))
     print(json.dumps({"kernels": rows}))
@@ -1871,9 +1914,9 @@ def hybrid_paged_phase(torch, kfwd, kdecode):
 # layers (contiguous batch 4 x (512 + 32); the paged engine on 8 of phase
 # 4b's requests in its four modes, the lazy one with a storm-forced
 # preemption) and dbrx-132b at full width and 2 layers (contiguous batch 2 x
-# (256 + 16)); cut from 28 layers when phase 5g went to 2 layers and the
-# run passed 1000 s (PERF.md)
-MOE_SERVE_LAYERS = 14
+# (256 + 16)); cut from 28 layers to 14 when phase 5g went to 2 layers and
+# the run passed 1000 s, to 7 when phase 5h took it to 987 s (PERF.md)
+MOE_SERVE_LAYERS = 7
 MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_REQUESTS = 4, 512, 32, 8
 DBRX_LAYERS, DBRX_BATCH, DBRX_PROMPT, DBRX_GEN = 2, 2, 256, 16
 MOE_PAGED_MODES = dict(PAGED_MODES, lazy={
@@ -2683,9 +2726,9 @@ def train_phase(torch, kfwd, kbwd, arch="granite_3_2b"):
     return counts
 
 
-def _mesh_cfg(torch, layers):
+def _mesh_cfg(torch, layers, arch="granite_3_2b"):
     from repro_torch import configs
-    return dataclasses.replace(configs.get_config("granite_3_2b"),
+    return dataclasses.replace(configs.get_config(arch),
                                num_layers=layers, dtype=torch.float32,
                                dropout_rate=0.1, remat=True)
 
@@ -2695,17 +2738,17 @@ def _mesh_opt():
     return AdamWConfig(lr=1e-4, keep_master=False)
 
 
-def _mesh_arts(torch, cfg, mesh, device):
+def _mesh_arts(torch, cfg, mesh, device, total_steps=MESH_RESUME_STEPS):
     from repro_torch.runtime.steps import make_train_step
     return make_train_step(cfg, mesh=mesh, opt=_mesh_opt(), impl="kernel",
-                           total_steps=MESH_RESUME_STEPS, warmup_steps=1,
+                           total_steps=total_steps, warmup_steps=1,
                            torch_chunk=256, device=device)
 
 
-def _mesh_data(cfg):
+def _mesh_data(cfg, batch=MESH_BATCH, seq=MESH_SEQ):
     from repro_torch.data import DataConfig
-    return DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
-                      global_batch=MESH_BATCH, seed=0)
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=0)
 
 
 def _mesh_probe(torch, mesh, device) -> str:
@@ -2968,35 +3011,329 @@ def mesh_train_phase(torch, kfwd, kbwd, smi, layers=MESH_TRAIN_LAYERS):
     return ranks
 
 
-def mesh_offsets_check(torch, kfwd, kbwd, tag):
-    """Rows 1-3 at granite's training shape (B 4, 32/8 heads, S 2048, D 64,
-    causal, dropout 0.1) on the shard of rank (data 1, model 1) of the 2x2
-    mesh: batch rows 2-3, q heads 16-31, kv heads 4-7, with its offsets; o,
-    lse, dK and dV bit for bit against the full call's slice, dQ within the
-    f32 rounding of its atomic adds (``BWD_TOL``)."""
+def _family(torch, arch, mesh, device):
+    """Phase 5h's (config, data, step artifacts) of ``arch``."""
+    layers, batch, seq = MESH_FAMILIES[arch]
+    cfg = _mesh_cfg(torch, layers, arch)
+    return (cfg, _mesh_data(cfg, batch, seq),
+            _mesh_arts(torch, cfg, mesh, device, MESH_FAMILY_STEPS))
+
+
+def _family_reference(torch, arch, path):
+    """Phase 5h's single-device run of ``arch`` (rank 0 alone on the card):
+    the step-0 loss and gradients of ``init_params(0, vocab_pad_to=2)``,
+    saved as .npy by leaf under ``path`` (the MoE's routes too, for the
+    mesh to replay); the same gradients with cuBLASLt's GEMMs against
+    them (the f32 floor of another order of sums); then
+    ``MESH_FAMILY_STEPS`` steps."""
+    import numpy as np
+
+    from repro_torch.data import make_batch
+    from repro_torch.models import lm, moe_routes
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import place_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, dc, arts = _family(torch, arch, None, "cuda")
+    params = lm.init_params(cfg, seed=0, device="cuda", vocab_pad_to=2)
+    b0 = place_batch(make_batch(dc, 0), "cuda")
+    with moe_routes.RouteRecorder() as rec:
+        loss0, _, grads = arts.grad_fn(params, b0, 0)
+    os.makedirs(path)
+    for n, g in grads.items():
+        np.save(os.path.join(path, n + ".npy"), g.cpu().numpy())
+    if cfg.moe is not None:
+        torch.save([c.cpu() for c in rec.calls], os.path.join(path, "routes.pt"))
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    with moe_routes.RouteRecorder(replay=rec.calls):
+        _, _, lt = arts.grad_fn(params, b0, 0)
+    torch.backends.cuda.preferred_blas_library("cublas")
+    floor = {n: float((lt[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+             for n, g in grads.items()}
+    del grads, lt, b0
+    opt = adamw_init(params, _mesh_opt())
+    losses, dts = [], []
+    for step in range(MESH_FAMILY_STEPS):
+        b = place_batch(make_batch(dc, step), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = arts.step_fn(params, opt, b, step)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t1)
+    out = {"loss0": float(loss0), "floor": floor, "losses": losses, "step_s": dts,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t0}
+    del params, opt, arts, b, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_mesh(torch, mesh, device, arch, path):
+    """Phase 5h on this rank: ``arch``'s state drawn leaf by leaf
+    (``init_fn(0)``), the step-0 gradients (the MoE replaying the
+    single-device routes, each rank its share) against the reference's
+    leaves under ``path``, shard by shard: (max |diff|, max |ref|) a leaf;
+    then, counters reset just before them, ``MESH_FAMILY_STEPS`` steps."""
+    import numpy as np
+
+    from repro_torch.data import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.models import moe_routes
+    from repro_torch.runtime.steps import place_batch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg, dc, arts = _family(torch, arch, mesh, device)
+    plan = arts.plan
+    params, opt = arts.init_fn(0)
+    sh = arts.shardings["batch"]
+    rec = moe_routes.RouteRecorder()
+    if cfg.moe is not None:
+        routes = torch.load(os.path.join(path, "routes.pt"))
+        rec = moe_routes.RouteRecorder(
+            replay=[r.to(device) for r in routes],
+            part=(mesh.index(plan.batch), plan.batch_ranks))
+    with rec:
+        loss0, _, grads = arts.grad_fn(params, place_batch(make_batch(dc, 0),
+                                                           device, sh), 0)
+    errs = {}
+    for n, g in grads.items():
+        full = np.load(os.path.join(path, n + ".npy"), mmap_mode="r")
+        want = torch.from_numpy(np.ascontiguousarray(
+            arts.shardings["params"][n].shard(full))).to(device)
+        errs[n] = (float((g - want).abs().max()), float(want.abs().max()))
+        del want
+    del grads
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    kfwd.launches = kbwd.launches_bwd = 0
+    C.stats.update(calls=0, bytes=0, seconds=0.0)
+    losses, dts, step_bytes, step_coll = [], [], [], []
+    for step in range(MESH_FAMILY_STEPS):
+        mark = dict(C.stats)
+        b = place_batch(make_batch(dc, step), device, sh)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        params, opt, m = arts.step_fn(params, opt, b, step)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(device)
+        dts.append(time.perf_counter() - t1)
+        step_bytes.append(C.stats["bytes"] - mark["bytes"])
+        step_coll.append(C.stats["seconds"] - mark["seconds"])
+    out = {"rank": mesh.rank, "coords": mesh.coords, "hq_local": plan.hq_local,
+           "head_offset": plan.head_offset, "kv_heads": plan.kv,
+           "experts": (plan.experts_local, plan.expert_offset),
+           "loss0": float(loss0), "errs": errs, "flips": rec.flips,
+           "decisions": rec.decisions, "losses": losses, "step_s": dts,
+           "step_bytes": step_bytes, "step_coll_s": step_coll,
+           "flash_fwd": kfwd.launches, "flash_bwd": kbwd.launches_bwd,
+           "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+           "check_s": check_s, "seconds": time.perf_counter() - t0}
+    del params, opt, arts, b, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_rank(pool, device, tmp):
+    """One rank of phase 5h: for each of ``MESH_FAMILIES``, rank 0's
+    single-device reference while the others wait, then this rank's part
+    of the mesh (``MESH_SHAPE``)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import join_train_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = join_train_mesh(MESH_SHAPE)
+    out = {"start_s": time.perf_counter() - t0}
+    for arch in MESH_FAMILIES:
+        path = os.path.join(tmp, arch)
+        ref = _family_reference(torch, arch, path) if mesh.rank == 0 else None
+        dist.barrier()
+        out[arch] = _family_mesh(torch, mesh, device, arch, path)
+        out[arch]["ref"] = ref
+        dist.barrier()
+        if mesh.rank == 0:
+            shutil.rmtree(path)
+    return out
+
+
+def mesh_families_phase(torch, kfwd, kbwd, smi):
+    """Phase 5h: recurrentgemma-2b, deepseek-moe-16b and falcon-mamba-7b
+    at full width and ``MESH_FAMILIES``' depth, each trained over 4 gloo
+    ranks sharing the card (data 2 x model 2; one ``run_ranks`` launch for
+    the three), held against the single-device run of the same state and
+    batch: the step-0 loss (1e-5), every gradient leaf (``MESH_LEAF_TOL`` of
+    its max; its shards against the single-device leaf's, max over the
+    ranks: the gathered leaf's error), beside the cuBLASLt floor; the MoE's
+    routing choices of the replayed step-0 pass (``MOE_FLIP_TOL``); then
+    ``MESH_FAMILY_STEPS`` steps with counters reset just before them: each
+    rank's launches of rows 1-3 (2 x attention layers x steps forward, 1 x
+    backward), equal losses on every rank within ``MESH_TRAJ_TOL`` of the
+    single-device steps', step times, collectives, peak memory; then rows
+    1-3 on a rank's shard at rg's and deepseek's per-rank shapes. Returns
+    each family's ranks."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+
+    tag = "[mesh families]"
+    torch.cuda.empty_cache()
+    print(f"{tag} 4 gloo ranks on the card (data 2 x model 2), the parent "
+          f"holding {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(_family_rank, 4, (tmp,), backend="gloo",
+                          device_type="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    starts = ", ".join(f"{r['start_s']:.1f}" for r in ranks)
+    print(f"{tag} one launch of 4 ranks: {wall:.1f} s (joining the mesh "
+          f"{starts} s a rank)", flush=True)
+    out = {}
+    for arch, (layers, batch, seq) in MESH_FAMILIES.items():
+        cfg = _mesh_cfg(torch, layers, arch)
+        group = [r[arch] for r in ranks]
+        ref = group[0]["ref"]
+        n_attn = lm.block_kinds(cfg).count("attn")
+        want = {"flash_fwd": 2 * n_attn * MESH_FAMILY_STEPS,
+                "flash_bwd": n_attn * MESH_FAMILY_STEPS}
+        print(f"{tag} {cfg.name} ({cfg.family}): {layers} layers "
+              f"({', '.join(lm.block_kinds(cfg))}) at full width, batch "
+              f"{batch} x {seq}; single device: {ref['n_params'] / 1e9:.3f} B "
+              f"params, loss {ref['loss0']:.6f} at step 0, step times "
+              f"{[round(x, 4) for x in ref['step_s']]} s, losses "
+              f"{[round(x, 6) for x in ref['losses']]}, max_memory_allocated "
+              f"{ref['peak_gib']:.2f} GiB, {ref['seconds']:.1f} s ({smi})",
+              flush=True)
+        for r in group:
+            got_l = {"flash_fwd": r["flash_fwd"], "flash_bwd": r["flash_bwd"]}
+            per = [f"{b / 2**30:.3f}" for b in r["step_bytes"]]
+            print(f"{tag} {cfg.name} rank {r['rank']} {r['coords']}: q heads "
+                  f"{r['hq_local']} from {r['head_offset']} (kv heads split: "
+                  f"{r['kv_heads']}), experts {r['experts'][0]} from "
+                  f"{r['experts'][1]}; launches {got_l} (expected {want}); "
+                  f"losses {[round(x, 6) for x in r['losses']]}; step times "
+                  f"{[round(x, 4) for x in r['step_s']]} s; collectives a step "
+                  f"{per} GiB in {[round(x, 3) for x in r['step_coll_s']]} host "
+                  f"s; max_memory_allocated {r['peak_gib']:.2f} GiB; the check "
+                  f"{r['check_s']:.1f} s of the rank's {r['seconds']:.1f} s "
+                  f"({smi})", flush=True)
+            if got_l != want:
+                fail(f"{cfg.name} over the mesh did not go through the kernels "
+                     f"on rank {r['rank']}: {got_l}, expected {want}")
+            if any(not math.isfinite(x) for x in r["losses"]):
+                fail(f"{cfg.name} rank {r['rank']}: losses {r['losses']}")
+            if r["losses"] != group[0]["losses"]:
+                fail(f"{cfg.name} rank {r['rank']}'s losses differ from rank 0's")
+        errs = {n: max(r["errs"][n][0] for r in group)
+                / max(max(r["errs"][n][1] for r in group), 1e-30)
+                for n in group[0]["errs"]}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        print(f"{tag} {cfg.name} mesh against one device: worst leaves "
+              f"{_worst(errs)}; single device, cuBLASLt's GEMMs against "
+              f"cuBLAS's (the same step, its sums in another order): worst "
+              f"leaves {_worst(ref['floor'])}; at the mesh's worst leaf "
+              f"{ref['floor'][worst[0]]:.3e}", flush=True)
+        traj = max(abs(a - b) / abs(b) for a, b in zip(group[0]["losses"],
+                                                     ref["losses"]))
+        checks = [("step-0 loss", abs(group[0]["loss0"] - ref["loss0"])
+                   / abs(ref["loss0"]), 1e-5),
+                  (f"gradient leaves ({len(errs)}, worst {worst[0]})",
+                   worst[1], MESH_LEAF_TOL),
+                  (f"losses over {MESH_FAMILY_STEPS} steps", traj, MESH_TRAJ_TOL)]
+        if cfg.moe is not None:
+            flips = sum(r["flips"] for r in group)
+            decisions = sum(r["decisions"] for r in group)
+            checks.append((f"routing choices of the replayed pass ({flips} of "
+                           f"{decisions})", flips / decisions, MOE_FLIP_TOL))
+        for what, err, tol in checks:
+            print(f"{tag} {cfg.name} mesh vs single device {what}: {err:.3e} "
+                  f"(tol {tol:.0e}) {'ok' if err <= tol else 'FAIL'}", flush=True)
+            if not err <= tol:
+                fail(f"{cfg.name} over the mesh: {what} differs by {err:.3e}")
+        out[arch] = group
+    for arch, (b, hq, hkv, s, d, window, rows) in MESH_FAMILY_SHARDS.items():
+        mesh_offsets_check(torch, kfwd, kbwd, f"{tag} {arch}", b, hq, hkv, s, d,
+                           window, rows)
+    return out
+
+
+def mesh_offsets_check(torch, kfwd, kbwd, tag, b=MESH_BATCH, hq=32, hkv=8,
+                       s=MESH_SEQ, d=64, window=None, rows=(2, 4)):
+    """Rows 1-3 at a training shape (f32, causal, dropout 0.1; granite's by
+    default: B 4, 32/8 heads, S 2048, D 64) on the shards of the 2x2 mesh's
+    ranks at data index 1 (batch ``rows``), one a model rank: its q heads
+    and the kv heads they read, with its offsets. o, lse and dQ are each
+    shard's slice of the full call's (o, lse bit for bit, dQ within the f32
+    rounding of its atomic adds, ``BWD_TOL``); dK and dV summed over the
+    shards (as the mesh sums them over model) are the full call's, bit for
+    bit where each kv head is one shard's, within ``BWD_TOL`` where a
+    replicated kv head serves q heads of both; and model rank 1's shard
+    against the plain versions with the same offsets (``TOL``,
+    ``LSE_TOL``, ``BWD_TOL``)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
-    b, hq, hkv, s, d = MESH_BATCH, 32, 8, MESH_SEQ, 64
     q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.float32)
     do = _rand(torch, gen, (b, hq, s, d), torch.float32)
-    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=-1234567)
+    kw = dict(causal=True, window=window, dropout_rate=0.1,
+              dropout_seed=-1234567)
     o, lse = kfwd.flash_fwd(q, k, v, **kw)
     dq, dk, dv = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
-    sl, kl = (slice(2, 4), slice(16, 32)), (slice(2, 4), slice(4, 8))
-    qs, dos = q[sl].contiguous(), do[sl].contiguous()
-    ks, vs = k[kl].contiguous(), v[kl].contiguous()
-    off = dict(batch_offset=2, head_offset=16)
-    os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw, **off)
-    dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw, **off)
-    dq_err = _maxerr(dqs, dq[sl]) / max(1.0, float(dq.abs().max()))
-    bits = (torch.equal(os_, o[sl]) and torch.equal(lses, lse[sl])
-            and torch.equal(dks, dk[kl]) and torch.equal(dvs, dv[kl]))
-    other = not torch.equal(kfwd.flash_fwd(qs, ks, vs, **kw)[0], o[sl])
-    print(f"{tag} offsets (batch 2, head 16) on the card: o, lse, dK, dV "
-          f"{'bit for bit' if bits else 'DIFFER'}; dQ {dq_err:.3e} (tol "
-          f"{BWD_TOL['float32']:.0e}, atomic adds); without the offsets the "
-          f"shard's o {'differs' if other else 'is EQUAL'}", flush=True)
-    if not (bits and other and dq_err <= BWD_TOL["float32"]):
+    b0, b1 = rows
+    group, hl = hq // hkv, hq // 2
+    dk_sum = torch.zeros_like(dk[b0:b1])
+    dv_sum = torch.zeros_like(dv[b0:b1])
+    bits, dq_err, other = True, 0.0, True
+    for h0 in (0, hl):
+        k0, k1 = h0 // group, (h0 + hl - 1) // group + 1
+        sl, kl = (slice(b0, b1), slice(h0, h0 + hl)), (slice(b0, b1), slice(k0, k1))
+        qs, dos = q[sl].contiguous(), do[sl].contiguous()
+        ks, vs = k[kl].contiguous(), v[kl].contiguous()
+        off = dict(batch_offset=b0, head_offset=h0)
+        os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw, **off)
+        dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw, **off)
+        dk_sum[:, k0:k1] += dks
+        dv_sum[:, k0:k1] += dvs
+        dq_err = max(dq_err, _maxerr(dqs, dq[sl]) / max(1.0, float(dq.abs().max())))
+        bits = bits and torch.equal(os_, o[sl]) and torch.equal(lses, lse[sl])
+        other = other and not torch.equal(kfwd.flash_fwd(qs, ks, vs, **kw)[0], o[sl])
+    shared = hl % group != 0 or hkv < 2       # a kv head read by both shards
+    kv_err = max(_maxerr(a, w) / max(1.0, float(w.abs().max()))
+                 for a, w in ((dk_sum, dk[b0:b1]), (dv_sum, dv[b0:b1])))
+    kv_ok = (kv_err <= BWD_TOL["float32"] if shared else
+             torch.equal(dk_sum, dk[b0:b1]) and torch.equal(dv_sum, dv[b0:b1]))
+    po, plse = kfwd.flash_fwd_torch(qs, ks, vs, **kw, **off)
+    plain = kbwd.flash_bwd_torch(qs, ks, vs, lses, dos, kbwd.row_delta(os_, dos),
+                                 **kw, **off)
+    p_err = [_maxerr(os_, po), _maxerr(lses, plse)] + [
+        _maxerr(g, gp) / max(1.0, float(gp.abs().max()))
+        for g, gp in zip((dqs, dks, dvs), plain)]
+    p_tol = [TOL["float32"], LSE_TOL] + [BWD_TOL["float32"]] * 3
+    print(f"{tag} offsets (batch {b0}, heads 0 and {hl}; B {b1 - b0}, {hl}/"
+          f"{k1 - k0} heads a shard, G {hl // (k1 - k0)}, S {s}, D {d}, window "
+          f"{window}) on the card: o, lse {'bit for bit' if bits else 'DIFFER'}; "
+          f"dQ {dq_err:.3e} (tol {BWD_TOL['float32']:.0e}, atomic adds); dK, dV "
+          f"summed over the shards "
+          + (f"{kv_err:.3e} (tol {BWD_TOL['float32']:.0e}, a kv head both "
+             f"shards read)" if shared else
+             ('bit for bit' if kv_ok else 'DIFFER'))
+          + f"; without the offsets the shards' o {'differs' if other else 'is EQUAL'}"
+          f"; model rank 1's shard against the plain versions with the offsets "
+          f"o, lse, dQ, dK, dV {', '.join(f'{e:.3e}' for e in p_err)}", flush=True)
+    if not (bits and kv_ok and other and dq_err <= BWD_TOL["float32"]):
         fail("the kernels' batch / head offsets do not give the full call's masks")
+    if not all(e <= t for e, t in zip(p_err, p_tol)):
+        fail(f"rows 1-3 on a mesh shard disagree with their plain versions: "
+             f"{p_err}")
 
 
 def _top2(logits, vocab: int):

@@ -12,6 +12,10 @@ entry of size 1 every function here is the identity.
 * :func:`gather` — all-gather along a dim, reduce-scatter backward: a
   weight sharded over the data axis (FSDP) is gathered before use, and its
   gradient summed and scattered back.
+* :func:`reduce_scatter` — sum over an entry and keep this rank's part
+  along a dim, all-gather backward: the partial sums of a row-parallel
+  product whose consumer is split along its output dim (the RG-LRU's
+  gates, ``models/rglru.py``).
 
 A dim may be a row of ``block``-long blocks, each split over the entry on
 its own (the gated MLP's ``[gate | up]`` columns, a batch's microbatches):
@@ -151,6 +155,17 @@ class _Gather(torch.autograd.Function):
         return (reduce_scatter_nograd(g, *ctx.args), None, None, None, None)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, entry):
+        ctx.args = (dim, mesh, entry)
+        return reduce_scatter_nograd(x, dim, mesh, entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_nograd(g.contiguous(), *ctx.args), None, None, None)
+
+
 def copy_to(x: torch.Tensor, mesh, entry) -> torch.Tensor:
     """Identity forward; the gradient is all-reduced over ``entry``."""
     return x if mesh.size(entry) == 1 else _CopyTo.apply(x, mesh, entry)
@@ -167,3 +182,11 @@ def gather(x: torch.Tensor, dim: int, mesh, entry, block=None) -> torch.Tensor:
     if mesh.size(entry) == 1:
         return x
     return _Gather.apply(x, dim, mesh, entry, block)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, mesh, entry) -> torch.Tensor:
+    """Sum over ``entry`` and keep this rank's part along ``dim``; the
+    gradient is all-gathered along ``dim``."""
+    if mesh.size(entry) == 1:
+        return x
+    return _ReduceScatter.apply(x, dim, mesh, entry)

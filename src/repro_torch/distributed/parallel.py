@@ -7,18 +7,33 @@
 every rank's part (:meth:`~NamedSharding.gather`, a collective).
 
 :class:`ShardPlan` carries the specs of ``distributed.sharding`` out in
-the layers of the attention families (dense, vlm, encoder):
+the layers of every family:
 
-* **tensor parallel over ``model``** (heads, kv heads, mlp and vocab dims
-  sharded): ``wq/wk/wv`` column-parallel on the rank's heads, ``wo``
-  row-parallel and summed over ``model``; the MLP the same way, ``wi``'s
-  ``[gate | up]`` columns sharded half by half, so every rank holds the
-  same slice of both; the embedding looked up on the rank's vocab rows
-  (the others give zeros) and summed; ``lm_head`` column-parallel with a
-  vocab-parallel cross-entropy (a global max and sum-exp over ``model``,
-  padded columns masked). The residual stream stays replicated over
-  ``model`` (JAX's sequence-parallel residuals change its layout, not its
-  values; they are not ported).
+* **tensor parallel over ``model``** (heads, kv heads, mlp, rnn and vocab
+  dims sharded): ``wq/wk/wv`` column-parallel on the rank's heads, ``wo``
+  row-parallel and summed over ``model``; the MLP the same way; the
+  recurrent mixers (the RG-LRU, Mamba) on the rank's channels, their
+  in-projections column-parallel, their out-projections row-parallel, the
+  projections out of the channels into a replicated tensor (the RG-LRU's
+  gates, Mamba's ``w_bc`` and ``w_dt1``) summed over ``model``; the
+  embedding looked up on the rank's vocab rows (the others give zeros) and
+  summed; ``lm_head`` column-parallel with a vocab-parallel cross-entropy
+  (a global max and sum-exp over ``model``, padded columns masked). The
+  residual stream stays replicated over ``model``: JAX's sequence-parallel
+  residuals (``seq``) and context-parallel attention (``seq_full``) change
+  its layout, not its values; they are not carried out
+  (:attr:`ShardPlan.layout_only` records them).
+* an ``[a | b]`` leaf (the gated MLP's ``wi``, the shared experts' ``wi``,
+  Mamba's ``in_proj``) splits half by half, so every rank holds the same
+  slice of both halves (:meth:`ShardPlan.block`).
+* **expert parallel over ``model``** (``experts`` sharded): the router's
+  columns are the rank's experts, its logits gathered over ``model``
+  before the softmax, so every model rank routes alike; a rank runs its
+  experts on the dispatched tokens and the combined output is summed over
+  ``model``. The tokens' groups are the global microbatch's: a rank routes
+  its own groups where they divide the batch axes (``moe_groups``), and
+  every group where one spans ranks (JAX's fallback replicates them), its
+  tokens gathered over the batch axes.
 * kv heads that ``model`` does not divide, under heads that it does: the
   rules replicate ``wk/wv``, and each rank projects the kv heads its own
   q heads read (``global q head // group``), expanding them to one a q
@@ -37,8 +52,10 @@ the layers of the attention families (dense, vlm, encoder):
   gradients :meth:`ShardPlan.reduce_grads` sums over the batch axes a
   leaf is not sharded over.
 
-The hybrid, MoE and ssm families raise :class:`MeshFamilyError`: their
-rules shard ``rnn``, ``experts`` and ``moe_groups``, which are not ported.
+A leaf is keyed by its name in a block, and a mixer's leaves also by the
+block's kind (``rec:mixer.wo``, ``attn:mixer.wo``): the hybrid's two
+``wo`` leaves have other specs. A spec the plan cannot carry out raises a
+``ValueError`` naming the leaf and its spec.
 """
 
 from __future__ import annotations
@@ -51,24 +68,8 @@ import torch
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.distributed import collectives as C
 
-#: the families a training mesh takes
-MESH_FAMILIES = ("dense", "vlm", "encoder")
 #: gradients all-reduced at once (elements), a bucket
 BUCKET = 1 << 26
-
-
-class MeshFamilyError(NotImplementedError):
-    """A family whose sharding rules the port does not carry out."""
-
-
-def check_family(cfg) -> None:
-    """Raise :class:`MeshFamilyError` unless ``cfg``'s family trains on a
-    mesh."""
-    if cfg.family not in MESH_FAMILIES:
-        raise MeshFamilyError(
-            f"{cfg.name}: the {cfg.family} family does not train on a mesh "
-            f"in repro_torch (its rules shard rnn, experts and moe_groups, "
-            f"not ported); mesh families: {', '.join(MESH_FAMILIES)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,70 +107,149 @@ class NamedSharding:
         return tuple(shape)
 
 
-def _layer_key(name: str) -> str:
-    """``blocks.3.mixer.wq`` → ``mixer.wq``; top-level names as they are."""
-    parts = name.split(".")
-    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+def _layer_key(name: str, kinds) -> str:
+    """``blocks.3.mlp.wi`` → ``mlp.wi``; a mixer's leaf with its block's
+    kind (``kinds[i]``), ``blocks.3.mixer.wo`` → ``rec:mixer.wo``;
+    top-level names as they are."""
+    parts = name.split(".", 2)
+    if parts[0] != "blocks":
+        return name
+    key = parts[2]
+    return f"{kinds[int(parts[1])]}:{key}" if key.startswith("mixer.") else key
+
+
+#: the leaves of each recurrent mixer that carry its ``rnn`` channels: all
+#: of them split over ``model`` on their first ``rnn`` dim, or none
+_RNN_LEAVES = {
+    "rec": ("wx", "wg", "wo", "conv", "w_inp", "w_rec", "lambda"),
+    "ssm": ("in_proj", "conv", "w_bc", "w_dt1", "w_dt2", "dt_bias", "A_log",
+            "D", "out_proj"),
+}
 
 
 class ShardPlan:
     """One rank's plan for its shard of ``cfg`` on ``mesh`` under ``rules``
-    (``specs``/``logical``: port parameter name → spec / logical axes)."""
+    (``specs``/``logical``: port parameter name → spec / logical axes).
+
+    Flags, each for the blocks that have the leaf: ``heads``/``kv`` (the
+    attention's q / kv heads split over ``model``), ``rnn`` (the recurrent
+    mixer's channels), ``experts``; ``vocab``."""
 
     def __init__(self, cfg, mesh, rules, specs: Dict[str, tuple],
                  logical: Dict[str, tuple]):
-        check_family(cfg)
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
-        self._spec = {_layer_key(n): s for n, s in specs.items()}
-        self._logical = {_layer_key(n): a for n, a in logical.items()}
+        period = len(cfg.block_pattern)
+        self.kinds = [cfg.block_pattern[i % period] for i in range(cfg.num_layers)]
+        self._spec, self._logical = {}, {}
+        for n, spec in specs.items():
+            key = _layer_key(n, self.kinds)
+            if self._spec.setdefault(key, spec) != spec:
+                raise ValueError(f"{cfg.name}: {n} has spec {spec}, another "
+                                 f"{key} {self._spec[key]}")
+            self._logical[key] = logical[n]
         self.batch = rules.rules["batch"]
-        self.heads = self._spec["mixer.wq"][1] == "model"
-        self.kv = self._spec["mixer.wk"][1] == "model"
-        self.mlp = self._spec["mlp.wi"][1] == "model"
+        if rules.rules.get("moe_groups") != self.batch:
+            raise ValueError(f"{cfg.name}: moe_groups over "
+                             f"{rules.rules.get('moe_groups')}, the batch over "
+                             f"{self.batch}")
+        self.layout_only = {a: rules.rules[a] for a in ("seq", "seq_full")
+                            if rules.rules.get(a) is not None}
         self.vocab = self._spec["embed"][0] == "model"
-        if cfg.mlp_type == "gated_silu" and self.mlp and \
-                cfg.d_ff % mesh.size("model"):
-            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
-                             f"model={mesh.size('model')} half by half")
+        self.heads = self.splits("attn:mixer.wq", 1)
+        self.kv = self.splits("attn:mixer.wk", 1)
+        self.rnn = False
+        for kind, leaves in _RNN_LEAVES.items():
+            split = {leaf: self._rnn_split(f"{kind}:mixer.{leaf}")
+                     for leaf in leaves if f"{kind}:mixer.{leaf}" in self._spec}
+            if len(set(split.values())) > 1:
+                raise ValueError(
+                    f"{cfg.name}: the {kind} mixer's channels split over model "
+                    f"in some leaves, not in others: " + ", ".join(
+                        f"mixer.{leaf} {self._spec[f'{kind}:mixer.{leaf}']}"
+                        for leaf in split))
+            self.rnn = self.rnn or any(split.values())
+        self.experts = self.splits("mlp.router", 1)
+        if cfg.moe is not None:
+            for key in ("mlp.wi", "mlp.wo"):
+                if self.splits(key, 0) != self.experts:
+                    raise ValueError(f"{cfg.name}: {key} {self._spec[key]} "
+                                     f"against mlp.router "
+                                     f"{self._spec['mlp.router']}")
+        e = cfg.moe.num_experts if cfg.moe is not None else 0
+        self.experts_local = e // mesh.size("model") if self.experts else e
+        self.expert_offset = (mesh.index("model") * self.experts_local
+                              if self.experts else 0)
+        self._halves = {}            # an [a | b] leaf's half, split on its own
+        if cfg.moe is None and cfg.mlp_type == "gated_silu":
+            self._halves["mlp.wi"] = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.num_shared_experts:
+            self._halves["mlp.shared.wi"] = (cfg.moe.num_shared_experts
+                                             * cfg.moe.d_ff_expert)
+        if cfg.mamba is not None:
+            self._halves["ssm:mixer.in_proj"] = cfg.mamba.d_inner
+        for key, half in list(self._halves.items()):
+            if key not in self._spec:
+                del self._halves[key]
+                continue
+            entry = self._spec[key][1]
+            if entry is not None and half % self.mesh.size(entry):
+                raise ValueError(f"{cfg.name}: {key} {self._spec[key]}: its "
+                                 f"halves of {half} do not split over "
+                                 f"{entry}={self.mesh.size(entry)}")
+        self.hq_local = self.head_offset = 0
+        self.kv_cols = None      # wk/wv columns this rank projects, if sliced
+        self.partial = set()     # replicated over model, used on local heads
+        if "attn:mixer.wq" in self._spec:
+            self._plan_heads(cfg, mesh)
+
+    def _plan_heads(self, cfg, mesh) -> None:
         hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         m = mesh.size("model") if self.heads else 1
         self.hq_local = hq // m
         self.head_offset = mesh.index("model") * self.hq_local if self.heads else 0
-        self.kv_cols = None      # wk/wv columns this rank projects, if sliced
-        self.partial = set()     # replicated over model, used on local heads
-        if self.heads:
-            if cfg.qk_norm:
-                self.partial |= {"mixer.q_norm", "mixer.k_norm"}
-            if not self.kv:
-                self.partial |= {"mixer.wk", "mixer.wv"}
-                group = hq // hkv
-                idx = [(self.head_offset + i) // group
-                       for i in range(self.hq_local)]
-                uniq = sorted(set(idx))
-                g = self.hq_local // len(uniq)
-                if g * len(uniq) != self.hq_local or \
-                        idx != [uniq[i // g] for i in range(self.hq_local)]:
-                    uniq = idx             # one kv head a q head
-                self.kv_cols = torch.cat([torch.arange(h * hd, (h + 1) * hd)
-                                          for h in uniq])
+        if not self.heads:
+            return
+        if cfg.qk_norm:
+            self.partial |= {"attn:mixer.q_norm", "attn:mixer.k_norm"}
+        if not self.kv:
+            self.partial |= {"attn:mixer.wk", "attn:mixer.wv"}
+            group = hq // hkv
+            idx = [(self.head_offset + i) // group for i in range(self.hq_local)]
+            uniq = sorted(set(idx))
+            g = self.hq_local // len(uniq)
+            if g * len(uniq) != self.hq_local or \
+                    idx != [uniq[i // g] for i in range(self.hq_local)]:
+                uniq = idx             # one kv head a q head
+            self.kv_cols = torch.cat([torch.arange(h * hd, (h + 1) * hd)
+                                      for h in uniq])
+
+    def splits(self, key: str, dim: int) -> bool:
+        """Whether leaf ``key`` exists and splits dim ``dim`` over
+        ``model`` alone (tensor or expert parallel; FSDP's joint entries
+        are gathered, not split)."""
+        return key in self._spec and self._spec[key][dim] == "model"
+
+    def _rnn_split(self, key: str) -> bool:
+        logical = self._logical[key]
+        return self._spec[key][logical.index("rnn")] == "model"
 
     # -- sharding objects --------------------------------------------------
     def block(self, name: str) -> tuple:
-        """Per-dim blocks of a parameter: the gated MLP's ``wi`` columns are
-        ``[gate | up]``, each half split on its own."""
-        if _layer_key(name) == "mlp.wi" and self.cfg.mlp_type == "gated_silu":
-            return (None, self.cfg.d_ff)
-        return ()
+        """Per-dim blocks of a parameter: an ``[a | b]`` leaf's columns
+        (the gated MLPs' ``wi``, Mamba's ``in_proj``) are two halves, each
+        split on its own."""
+        half = self._halves.get(_layer_key(name, self.kinds))
+        return () if half is None else (None, half)
 
     def sharding(self, name: str) -> NamedSharding:
         return NamedSharding(self.mesh, self.specs[name], self.block(name))
 
     # -- weights -----------------------------------------------------------
     def weight(self, w: torch.Tensor, key: str) -> torch.Tensor:
-        """The weight ``w`` (parameter ``key``, as ``mixer.wq`` or
-        ``embed``) as the layer computes with it: its sharded ``embed`` dims
-        gathered, and entered through ``copy_to`` over ``model`` where its
-        gradient would otherwise be partial."""
+        """The weight ``w`` (parameter ``key``, as ``attn:mixer.wq``,
+        ``mlp.wi`` or ``embed``) as the layer computes with it: its sharded
+        ``embed`` dims gathered, and entered through ``copy_to`` over
+        ``model`` where its gradient would otherwise be partial."""
         spec, logical = self._spec[key], self._logical[key]
         for d, name in enumerate(logical):
             if name == "embed" and spec[d] is not None:
@@ -193,9 +273,61 @@ class ShardPlan:
         """Partial results of work split over ``model``, summed."""
         return C.reduce_from(x, self.mesh, "model") if split else x
 
+    def scatter(self, x):
+        """Partial sums over ``model`` of a tensor whose last dim is split
+        work's (the RG-LRU's gates from its rows of ``w_inp``/``w_rec``):
+        summed, and this rank's part of the last dim kept."""
+        return C.reduce_scatter(x, x.dim() - 1, self.mesh, "model")
+
+    def reenter(self, x):
+        """Partial sums over ``model`` that split work reads whole (Mamba's
+        B, C and dt rank from its rows of ``w_bc``/``w_dt1``): summed, and
+        their gradient summed too."""
+        return C.copy_to(C.reduce_from(x, self.mesh, "model"), self.mesh, "model")
+
     def batch_offset(self, rows: int) -> int:
         """The global row (within the microbatch) of this rank's first."""
         return self.mesh.index(self.batch) * rows
+
+    # -- the MoE -----------------------------------------------------------
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks along the batch axes (a microbatch's rows split over
+        them)."""
+        return self.mesh.size(self.batch)
+
+    def gather_batch(self, x):
+        """Every batch rank's rows of ``x`` (dim 0) in their global order;
+        the gradient summed back to this rank's."""
+        return C.gather(x, 0, self.mesh, self.batch)
+
+    def own_rows(self, x, rows: int):
+        """This rank's ``rows`` of a tensor gathered by :meth:`gather_batch`."""
+        i = self.mesh.index(self.batch)
+        return x[i * rows:(i + 1) * rows]
+
+    def expert_logits(self, logits):
+        """The router's logits of this rank's experts → of every expert
+        (gathered over ``model``): every model rank routes alike."""
+        return C.gather(logits, logits.dim() - 1, self.mesh, "model")
+
+    def moe_share(self, spans: bool) -> int:
+        """The ranks that compute each group's routing: the model ranks of
+        expert parallelism, and the batch ranks when a group spans them."""
+        return ((self.mesh.size("model") if self.experts else 1)
+                * (self.batch_ranks if spans else 1))
+
+    def moe_sum(self, x):
+        """A rank's share of an MoE term summed over the ranks that share
+        its groups (the batch axes, and ``model`` under expert
+        parallelism): the global value, its gradient the share's."""
+        axes = set(self.mesh.axes(self.batch)) | ({"model"} if self.experts else set())
+        return C.reduce_from(x, self.mesh, tuple(a for a in self.mesh.shape
+                                                 if a in axes))
+
+    def batch_sum_(self, x):
+        """``x`` summed over the batch axes, in place (no gradient)."""
+        return C.all_reduce_(x, self.mesh, self.batch)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding lookup, vocab-parallel where the vocab is sharded."""

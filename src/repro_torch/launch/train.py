@@ -7,9 +7,10 @@ process a mesh position (``launch.mesh.run_ranks``), the data and pod axes
 data-parallel, the model axis tensor-parallel, the config's FSDP settings
 as JAX's rules take them (``distributed/sharding.py``). ``--dist-backend``:
 ``nccl`` (the default on cuda) needs a card a rank; ranks that share a card,
-or run on the CPU, take ``gloo``. The dense, vlm and encoder families train
-on a mesh; the hybrid, MoE and ssm families are refused by name. On the
-CPU, four ranks at smoke size:
+or run on the CPU, take ``gloo``. Every arch trains on a mesh: the hybrid's
+RG-LRU and the ssm's Mamba mixer on the rank's channels, the MoE's experts
+split over the model axis. On the CPU, four ranks at smoke size (any
+arch):
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
       --smoke --device cpu --mesh 2x2 --dist-backend gloo --steps 3 \\
       --batch 4 --seq 32
@@ -67,7 +68,6 @@ from repro_torch import configs
 from repro_torch.core.attention import IMPLS
 from repro_torch.data import DataConfig
 from repro_torch.distributed.mesh import join_train_mesh
-from repro_torch.distributed.parallel import check_family
 from repro_torch.launch.mesh import BACKENDS, default_backend, run_ranks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.steps import make_train_step
@@ -158,7 +158,6 @@ def main(argv=None):
     if shape is None:
         result = _train(args, torch.device(args.device))[1]
     else:
-        check_family(_config(args))
         device_type = torch.device(args.device).type
         size = 1
         for n in shape.values():

@@ -62,23 +62,38 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 @torch.no_grad()
+def fill_(module: nn.Module, draws, keep=None) -> nn.Module:
+    """Fill ``module``'s parameters from ``draws``, (name, full tensor)
+    pairs made one at a time in the initialiser's order, each cast to its
+    parameter's dtype. ``keep(name, full) → tensor`` (a module built on
+    "meta"): each parameter becomes what ``keep`` returns for its full
+    tensor, which is dropped before the next is made."""
+    for name, full in draws:
+        w = module.get_parameter(name)
+        full = full.to(w.dtype)
+        if keep is None:
+            w.copy_(full)
+        else:
+            mod, _, attr = name.rpartition(".")
+            setattr(module.get_submodule(mod) if mod else module, attr,
+                    nn.Parameter(keep(name, full)))
+        del full
+    return module
+
+
+@torch.no_grad()
 def init_dense_(module: nn.Module, gen: torch.Generator,
                 keep=None) -> nn.Module:
     """Fill every parameter in place: norm weights (1-D) with ones, matrices
-    ``[d_in, d_out]`` with :func:`dense_init`. ``keep(name, full) → tensor``
-    (a module built on "meta"): each parameter becomes what ``keep``
-    returns for its full draw, before the next is drawn."""
+    ``[d_in, d_out]`` with :func:`dense_init` (``keep``: as
+    :func:`fill_`'s)."""
     def draw(w):
         if w.dim() == 1:
             return torch.ones(w.shape, dtype=w.dtype, device=gen.device)
         return dense_init(gen, w.shape[0], w.shape[1], w.dtype)
 
-    for name, w in list(module.named_parameters()):
-        if keep is None:
-            w.copy_(draw(w))
-        else:
-            setattr(module, name, nn.Parameter(keep(name, draw(w))))
-    return module
+    return fill_(module, ((name, draw(w)) for name, w in
+                          list(module.named_parameters())), keep)
 
 
 # ---------------------------------------------------------------------------
@@ -86,9 +101,10 @@ def init_dense_(module: nn.Module, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def weight(ctx: Optional[Ctx], w, key: str):
-    """Parameter ``w`` (named ``key`` in its block, as ``mixer.wq``, or at
-    the top, as ``embed``) as the layer computes with it: itself on one
-    device, the shard plan's view of it on a training mesh."""
+    """Parameter ``w`` (named ``key`` in its block, a mixer's leaf with the
+    block's kind, as ``attn:mixer.wq`` or ``mlp.wi``, or at the top, as
+    ``embed``) as the layer computes with it: itself on one device, the
+    shard plan's view of it on a training mesh."""
     return w if ctx is None or ctx.plan is None else ctx.plan.weight(w, key)
 
 
@@ -164,23 +180,24 @@ def init_mlp(gen, d_model, d_ff, dtype, gated: bool = True,
     return init_dense_(MLP(d_model, d_ff, dtype, device, gated), gen, keep)
 
 
-def apply_mlp(p: MLP, x, ctx: Optional[Ctx] = None):
+def apply_mlp(p: MLP, x, ctx: Optional[Ctx] = None, key: str = "mlp."):
     """Gated-SiLU FFN ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``, or the
     ungated ``gelu(x @ wi) @ wo`` with GELU's tanh form, which is
     ``jax.nn.gelu``'s default. On a training mesh whose ``model`` axis
     splits the FFN, ``wi`` holds this rank's slice of each half and the
-    partial ``@ wo`` is summed over ``model``."""
+    partial ``@ wo`` is summed over ``model``. ``key``: the leaves' prefix
+    in the block (``mlp.shared.`` for the MoE's shared experts)."""
     plan = None if ctx is None else ctx.plan
-    split = plan is not None and plan.mlp
+    split = plan is not None and plan.splits(key + "wi", 1)
     if plan is not None:
         x = plan.enter(x, split)
-    h = x @ weight(ctx, p.wi, "mlp.wi")
+    h = x @ weight(ctx, p.wi, key + "wi")
     if p.gated:
         g, u = h.chunk(2, dim=-1)
         h = F.silu(g) * u
     else:
         h = F.gelu(h, approximate="tanh")
-    out = h @ weight(ctx, p.wo, "mlp.wo")
+    out = h @ weight(ctx, p.wo, key + "wo")
     return out if plan is None else plan.leave(out, split)
 
 
@@ -292,12 +309,12 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     plan = ctx.plan
     if plan is not None:
         x = plan.enter(x, plan.heads)
-    q = (x @ weight(ctx, p.wq, "mixer.wq")).view(b, s, -1, hd)
-    k = (x @ kv_weight(ctx, p.wk, "mixer.wk")).view(b, s, -1, hd)
-    v = (x @ kv_weight(ctx, p.wv, "mixer.wv")).view(b, s, -1, hd)
+    q = (x @ weight(ctx, p.wq, "attn:mixer.wq")).view(b, s, -1, hd)
+    k = (x @ kv_weight(ctx, p.wk, "attn:mixer.wk")).view(b, s, -1, hd)
+    v = (x @ kv_weight(ctx, p.wv, "attn:mixer.wv")).view(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, weight(ctx, p.q_norm, "mixer.q_norm"))
-        k = rms_norm(k, weight(ctx, p.k_norm, "mixer.k_norm"))
+        q = rms_norm(q, weight(ctx, p.q_norm, "attn:mixer.q_norm"))
+        k = rms_norm(k, weight(ctx, p.k_norm, "attn:mixer.k_norm"))
     q = rope(q, positions).transpose(1, 2)
     k = rope(k, positions).transpose(1, 2)
     v = v.transpose(1, 2)
@@ -348,7 +365,7 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                             batch_offset=0 if plan is None else plan.batch_offset(b),
                             head_offset=0 if plan is None else plan.head_offset)
 
-    out = o.transpose(1, 2).reshape(b, s, -1) @ weight(ctx, p.wo, "mixer.wo")
+    out = o.transpose(1, 2).reshape(b, s, -1) @ weight(ctx, p.wo, "attn:mixer.wo")
     return (out if plan is None else plan.leave(out, plan.heads)), new_cache
 
 

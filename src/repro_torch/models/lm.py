@@ -23,9 +23,11 @@ caches; the serving steps, which drop them, do not compute them.
 
 On a training mesh (``ctx.plan``, a ``distributed.parallel.ShardPlan``)
 the parameters are the rank's shards and every layer runs its part:
-tensor-parallel over ``model``, FSDP weights gathered before use, the
-vocab-parallel embedding, logits and cross-entropy; ``loss_fn`` then
-returns this rank's term of the global loss (see the plan).
+tensor-parallel over ``model`` (attention heads, MLPs, the recurrent
+mixers' channels), expert-parallel MoE layers, FSDP weights gathered
+before use, the vocab-parallel embedding, logits and cross-entropy;
+``loss_fn`` then returns this rank's term of the global loss (see the
+plan), and the MoE metrics are global.
 
 Public entry points:
   init_params(cfg, seed=, device=, vocab_pad_to=, keep=) → LM (random weights)
@@ -192,17 +194,13 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
     drawn too, as JAX's are). The draws differ from JAX's;
     ``convert.convert_params`` carries JAX weights over.
 
-    keep(name, full) → tensor (the attention families with dense MLPs): the
-    model is built on "meta" and each parameter becomes what ``keep``
-    returns for its full draw before the next is drawn, in the same order
-    and so with the same values; a mesh rank keeps its shard, and at most
-    one full parameter is alive at a time."""
+    keep(name, full) → tensor: the model is built on "meta" and each
+    parameter becomes what ``keep`` returns for its full draw before the
+    next is drawn, in the same order and so with the same values; a mesh
+    rank keeps its shard, and at most one full parameter is alive at a
+    time."""
     gen = torch.Generator(device=device).manual_seed(seed)
     vpad = padded_vocab(cfg, vocab_pad_to)
-    if keep is not None and (cfg.moe is not None
-                             or set(cfg.block_pattern) != {"attn"}):
-        raise ValueError(f"{cfg.name}: init_params(keep=) draws the attention "
-                         f"families with dense MLPs only")
     model = LM(cfg, vpad, device=device if keep is None else "meta")
 
     def put(name, full):
@@ -221,18 +219,16 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
     for i, blk in enumerate(model.blocks):
         pre = f"blocks.{i}."
         put(pre + "norm1", ones(pre + "norm1"))
-        if keep is None:
-            blk.mixer = _MIXERS[blk.kind][1](gen, cfg, cfg.dtype)
-        else:
-            blk.mixer = layers.init_attention(gen, cfg, cfg.dtype,
-                                              keep=under(pre + "mixer."))
+        blk.mixer = _MIXERS[blk.kind][1](gen, cfg, cfg.dtype,
+                                         keep=under(pre + "mixer."))
         if blk.kind == "ssm":
             continue
         put(pre + "norm2", ones(pre + "norm2"))
-        blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype) if cfg.moe is not None
-                   else layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
-                                        gated=cfg.mlp_type == "gated_silu",
-                                        keep=under(pre + "mlp.")))
+        blk.mlp = (moe.init_moe(gen, cfg, cfg.dtype, keep=under(pre + "mlp."))
+                   if cfg.moe is not None else
+                   layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                                   gated=cfg.mlp_type == "gated_silu",
+                                   keep=under(pre + "mlp.")))
     put("embed", layers.dense_init(gen, vpad, cfg.d_model, cfg.dtype,
                                    scale=0.02))
     put("final_norm", ones("final_norm"))
@@ -353,8 +349,9 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
 
     On a training mesh (``ctx.plan``) the batch is this rank's rows and the
     returned loss this rank's term of the global one (its weighted sum over
-    the global weight sum: the terms' gradients sum to the loss's); the
-    metrics hold the global loss."""
+    the global weight sum, plus its share of ``MOE_AUX_WEIGHT · moe_aux``:
+    the terms' gradients sum to the loss's); the metrics hold the global
+    loss."""
     seg = batch.get("segment_ids")
     logits, _, metrics = forward(cfg, params, ctx, tokens=batch.get("tokens"),
                                  embeds=batch.get("embeds"),
@@ -371,7 +368,11 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
     if ctx.plan is not None:
         term, ce = ctx.plan.cross_entropy(logits, labels, cfg.vocab_size,
                                           weights)
-        return term, dict(metrics, ce=ce, loss=ce)
+        loss = ce
+        if cfg.moe is not None:     # global, its gradient this rank's share
+            term = term + MOE_AUX_WEIGHT * metrics["moe_aux"]
+            loss = ce + MOE_AUX_WEIGHT * metrics["moe_aux"].detach()
+        return term, dict(metrics, ce=ce, loss=loss)
     ce = layers.softmax_cross_entropy(logits, labels, cfg.vocab_size,
                                       weights=weights)
     loss = ce

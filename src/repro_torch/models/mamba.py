@@ -63,24 +63,29 @@ class Mamba(nn.Module):
 
 
 @torch.no_grad()
-def init_mamba(gen: torch.Generator, cfg, dtype) -> Mamba:
+def init_mamba(gen: torch.Generator, cfg, dtype, keep=None) -> Mamba:
     """A :class:`Mamba` with JAX's shapes and scales: ``dense_init``
     matrices, conv ``N(0, 1) · 0.1``, ``dt_bias`` 0, ``D`` 1 and the S4D-real
-    ``A_log = log(1..N)`` in every channel (A = -[1..N])."""
-    p = Mamba(cfg, dtype, gen.device)
+    ``A_log = log(1..N)`` in every channel (A = -[1..N]) (``keep``: as
+    ``layers.fill_``'s)."""
     mc = cfg.mamba
     d, di, n, r = cfg.d_model, mc.d_inner, mc.ssm_state, mc.dt_rank
-    for name, (d_in, d_out) in (("in_proj", (d, 2 * di)), ("w_bc", (di, 2 * n)),
-                                ("w_dt1", (di, r)), ("w_dt2", (r, di)),
-                                ("out_proj", (di, d))):
-        getattr(p, name).copy_(layers.dense_init(gen, d_in, d_out, dtype))
-    p.conv.copy_(torch.randn((mc.conv_kernel, di), generator=gen,
-                             device=gen.device) * 0.1)
-    p.dt_bias.zero_()
-    p.A_log.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32,
-                                         device=gen.device)).expand(di, n))
-    p.D.fill_(1.0)
-    return p
+    dev = gen.device
+
+    def draws():
+        for name, (d_in, d_out) in (("in_proj", (d, 2 * di)),
+                                    ("w_bc", (di, 2 * n)), ("w_dt1", (di, r)),
+                                    ("w_dt2", (r, di)), ("out_proj", (di, d))):
+            yield name, layers.dense_init(gen, d_in, d_out, dtype)
+        yield "conv", torch.randn((mc.conv_kernel, di), generator=gen,
+                                  device=dev) * 0.1
+        yield "dt_bias", torch.zeros((di,), device=dev)
+        yield "A_log", torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                              device=dev)).expand(di, n)
+        yield "D", torch.ones((di,), device=dev)
+
+    return layers.fill_(Mamba(cfg, dtype, dev if keep is None else "meta"),
+                        draws(), keep)
 
 
 def init_mamba_cache(cfg, batch: int, device):
@@ -175,9 +180,21 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
     through ``paged["state_slots"]`` / ``["state_local"]`` (the packed scan
     with zero or carried initial state, span-end states scattered back);
     decode updates rows [:B] where ``paged["kv_len"] > 0``, so masked and
-    inactive slots keep their state (as ``rglru.apply_rglru``)."""
+    inactive slots keep their state (as ``rglru.apply_rglru``).
+
+    On a training mesh (``ctx.plan``; no cache) whose ``model`` axis splits
+    the channels: ``in_proj`` column-parallel on this rank's channels of
+    both halves (u and z), the conv, ``dt_bias``, ``A_log``, ``D`` and the
+    chunked scan on them; ``w_bc`` and ``w_dt1`` its rows, their partial
+    products summed over ``model`` (B, C and the dt rank are every
+    channel's); ``w_dt2`` column-parallel; ``out_proj`` row-parallel and
+    summed."""
     b, s, _ = x.shape
-    u, z = (x @ p.in_proj).chunk(2, dim=-1)
+    plan = ctx.plan
+    split = plan is not None and plan.rnn
+    if plan is not None:
+        x = plan.enter(x, split)
+    u, z = (x @ layers.weight(ctx, p.in_proj, "ssm:mixer.in_proj")).chunk(2, dim=-1)
     a = -torch.exp(p.A_log)
 
     def scan_inputs(u):
@@ -185,8 +202,12 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
         projections run in the model's dtype, as in JAX."""
         u = F.silu(u).float()
         ux = u.to(x.dtype)
-        bm, cm = (ux @ p.w_bc).float().chunk(2, dim=-1)
-        dt = F.softplus((ux @ p.w_dt1 @ p.w_dt2).float() + p.dt_bias)
+        bc, dt = ux @ p.w_bc, ux @ p.w_dt1
+        if split:
+            bc, dt = plan.reenter(torch.cat([bc, dt], dim=-1)).split(
+                [bc.shape[-1], dt.shape[-1]], dim=-1)
+        bm, cm = bc.float().chunk(2, dim=-1)
+        dt = F.softplus((dt @ p.w_dt2).float() + p.dt_bias)
         return u, dt, bm, cm
 
     if paged is not None:
@@ -231,5 +252,6 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
         if cache is not None:             # keep the final state
             cache["h"].copy_(h)
             cache["conv"].copy_(new_conv)
-    out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
-    return out, cache
+    out = (y.to(x.dtype) * F.silu(z)) @ layers.weight(ctx, p.out_proj,
+                                                      "ssm:mixer.out_proj")
+    return (out if plan is None else plan.leave(out, split)), cache

@@ -45,20 +45,27 @@ class MoE(nn.Module):
 
 
 @torch.no_grad()
-def init_moe(gen: torch.Generator, cfg, dtype) -> MoE:
+def init_moe(gen: torch.Generator, cfg, dtype, keep=None) -> MoE:
     """A :class:`MoE` with JAX's scales (``N(0, 1)`` times ``d**-0.5`` for
-    the router and ``wi``, ``f**-0.5`` for ``wo``), drawn in f32 on the
-    generator's device."""
+    the router and ``wi``, ``f**-0.5`` for ``wo``; the shared experts'
+    ``dense_init``), drawn in f32 on the generator's device (``keep``: as
+    ``layers.fill_``'s)."""
     m = cfg.moe
-    d, f = cfg.d_model, m.d_ff_expert
-    p = MoE(cfg, dtype, gen.device)
-    p.router.copy_(layers.dense_init(gen, d, m.num_experts, torch.float32))
-    for w, scale in ((p.wi, d ** -0.5), (p.wo, f ** -0.5)):
-        w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32,
-                            device=gen.device).mul_(scale))
-    if m.num_shared_experts:
-        p.shared = layers.init_mlp(gen, d, m.num_shared_experts * f, dtype)
-    return p
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    width = m.num_shared_experts * f
+
+    def draws():
+        yield "router", layers.dense_init(gen, d, e, torch.float32)
+        for name, shape, scale in (("wi", (e, d, 2 * f), d ** -0.5),
+                                   ("wo", (e, f, d), f ** -0.5)):
+            yield name, torch.randn(shape, generator=gen, dtype=torch.float32,
+                                    device=gen.device).mul_(scale)
+        if m.num_shared_experts:
+            yield "shared.wi", layers.dense_init(gen, d, 2 * width, dtype)
+            yield "shared.wo", layers.dense_init(gen, width, d, dtype)
+
+    return layers.fill_(MoE(cfg, dtype, gen.device if keep is None else "meta"),
+                        draws(), keep)
 
 
 def capacity(group_size: int, num_experts: int, top_k: int,
@@ -102,13 +109,13 @@ def queue_positions(idx, g_sz: int, num_experts: int):
     return pos.reshape(n, k)
 
 
-def route(router, tokens, m, g_sz: int):
-    """The routing of ``tokens [n, d]`` in groups of ``g_sz``: (probs [n, E]
-    f32, gates [n, k] renormalised then zeroed where dropped, idx [n, k],
-    keep [n, k] bool, pos [n, k] each choice's place in its expert's queue,
-    capacity)."""
+def route(logits, m, g_sz: int):
+    """The routing of router ``logits [n, E]`` (f32) in groups of
+    ``g_sz``: (probs [n, E], gates [n, k] renormalised then zeroed where
+    dropped, idx [n, k], keep [n, k] bool, pos [n, k] each choice's place in
+    its expert's queue, capacity)."""
     e, k = m.num_experts, m.top_k
-    probs = torch.softmax(tokens.float() @ router, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k(probs, k)
     gates = gates / gates.sum(-1, keepdim=True)
     cap = capacity(g_sz, e, k, m.capacity_factor)
@@ -124,42 +131,83 @@ def apply_moe(p: MoE, x, ctx: layers.Ctx, cfg, *, metrics: bool = True):
     the choices, without gradient) and the fraction of choices dropped.
     With ``metrics=False`` the second item is ``{}`` and neither is
     computed (the serving steps, which drop them as JAX's jitted steps
-    drop them as dead code). ``ctx`` is unused (JAX's carries sharding
-    constraints)."""
+    drop them as dead code).
+
+    On a training mesh (``ctx.plan``; ``x`` this rank's rows) the groups
+    are the global microbatch's: ``group_size`` of the global token count;
+    a rank routes its own groups where they hold whole groups, else every
+    group (its tokens gathered over the batch axes; it keeps its rows of
+    the output). Under expert parallelism the router's logits are gathered
+    over ``model``, the rank runs its experts on their slots and the
+    output is summed over ``model``; the shared experts are tensor-parallel
+    as ``layers.apply_mlp``. The metrics are global: ``moe_aux`` the sum of
+    every rank's share (its gradient the share's: the term enters the loss
+    once), ``moe_dropped`` the global kept count over the global
+    choices."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
+    plan = ctx.plan
     tokens = x.reshape(b * s, d)
+    n_own = tokens.shape[0]
+    n_all = n_own * (1 if plan is None else plan.batch_ranks)
+    g_sz = group_size(n_all, m.group_size)
+    spans = n_own % g_sz != 0          # a group spans batch ranks (a mesh)
+    ep = plan is not None and plan.experts
+    if spans:
+        tokens = plan.gather_batch(tokens)
+    if plan is not None:
+        tokens = plan.enter(tokens, ep)
     n = tokens.shape[0]
-    g_sz = group_size(n, m.group_size)
     n_g = n // g_sz
-    probs, gates, idx, keep, pos, cap = route(p.router, tokens, m, g_sz)
+    logits = tokens.float() @ layers.weight(ctx, p.router, "mlp.router")
+    probs, gates, idx, keep, pos, cap = route(
+        plan.expert_logits(logits) if ep else logits, m, g_sz)
 
-    # slot (expert, group, place) of each kept choice in a buffer
-    # [E, n_g·cap, d]; dropped choices go to one trailing row, cut off
-    n_slots = e * n_g * cap
+    # slot (expert, group, place) of each kept choice of this rank's experts
+    # (e_loc from e0; all of them on one device) in a buffer
+    # [e_loc, n_g·cap, d]; the other choices go to one trailing row, cut off
+    e_loc, e0 = (e, 0) if plan is None else (plan.experts_local,
+                                             plan.expert_offset)
+    mine = keep if e_loc == e else keep & (idx >= e0) & (idx < e0 + e_loc)
+    n_slots = e_loc * n_g * cap
     grp = (torch.arange(n, device=x.device) // g_sz)[:, None]
-    slot = idx * (n_g * cap) + grp * cap + pos
-    dest = torch.where(keep, slot, n_slots).reshape(-1)
+    slot = (idx - e0) * (n_g * cap) + grp * cap + pos
+    dest = torch.where(mine, slot, n_slots).reshape(-1)
     xe = tokens.new_zeros(n_slots + 1, d).index_add(
         0, dest, tokens.repeat_interleave(k, dim=0))[:n_slots]
-    h = torch.bmm(xe.view(e, n_g * cap, d), p.wi)
+    h = torch.bmm(xe.view(e_loc, n_g * cap, d),
+                  layers.weight(ctx, p.wi, "mlp.wi"))
     g, u = h.chunk(2, dim=-1)
-    ye = torch.bmm(F.silu(g) * u, p.wo).view(n_slots, d)
-    # the combine: each token's kept choices, weighted by their gates (a
-    # dropped choice reads slot 0 with gate 0)
-    yk = ye[torch.where(keep, slot, 0)]                          # [n, k, d]
-    out = torch.bmm(gates.to(x.dtype)[:, None], yk)[:, 0].view(b, s, d)
+    ye = torch.bmm(F.silu(g) * u,
+                   layers.weight(ctx, p.wo, "mlp.wo")).view(n_slots, d)
+    # the combine: each token's choices of these experts, weighted by their
+    # gates (another choice reads slot 0 with gate 0)
+    yk = ye[torch.where(mine, slot, 0)]                          # [n, k, d]
+    w = gates if e_loc == e else gates * mine
+    out = torch.bmm(w.to(x.dtype)[:, None], yk)[:, 0]
+    if spans:
+        out = plan.own_rows(out, n_own)
+    if plan is not None:
+        out = plan.leave(out, ep)
+    out = out.view(b, s, d)
     if p.shared is not None:
-        out = out + layers.apply_mlp(p.shared, x)
+        out = out + layers.apply_mlp(p.shared, x, ctx, "mlp.shared.")
     if not metrics:
         return out, {}
 
     density = one_hot(idx, e).sum(1).float().view(n_g, g_sz, e).mean(1)
     router_mean = probs.view(n_g, g_sz, e).mean(1)
-    aux = e * (density * router_mean).sum(-1).mean()
-    dropped = 1.0 - keep.sum() / (n_g * g_sz * k)
-    return out, {"moe_aux": aux, "moe_dropped": dropped}
+    balance = (density * router_mean).sum(-1)
+    kept = keep.sum()
+    if plan is None:
+        aux = e * balance.mean()
+    else:
+        aux = plan.moe_sum(e * balance.sum()
+                           / (n_all // g_sz * plan.moe_share(spans)))
+        if not spans:
+            kept = plan.batch_sum_(kept)
+    return out, {"moe_aux": aux, "moe_dropped": 1.0 - kept / (n_all * k)}
 
 
 def moe_reference(p: MoE, x, cfg):

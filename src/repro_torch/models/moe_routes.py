@@ -26,11 +26,14 @@ class RouteRecorder:
     ``calls``. With ``replay`` (another run's ``calls``), routes each call as
     that run routed its call of the same index, the gates this run's
     probabilities of those experts, and counts in ``flips`` / ``decisions``
-    the choices this run would have made otherwise. The model has no flag
-    for this: the module's function is swapped and restored."""
+    the choices this run would have made otherwise. ``part`` (i, n): this
+    run is a training mesh's rank, which routes the i-th of n equal shares
+    of a replayed call's tokens where its call has 1/n of them (its own
+    groups; a call of all of them replays all). The model has no flag for
+    this: the module's function is swapped and restored."""
 
-    def __init__(self, replay=None):
-        self.replay, self.calls = replay, []
+    def __init__(self, replay=None, part=(0, 1)):
+        self.replay, self.part, self.calls = replay, part, []
         self.flips = self.decisions = 0
 
     def __enter__(self):
@@ -46,6 +49,10 @@ class RouteRecorder:
         if self.replay is None:
             return vals, idx
         forced = self.replay[len(self.calls) - 1]
+        if forced.shape[0] != idx.shape[0]:
+            i, n = self.part
+            rows = forced.shape[0] // n
+            forced = forced[i * rows:(i + 1) * rows]
         self.flips += int(_missing(idx, forced).sum())
         self.decisions += idx.numel()
         return probs.gather(-1, forced), forced

@@ -48,21 +48,24 @@ class RGLRU(nn.Module):
 
 
 @torch.no_grad()
-def init_rglru(gen: torch.Generator, cfg, dtype) -> RGLRU:
+def init_rglru(gen: torch.Generator, cfg, dtype, keep=None) -> RGLRU:
     """An :class:`RGLRU` with JAX's shapes and scales: ``dense_init``
     matrices, conv ``N(0, 1) · 0.1`` and Λ = softplus⁻¹(−log(a) / c) for
-    a ~ U(0.9, 0.999), so that the retention at r = 1 lies in (0.9, 0.999)."""
-    p = RGLRU(cfg, dtype, gen.device)
+    a ~ U(0.9, 0.999), so that the retention at r = 1 lies in (0.9, 0.999)
+    (``keep``: as ``layers.fill_``'s)."""
     d, dr = cfg.d_model, cfg.rglru.d_rnn
-    for name, (d_in, d_out) in (("wx", (d, dr)), ("wg", (d, dr)),
-                                ("wo", (dr, d)), ("w_inp", (dr, dr)),
-                                ("w_rec", (dr, dr))):
-        getattr(p, name).copy_(layers.dense_init(gen, d_in, d_out, dtype))
-    p.conv.copy_(torch.randn((4, dr), generator=gen, device=gen.device) * 0.1)
-    lam = torch.rand((dr,), generator=gen, device=gen.device) * 0.099 + 0.9
-    target = -torch.log(lam) / _C
-    getattr(p, "lambda").copy_(torch.log(torch.expm1(target)))
-    return p
+
+    def draws():
+        for name, (d_in, d_out) in (("wx", (d, dr)), ("wg", (d, dr)),
+                                    ("wo", (dr, d)), ("w_inp", (dr, dr)),
+                                    ("w_rec", (dr, dr))):
+            yield name, layers.dense_init(gen, d_in, d_out, dtype)
+        yield "conv", torch.randn((4, dr), generator=gen, device=gen.device) * 0.1
+        lam = torch.rand((dr,), generator=gen, device=gen.device) * 0.099 + 0.9
+        yield "lambda", torch.log(torch.expm1(-torch.log(lam) / _C))
+
+    return layers.fill_(RGLRU(cfg, dtype, gen.device if keep is None else "meta"),
+                        draws(), keep)
 
 
 def init_rglru_cache(cfg, batch: int, device):
@@ -215,16 +218,30 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
     through ``paged["state_slots"]`` / ``["state_local"]`` (the packed scan
     with zero or carried initial state, span-end states scattered back);
     decode updates rows [:B] where ``paged["kv_len"] > 0``, so masked and
-    inactive slots keep their state."""
+    inactive slots keep their state.
+
+    On a training mesh (``ctx.plan``; no cache) whose ``model`` axis splits
+    the channels: ``wx``/``wg`` column-parallel, the conv, the gates' Λ and
+    the scan on this rank's channels, ``w_inp``/``w_rec`` its rows (the
+    rules shard their first ``rnn`` dim only), so the gates' products are
+    partial sums, summed over ``model`` and cut to its channels; ``wo``
+    row-parallel and summed."""
     b, s, _ = x.shape
+    plan = ctx.plan
+    split = plan is not None and plan.rnn
+    if plan is not None:
+        x = plan.enter(x, split)
     lam = getattr(p, "lambda")
-    xr = x @ p.wx                                      # recurrence branch
-    gate = F.gelu(x @ p.wg, approximate="tanh")        # gate branch (jax.nn.gelu)
+    xr = x @ layers.weight(ctx, p.wx, "rec:mixer.wx")         # recurrence branch
+    gate = F.gelu(x @ layers.weight(ctx, p.wg, "rec:mixer.wg"),
+                  approximate="tanh")              # gate branch (jax.nn.gelu)
 
     def gates_of(xr):
         xf = xr.float()
-        return (xf, torch.sigmoid(xf @ p.w_rec.float()),
-                torch.sigmoid(xf @ p.w_inp.float()))
+        r, i = xf @ p.w_rec.float(), xf @ p.w_inp.float()
+        if split:
+            r, i = plan.scatter(torch.stack([r, i])).unbind(0)
+        return xf, torch.sigmoid(r), torch.sigmoid(i)
 
     if paged is not None:
         if cache is None:
@@ -274,5 +291,5 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
         if cache is not None:              # prefill: keep the final state
             cache["h"].copy_(h[:, -1])
             cache["conv"].copy_(new_conv)
-    out = (h.to(x.dtype) * gate) @ p.wo
-    return out, cache
+    out = (h.to(x.dtype) * gate) @ layers.weight(ctx, p.wo, "rec:mixer.wo")
+    return (out if plan is None else plan.leave(out, split)), cache

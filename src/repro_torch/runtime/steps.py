@@ -1,7 +1,6 @@
 """Train, prefill and decode steps (counterpart of ``repro.runtime.steps``):
-on one device; the train step also over a training mesh (the attention
-families; ``distributed/parallel.py``), the paged serving steps over a pool
-mesh.
+on one device; the train step also over a training mesh (every family;
+``distributed/parallel.py``), the paged serving steps over a pool mesh.
 
 PyTorch runs eagerly: there is no jit. The train step updates the params and
 the optimizer state in place; the serving steps run under
@@ -18,8 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.parallel import (NamedSharding, ShardPlan,
-                                             batch_shardings, check_family,
-                                             shard_batch)
+                                             batch_shardings, shard_batch)
 from repro_torch.distributed.sharding import (ShardingRules, default_rules,
                                              vocab_pad_for)
 from repro_torch.checkpoint import CheckpointShapeError
@@ -96,8 +94,8 @@ def make_train_step(cfg, *, mesh=None, opt: AdamWConfig = AdamWConfig(),
     """The training step of ``cfg`` with attention ``impl``, on one device
     or, with ``mesh`` (this rank's ``distributed.mesh.TrainMesh``), over a
     mesh of ranks (``default_rules(mesh, cfg)``, the vocab padded to the
-    model axis; the dense, vlm and encoder families, the others raise
-    ``parallel.MeshFamilyError``).
+    model axis; every family, its metrics global as one device reports
+    them).
 
     microbatch: split the batch into rows of this size and accumulate:
     grads and loss are the means over microbatches, the other metrics those
@@ -188,7 +186,6 @@ def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
 
 def _mesh_train_step(cfg, mesh, opt, impl, total_steps, warmup_steps,
                      microbatch, torch_chunk, device) -> TrainArtifacts:
-    check_family(cfg)
     rules = default_rules(mesh, cfg)
     vpad_to = vocab_pad_for(mesh)
     vpad = lm.padded_vocab(cfg, vpad_to)
