@@ -67,6 +67,12 @@ Phases, each of which exits non-zero on failure:
              the backward (B 1, S 2048), the contiguous decode over 1056
              slots (kv_len with 0) and the paged decode at page 16 (decode
              rows, a 256-row chunk), each case's launch geometry printed;
+             and row 4's shard-partials mode (``flash_decode_partials``,
+             one shard of a sequence-sharded cache) at recurrentgemma-2b's
+             10/1 heads, D 256: each half of a 2048-slot ring with rows at
+             kv_len 0, 1, inside and full, f32 and bf16, 1 and 4 splits,
+             the state against its plain version (empty rows exact) and
+             the halves merged against the contiguous kernel on the ring;
 4. serve   — (a) the contiguous serving path (``launch/serve.py``:
              ``make_serve_steps`` + ``greedy_generate``) on granite-3-2b at
              full width and depth (40 layers, f32, random weights from a
@@ -81,24 +87,19 @@ Phases, each of which exits non-zero on failure:
              each with ``impl="kernel"`` and ``impl="torch"``: every request
              completes, ``flash_fwd`` launches 10 × prefill calls and the
              paged kernel 10 × (decode + chunk + verify calls), and the
-             tokens equal the torch run's up to a printed near-tie; (c) the
-             distributed paged engine (``ServingEngine(mesh=)``): two ranks
-             spawned on the one card with gloo (NCCL refuses two ranks on a
-             device), each with the whole model and half of every layer's
-             page pool (``--dist-ranks``, ``--dist-backend`` change that), first probing gloo's CUDA all_reduce (MAX, SUM) and
-             a page copy across shards, then three of (b)'s modes (eager,
-             lazy, prefix + chunk): tokens equal on both ranks and to (b)'s
-             kernel run up to a printed near-tie, the gated kernel launched
-             10 × (decode + chunk + verify calls) on each rank and the
-             ungated one never; host time in the merge collectives; after
-             phase 4d the same for recurrentgemma-2b at full width and
-             7 of its 26 layers in 4d's three paged modes, ``poison_reclaimed`` in each
-             (every rank keeps every recurrent state row beside its half
-             of the pools; out-of-window pages of the sharded pool
+             tokens equal the torch run's up to a printed near-tie; (c) after
+             phase 4d the distributed paged engine (``ServingEngine(mesh=)``):
+             two ranks on the one card with gloo (NCCL refuses two ranks
+             on a device; ``--dist-ranks``, ``--dist-backend`` change
+             that), recurrentgemma-2b at full width and
+             3 of its 26 layers in 4d's three paged modes, ``poison_reclaimed`` in each
+             (every rank keeps every recurrent state row, on its half of
+             the channels, and its half of the weights and of the pools;
+             out-of-window pages of the sharded pool
              reclaimed; eager with ``autotune``: rank 0's plan for one
              shard's launch, broadcast): every request completes, tokens
              equal on both ranks and to 4d's kernel run up to a printed
-             near-tie, the gated kernel launched 2 × (decode + chunk calls)
+             near-tie, the gated kernel launched 1 × (decode + chunk calls)
              at D 256 and a GQA group of 10 on each rank, every launch at
              the mode's split count (the plan in eager, else 1), each
              rank's peak memory printed;
@@ -112,12 +113,12 @@ Phases, each of which exits non-zero on failure:
              at one split (greedy tokens identical, logits within 1e-3 of
              max|logit|, counters 8 ``flash_fwd`` and 8 x 31
              ``flash_decode``); (b) the paged engine (page 16, 8 slots) at
-             7 of the 26 layers (2 attention) on
+             3 of the 26 layers (1 attention) on
              12 seeded requests of 1024-3072 prompt and 16-48 new tokens in
              three modes: eager with window reclaim, lazy on half the pool
              with preemption forced by a seeded storm plan and
              ``poison_reclaimed``, chunked prefill of 512: tokens equal to
-             the torch impl's up to a printed near-tie, counters 2 x calls;
+             the torch impl's up to a printed near-tie, counters 1 x calls;
              prefix sharing and speculation refused; peak memory;
 4e. moe    — deepseek-moe-16b (d_model 2048, 16/16 heads, head dim 128,
              64 experts top 6 and 2 shared, capacity factor 1.25, groups of
@@ -191,6 +192,29 @@ Phases, each of which exits non-zero on failure:
              chunks of 256) as phase 4b's; prints prefill ms, ms a decode
              step beside the bound of reading the weights and the cache
              once, tokens/s and peak memory;
+4i. mesh serve — serving over the sharding rules (``launch/serve.py
+             --mesh``: ``ShardPlan.serving``, weights tensor-parallel over
+             ``model``, each rank drawing only its shard) on four gloo ranks
+             sharing the card: (a) granite-3-2b at full width and 2 layers,
+             contiguous on (data 2, model 2), batch 8 x 512 + 32; (b)
+             recurrentgemma-2b at full width and 3 layers (rec, rec, attn),
+             contiguous on (model 2), batch 4 x 3072 + 16, its one kv head
+             on ``kv_cache_seq`` (1024 of the ring's 2048 slots a rank,
+             decode through row 4's shard partials merged over ``model``);
+             each against one card's run of the same weights and prompts:
+             tokens equal up to a printed near-tie, the first logits within
+             2e-5 of max|logit| beside the cuBLASLt floor, rows 1 and 4's
+             launches a rank; (c) phase 4b's granite paged engine (5
+             layers) on (data 2, model 2), weights sharded, first probing
+             the backend's CUDA all_reduce and a page copy across shards,
+             in two modes: eager, and a 256-token shared prefix with
+             256-token chunks (prefix pages shared, chunk rows over the
+             pool's shards): tokens equal on every rank and to 4b's
+             kernel run of the mode up to a printed near-tie, the gated
+             kernel launched 5 x (decode + chunk + verify calls) on each
+             rank; every arm prints prefill (warm, and the process's
+             first) and decode times, tokens/s a rank, the collectives' host seconds, the
+             peak memory a rank, beside the card's name and power limit;
 5. train   — the port's training path on granite-3-2b at full width and
              depth (f32, remat, dropout 0.1, batch 4 × 2048 from
              ``make_batch``): (a) one loss-and-grad pass with
@@ -305,7 +329,10 @@ Phases, each of which exits non-zero on failure:
              forward and decode also at dbrx-132b's (``dbrx_shape_``); and
              row 6 at recurrentgemma-2b's engine decode, one shard of two
              (8 slots, D 256, G 10, window 2048, page 16), with its device
-             and host time and rank 0's launches of phase 4c; six more hold
+             and host time and rank 0's launches of phase 4c, and row 4's
+             shard-partials mode at phase 4i(b)'s decode (one shard of two
+             of the 2048-slot ring, B 4, D 256, G 10) with rank 0's
+             launches there; six more hold
              rows 1 and 2-3 at hubert-xlarge's training shape (B 8, 16/16
              heads, S 1024, D 80, non-causal, dropout 0.1; SDPA with
              ``is_causal`` False) and rows 1 (``train_shape_``: B 1, S 2048,
@@ -321,8 +348,8 @@ miss). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 or outside a checkout, it exits non-zero before printing any result.
 
 ``python3 chip_smoke.py --dist-ranks 4 --dist-backend nccl`` on a machine
-with four cards gives phase 4c a card a rank and NCCL; every other phase
-runs on ``cuda:0`` as without the flags.
+with four cards gives phases 4c and 4i a card a rank and NCCL; every other
+phase runs on ``cuda:0`` as without the flags.
 """
 
 from __future__ import annotations
@@ -487,6 +514,22 @@ MESH_FAMILY_SHARDS = {
     "deepseek_moe_16b": (2, 16, 16, 2048, 128, None, (1, 2)),
 }
 
+# phase 4i, serving over the sharding rules (launch/serve.py --mesh): 4 gloo
+# ranks sharing the card. arch -> (layers, batch, prompt, new tokens, mesh):
+# granite-3-2b at full width and 2 layers (the depth where phase 5g's mesh
+# clears the f32 gate), contiguous on (data 2, model 2); recurrentgemma-2b
+# at full width and 3 layers (rec, rec, attn), 4 x 3072 past its 2048-slot
+# ring, on (model 2), each data row's two ranks a mesh of their own: its one
+# kv head takes kv_cache_seq, 1024 slots a rank. Then phase 4b's granite
+# paged engine (PAGED_LAYERS) on (data 2, model 2) in MESH_PAGED_MODES, its
+# weights sharded (phase 4c's granite arm, folded in here)
+MESH_SERVE_SHAPE = {"data": 2, "model": 2}
+MESH_SERVE = {"granite_3_2b": (2, 8, 512, 32, MESH_SERVE_SHAPE),
+              "recurrentgemma_2b": (3, 4, 3072, 16, {"model": 2})}
+# the first step's logits of a mesh against one card, of max|logit|: the
+# kernels' f32 tolerance
+MESH_SERVE_LOGIT_TOL = 2e-5
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -515,6 +558,10 @@ def main(argv=None) -> None:
     ap.add_argument("--only-5g", action="store_true",
                     help="build the kernels, run phase 5g alone and print no "
                          "result line")
+    ap.add_argument("--only-4i", action="store_true",
+                    help="build the kernels, run row 4's shard-partials "
+                         "checks, phase 4b (its reference) and phase 4i, and "
+                         "print no result line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py: run it from "
@@ -572,11 +619,20 @@ def main(argv=None) -> None:
         mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)
         clock(f"phase 5g at {args.mesh_layers} layers, alone")
         return
+    if args.only_4i:
+        errs = shard_partials_kernel_phase(torch, kdecode)
+        _, paged_tokens = paged_serve_phase(torch, kfwd, kdecode)
+        clock("phase 4b")
+        mesh_serve = mesh_serve_phase(torch, paged_tokens, args.dist_backend, smi)
+        clock("phase 4i")
+        shard_partials_times_phase(torch, kdecode, mesh_serve, errs)
+        return
 
     # ---------------- phase 3: kernels vs plain versions ----------------
     errs = kernel_phase(torch, kfwd, kdecode)
     errs.update(paged_kernel_phase(torch, kdecode))
     errs.update(gated_kernel_phase(torch, kdecode))
+    errs.update(shard_partials_kernel_phase(torch, kdecode))
     errs.update(bwd_kernel_phase(torch, kfwd, kbwd))
     clock("phase 3 (kernels vs plain versions)")
 
@@ -584,9 +640,6 @@ def main(argv=None) -> None:
     launches = serve_phase(torch, kfwd, kdecode)
     paged_launches, paged_tokens = paged_serve_phase(torch, kfwd, kdecode)
     clock("phases 4 and 4b (granite-3-2b contiguous and paged)")
-    dist_launches = dist_serve_phase(torch, paged_tokens, args.dist_ranks,
-                                     args.dist_backend)
-    clock("phase 4c (granite-3-2b over the ranks)")
 
     # ---------------- phase 4d: the hybrid recurrentgemma-2b ----------------
     torch.cuda.reset_peak_memory_stats()
@@ -599,7 +652,7 @@ def main(argv=None) -> None:
     clock("phase 4d (recurrentgemma-2b contiguous and paged)")
     # phase 4c for the hybrid: its paged engine over the ranks
     hybrid_dist = dist_serve_phase(torch, hybrid_tokens, args.dist_ranks,
-                                   args.dist_backend, "recurrentgemma_2b")
+                                   args.dist_backend)
     clock("phase 4c (recurrentgemma-2b over the ranks)")
 
     # ---------------- phase 4e: the MoE family ----------------
@@ -617,6 +670,10 @@ def main(argv=None) -> None:
     # ---------------- phase 4h: the vlm family ----------------
     vlm_serve = vlm_serve_phase(torch, kfwd, kdecode)
     clock("phase 4h (llava-next-34b contiguous and paged)")
+
+    # ---------------- phase 4i: serving over the sharding rules ----------------
+    mesh_serve = mesh_serve_phase(torch, paged_tokens, args.dist_backend, smi)
+    clock("phase 4i (serving over the sharding rules)")
 
     # ---------------- phase 5: the training path ----------------
     train_launches = train_phase(torch, kfwd, kbwd)
@@ -639,9 +696,10 @@ def main(argv=None) -> None:
     rows.append(bwd_times_phase(torch, kfwd, kbwd, train_launches, rows[0]))
     fwd_times_phase(rows[0])
     rows.append(paged_times_phase(torch, kdecode, paged_launches, errs))
-    rows.append(gated_times_phase(torch, kdecode, dist_launches, errs))
+    rows.append(gated_times_phase(torch, kdecode, mesh_serve["paged"], errs))
     device_times_phase(rows)
     rows.append(hybrid_gated_times_phase(torch, kdecode, hybrid_dist))
+    rows.append(shard_partials_times_phase(torch, kdecode, mesh_serve, errs))
     rows[0]["launches_by_path"]["paged_serve"] = paged_launches["flash_fwd"]
     rows += hybrid_times_phase(torch, kfwd, kdecode, hybrid_launches,
                                hybrid_paged, hybrid_train, errs)
@@ -649,6 +707,10 @@ def main(argv=None) -> None:
     rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
     rows += frontend_times_phase(torch, kfwd, kbwd, kdecode, vlm_serve,
                                  enc_train, vlm_train)
+    for row in rows:           # phase 4i's launches a rank of rows 1 and 4
+        if row["name"] in ("flash_fwd", "flash_decode"):
+            row.setdefault("launches_by_path", {})["mesh_serve_by_rank"] = \
+                mesh_serve["by_rank"][row["name"]]
     for row in rows:           # the forward's and the backward's granite rows
         if row["name"] in ("flash_fwd", "flash_bwd"):
             row.setdefault("launches_by_path", {})["mesh_train_by_rank"] = [
@@ -1262,6 +1324,75 @@ def gated_kernel_phase(torch, kdecode):
     return errs
 
 
+def shard_partials_kernel_phase(torch, kdecode):
+    """Row 4's shard-partials mode (``flash_decode_partials``: one shard of
+    a contiguous cache whose sequence is split over ranks, the decode of
+    ``kv_cache_seq``) against its plain version at recurrentgemma-2b's
+    geometry (10/1 heads, D 256): each half of a 2048-slot ring (1024 slots
+    a rank on ``model`` 2), rows holding none, one, some and all of a
+    shard's slots (kv_len 0, 1, inside, full), f32 and bf16, 1 and 4
+    splits: the normalised state and its log-sum-exp, empty rows exact
+    (acc 0, m NEG_INF, l 0), and the two shards merged against the
+    contiguous kernel over the whole ring."""
+    from repro_torch.core import online_softmax as osm
+
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    b, hq, hkv, d, ring = 4, 10, 1, 256, 2048
+    half = ring // 2
+    lens = [0, 1, 1500, 2048]      # each row's valid slots of the ring
+    errs, worst = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        q = _rand(torch, gen, (b, hq, d), dtype)
+        k = _rand(torch, gen, (b, hkv, ring, d), dtype)
+        v = _rand(torch, gen, (b, hkv, ring, d), dtype)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for ns in (1, 4):
+            states, ok, e_max, el_max = [], True, 0.0, 0.0
+            for r in range(2):
+                n = (kv_len - r * half).clamp(0, half).to(torch.int32)
+                ks = k[:, :, r * half:(r + 1) * half].contiguous()
+                vs = v[:, :, r * half:(r + 1) * half].contiguous()
+                part = kdecode.flash_decode_partials(q, ks, vs, kv_len=n,
+                                                     num_splits=ns)
+                torch.cuda.synchronize()
+                ref = kdecode.flash_decode_partials_torch(q, ks, vs, kv_len=n,
+                                                          num_splits=ns)
+                (o, lse), (o_ref, lse_ref) = (_state_out(torch, *part),
+                                              _state_out(torch, *ref))
+                read = n > 0
+                e = _maxerr(o, o_ref)
+                el = _maxerr(lse[read], lse_ref[read])
+                empty = (float(part[0][~read].abs().max()) == 0.0
+                         and float(part[2][~read].abs().max()) == 0.0
+                         and bool((part[1][~read] == -1e30).all()))
+                ok = ok and e <= TOL[dn] and el <= LSE_TOL and empty
+                e_max, el_max = max(e_max, e), max(el_max, el)
+                states.append(osm.SoftmaxState(m=part[1], l=part[2],
+                                               acc=part[0]))
+            merged, _ = osm.finalize(osm.merge(*states), out_dtype=dtype)
+            whole = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=ns)
+            torch.cuda.synchronize()
+            es = _maxerr(merged, whole)
+            ok = ok and es <= TOL[dn]
+            worst = max(worst, e_max / TOL[dn], es / TOL[dn])
+            print(f"[kernels] flash_decode_partials rg shard of 1024 slots "
+                  f"splits={ns} {dn}: kv_len a shard {lens} split at {half}: "
+                  f"max|o - plain| {e_max:.3e} (tol {TOL[dn]:.1e}), max|lse - "
+                  f"plain| {el_max:.3e} (tol {LSE_TOL:.0e}), empty rows exact; "
+                  f"two shards merged vs the contiguous kernel on the whole "
+                  f"ring {es:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"flash_decode_partials splits={ns} {dn} disagrees with "
+                     f"its plain version or the contiguous kernel")
+            errs[f"flash_decode_partials/rg_shard/ns{ns}/{dn}"] = e_max
+            errs[f"flash_decode_partials/shards/rg/ns{ns}/{dn}"] = es
+        del q, k, v
+    print(f"[kernels] flash_decode_partials worst {worst:.3f} x tol")
+    torch.cuda.empty_cache()
+    return errs
+
+
 def bwd_kernel_phase(torch, kfwd, kbwd):
     """The fused backward kernel against its plain version, f32 and bf16,
     at the training shape and the edge cases, and against itself on a second
@@ -1556,19 +1687,19 @@ class StepRecorder:
         return seq.request.rid, len(seq.all_generated) + ahead
 
     def _prefill(self, tokens, seg, pos, dest, slots, caches):
+        # the step's logits: one row a prompt, in the row's order
         seg, slots = seg[0].cpu().numpy(), slots[0].cpu().numpy()
-        return [(self._key(slots[idx]), (0, int(idx)))
-                for idx in (int((seg == i).nonzero()[0][-1])
-                            for i in range(int(seg.max()) + 1))]
+        return [(self._key(slots[int((seg == i).nonzero()[0][-1])]), (i,))
+                for i in range(int(seg.max()) + 1)]
 
     def _chunk(self, tokens, pos, dest, ttab, kvl, slots, local, caches):
+        # the step's logits: one row a span, in the row's order
+        from repro_torch.models.lm import span_ends
+        ends = span_ends(slots)[0].nonzero()[:, 0].tolist()
         pos, slots = pos[0].cpu().numpy(), slots[0].cpu().numpy()
-        keys = []
-        for slot in set(slots[slots >= 0].tolist()):
-            idx = int((slots == slot).nonzero()[0][-1])
-            if pos[idx] + 1 == self.eng.scheduler.active[slot].request.prompt_len:
-                keys.append((self._key(slot), (0, idx)))
-        return keys
+        return [(self._key(slots[idx]), (j,)) for j, idx in enumerate(ends)
+                if pos[idx] + 1 ==
+                self.eng.scheduler.active[int(slots[idx])].request.prompt_len]
 
     def _decode(self, tok, caches, bt, kvl):
         return [(self._key(slot), (slot,))
@@ -1815,9 +1946,12 @@ def _engine_modes(torch, kfwd, kdecode, cfg, params, modes, tag, torch_chunk):
 # 16-48 new tokens on page 16 and 8 slots (the pool of a sequence: 196 pages)
 HYBRID_REQUESTS, HYBRID_PROMPT, HYBRID_GEN = 12, 3072, 48
 # its paged phases (4d's engine, 4c's ranks, which share 4d's reference) at
-# full width and 7 of its 26 layers (2 attention): at 26 they took 272 s of
-# the run, which phase 5g took past 1000 s (PERF.md)
-HYBRID_PAGED_LAYERS = 7
+# full width and 3 of its 26 layers (rec, rec, attn): at 26 they took
+# 272 s of the run, which phase 5g took past 1000 s, so 7 (2 attention);
+# then 4, when 4c's ranks began to shard the weights over model and to pay
+# for its tensor-parallel prefill in gloo collectives; then 3, to pay for
+# phase 4i's second paged mode (PERF.md)
+HYBRID_PAGED_LAYERS = 3
 HYBRID_MODES = {
     # name: (engine kwargs beyond page 16 and 8 slots, prefill row length,
     # half the pool); window reclaim is on in every mode (the arch has a
@@ -2129,7 +2263,10 @@ def _moe_metrics_share(torch, step, tag, calls=5, turns=3) -> None:
 
 
 DIST_RANKS = 2
-DIST_MODES = ("eager", "lazy", "prefix_chunk")
+# phase 4i(c)'s modes of phase 4b on the sharded engine: eager, and the
+# shared prefix with 256-token chunks (prefix pages shared across requests,
+# chunk rows over the pool's shards)
+MESH_PAGED_MODES = ("eager", "prefix_chunk")
 
 
 def _dist_pool(lazy: bool, n_shards: int, ps: int = 16, slots: int = 8):
@@ -2199,16 +2336,16 @@ def _collectives_probe(mesh, device) -> str:
 
 
 def _dist_modes(np, cfg, n_shards: int) -> dict:
-    """Phase 4c's modes for ``cfg``: {mode: (pool config, prefill row, engine
-    kwargs, requests)}. granite-3-2b: ``DIST_MODES`` of phase 4b on its pool
-    with one trash page a shard; recurrentgemma-2b: phase 4d's
-    ``HYBRID_MODES`` on its pool so sharded, ``poison_reclaimed`` in each,
-    ``autotune`` in eager."""
+    """The sharded paged engine's modes for ``cfg``: {mode: (pool config,
+    prefill row, engine kwargs, requests)}. granite-3-2b (phase 4i(c)):
+    ``MESH_PAGED_MODES`` of phase 4b on its pool with one trash page a
+    shard; recurrentgemma-2b (phase 4c): phase 4d's ``HYBRID_MODES`` on its
+    pool so sharded, ``poison_reclaimed`` in each, ``autotune`` in eager."""
     from repro_torch.serving import FaultPlan, PagedCacheConfig
 
     modes = {}
     if cfg.name == "granite-3-2b":
-        for mode in DIST_MODES:
+        for mode in MESH_PAGED_MODES:
             kw = PAGED_MODES[mode]
             lazy = kw.get("lazy", False)
             pages_per_seq, num_pages = _dist_pool(lazy, n_shards)
@@ -2232,11 +2369,10 @@ def _dist_modes(np, cfg, n_shards: int) -> dict:
     return modes
 
 
-def _dist_rank(mesh, device, arch="granite_3_2b"):
-    """One rank of phase 4c: for granite-3-2b probe the collectives on CUDA
-    tensors; then serve ``arch`` at full size on this rank's shard of the
-    pool in each of its ``_dist_modes``. Returns per mode what the parent
-    checks."""
+def _dist_rank(mesh, device):
+    """One rank of phase 4c: serve recurrentgemma-2b on this rank's shard of
+    the weights and of the pool in each of its ``_dist_modes``. Returns per
+    mode what the parent checks."""
     import numpy as np
     import torch
 
@@ -2244,16 +2380,17 @@ def _dist_rank(mesh, device, arch="granite_3_2b"):
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
     from repro_torch.models import lm
+    from repro_torch.runtime.steps import init_serve_params, serving_plan
     from repro_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    if arch == "granite_3_2b":
-        results["probe"] = _collectives_probe(mesh, device)
-    cfg = (granite_paged_config(torch) if arch == "granite_3_2b" else
-           hybrid_paged_config(torch))
-    params = lm.init_params(cfg, seed=0, device=device)
+    cfg = hybrid_paged_config(torch)
+    # this rank's shard of the weights under the serving rules, drawn leaf
+    # by leaf
+    params = init_serve_params(cfg, serving_plan(cfg, mesh, paged=True),
+                               seed=0, device=device)
     results["num_layers"] = lm.block_kinds(cfg).count("attn")
     launch = kdecode._launch_paged_valid
     for mode, (pcfg, prefill_len, kw, reqs) in _dist_modes(
@@ -2300,15 +2437,14 @@ def _dist_rank(mesh, device, arch="granite_3_2b"):
     return results
 
 
-def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str,
-                     arch: str = "granite_3_2b"):
-    """An arch at full width and depth through the port's distributed paged
+def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str):
+    """recurrentgemma-2b at full width through the port's distributed paged
     engine: ``n_ranks`` ranks (by default two sharing the card, gloo), each
-    holding 1/n of every layer's page pool and all the weights (and, for
-    recurrentgemma-2b, every recurrent state row), in three modes
-    (``_dist_modes``). Tokens equal on every rank and equal to the
-    single-device kernel run of phase 4b (granite-3-2b) or 4d
-    (recurrentgemma-2b) (or a printed near-tie); every request completes;
+    holding 1/n of every layer's page pool, its shard of the weights under
+    the serving rules and every recurrent state row on its share of the
+    channels, in three modes (``_dist_modes``). Tokens equal on every rank
+    and equal to phase 4d's single-device kernel run (or a printed
+    near-tie); every request completes;
     the gated kernel launched (attention layers) × (decode + chunk + verify
     calls) on each rank, the ungated one never. Returns rank 0's gated
     launches by mode."""
@@ -2317,19 +2453,18 @@ def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str,
     from repro_torch.launch.mesh import rank_device, run_ranks
     from repro_torch.perf import autotune
 
-    hybrid = arch == "recurrentgemma_2b"
-    tag = "[dist hybrid]" if hybrid else "[dist]"
-    modes = tuple(HYBRID_MODES) if hybrid else DIST_MODES
+    arch, tag, modes = "recurrentgemma_2b", "[dist hybrid]", tuple(HYBRID_MODES)
     devices = [str(rank_device(r, "cuda")) for r in range(n_ranks)]
     how = ("gloo through host memory on one card, not NVLink; NCCL refuses "
            "two ranks on one card" if backend == "gloo" else
            f"{backend}, a card a rank")
     print(f"{tag} {n_ranks} ranks on {', '.join(devices)} ({how}), each with "
-          f"{arch} f32 (random, seed 0) and 1/{n_ranks} of every layer's page "
-          f"pool{', every recurrent state row' if hybrid else ''}; modes "
+          f"its shard of {arch} f32 (random, seed 0; tensor parallel over "
+          f"model) and 1/{n_ranks} of every layer's page "
+          f"pool, every recurrent state row; modes "
           f"{', '.join(modes)}", flush=True)
     t0 = time.perf_counter()
-    ranks = run_ranks(_dist_rank, n_ranks, (arch,), backend=backend,
+    ranks = run_ranks(_dist_rank, n_ranks, backend=backend,
                       device_type="cuda", timeout_s=900)
     print(f"{tag} {ranks[0].get('probe', 'no probe')}; ranks done in "
           f"{time.perf_counter() - t0:.1f} s (spawn, weights, three modes)")
@@ -2379,9 +2514,9 @@ def dist_serve_phase(torch, paged_tokens, n_ranks: int, backend: str,
                 fail(f"{tag} {mode}: rank {rank}'s tokens differ from rank 0's")
         if mode == "lazy" and r0["stats"]["preemptions"] == 0:
             fail(f"{tag} lazy: no row was preempted")
-        if mode in ("prefix_chunk", "chunk_512") and r0["calls"]["chunk"] == 0:
+        if mode == "chunk_512" and r0["calls"]["chunk"] == 0:
             fail(f"{tag} {mode}: no chunked prefill ran")
-        if hybrid and r0["stats"]["pages_reclaimed"] == 0:
+        if r0["stats"]["pages_reclaimed"] == 0:
             fail(f"{tag} {mode}: no page of the sharded pool left the window")
         same, ties = _near_ties(np, r0["out"], ref_out, ref_margin,
                                 f"{tag} {mode}", "sharded")
@@ -2413,6 +2548,358 @@ def _near_ties(np, out, ref_out, ref_margin, where: str, label: str):
         if margin > LOGIT_REL_TOL * peak:
             fail(f"{where}: {ties[-1]}: not a near-tie")
     return same, ties
+
+
+def _mesh_serve_arm(torch, mesh, device, arch):
+    """One rank's share of phase 4i's contiguous arm of ``arch``
+    (``MESH_SERVE``): its shard of the weights (drawn leaf by leaf), the
+    prefill and the greedy decode steps, timed apart, with the collectives'
+    host seconds, the launches of rows 1 and 4 and the peak memory. Returns
+    numpy and floats (no tensors)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import paged as dpaged
+    from repro_torch.kernels import decode as kdecode
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.runtime.steps import make_serve_steps
+
+    layers, batch, prompt_len, gen_len, _ = MESH_SERVE[arch]
+    cfg = _mesh_serve_cfg(torch, arch)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    arts = make_serve_steps(cfg, max_len=prompt_len + gen_len, batch=batch,
+                            torch_chunk=prompt_len, device=device, mesh=mesh)
+    params = arts.init_fn(0)
+    prompt = _mesh_serve_prompt(torch, cfg, batch, prompt_len)
+    # the process's first prefill (its cuBLAS handles, allocator and
+    # kernels' first loads on a host shared by the ranks), then a warm one,
+    # whose collectives, caches and launches the arm keeps
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    arts.prefill_fn(params, prompt, arts.cache_init_fn())
+    torch.cuda.synchronize(device)
+    first_s = time.perf_counter() - t0
+    caches = arts.cache_init_fn()
+    shards = next((c.get("shards", 1) for c in caches if "k" in c), 1)
+    slots = next(c["k"].shape[2] for c in caches if "k" in c)
+    kfwd.launches = kdecode.launches = kdecode.launches_partials = 0
+    C.stats.update(calls=0, bytes=0, seconds=0.0)
+    dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, caches = arts.prefill_fn(params, prompt, caches)
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_coll = (C.stats["seconds"], C.stats["bytes"])
+    first = logits.float().cpu().numpy()
+    toks = [logits[:, :cfg.vocab_size].argmax(-1)]
+    launches_prefill = kfwd.launches
+    C.stats.update(calls=0, bytes=0, seconds=0.0)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(gen_len - 1):
+        logits, caches = arts.decode_fn(params, toks[-1], caches, prompt_len + i)
+        toks.append(logits[:, :cfg.vocab_size].argmax(-1))
+    torch.cuda.synchronize(device)
+    decode_s = time.perf_counter() - t0
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(), "first": first,
+            "first_prefill_s": first_s, "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "prefill_coll_s": prefill_coll[0], "prefill_coll_bytes": prefill_coll[1],
+            "decode_coll_s": C.stats["seconds"] + dpaged.merge_s,
+            "decode_coll_bytes": C.stats["bytes"], "merges": dpaged.merge_calls,
+            "launches": {"flash_fwd": launches_prefill,
+                         "flash_decode": kdecode.launches,
+                         "flash_decode_partials": kdecode.launches_partials},
+            "kv_seq": arts.plan.kv_seq, "shards": shards, "slots": slots,
+            "wq": tuple(next(p.shape for n, p in params.named_parameters()
+                             if n.endswith("mixer.wq"))),
+            "params": sum(p.numel() for p in params.parameters()),
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+
+
+def _mesh_serve_cfg(torch, arch):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch),
+                               num_layers=MESH_SERVE[arch][0],
+                               dtype=torch.float32)
+
+
+def _mesh_serve_prompt(torch, cfg, batch, prompt_len):
+    g = torch.Generator(device="cuda").manual_seed(41)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                         device="cuda")
+
+
+def _mesh_serve_rank(pool, device, shape):
+    """One rank of phase 4i: the collectives probe on its ``model`` axis,
+    granite's contiguous arm on the whole mesh, recurrentgemma-2b's on its
+    data row's ``model`` axis (the ranks of data row 0; the others wait),
+    then granite's paged engine in ``MESH_PAGED_MODES`` on the whole
+    mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import paged as dpaged
+    from repro_torch.distributed.mesh import as_train_mesh, join_train_mesh
+    from repro_torch.kernels import decode as kdecode
+    from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.runtime.steps import init_serve_params, serving_plan
+    from repro_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = join_train_mesh(shape)
+    out = {"coords": dict(mesh.coords),
+           "probe": _collectives_probe(mesh.pool, device)}
+    out["granite_3_2b"] = _mesh_serve_arm(torch, mesh, device, "granite_3_2b")
+    torch.cuda.empty_cache()
+    if mesh.coords["data"] == 0:
+        out["recurrentgemma_2b"] = _mesh_serve_arm(
+            torch, as_train_mesh(mesh.pool), device, "recurrentgemma_2b")
+        torch.cuda.empty_cache()
+    dist.barrier()
+    # granite's paged engine in MESH_PAGED_MODES, phase 4b's requests, on
+    # this rank's shard of the weights and of the pool
+    cfg = granite_paged_config(torch)
+    params = init_serve_params(cfg, serving_plan(cfg, mesh, paged=True),
+                               seed=0, device=device)
+    out["paged"] = {}
+    for mode, (pcfg, prefill_len, kw, reqs) in _dist_modes(
+            np, cfg, mesh.size("model")).items():
+        eng = ServingEngine(cfg, pcfg, params, impl="kernel", device=device,
+                            mesh=mesh, prefill_len=prefill_len,
+                            torch_chunk=512, **kw)
+        rec = StepRecorder(torch, eng, cfg.vocab_size)
+        pairs = []
+        _record_copies(eng, pairs)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        kfwd.launches = kdecode.launches = 0
+        kdecode.launches_paged = kdecode.launches_paged_valid = 0
+        dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+        C.stats.update(calls=0, bytes=0, seconds=0.0)
+        res, stats = eng.run([(t, g) for t, g in reqs])
+        torch.cuda.synchronize(device)
+        n_local = pcfg.num_pages // mesh.size("model")
+        out["paged"][mode] = {
+            "out": res, "stats": stats, "calls": dict(rec.calls),
+            "pool": (pcfg.num_pages, n_local),
+            "wq": tuple(eng.params.blocks[0].mixer.wq.shape),
+            "launches": {"flash_fwd": kfwd.launches,
+                         "flash_decode": kdecode.launches,
+                         "flash_paged_decode": kdecode.launches_paged,
+                         "flash_paged_decode_partials": kdecode.launches_paged_valid},
+            "merges": dpaged.merge_calls,
+            "coll_s": C.stats["seconds"] + dpaged.merge_s,
+            "coll_bytes": C.stats["bytes"], "cow_pairs": len(pairs),
+            "cow_across": sum(s // n_local != d // n_local for s, d in pairs),
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_reference(torch, arch):
+    """One card's run of phase 4i's contiguous arm of ``arch``: tokens, the
+    first logits, each generated token's top-2 margin and max|logit|, the
+    same prefill with cuBLASLt's GEMMs (the f32 floor of another order of
+    sums), and the times."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.runtime.steps import make_serve_steps
+
+    _, batch, prompt_len, gen_len, _ = MESH_SERVE[arch]
+    cfg = _mesh_serve_cfg(torch, arch)
+    arts = make_serve_steps(cfg, max_len=prompt_len + gen_len, batch=batch,
+                            torch_chunk=prompt_len, device="cuda")
+    params = arts.init_fn(0)
+    prompt = _mesh_serve_prompt(torch, cfg, batch, prompt_len)
+    res = greedy_generate(arts, params, prompt, gen_len, cfg.vocab_size)
+    margin = {}
+    for step, logits in enumerate(res.logits):
+        rows = logits[:, :cfg.vocab_size].float()
+        top = rows.topk(2, dim=-1).values
+        for b, (m, p) in enumerate(zip((top[:, 0] - top[:, 1]).tolist(),
+                                       rows.abs().amax(-1).tolist())):
+            margin[(b, step)] = (m, p)
+    first = res.logits[0].float()
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    try:
+        lt, _ = arts.prefill_fn(params, prompt, arts.cache_init_fn())
+    finally:
+        torch.backends.cuda.preferred_blas_library("cublas")
+    floor = float((lt.float() - first).abs().max() / first.abs().max())
+    out = {"tokens": res.tokens.cpu().numpy(), "first": first.cpu().numpy(),
+           "margin": margin, "floor": floor, "prefill_s": res.prefill_s,
+           "decode_s": res.decode_s}
+    del params, arts, res, lt, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
+    """Phase 4i: serving over the sharding rules (``launch/serve.py --mesh``:
+    ``make_serve_steps(mesh=)`` and ``ServingEngine(mesh=)`` under
+    ``ShardPlan.serving``) on four ranks sharing the card (gloo through
+    host memory; with ``--dist-backend nccl`` a card a rank). (a)
+    granite-3-2b contiguous on (data 2, model 2), (b) recurrentgemma-2b
+    contiguous on (model 2), its ring sequence-sharded (``kv_cache_seq``),
+    each against one card's run of the same weights and prompts: tokens
+    equal (or a printed near-tie), the first logits ``MESH_SERVE_LOGIT_TOL``
+    of max|logit| beside the cuBLASLt floor; (c) phase 4b's granite paged
+    engine in ``MESH_PAGED_MODES`` on (data 2, model 2) with its weights
+    sharded: tokens equal to phase 4b's kernel engine (or a near-tie) on
+    every rank, the
+    gated kernel launched (attention layers) × (decode + chunk + verify
+    calls). Each arm prints prefill and decode times, tokens/s a rank, the
+    collectives' host seconds, the peak memory and rows 1 and 4's launches
+    a rank, beside the card's name and power limit. Returns the launches
+    for phase 6."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import rank_device, run_ranks
+
+    refs = {}
+    for arch in MESH_SERVE:
+        t0 = time.perf_counter()
+        refs[arch] = _mesh_serve_reference(torch, arch)
+        print(f"[mesh serve] {arch} on one card: prefill "
+              f"{refs[arch]['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{refs[arch]['decode_s'] * 1e3:.1f} ms; cuBLASLt floor of the "
+              f"first logits {refs[arch]['floor']:.3e} of max|logit| "
+              f"({time.perf_counter() - t0:.1f} s) ({smi})", flush=True)
+    size = int(np.prod(list(MESH_SERVE_SHAPE.values())))
+    devices = [str(rank_device(r, "cuda")) for r in range(size)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_serve_rank, size, (MESH_SERVE_SHAPE,),
+                      backend=backend, device_type="cuda", timeout_s=900)
+    print(f"[mesh serve] {size} ranks on {', '.join(devices)} ({backend}) over "
+          f"{MESH_SERVE_SHAPE}: {ranks[0]['probe']}; ranks done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    by_rank = {"flash_fwd": [], "flash_decode": []}
+    partials = 0
+    for arch, (layers, batch, prompt_len, gen_len, shape) in MESH_SERVE.items():
+        ref = refs[arch]
+        cfg = _mesh_serve_cfg(torch, arch)
+        n_attn = sum(k == "attn" for k in
+                     (cfg.block_pattern * layers)[:layers])
+        steps = gen_len - 1
+        for rank, res in enumerate(ranks):
+            if arch not in res:
+                continue
+            r = res[arch]
+            dp = shape.get("data", 1)
+            got = r["launches"]
+            seq = bool(r["kv_seq"])
+            want = {"flash_fwd": n_attn,
+                    "flash_decode": 0 if seq else n_attn * steps,
+                    "flash_decode_partials": n_attn * steps if seq else 0}
+            v = cfg.vocab_size       # the mesh pads the vocab to model
+            err = float(np.abs(r["first"][:, :v] - ref["first"][:, :v]).max()
+                        / np.abs(ref["first"][:, :v]).max())
+            print(f"[mesh serve] {arch} ({layers} layers, full width) rank "
+                  f"{rank} {res['coords']} on {shape}: prefill {batch}x"
+                  f"{prompt_len} {r['prefill_s'] * 1e3:.1f} ms warm, the "
+                  f"process's first {r['first_prefill_s'] * 1e3:.1f} ms (one "
+                  f"card {ref['prefill_s'] * 1e3:.1f}), decode "
+                  f"{r['decode_s'] / steps * 1e3:.2f} ms a step (one card "
+                  f"{ref['decode_s'] / steps * 1e3:.2f}), "
+                  f"{batch // dp * steps / r['decode_s']:.1f} tokens/s a rank "
+                  f"({batch * steps / r['decode_s']:.1f} the mesh); "
+                  f"collectives' host time: prefill {r['prefill_coll_s']:.3f} s "
+                  f"({r['prefill_coll_bytes'] / 2**20:.1f} MiB), decode "
+                  f"{r['decode_coll_s'] / steps * 1e3:.2f} ms a step "
+                  f"({r['merges']} merges); {r['params'] / 1e9:.3f} B params a "
+                  f"rank, wq {r['wq']}; cache {r['slots']} slots a rank "
+                  f"({'kv_cache_seq, ' + str(r['shards']) + ' shards' if seq else 'kv heads split'}); "
+                  f"max_memory_allocated {r['peak_gib']:.2f} GiB; launches "
+                  f"{got}; first logits {err:.3e} of max|logit| (tol "
+                  f"{MESH_SERVE_LOGIT_TOL:.0e}, floor {ref['floor']:.3e}) "
+                  f"({smi})", flush=True)
+            if got != want:
+                fail(f"[mesh serve] {arch} rank {rank}: launches {got}, "
+                     f"expected {want}")
+            if arch == "recurrentgemma_2b" and not (seq and r["shards"] == 2):
+                fail(f"[mesh serve] {arch}: decode not on kv_cache_seq")
+            if err > MESH_SERVE_LOGIT_TOL or not np.isfinite(r["first"][:, :v]).all():
+                fail(f"[mesh serve] {arch} rank {rank}: first logits {err:.3e} "
+                     f"of max|logit|")
+            diff = np.argwhere(r["tokens"] != ref["tokens"])
+            if diff.size:
+                b, i = map(int, diff[np.lexsort((diff[:, 0], diff[:, 1]))][0])
+                m, p = ref["margin"][(b, i)]
+                print(f"[mesh serve] {arch} rank {rank}: row {b} token {i}: "
+                      f"mesh {r['tokens'][b, i]} vs one card "
+                      f"{ref['tokens'][b, i]}, margin {m:.3e} of max|logit| "
+                      f"{p:.3e}", flush=True)
+                if m > LOGIT_REL_TOL * p:
+                    fail(f"[mesh serve] {arch} rank {rank}: tokens differ from "
+                         f"one card's, not at a near-tie")
+            for name in by_rank:
+                by_rank[name].append({"arch": arch, "rank": rank,
+                                      "launches": got[name]})
+            if rank == 0 and seq:
+                partials = got["flash_decode_partials"]
+        print(f"[mesh serve] {arch}: tokens of every rank equal to one card's "
+              f"(or a printed near-tie)", flush=True)
+    # (c) the paged engine, each mode against phase 4b's kernel run of it
+    n_layers = PAGED_LAYERS
+    paged = {"total": 0, "by_mode": {}}
+    for mode in MESH_PAGED_MODES:
+        ref_out, ref_margin = paged_tokens[mode]
+        r0 = ranks[0]["paged"][mode]
+        for rank, res in enumerate(ranks):
+            p = res["paged"][mode]
+            st, c, got = p["stats"], p["calls"], p["launches"]
+            steps = c["decode"] + c["chunk"] + c["verify"]
+            want = {"flash_fwd": n_layers * c["prefill"], "flash_decode": 0,
+                    "flash_paged_decode": 0,
+                    "flash_paged_decode_partials": n_layers * steps}
+            print(f"[mesh serve] granite-3-2b paged ({n_layers} layers) {mode} "
+                  f"rank {rank} {res['coords']}: {st['generated_tokens']:.0f} "
+                  f"tokens in {st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} "
+                  f"tokens/s a rank; {st['decode_steps']:.0f} decode steps; "
+                  f"calls prefill {c['prefill']} / decode {c['decode']} / chunk "
+                  f"{c['chunk']} / verify {c['verify']}; wq {p['wq']}; pool "
+                  f"{p['pool'][0]} pages ({p['pool'][1]} a shard); prefill "
+                  f"tokens {st['prefill_tokens']:.0f} "
+                  f"({st['prefill_tokens_skipped']:.0f} skipped by the shared "
+                  f"prefix); cow {p['cow_pairs']} ({p['cow_across']} across "
+                  f"shards); "
+                  f"collectives' host time {p['coll_s']:.3f} s = "
+                  f"{p['coll_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms a "
+                  f"step ({p['coll_bytes'] / 2**20:.1f} MiB, {p['merges']} "
+                  f"merges); max_memory_allocated {p['peak_gib']:.2f} GiB; "
+                  f"launches {got} ({smi})", flush=True)
+            if got != want or steps == 0:
+                fail(f"[mesh serve] paged {mode} rank {rank}: the path did not "
+                     f"go through the gated kernel: {got}, expected {want}")
+            if st["outcomes"]["completed"] != len(ref_out):
+                fail(f"[mesh serve] paged {mode} rank {rank}: outcomes "
+                     f"{st['outcomes']}")
+            if set(p["out"]) != set(r0["out"]) or any(
+                    not np.array_equal(p["out"][k], r0["out"][k]) for k in r0["out"]):
+                fail(f"[mesh serve] paged {mode}: rank {rank}'s tokens differ "
+                     f"from rank 0's")
+            by_rank["flash_fwd"].append({"arch": f"granite_3_2b paged {mode}",
+                                         "rank": rank,
+                                         "launches": got["flash_fwd"]})
+        if mode == "prefix_chunk" and (
+                r0["calls"]["chunk"] == 0 or
+                r0["stats"]["prefill_tokens_skipped"] == 0):
+            fail("[mesh serve] paged prefix_chunk: no chunked prefill ran, "
+                 "or no request's prefix was shared")
+        same, ties = _near_ties(np, r0["out"], ref_out, ref_margin,
+                                f"[mesh serve] paged {mode}", "mesh")
+        print(f"[mesh serve] granite-3-2b paged {mode}: tokens equal on every "
+              f"rank; equal to phase 4b's kernel engine for {same} of "
+              f"{len(ref_out)} requests" + "".join(f"; near-tie {t}" for t in ties),
+              flush=True)
+        n = r0["launches"]["flash_paged_decode_partials"]
+        paged["by_mode"][mode] = n
+        paged["total"] += n
+    return {"by_rank": by_rank, "partials": partials, "paged": paged}
 
 
 def planner_phase(torch, kfwd, kdecode, paged_tokens):
@@ -4265,7 +4752,7 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
               "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
               "replaces": "src/repro/kernels/decode.py:144",
               "launches": dist_launches["total"], **out["decode"],
-              "launches_by_path": {"dist_paged_serve_rank0": dist_launches["by_mode"]},
+              "launches_by_path": {"mesh_paged_serve_rank0": dist_launches["by_mode"]},
               "library_call": "aten._scaled_dot_product_efficient_attention "
                               "(compute_log_sumexp) on the owned rows"}
     result.update({f"chunk_shape_{k}": v for k, v in out["chunk"].items()})
@@ -4275,6 +4762,66 @@ def gated_times_phase(torch, kdecode, dist_launches, errs):
           f"(gate and two-shard checks, f32 and bf16) {worst:.3e}")
     torch.cuda.empty_cache()
     return result
+
+
+def shard_partials_times_phase(torch, kdecode, mesh_serve, errs):
+    """Row 4's shard-partials mode at phase 4i(b)'s decode: one shard of two
+    of recurrentgemma-2b's full 2048-slot ring (B 4, 10/1 heads, D 256, 1024
+    slots, all valid, f32), beside its plain version, its bound (the
+    shard's K/V rows, q, the partial state, kv_len, each once) and, as the
+    library yardstick, aten's memory-efficient attention with its
+    log-sum-exp (the same state, normalised) on the shard's rows,
+    head-expanded outside the timing. Its launches: rank 0's in phase 4i."""
+    gen = torch.Generator(device="cuda").manual_seed(84)
+    f32 = torch.float32
+    b, hq, hkv, d, s = 4, 10, 1, 256, 1024
+    q = _rand(torch, gen, (b, hq, d), f32)
+    k = _rand(torch, gen, (b, hkv, s, d), f32)
+    v = _rand(torch, gen, (b, hkv, s, d), f32)
+    kv_len = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    call = lambda: kdecode.flash_decode_partials(q, k, v, kv_len=kv_len)  # noqa: E731
+    plain = lambda: kdecode.flash_decode_partials_torch(  # noqa: E731
+        q, k, v, kv_len=kv_len)
+    err = _maxerr(_state_out(torch, *call())[0], _state_out(torch, *plain())[0])
+    if err > TOL["float32"]:
+        fail(f"flash_decode_partials at phase 4i's shape: {err:.3e}")
+    nbytes = 4 * (2 * b * hkv * s * d + b * hq * d      # K/V rows, q
+                  + b * hq * d + 2 * b * hq + b)        # acc, m, l, kv_len
+    row = {"name": "flash_decode_partials", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "replaces": "src/repro/kernels/decode.py:131",
+           "launches": mesh_serve["partials"],
+           "launches_by_path": {"mesh_serve_rank0_recurrentgemma_2b":
+                                mesh_serve["partials"]},
+           "max_abs_err": err, "ms": time_ms(torch, call, 50),
+           "plain_ms": time_ms(torch, plain, 5),
+           **bounds(4 * hq * d * b * s, nbytes),
+           "library_ms": None,
+           "library_call": "aten._scaled_dot_product_efficient_attention "
+                           "(compute_log_sumexp) on the shard's rows",
+           "shape": "B 4, 10/1 heads, D 256, one shard of two of a 2048-slot "
+                    "ring (1024 slots, all valid), f32"}
+    try:
+        kc = k.repeat_interleave(hq // hkv, dim=1)
+        vc = v.repeat_interleave(hq // hkv, dim=1)
+        q4 = q[:, :, None].contiguous()
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        eff(q4, kc, vc, None, True)
+        row["library_ms"] = time_ms(torch, lambda: eff(q4, kc, vc, None, True), 50)
+    except (RuntimeError, NotImplementedError) as e:
+        row["library_note"] = f"none: {type(e).__name__}: {str(e)[:200]}"
+    lib = (f"{row['library_ms']:.5f} ms" if row["library_ms"] is not None
+           else row["library_note"])
+    worst = max(v for k_, v in errs.items()
+                if k_.startswith("flash_decode_partials/"))
+    print(f"[times] flash_decode_partials at phase 4i(b)'s decode ({row['shape']}): "
+          f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, efficient "
+          f"attention with lse {lib}, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); launches rank 0 {row['launches']}; worst "
+          f"kernel-vs-plain error over the kernel phase {worst:.3e}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
 
 
 def hybrid_gated_times_phase(torch, kdecode, dist_launches):

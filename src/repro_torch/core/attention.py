@@ -87,6 +87,32 @@ def spark_decode(q, k, v, *, impl: str = "kernel", kv_len=None,
                                 scale=scale)
 
 
+def spark_decode_partials(q, k, v, *, impl: str = "kernel", kv_len=None,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None, num_splits: int = 1):
+    """Single-token decode against one shard of a contiguous cache whose
+    sequence is split over ranks, stopping at the un-finalised
+    online-softmax state: the building block of the distributed
+    flash-decode of ``kv_cache_seq`` (``models/layers.py``). q [B,Hq,D];
+    k/v [B,Hkv,S_shard,D] the shard's slots; kv_len [B] the count of its
+    valid slots (its first ones; 0 where it holds none yet). Returns f32
+    ``(acc [B,Hq,D], m [B,Hq], l [B,Hq])``; a row with kv_len 0 keeps
+    m == NEG_INF, l == 0, acc == 0. Shards merge with the online-softmax
+    algebra and finalise once (``distributed/paged.merge_partials``);
+    ``num_splits > 1`` merges split-KV partials within the shard first."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel":
+        return ops.decode_partials(q, k, v, kv_len=kv_len, window=window,
+                                   scale=scale, num_splits=num_splits)
+    if num_splits > 1:
+        return _torch_split_decode_partials(q, k, v, kv_len=kv_len,
+                                            window=window, scale=scale,
+                                            num_splits=num_splits)
+    return _torch_masked_decode_partials(q, k, v, kv_len=kv_len, window=window,
+                                         scale=scale)
+
+
 def spark_paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
                        impl: str = "kernel", window: Optional[int] = None,
                        scale: Optional[float] = None, num_splits: int = 1,

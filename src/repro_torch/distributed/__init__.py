@@ -6,6 +6,9 @@
   attention families' layers (``parallel.py``: tensor parallel over
   ``model``, data parallel over ``pod`` and ``data``, FSDP); the int8
   error-feedback all-reduce (``compression.py``).
-* Distributed paged serving: the page pool sharded over the ranks of a
-  ``mesh.PoolMesh`` (``paged.py``), every rank holding all the weights.
+* Serving over a mesh: the same rules' serving plan
+  (``parallel.ShardPlan.serving``: weights tensor-parallel over ``model``,
+  the contiguous cache's batch rows, kv heads or sequence split), and the
+  page pool sharded over the ``model`` axis, ``mesh.PoolMesh``
+  (``paged.py``: local attention per shard, partials merged).
 """

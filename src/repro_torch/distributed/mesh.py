@@ -1,20 +1,22 @@
-"""The pool axis of distributed serving: one process per pool shard
-(counterpart of the ``("model",)`` mesh that ``repro.distributed.paged``
-takes from JAX).
+"""The meshes of the port's ranks (counterpart of the JAX meshes of
+``repro.launch.train --mesh`` and ``repro.launch.serve --mesh``).
 
-JAX runs one controller over a device mesh with ``shard_map``; the port
-runs one process per shard of the page pool, every rank running the same
+JAX runs one controller over a device mesh with ``shard_map`` and GSPMD;
+the port runs one process a mesh position, every rank running the same
 program (SPMD), joined by a ``torch.distributed`` process group.
-:class:`PoolMesh` is what the model and the serving engine see of it: the
-group, this rank and the number of ranks. ``launch.mesh`` spawns the ranks
-and checks their backend.
+``launch.mesh`` spawns the ranks and checks their backend.
 
-:class:`TrainMesh` is the named-axis mesh of training (counterpart of the
+:class:`TrainMesh` is the named-axis mesh of training and serving (the
 ``("model",)``, ``("data", "model")`` and ``("pod", "data", "model")``
-meshes of ``repro.launch.train --mesh``): one process a mesh position,
-ranks laid out row-major over the axes (the last the fastest, as JAX lays
-devices out), with a process group for every slice along every set of
-axes, made in one order on every rank.
+meshes of ``--mesh N | DxM | PxDxM``): ranks laid out row-major over the
+axes (the last the fastest, as JAX lays devices out), with a process group
+for every slice along every set of axes, made in one order on every rank.
+
+:class:`PoolMesh` is its ``model``-axis view (:attr:`TrainMesh.pool`): the
+axis a page pool is sharded over, as JAX's ``POOL_AXIS = "model"``
+(``distributed/paged.py``); its group, this rank's position on it and its
+size. :func:`as_train_mesh` takes either and gives the :class:`TrainMesh`
+(a bare :class:`PoolMesh` is the one-axis mesh ``("model",)``).
 """
 
 from __future__ import annotations
@@ -28,34 +30,37 @@ import torch
 import torch.distributed as dist
 
 
+def _broadcast_object(obj, group, src: int = 0):
+    """``obj`` as global rank ``src`` holds it, on every rank of ``group``
+    (a host value: pickled through the backend's host path; NCCL moves it
+    through a card, gloo through host memory)."""
+    box = [obj]
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    dist.broadcast_object_list(box, src=src, group=group, device=device)
+    return box[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class PoolMesh:
-    """One rank's view of the pool axis: the process group, this rank and
-    the group's size (the number of pool shards)."""
+    """The ``model`` axis of a mesh as a page pool sees it: the axis's
+    process group, this rank's position on it and its size (the number of
+    pool shards)."""
     group: Any
     rank: int
     size: int
 
     def broadcast_object(self, obj, src: int = 0):
-        """``obj`` as rank ``src`` holds it, on every rank (a host value:
-        pickled through the backend's host path)."""
-        box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.group,
-                                   device=self._object_device())
-        return box[0]
-
-    def _object_device(self):
-        # NCCL moves objects through a card, gloo through host memory
-        if dist.get_backend(self.group) == "nccl":
-            return torch.device("cuda", torch.cuda.current_device())
-        return torch.device("cpu")
+        """``obj`` as rank ``src`` of the axis holds it, on every rank of
+        the axis."""
+        return _broadcast_object(obj, self.group, src)
 
 
 def make_mesh(size: int, rank: int, *, backend: str, init_method: str,
               timeout_s: float = 600.0) -> PoolMesh:
     """Join the process group of ``size`` ranks as ``rank`` and return its
-    :class:`PoolMesh`. ``init_method``: a rendezvous URL
-    (``file:///path`` or ``tcp://host:port``)."""
+    :class:`PoolMesh`, the whole world on one axis. ``init_method``: a
+    rendezvous URL (``file:///path`` or ``tcp://host:port``)."""
     dist.init_process_group(backend, init_method=init_method,
                             world_size=size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -116,6 +121,40 @@ class TrainMesh:
         """The process group of the ranks that differ from this one only
         along ``entry`` (None where that is this rank alone)."""
         return self.groups.get(self.axes(entry))
+
+    @property
+    def pool(self) -> PoolMesh:
+        """The ``model`` axis as a :class:`PoolMesh` (a page pool's shards)."""
+        if "model" not in self.shape:
+            return PoolMesh(group=None, rank=0, size=1)
+        return PoolMesh(group=self.group("model"), rank=self.index("model"),
+                        size=self.size("model"))
+
+    @property
+    def pool_shards(self):
+        """The page pool's shards: :attr:`pool`, but None where the
+        ``model`` axis is one rank with no process group of its own (the
+        pool whole on every rank; a one-rank mesh over a group of its own,
+        as ``launch.mesh`` makes one, still runs the sharded path)."""
+        pool = self.pool
+        return pool if pool.size > 1 or pool.group is not None else None
+
+    def broadcast_object(self, obj):
+        """``obj`` as global rank 0 holds it, on every rank of the mesh."""
+        if self.world == 1:
+            return obj
+        return _broadcast_object(obj, self.group(tuple(self.shape)))
+
+
+def as_train_mesh(mesh) -> TrainMesh:
+    """``mesh`` as a :class:`TrainMesh`: itself, or a :class:`PoolMesh` as
+    the one-axis mesh ``("model",)`` over its group."""
+    if isinstance(mesh, TrainMesh):
+        return mesh
+    groups = ({("model",): mesh.group}
+              if mesh.size > 1 or mesh.group is not None else {})
+    return TrainMesh(shape={"model": mesh.size}, rank=mesh.rank,
+                     coords={"model": mesh.rank}, groups=groups)
 
 
 def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:

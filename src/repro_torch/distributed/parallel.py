@@ -56,6 +56,22 @@ A leaf is keyed by its name in a block, and a mixer's leaves also by the
 block's kind (``rec:mixer.wo``, ``attn:mixer.wo``): the hybrid's two
 ``wo`` leaves have other specs. A spec the plan cannot carry out raises a
 ``ValueError`` naming the leaf and its spec.
+
+Serving (:meth:`ShardPlan.serving`, what ``repro.runtime.steps``'s
+``make_serve_steps(mesh=)`` leaves to GSPMD): JAX runs prefill under
+``default_rules(serve=True)`` and decode under ``decode=True``. The weights
+are held once, as the decode rules lay them out (tensor parallel over
+``model``, no FSDP: the prefill rules' ``embed: data`` of an FSDP config
+changes a weight's memory, not its values, and is recorded in
+:attr:`ShardPlan.layout_only`). The caches follow the rules too: batch
+rows over the batch axes, kv heads over ``model`` where they divide it,
+else the contiguous cache's sequence over ``model`` (``kv_cache_seq``,
+:attr:`ShardPlan.kv_seq`: decode replicates q, every rank attends over its
+slots and the partials merge across ``model``), the recurrent state on
+the rank's ``rnn`` channels. A page pool is sharded over ``model`` by
+pages whatever the heads (``distributed/paged.py``), and the paged
+engine's slots are replicated over the batch axes (``batch`` None), as
+the ``P()`` specs of JAX's ``shard_map`` replicate them.
 """
 
 from __future__ import annotations
@@ -67,6 +83,9 @@ import torch
 
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import default_rules
+
+_UNSET = object()
 
 #: gradients all-reduced at once (elements), a bucket
 BUCKET = 1 << 26
@@ -133,10 +152,13 @@ class ShardPlan:
 
     Flags, each for the blocks that have the leaf: ``heads``/``kv`` (the
     attention's q / kv heads split over ``model``), ``rnn`` (the recurrent
-    mixer's channels), ``experts``; ``vocab``."""
+    mixer's channels), ``experts``; ``vocab``; ``kv_seq`` (serving: the
+    contiguous cache's sequence over ``model``, :meth:`serving`).
+    ``batch``: the batch axes' entry, the rules' unless given (the paged
+    engine's None)."""
 
     def __init__(self, cfg, mesh, rules, specs: Dict[str, tuple],
-                 logical: Dict[str, tuple]):
+                 logical: Dict[str, tuple], *, batch=_UNSET):
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
         period = len(cfg.block_pattern)
         self.kinds = [cfg.block_pattern[i % period] for i in range(cfg.num_layers)]
@@ -147,11 +169,14 @@ class ShardPlan:
                 raise ValueError(f"{cfg.name}: {n} has spec {spec}, another "
                                  f"{key} {self._spec[key]}")
             self._logical[key] = logical[n]
-        self.batch = rules.rules["batch"]
-        if rules.rules.get("moe_groups") != self.batch:
-            raise ValueError(f"{cfg.name}: moe_groups over "
-                             f"{rules.rules.get('moe_groups')}, the batch over "
-                             f"{self.batch}")
+        if batch is _UNSET:
+            self.batch = rules.rules["batch"]
+            if rules.rules.get("moe_groups") != self.batch:
+                raise ValueError(f"{cfg.name}: moe_groups over "
+                                 f"{rules.rules.get('moe_groups')}, the batch "
+                                 f"over {self.batch}")
+        else:
+            self.batch = batch
         self.layout_only = {a: rules.rules[a] for a in ("seq", "seq_full")
                             if rules.rules.get(a) is not None}
         self.vocab = self._spec["embed"][0] == "model"
@@ -198,9 +223,42 @@ class ShardPlan:
                                  f"{entry}={self.mesh.size(entry)}")
         self.hq_local = self.head_offset = 0
         self.kv_cols = None      # wk/wv columns this rank projects, if sliced
+        self.kv_index = None     # the kv heads those columns are
         self.partial = set()     # replicated over model, used on local heads
+        self.kv_seq = False      # serving: the cache's sequence over model
         if "attn:mixer.wq" in self._spec:
             self._plan_heads(cfg, mesh)
+
+    @classmethod
+    def serving(cls, cfg, mesh, shapes: Dict[str, tuple],
+                logical: Dict[str, tuple], *, paged: bool = False):
+        """The plan of serving ``cfg`` on ``mesh`` (module docstring):
+        ``shapes`` the full parameters' shapes (vocab padded), ``logical``
+        their logical axes. The weights take the decode rules' specs; a
+        leaf the prefill rules lay out otherwise must differ only in its
+        ``embed`` dims (recorded in :attr:`layout_only`). ``paged``: the
+        slots are replicated over the batch axes."""
+        prefill = default_rules(mesh, cfg, serve=True)
+        decode = default_rules(mesh, cfg, serve=True, decode=True)
+        specs = decode.tree_specs(shapes, logical)
+        plan = cls(cfg, mesh, decode, specs, logical,
+                   batch=None if paged else decode.rules["batch"])
+        for n, spec in prefill.tree_specs(shapes, logical).items():
+            for d, (a, b) in enumerate(zip(spec, specs[n])):
+                if a == b:
+                    continue
+                if logical[n][d] != "embed":
+                    raise ValueError(f"{cfg.name}: {n} is {spec} under the "
+                                     f"prefill rules, {specs[n]} under the "
+                                     f"decode rules")
+                plan.layout_only["embed"] = prefill.rules["embed"]
+        for a in ("seq", "seq_full"):
+            if prefill.rules.get(a) is not None:
+                plan.layout_only.setdefault(a, prefill.rules[a])
+        plan.shapes = dict(shapes)
+        plan.kv_seq = ("attn:mixer.wq" in plan._spec and not plan.kv
+                       and mesh.size("model") > 1)
+        return plan
 
     def _plan_heads(self, cfg, mesh) -> None:
         hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -222,6 +280,7 @@ class ShardPlan:
                 uniq = idx             # one kv head a q head
             self.kv_cols = torch.cat([torch.arange(h * hd, (h + 1) * hd)
                                       for h in uniq])
+            self.kv_index = torch.tensor(uniq)
 
     def splits(self, key: str, dim: int) -> bool:
         """Whether leaf ``key`` exists and splits dim ``dim`` over
@@ -264,7 +323,67 @@ class ShardPlan:
         w = self.weight(w, key)
         return w if self.kv_cols is None else w[:, self.kv_cols.to(w.device)]
 
+    @torch.no_grad()
+    def place(self, params):
+        """Serving: every full leaf of ``params`` (a model as one device
+        holds it) replaced by this rank's shard, in place; a leaf already
+        at its shard's shape stays. Returns ``params``."""
+        from repro_torch.models.lm import set_param
+        for n, p in list(params.named_parameters()):
+            sh = self.sharding(n)
+            if tuple(p.shape) == tuple(self.shapes[n]) and \
+                    sh.global_shape(p.shape) != tuple(p.shape):
+                set_param(params, n, sh.shard(p.detach()).contiguous().clone())
+        return params
+
     # -- activations -------------------------------------------------------
+    def gather_model(self, x):
+        """Every ``model`` rank's part of the last dim of ``x`` (serving:
+        q or k/v of every head from the rank's heads; no gradient)."""
+        return C.gather_nograd(x, x.dim() - 1, self.mesh, "model")
+
+    def own_heads(self, o):
+        """``o [..., Hq·D]`` of every head → this rank's heads' columns
+        where the heads are split (``wo`` row-parallel on them)."""
+        if not self.heads:
+            return o
+        hd = self.cfg.head_dim
+        return o[..., self.head_offset * hd:(self.head_offset + self.hq_local) * hd]
+
+    def kv_heads_of(self, t):
+        """``t [B, Hkv, S, D]`` of every kv head → the kv heads this rank's
+        q heads read (one a q head where the group does not split evenly)."""
+        if not self.heads:
+            return t
+        if self.kv:
+            n = self.cfg.num_kv_heads // self.mesh.size("model")
+            i = self.mesh.index("model") * n
+            return t[:, i:i + n]
+        return t.index_select(1, self.kv_index.to(t.device))
+
+    def batch_part(self, x):
+        """This rank's rows of a global batch ``x`` [B, ...] (serving)."""
+        n = self.mesh.size(self.batch)
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over the {n} ranks of the batch axes "
+                             f"{self.batch}")
+        return self.own_rows(x, x.shape[0] // n)
+
+    def gather_logits(self, logits):
+        """This rank's logits [b, ..., V / model] → the global batch's of
+        every vocab column (serving; no gradient), equal on every rank."""
+        if self.vocab:
+            logits = self.gather_model(logits)
+        return C.gather_nograd(logits, 0, self.mesh, self.batch)
+
+    def kv_shards(self, cap: int) -> int:
+        """The shards of a contiguous cache of ``cap`` slots along its
+        sequence: ``model``'s size under ``kv_seq`` where it divides
+        ``cap``, else 1 (replicated, as the rules fall back)."""
+        m = self.mesh.size("model")
+        return m if self.kv_seq and cap % m == 0 else 1
+
     def enter(self, x, split: bool):
         """A replicated activation entering work split over ``model``."""
         return C.copy_to(x, self.mesh, "model") if split else x

@@ -27,8 +27,15 @@ the result is the un-finalised f32 state ``(acc, m, l)`` with the local
 splits already merged, for the cross-shard merge of
 ``distributed/paged.py``.
 
-On a CUDA tensor :func:`flash_decode` / :func:`flash_paged_decode` /
-:func:`flash_paged_decode_partials` launch ``csrc/flash_decode.cu``: a
+:func:`flash_decode_partials` is the contiguous kernel's raw-partials
+mode for one shard of a cache whose sequence is split over ranks
+(``kv_cache_seq`` decode, ``models/layers.py``): the same launch writing
+``(acc, m, l)`` in place of o, merged across ranks by
+``distributed/paged.merge_partials``.
+
+On a CUDA tensor :func:`flash_decode` / :func:`flash_decode_partials` /
+:func:`flash_paged_decode` / :func:`flash_paged_decode_partials` launch
+``csrc/flash_decode.cu``: a
 cluster of blocks per (rows, kv head, split) deals the split's tiles over
 its blocks and merges their states on chip. ``row_tokens`` is a launch
 hint that changes no result beyond rounding: a chunked-prefill or verify
@@ -37,7 +44,8 @@ and the kernel folds each tile once for every run of consecutive rows that
 read one table (on tensor cores); decode passes 1 (the default), one row a
 block (:func:`launch_geometry` gives the shape of a launch). On a CPU
 tensor they run :func:`flash_decode_torch` /
-:func:`flash_paged_decode_torch` / :func:`flash_paged_decode_partials_torch`,
+:func:`flash_decode_partials_torch` / :func:`flash_paged_decode_torch` /
+:func:`flash_paged_decode_partials_torch`,
 the same tiles and splits in plain torch, one row at a time; the kernel's
 cluster merge orders the f32 sums of a split differently.
 """
@@ -69,8 +77,10 @@ def max_group(head_dim: int) -> int:
 
 
 #: kernel launches since the last reset (the plain versions do not count):
-#: contiguous cache, paged cache, gated paged cache (partials)
+#: contiguous cache, its shard partials, paged cache, gated paged cache
+#: (partials)
 launches = 0
+launches_partials = 0
 launches_paged = 0
 launches_paged_valid = 0
 
@@ -238,6 +248,69 @@ def _launch(q, k, v, kv_len, window, scale, num_splits, row_tokens):
     _build.check("flash_decode", err)
     launches += 1
     return out if ns == 1 else _merge_partials(*out, b, hq, q.dtype)
+
+
+def flash_decode_partials(q, k, v, *, kv_len=None,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None, num_splits: int = 1):
+    """:func:`flash_decode` stopping at the online-softmax state, for one
+    shard of a cache whose sequence is split over ranks (the contiguous
+    cache under ``kv_cache_seq``): ``k/v [B, Hkv, S_shard, D]`` are the
+    shard's slots and ``kv_len [B]`` the count of its valid ones (the ring
+    fills slots in order, so they are its first ``kv_len``). Returns the f32
+    state ``(acc [B,Hq,D], m [B,Hq], l [B,Hq])``, the local splits merged
+    by ``merge_many``; a row with ``kv_len`` 0 keeps m == NEG_INF, l == 0,
+    acc == 0, so the cross-shard merge (``distributed/paged.py``
+    ``merge_partials``) gives exact zeros only for rows empty on every
+    shard. A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (as :func:`flash_decode`) or raises."""
+    b, skv = q.shape[0], k.shape[2]
+    if kv_len is None:
+        kv_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    _check_inputs(q, k, v, kv_len, window, num_splits)
+    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_decode_partials_torch(q, k, v, kv_len=kv_len,
+                                           window=window, scale=scale,
+                                           num_splits=num_splits)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_partials runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch_partials(q, k, v, kv_len, window, scale, num_splits)
+
+
+def _launch_partials(q, k, v, kv_len, window, scale, num_splits):
+    global launches_partials
+    _check_kernel_inputs("flash_decode_partials", q, k, v, k.shape[1], kv_len)
+    b, hq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _, ns, _ = split_layout(skv, num_splits)
+    parts, ptrs = _kernel_outputs(q, hkv, ns, partials=True)
+    fn = _build.kernel_fn("flash_decode", "flash_decode_launch", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), *ptrs,
+             b, hq, hkv, skv, d, DTYPES[q.dtype], scale, window or 0, ns, 1,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_decode", err)
+    launches_partials += 1
+    if ns == 1:
+        return parts
+    state = _merge_states(*parts, b, hq)
+    return state.acc, state.m, state.l
+
+
+def flash_decode_partials_torch(q, k, v, *, kv_len,
+                                window: Optional[int] = None,
+                                scale: Optional[float] = None,
+                                num_splits: int = 1):
+    """The shard-partials mode's plain-torch version: :func:`flash_decode_torch`'s
+    tiles and splits, stopping at the merged f32 state ``(acc [B,Hq,D],
+    m [B,Hq], l [B,Hq])``."""
+    b, hq = q.shape[:2]
+    parts = _fold_tile_states(q, lambda lo, hi: (k[:, :, lo:hi], v[:, :, lo:hi]),
+                              k.shape[1], k.shape[2], kv_len=kv_len,
+                              window=window, scale=scale, num_splits=num_splits)
+    state = _merge_states(*_stack_states(parts), b, hq)
+    return state.acc, state.m, state.l
 
 
 def flash_decode_torch(q, k, v, *, kv_len, window: Optional[int] = None,

@@ -20,7 +20,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode import (flash_decode, flash_paged_decode,
+from repro_torch.kernels.decode import (flash_decode, flash_decode_partials,
+                                       flash_paged_decode,
                                        flash_paged_decode_partials,
                                        gather_pages)
 from repro_torch.kernels.flash_bwd import flash_bwd
@@ -116,6 +117,18 @@ def decode(q, k, v, *, kv_len=None, window=None, scale=None,
     return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
                         kv_len=kv_len, window=window, scale=scale,
                         num_splits=num_splits)
+
+
+def decode_partials(q, k, v, *, kv_len=None, window=None, scale=None,
+                    num_splits: int = 1):
+    """Single-token flash-decode over one shard of a sequence-sharded cache,
+    stopping at the f32 ``(acc, m, l)`` state (``kv_len`` counts the
+    shard's valid slots, its first ones)."""
+    return flash_decode_partials(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 kv_len=None if kv_len is None
+                                 else kv_len.contiguous(),
+                                 window=window, scale=scale,
+                                 num_splits=num_splits)
 
 
 def decode_reference(q, k, v, *, kv_len=None, window=None, scale=None):

@@ -1,7 +1,7 @@
 """Serving launcher of the port: batched prefill + greedy decode on the
 contiguous cache, or continuous batching over a paged cache with
-``--paged``, sharded over ``--mesh N`` ranks (counterpart of
-``repro.launch.serve``). ``--autotune`` picks the decode's split count with
+``--paged``, either one over a mesh of ranks with ``--mesh N | DxM |
+PxDxM`` (counterpart of ``repro.launch.serve``). ``--autotune`` picks the decode's split count with
 the planner of ``perf/autotune.py`` for the card's kernel, on both caches
 (an explicit ``--num-splits`` wins).
 
@@ -15,12 +15,22 @@ Paged continuous batching (ragged synthetic requests through
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --paged --requests 16 --max-batch 8 --prompt-len 512 --gen 64
 
-Distributed paged serving: the page pool sharded over N ranks, one
-process each, spawned by the launcher (``launch/mesh.py``); weights are
-replicated. ``--dist-backend nccl`` (the default on cuda) needs a card a
+Serving over a mesh: ``--mesh`` takes JAX's forms, ``N`` the mesh
+``("model",)``, ``DxM`` ``("data", "model")`` and ``PxDxM`` ``("pod",
+"data", "model")``, one process a mesh position, spawned by the launcher
+(``launch/mesh.py``). The weights are laid out by JAX's serving rules
+(``ShardPlan.serving``: tensor parallel over ``model``, the vocab padded
+to it), each rank drawing only its shard. The contiguous cache holds a
+rank's batch rows (over ``pod`` and ``data``) and kv heads, or, where the
+kv heads do not divide ``model``, its slots of every kv head
+(``kv_cache_seq``: decode merges the ranks' attention partials); the page
+pool is sharded over ``model`` and the engine's slots replicated over the
+batch axes. ``--dist-backend nccl`` (the default on cuda) needs a card a
 rank; ranks that share one card need ``--dist-backend gloo``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
-      --paged --mesh 2 --dist-backend gloo --requests 16 --max-batch 8
+      --mesh 2x2 --dist-backend gloo --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
+      --paged --mesh 2x2 --dist-backend gloo --requests 16 --max-batch 8
 
 On the CPU, at smoke size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
@@ -28,19 +38,23 @@ On the CPU, at smoke size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --smoke --device cpu --paged --requests 4 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
-      --smoke --device cpu --paged --mesh 2 --dist-backend gloo \\
-      --requests 4 --prompt-len 16 --gen 4
+      --smoke --device cpu --mesh 2x2 --dist-backend gloo --batch 2 \\
+      --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
+      --smoke --device cpu --paged --mesh 2x2 --dist-backend gloo \\
+      --requests 6 --prompt-len 16 --gen 4
 
 The hybrid recurrentgemma-2b (RG-LRU and local-attention blocks) serves on
-both caches and over ``--mesh`` (every rank keeps every recurrent state
-row); ``--share-prefix`` and ``--speculate`` exit with the engine's
+both caches and over ``--mesh`` (the RG-LRU on the rank's channels; its
+one kv head takes the contiguous cache's ``kv_cache_seq`` branch on every
+mesh); ``--share-prefix`` and ``--speculate`` exit with the engine's
 refusal, as in JAX:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b \\
       --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
 
 falcon-mamba-7b (the ssm family, mixer-only Mamba blocks, no attention
-layer) serves on both caches and over ``--mesh`` (every rank keeps every
-state row; there is no pool to shard); ``--share-prefix``, ``--speculate``
+layer) serves on both caches and over ``--mesh`` (the mixer on the rank's
+channels); ``--share-prefix``, ``--speculate``
 and ``--autotune`` exit with the engine's refusal:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
       --smoke --device cpu [--paged [--mesh 2 --dist-backend gloo]]
@@ -63,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List, Optional
 
@@ -71,9 +86,11 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.attention import IMPLS
+from repro_torch.distributed.mesh import join_train_mesh
 from repro_torch.launch import mesh as pool_mesh
-from repro_torch.models import lm
-from repro_torch.runtime.steps import ServeArtifacts, make_serve_steps
+from repro_torch.launch.train import parse_mesh
+from repro_torch.runtime.steps import (ServeArtifacts, init_serve_params,
+                                       make_serve_steps, serving_plan)
 from repro_torch.serving.engine import no_attention_decode
 
 
@@ -147,8 +164,10 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="paged-KV continuous batching (ragged requests)")
     ap.add_argument("--mesh", default="",
-                    help="--paged: shard the page pool over this many ranks "
-                         "(the pool axis only, e.g. 2), one process each")
+                    help="N, DxM or PxDxM: ranks over (model), (data, model) "
+                         "or (pod, data, model), one process each; the "
+                         "weights tensor-parallel over model, the page pool "
+                         "sharded over it")
     ap.add_argument("--dist-backend", default=None,
                     choices=pool_mesh.BACKENDS,
                     help="--mesh: torch.distributed backend (default nccl "
@@ -201,15 +220,14 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     device = torch.device(args.device)
-    n_ranks = parse_mesh(args.mesh)
-    if n_ranks and not args.paged:
-        raise SystemExit("--mesh shards the page pool: it needs --paged (the "
-                         "contiguous cache over a mesh needs the sharding "
-                         "rules, not yet ported)")
+    try:
+        shape = parse_mesh(args.mesh)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if args.autotune and "attn" not in cfg.block_pattern:
         raise SystemExit(no_attention_decode(cfg))
     if args.paged:
-        return serve_paged(cfg, args, device, n_ranks)
+        return serve_paged(cfg, args, device, shape)
 
     max_len = args.prompt_len + args.gen
     num_splits = args.num_splits or 1
@@ -219,21 +237,78 @@ def main(argv=None):
         print(f"autotune: num_splits={plan.num_splits} "
               f"block_kv={plan.block_kv} ({plan.source}, "
               f"predicted {plan.time_s*1e6:.1f}us/layer)")
-    arts = make_serve_steps(cfg, impl=args.impl, max_len=max_len,
-                            batch=args.batch, num_splits=num_splits,
-                            torch_chunk=min(1024, args.prompt_len),
-                            device=device)
-    params = lm.init_params(cfg, seed=args.seed, device=device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=device)
-    res = greedy_generate(arts, params, prompt, args.gen, cfg.vocab_size)
+    if shape is None:
+        res = _serve_contiguous(cfg, args, device, num_splits)
+    else:
+        ranks, backend, devices = _spawn(_contiguous_rank, shape, args, device,
+                                         (cfg, args, num_splits))
+        _print_mesh(shape, backend, devices)
+        r0 = ranks[0]
+        for r, got in enumerate(ranks[1:], 1):
+            if not np.array_equal(got["tokens"], r0["tokens"]):
+                raise RuntimeError(f"rank {r} generated other tokens than "
+                                   f"rank 0")
+        res = Generation(torch.from_numpy(r0["tokens"]),
+                         [torch.from_numpy(r0["first_logits"])],
+                         r0["prefill_s"], r0["decode_s"])
     steps = args.gen - 1
     print(f"prefill: {args.batch}x{args.prompt_len} in {res.prefill_s*1e3:.1f}ms; "
           f"decode: {steps} steps in {res.decode_s*1e3:.1f}ms "
           f"({steps*args.batch/max(res.decode_s,1e-9):.1f} tok/s)")
     print("generated (first row):", res.tokens[0, :16].cpu().numpy())
     return res
+
+
+def _serve_contiguous(cfg, args, device, num_splits: int, mesh=None):
+    """Prefill and greedy decode of ``--batch`` random prompts on the
+    contiguous cache, on one device or on this rank of ``mesh`` (its shard
+    of the weights and the caches)."""
+    arts = make_serve_steps(cfg, impl=args.impl,
+                            max_len=args.prompt_len + args.gen,
+                            batch=args.batch, num_splits=num_splits,
+                            torch_chunk=min(1024, args.prompt_len),
+                            device=device, mesh=mesh)
+    params = arts.init_fn(args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device)
+    return greedy_generate(arts, params, prompt, args.gen, cfg.vocab_size)
+
+
+def _share_cores(device, size: int) -> None:
+    """Ranks on the CPU share its cores out."""
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+
+
+def _contiguous_rank(pool, device, shape, cfg, args, num_splits):
+    """One rank of ``--mesh`` on the contiguous cache: its tokens, first
+    logits and times (numpy and floats, no tensors)."""
+    _share_cores(device, pool.size)
+    res = _serve_contiguous(cfg, args, device, num_splits,
+                            join_train_mesh(shape))
+    return {"tokens": res.tokens.cpu().numpy(),
+            "first_logits": res.logits[0].float().cpu().numpy(),
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s}
+
+
+def _spawn(fn, shape, args, device, fn_args):
+    """Run ``fn`` on the ranks of ``shape``: (their results, the backend,
+    their devices)."""
+    size = int(np.prod(list(shape.values())))
+    backend = args.dist_backend or pool_mesh.default_backend(device.type)
+    ranks = pool_mesh.run_ranks(fn, size, (shape, *fn_args), backend=backend,
+                                device_type=device.type)
+    devices = [str(pool_mesh.rank_device(r, device.type)) for r in range(size)]
+    return ranks, backend, devices
+
+
+def _print_mesh(shape, backend: str, devices) -> None:
+    axes = " x ".join(f"{a} {n}" for a, n in shape.items())
+    where = ("on the pool axis" if list(shape) == ["model"]
+             else f"over {axes} (the pool axis: model)")
+    print(f"mesh: {len(devices)} ranks {where}, backend {backend}, devices "
+          f"{', '.join(devices)}")
 
 
 def autotuned_plan(cfg, batch: int, max_len: int, device):
@@ -272,20 +347,6 @@ def paged_requests(cfg, pcfg, args, rs: np.random.RandomState):
     return reqs
 
 
-def parse_mesh(spec: str) -> int:
-    """``--mesh``: "" (no mesh) → 0, "N" → N ranks on the pool axis. The
-    JAX launcher's multi-axis forms ("DxM", ...) need the sharding rules,
-    not yet ported."""
-    if not spec:
-        return 0
-    if not spec.isdigit() or int(spec) < 1:
-        raise SystemExit(f"--mesh {spec!r}: the port shards the page pool "
-                         f"over one axis, give its size (e.g. --mesh 2); "
-                         f"data / pod axes need the sharding rules, not yet "
-                         f"ported")
-    return int(spec)
-
-
 def _paged_config(args, n_shards: int):
     """The pool and prefill row of ``--paged`` (JAX's sizing): roughly half
     the requests fit at once, so the scheduler has to evict and admit, then
@@ -316,12 +377,14 @@ def _fault_plan(args):
 
 def _run_engine(cfg, args, device, mesh=None):
     """Build the model and the engine (on this rank's shard under a
-    ``mesh``) and serve the synthetic requests; returns ``(outputs, stats,
-    engine)``."""
+    ``mesh``, a ``TrainMesh``) and serve the synthetic requests; returns
+    ``(outputs, stats, engine)``."""
     from repro_torch.serving import ServingEngine
 
-    params = lm.init_params(cfg, seed=args.seed, device=device)
-    pcfg, prefill_len = _paged_config(args, mesh.size if mesh else 1)
+    plan = None if mesh is None else serving_plan(cfg, mesh, paged=True)
+    params = init_serve_params(cfg, plan, seed=args.seed, device=device)
+    pcfg, prefill_len = _paged_config(args, 1 if mesh is None
+                                      else mesh.pool.size)
     try:
         eng = ServingEngine(cfg, pcfg, params, impl=args.impl, device=device,
                             mesh=mesh, prefill_len=prefill_len, lazy=args.lazy,
@@ -340,31 +403,28 @@ def _run_engine(cfg, args, device, mesh=None):
     return out, stats, eng
 
 
-def _serve_rank(mesh, device, cfg, args):
-    """One rank of ``--paged --mesh N``: what rank 0 prints, from every rank
+def _serve_rank(pool, device, shape, cfg, args):
+    """One rank of ``--paged --mesh``: what rank 0 prints, from every rank
     (the parent checks that they agree), and its decode split count."""
-    out, stats, eng = _run_engine(cfg, args, device, mesh)
+    _share_cores(device, pool.size)
+    out, stats, eng = _run_engine(cfg, args, device, join_train_mesh(shape))
     return out, stats, eng.results, eng.num_splits
 
 
-def serve_paged(cfg, args, device, n_ranks: int = 0):
+def serve_paged(cfg, args, device, shape=None):
     """Continuous batching over ragged synthetic requests (paged KV cache),
-    on one device or, with ``n_ranks``, sharded over that many spawned
-    ranks; prints JAX's summary lines and returns ``(outputs, stats,
-    engine)``, or ``(outputs, stats, per-rank (outputs, stats, results))``
-    under a mesh (rank 0's outputs and stats, equal on every rank)."""
+    on one device or over the spawned ranks of the mesh ``shape``; prints
+    JAX's summary lines and returns ``(outputs, stats, engine)``, or
+    ``(outputs, stats, per-rank (outputs, stats, results))`` under a mesh
+    (rank 0's outputs and stats, equal on every rank)."""
     plan = _fault_plan(args)
     if plan is not None:
         print(f"fault plan (seed {plan.seed}): "
               + " ".join(f"{e.kind}@{e.step}" for e in plan.events))
-    if n_ranks:
-        backend = args.dist_backend or pool_mesh.default_backend(device.type)
-        ranks = pool_mesh.run_ranks(_serve_rank, n_ranks, (cfg, args),
-                                    backend=backend, device_type=device.type)
-        devices = ", ".join(str(pool_mesh.rank_device(r, device.type))
-                            for r in range(n_ranks))
-        print(f"mesh: {n_ranks} ranks on the pool axis, backend {backend}, "
-              f"devices {devices}")
+    if shape:
+        ranks, backend, devices = _spawn(_serve_rank, shape, args, device,
+                                         (cfg, args))
+        _print_mesh(shape, backend, devices)
         out, stats, results, splits = ranks[0]
         for r, (o, st, _, ns) in enumerate(ranks[1:], 1):
             same = set(o) == set(out) and all(np.array_equal(o[k], out[k])

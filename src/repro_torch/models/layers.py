@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.attention import (spark_attention, spark_decode,
+                                       spark_decode_partials,
                                        spark_paged_decode)
 from repro_torch.core.online_softmax import NEG_INF
 from repro_torch.distributed import paged as dpaged
@@ -27,8 +28,8 @@ from repro_torch.kernels import rng
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call context: attention impl, mode flags, dropout seed, the
-    pool mesh of serving and the shard plan of training."""
+    """Per-call context: attention impl, mode flags, dropout seed and the
+    shard plan of a mesh (training or serving)."""
     impl: str = "kernel"             # attention impl (core.attention.IMPLS)
     deterministic: bool = True       # disables dropout
     seed: int = 0                    # dropout seed (an int32 value)
@@ -37,10 +38,8 @@ class Ctx:
     num_splits: int = 1              # split-KV decode slices per (B, Hkv) row
     acc_dtype: Any = torch.float32   # forward product rounding (bf16-ACC)
     bwd_acc_dtype: Any = torch.float32   # backward product rounding
-    mesh: Any = None                 # distributed.mesh.PoolMesh: the paged
-                                     # serving steps' pool is sharded over it
     plan: Any = None                 # distributed.parallel.ShardPlan: the
-                                     # params are a training mesh's shards
+                                     # params are a mesh rank's shards
 
 
 # ---------------------------------------------------------------------------
@@ -238,10 +237,12 @@ def init_attention(gen, cfg, dtype, keep=None) -> Attention:
     return init_dense_(Attention(cfg, dtype, device), gen, keep)
 
 
-def init_attn_cache(cfg, batch: int, max_len: int, dtype, device):
+def init_attn_cache(cfg, batch: int, max_len: int, dtype, device,
+                    kv_heads: Optional[int] = None):
     """One layer's contiguous cache: k/v [B, Hkv, max_len, D] zeros and the
-    host-side write index."""
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    host-side write index (``kv_heads`` in place of Hkv: a mesh rank's
+    share of them)."""
+    shape = (batch, kv_heads or cfg.num_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "index": 0}
@@ -296,22 +297,47 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     * prefill (cache given, not decode): fill the cache from position 0 — a
       windowed ring keeps the last ``cap`` tokens by slot — then fused
       attention over the prompt.
-    * on a training mesh (``ctx.plan``; no cache): this rank's q heads (all
-      of them where ``model`` does not split the heads) and the kv heads
-      they read, the kernel told the global coordinates of its first batch
-      row and q head (dropout draws the single-device masks), ``wo``
-      row-parallel and summed over ``model``.
+    * on a mesh (``ctx.plan``): this rank's q heads (all of them where
+      ``model`` does not split the heads) and the kv heads they read, the
+      kernel told the global coordinates of its first batch row and q head
+      (dropout draws the single-device masks), ``wo`` row-parallel and
+      summed over ``model``. Serving: a cache whose kv heads split holds the
+      rank's; one whose kv heads do not (``plan.kv_seq``) holds every kv
+      head on the rank's ``cap / model`` slots (``cache["shards"]``):
+      prefill writes the rank's range of the ring, decode gathers q over
+      ``model`` (every head), writes the new token's K/V on the rank that
+      owns slot ``index % cap``, attends over the rank's slots
+      (``spark_decode_partials``, its count of valid slots
+      ``clamp(min(index + 1, cap) - r·cap/M, 0, cap/M)``) and merges the
+      partials over ``model``; ``wo`` then takes the rank's heads' columns.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)
     plan = ctx.plan
+    pool = cache is not None and "k_pages" in cache
+    # serving on a mesh: a page pool, and a contiguous cache whose kv heads
+    # do not split, hold every kv head; decode over either (and the pool's
+    # chunk and verify rows) attends with every q head
+    every_kv = plan is not None and cache is not None and (pool or not plan.kv)
+    every_q = plan is not None and cache is not None and (
+        (pool and (ctx.decode or "token_tables" in (paged or {})))
+        or (ctx.decode and not plan.kv))
     if plan is not None:
         x = plan.enter(x, plan.heads)
-    q = (x @ weight(ctx, p.wq, "attn:mixer.wq")).view(b, s, -1, hd)
-    k = (x @ kv_weight(ctx, p.wk, "attn:mixer.wk")).view(b, s, -1, hd)
-    v = (x @ kv_weight(ctx, p.wv, "attn:mixer.wv")).view(b, s, -1, hd)
+    q = x @ weight(ctx, p.wq, "attn:mixer.wq")
+    if every_kv and not plan.kv:
+        k = x @ weight(ctx, p.wk, "attn:mixer.wk")
+        v = x @ weight(ctx, p.wv, "attn:mixer.wv")
+    else:
+        k = x @ kv_weight(ctx, p.wk, "attn:mixer.wk")
+        v = x @ kv_weight(ctx, p.wv, "attn:mixer.wv")
+    if every_q and plan.heads:
+        q = plan.gather_model(q)
+    if every_kv and plan.kv:
+        k, v = plan.gather_model(k), plan.gather_model(v)
+    q, k, v = (t.view(b, s, -1, hd) for t in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, weight(ctx, p.q_norm, "attn:mixer.q_norm"))
         k = rms_norm(k, weight(ctx, p.k_norm, "attn:mixer.k_norm"))
@@ -319,41 +345,53 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     k = rope(k, positions).transpose(1, 2)
     v = v.transpose(1, 2)
 
+    def project_out(o):
+        """o [B, S, H·D] (every head where ``every_q``) → ``@ wo``."""
+        if every_q:
+            o = plan.own_heads(o)
+        out = o @ weight(ctx, p.wo, "attn:mixer.wo")
+        return out if plan is None else plan.leave(out, plan.heads)
+
+    if pool:
+        o = _apply_paged(q, k, v, ctx, cfg, cache, paged, segment_ids,
+                         every_q)
+        return project_out(o.reshape(b, s, -1)), cache
     new_cache = None
-    if cache is not None and "k_pages" in cache:
-        return _apply_paged(p, q, k, v, ctx, cfg, cache, paged, segment_ids)
     if ctx.decode:
         if s != 1 or cache is None or segment_ids is not None:
             raise ValueError("decode takes one token per row, a cache and "
                              "no segment ids")
         idx = cache["index"]
-        cap = cache["k"].shape[2]
+        ck, cv = cache["k"], cache["v"]
+        local, cap, lo = _ring_range(cache, plan)
         slot = idx % cap if cfg.attn_window is not None else idx
         if slot >= cap:
             raise ValueError(f"cache full: position {idx} >= max_len {cap}")
-        ck, cv = cache["k"], cache["v"]
-        ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
-        cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
-        kv_len = torch.full((b,), min(idx + 1, cap), dtype=torch.int32,
-                            device=x.device)
-        o = spark_decode(q[:, :, 0], ck, cv, impl=ctx.impl, kv_len=kv_len,
-                         window=None, num_splits=ctx.num_splits)[:, :, None]
-        new_cache = {"k": ck, "v": cv, "index": idx + 1}
+        if lo <= slot < lo + local:
+            ck[:, :, slot - lo] = k[:, :, 0].to(ck.dtype)
+            cv[:, :, slot - lo] = v[:, :, 0].to(cv.dtype)
+        n = min(max(min(idx + 1, cap) - lo, 0), local)
+        kv_len = torch.full((b,), n, dtype=torch.int32, device=x.device)
+        if local < cap:
+            acc, m, l = spark_decode_partials(q[:, :, 0], ck, cv, impl=ctx.impl,
+                                              kv_len=kv_len,
+                                              num_splits=ctx.num_splits)
+            o = dpaged.merge_partials(acc, m, l, plan.mesh.pool,
+                                      out_dtype=q.dtype)[:, :, None]
+        else:
+            o = spark_decode(q[:, :, 0], ck, cv, impl=ctx.impl, kv_len=kv_len,
+                             window=None,
+                             num_splits=ctx.num_splits)[:, :, None]
+        new_cache = dict(cache, index=idx + 1)
     else:
         if cache is not None:
             if segment_ids is not None:
                 raise ValueError("the contiguous cache stores no segments: "
                                  "packed prefill needs a paged cache")
-            ck, cv = cache["k"], cache["v"]
-            cap = ck.shape[2]
-            if s >= cap:       # windowed ring: keep the last `cap` tokens, by slot
-                shift = (s - cap) % cap
-                ck.copy_(torch.roll(k[:, :, s - cap:], shift, dims=2))
-                cv.copy_(torch.roll(v[:, :, s - cap:], shift, dims=2))
-            else:
-                ck[:, :, :s] = k
-                cv[:, :, :s] = v
-            new_cache = {"k": ck, "v": cv, "index": cache["index"] + s}
+            _fill_ring(cache, k, v, plan)
+            new_cache = dict(cache, index=cache["index"] + s)
+            if every_kv:           # the kv heads this rank's q heads read
+                k, v = plan.kv_heads_of(k), plan.kv_heads_of(v)
         drop = 0.0 if ctx.deterministic else cfg.dropout_rate
         o = spark_attention(q, k, v, impl=ctx.impl,
                             seed=rng.int32(ctx.seed + layer_seed),
@@ -364,15 +402,40 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                             torch_chunk=ctx.torch_chunk,
                             batch_offset=0 if plan is None else plan.batch_offset(b),
                             head_offset=0 if plan is None else plan.head_offset)
-
-    out = o.transpose(1, 2).reshape(b, s, -1) @ weight(ctx, p.wo, "attn:mixer.wo")
-    return (out if plan is None else plan.leave(out, plan.heads)), new_cache
+    return project_out(o.transpose(1, 2).reshape(b, s, -1)), new_cache
 
 
-def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
-                 segment_ids):
+def _ring_range(cache, plan):
+    """A contiguous cache's (slots held here, slots in all, the first slot
+    held here): a cache sharded along its sequence (``cache["shards"]``)
+    holds this rank's range of the ring, ``[r·cap/M, (r+1)·cap/M)``."""
+    local = cache["k"].shape[2]
+    shards = cache.get("shards", 1)
+    lo = plan.mesh.index("model") * local if shards > 1 else 0
+    return local, local * shards, lo
+
+
+def _fill_ring(cache, k, v, plan) -> None:
+    """Prefill's write of k/v [B, Hkv, S, D] into a contiguous cache from
+    position 0, in place: a windowed ring keeps the last ``cap`` tokens by
+    slot (position ``p`` at slot ``p % cap``), a sequence-sharded cache
+    its range of them (:func:`_ring_range`)."""
+    local, cap, lo = _ring_range(cache, plan)
+    s = k.shape[2]
+    for c, t in ((cache["k"], k), (cache["v"], v)):
+        if s >= cap:       # windowed ring: keep the last `cap` tokens, by slot
+            ring = torch.roll(t[:, :, s - cap:], (s - cap) % cap, dims=2)
+            c.copy_(ring[:, :, lo:lo + local])
+        else:
+            n = min(max(s - lo, 0), local)
+            c[:, :, :n] = t[:, :, lo:lo + n]
+
+
+def _apply_paged(q, k, v, ctx: Ctx, cfg, cache, paged, segment_ids,
+                 every_q: bool):
     """The paged branches of :func:`apply_attention` (q [B,Hq,S,D], k/v
-    [B,Hkv,S,D] after RoPE), mirroring JAX's arms.
+    [B,Hkv,S,D] after RoPE), mirroring JAX's arms. Returns the attention
+    output o [B, S, Hq, D] before ``wo``; the pool is updated in place.
 
     * decode: append this token's K/V at position ``kv_len`` (the slot the
       row's table names), then paged flash-decode over ``kv_len + 1``.
@@ -387,10 +450,16 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
       the kernel folds each page once for the consecutive rows that share a
       table.
 
-    With ``ctx.mesh`` the cache is this rank's shard of the pool and every
-    arm goes through ``distributed/paged.py``: the scatter keeps the writes
-    this shard owns, and attention is local partials merged across ranks.
+    On a serving mesh whose ``model`` axis has a process group
+    (``TrainMesh.pool_shards`` of ``ctx.plan``'s mesh) the cache is this rank's shard of the pool and every arm goes through
+    ``distributed/paged.py``: the scatter keeps the writes this shard owns,
+    and attention is local partials merged across ranks. On a serving mesh
+    (``ctx.plan``) k/v hold every kv head; q holds every
+    head where ``every_q`` (decode, chunk and verify rows), else this
+    rank's, and the packed prefill attends on those heads.
     """
+    plan = ctx.plan
+    pool = None if plan is None else plan.mesh.pool_shards
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
     ck, cv = cache["k_pages"], cache["v_pages"]
@@ -401,12 +470,12 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
         if s != 1 or segment_ids is not None:
             raise ValueError("decode takes one token per row and no segment ids")
         bt, kvl = paged["block_tables"], paged["kv_len"]
-        if ctx.mesh is not None:
+        if pool is not None:
             # sharded pool: local scatter + local partials, merged across
             # ranks (distributed/paged.py)
             o = dpaged.paged_append_decode_sharded(
                 q[:, :, 0], k[:, :, 0], v[:, :, 0], ck, cv, bt, kvl,
-                mesh=ctx.mesh, impl=ctx.impl, window=window,
+                mesh=pool, impl=ctx.impl, window=window,
                 num_splits=ctx.num_splits)
         else:
             ps = ck.shape[2]
@@ -425,24 +494,28 @@ def _apply_paged(p: Attention, q, k, v, ctx: Ctx, cfg, cache, paged,
         if "dest" not in paged:
             raise ValueError("prefill onto a paged cache needs dest token slots")
         dest = paged["dest"].reshape(-1)                      # [B*S]
-        scatter = (_scatter_pages if ctx.mesh is None else
-                   functools.partial(dpaged.scatter_pages_sharded, mesh=ctx.mesh))
+        scatter = (_scatter_pages if pool is None else
+                   functools.partial(dpaged.scatter_pages_sharded, mesh=pool))
         scatter(ck, dest, k.transpose(0, 1).reshape(hkv, b * s, hd))
         scatter(cv, dest, v.transpose(0, 1).reshape(hkv, b * s, hd))
         if "token_tables" in paged:
             q_tok = q.transpose(1, 2).reshape(b * s, hq, hd)
-            decode = (spark_paged_decode if ctx.mesh is None else
+            decode = (spark_paged_decode if pool is None else
                       functools.partial(dpaged.paged_decode_sharded,
-                                        mesh=ctx.mesh))
+                                        mesh=pool))
             o = decode(
                 q_tok, ck, cv, paged["token_tables"].reshape(b * s, -1),
                 paged["token_kv_len"].reshape(b * s), impl=ctx.impl,
                 window=window, num_splits=ctx.num_splits,
                 row_tokens=s).view(b, s, hq, hd)
         else:
+            if plan is not None:       # the kv heads its q heads read
+                k, v = plan.kv_heads_of(k), plan.kv_heads_of(v)
             o = spark_attention(q, k, v, impl=ctx.impl, causal=cfg.causal,
                                 window=cfg.attn_window, segment_ids=segment_ids,
                                 acc_dtype=ctx.acc_dtype,
-                                torch_chunk=ctx.torch_chunk).transpose(1, 2)
-    out = o.reshape(b, s, hq * hd) @ p.wo
-    return out, {"k_pages": ck, "v_pages": cv}
+                                torch_chunk=ctx.torch_chunk,
+                                head_offset=0 if plan is None
+                                else plan.head_offset).transpose(1, 2)
+    return o
+

@@ -21,13 +21,16 @@ Mamba) ones. MoE layers report ``moe_aux`` (summed over the layers) and
 ``moe_dropped`` (averaged) as JAX's forward does, in a forward without
 caches; the serving steps, which drop them, do not compute them.
 
-On a training mesh (``ctx.plan``, a ``distributed.parallel.ShardPlan``)
-the parameters are the rank's shards and every layer runs its part:
+On a mesh (``ctx.plan``, a ``distributed.parallel.ShardPlan``) the
+parameters are the rank's shards and every layer runs its part:
 tensor-parallel over ``model`` (attention heads, MLPs, the recurrent
 mixers' channels), expert-parallel MoE layers, FSDP weights gathered
 before use, the vocab-parallel embedding, logits and cross-entropy;
 ``loss_fn`` then returns this rank's term of the global loss (see the
-plan), and the MoE metrics are global.
+plan), and the MoE metrics are global. Serving on a mesh
+(``ShardPlan.serving``) threads the rank's shard of every cache
+(:func:`init_cache` / :func:`init_paged_cache` with the plan) and returns
+the rank's batch rows and vocab columns of the logits.
 
 Public entry points:
   init_params(cfg, seed=, device=, vocab_pad_to=, keep=) → LM (random weights)
@@ -194,13 +197,20 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
     drawn too, as JAX's are). The draws differ from JAX's;
     ``convert.convert_params`` carries JAX weights over.
 
+    The vocab's ``cfg.vocab_size`` rows of ``embed`` and columns of
+    ``lm_head`` take the draws of the unpadded model; the padded ones come
+    from a second generator (seeded ``seed + 1``) after them, so a model
+    padded for a mesh computes the unpadded model's logits.
+
     keep(name, full) → tensor: the model is built on "meta" and each
     parameter becomes what ``keep`` returns for its full draw before the
     next is drawn, in the same order and so with the same values; a mesh
     rank keeps its shard, and at most one full parameter is alive at a
     time."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    pad_gen = torch.Generator(device=device).manual_seed(seed + 1)
     vpad = padded_vocab(cfg, vocab_pad_to)
+    extra = vpad - cfg.vocab_size
     model = LM(cfg, vpad, device=device if keep is None else "meta")
 
     def put(name, full):
@@ -229,10 +239,21 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
                    layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
                                    gated=cfg.mlp_type == "gated_silu",
                                    keep=under(pre + "mlp.")))
-    put("embed", layers.dense_init(gen, vpad, cfg.d_model, cfg.dtype,
-                                   scale=0.02))
+    embed = layers.dense_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype,
+                              scale=0.02)
+    if extra:
+        embed = torch.cat([embed, layers.dense_init(
+            pad_gen, extra, cfg.d_model, cfg.dtype, scale=0.02)])
+    put("embed", embed)
+    del embed
     put("final_norm", ones("final_norm"))
-    put("lm_head", layers.dense_init(gen, cfg.d_model, vpad, cfg.dtype))
+    head = layers.dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype)
+    if extra:
+        head = torch.cat([head, layers.dense_init(
+            pad_gen, cfg.d_model, extra, cfg.dtype,
+            scale=cfg.d_model ** -0.5)], dim=1)
+    put("lm_head", head)
+    del head
     if cfg.frontend is not None:
         put("frontend_proj", layers.dense_init(gen, FRONTEND_DIM, cfg.d_model,
                                                cfg.dtype))
@@ -282,7 +303,8 @@ def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
 
 
 def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
-            caches=None, positions=None, segment_ids=None, paged=None):
+            caches=None, positions=None, segment_ids=None, paged=None,
+            rows=None):
     """tokens [B, S] int or embeds [B, S, FRONTEND_DIM] (an arch with a
     frontend; cast to the model's dtype, then ``@ frontend_proj``) →
     (logits [B, S, Vpad], new_caches or None, metrics): metrics are
@@ -295,12 +317,12 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
     paged: the routing of paged caches, passed to every layer
     (``layers.apply_attention``, ``rglru.apply_rglru``,
     ``mamba.apply_mamba``).
+    rows: a bool mask [B, S]; only these rows go through the final norm and
+    the head, and the logits are [N, Vpad], the rows in row-major order.
     """
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes tokens or embeds, one of the two")
     plan = ctx.plan
-    if plan is not None and caches is not None:
-        raise NotImplementedError("a training mesh runs forward without caches")
     if embeds is None:
         x = params.embed[tokens] if plan is None else plan.embed(params.embed,
                                                                  tokens)
@@ -332,6 +354,8 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
         metrics = {"moe_aux": sum(m["moe_aux"] for m in layer_metrics),
                    "moe_dropped": sum(m["moe_dropped"] for m in layer_metrics)
                    / len(layer_metrics)}
+    if rows is not None:
+        x = x[rows]
     x = layers.rms_norm(x, layers.weight(ctx, params.final_norm, "final_norm"))
     if plan is not None:
         return plan.logits(x, params.lm_head), new_caches, metrics
@@ -381,14 +405,49 @@ def loss_fn(cfg, params: LM, batch, ctx: Ctx):
     return loss, dict(metrics, ce=ce, loss=loss)
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda"):
+def _state_channels(cfg, plan):
+    """A recurrent layer's state channels on this rank: its ``rnn``
+    channels where the plan splits them over ``model``."""
+    if plan is None or not plan.rnn:
+        return None
+    width = cfg.rglru.d_rnn if cfg.rglru is not None else cfg.mamba.d_inner
+    return width // plan.mesh.size("model")
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device="cuda",
+               plan=None):
     """Per-layer contiguous caches: KV for attention layers (sliding-window
-    archs keep only ``window`` slots), zero state rows for recurrent ones."""
+    archs keep only ``window`` slots), zero state rows for recurrent ones.
+
+    On a serving mesh (``plan``, ``ShardPlan.serving``) each is this rank's
+    shard: ``batch / (batch ranks)`` rows; kv heads over ``model`` where the
+    plan splits them, else (``plan.kv_seq``) every kv head on ``cap /
+    model`` of the cache's slots (``plan.kv_shards``), the dict then
+    carrying ``"shards"``; recurrent state on the rank's channels."""
     dtype = dtype or cfg.dtype
     eff = max_len if cfg.attn_window is None else min(max_len, cfg.attn_window)
-    return [layers.init_attn_cache(cfg, batch, eff, dtype, device)
-            if kind == "attn" else _MIXERS[kind][2](cfg, batch, device)
-            for kind in block_kinds(cfg)]
+    hkv, shards = None, 1
+    if plan is not None:
+        n = plan.mesh.size(plan.batch)
+        if batch % n:
+            raise ValueError(f"a batch of {batch} rows does not split over "
+                             f"the {n} ranks of the batch axes {plan.batch}")
+        batch //= n
+        if plan.kv:
+            hkv = cfg.num_kv_heads // plan.mesh.size("model")
+        shards = plan.kv_shards(eff)
+    channels = _state_channels(cfg, plan)
+    out = []
+    for kind in block_kinds(cfg):
+        if kind != "attn":
+            out.append(_MIXERS[kind][2](cfg, batch, device, channels))
+            continue
+        cache = layers.init_attn_cache(cfg, batch, eff // shards, dtype,
+                                       device, hkv)
+        if shards > 1:
+            cache["shards"] = shards
+        out.append(cache)
+    return out
 
 
 def prefill(cfg, params: LM, ctx: Ctx, tokens=None, caches=None, *,
@@ -416,26 +475,39 @@ def decode_step(cfg, params: LM, ctx: Ctx, token, caches, position: int):
 # paged serving: page-pool cache / packed prefill / block-table decode
 # ---------------------------------------------------------------------------
 
-def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda", mesh=None):
+def init_paged_cache(cfg, paged_cfg, dtype=None, *, device="cuda",
+                     plan=None):
     """Per-layer serving caches: attention layers get page pools
     ``{"k_pages", "v_pages"}`` [Hkv, num_pages, page_size, D] (no batch dim:
     sequences share the pool through block tables; host-side page lifecycle
-    in ``serving/paged_cache.py``); with a pool ``mesh`` they are this
-    rank's shard, [Hkv, num_pages / N, page_size, D]. Recurrent layers get
-    per-slot state rows ``{"h", "conv"}`` [max_batch + 1, ...]: slot i backs
-    decode slot i, and the trailing trash row absorbs padding tokens'
-    gathers and scatters (host-side slot lifecycle in
-    ``serving/state_cache.py``). Under a mesh every rank keeps all of them
-    beside its shard of the pools: each rank holds the whole model and sees
-    the same tokens, so its recurrent blocks compute the same state."""
+    in ``serving/paged_cache.py``); with a serving ``plan`` whose ``model``
+    axis has a process group (``TrainMesh.pool_shards``) they are this
+    rank's shard,
+    [Hkv, num_pages / N, page_size, D]. Recurrent layers get per-slot state
+    rows ``{"h", "conv"}`` [max_batch + 1, ...]: slot i backs decode slot
+    i, and the trailing trash row absorbs padding tokens' gathers and
+    scatters (host-side slot lifecycle in ``serving/state_cache.py``).
+    Under a mesh every rank keeps all of the rows, beside its shard of the
+    pools: the slots are replicated over the mesh, so every rank's
+    recurrent blocks see the same tokens; where the ``plan`` splits the
+    ``rnn`` channels a row holds the rank's channels."""
     kinds = block_kinds(cfg)
     dtype = dtype or cfg.dtype
-    n = 1 if mesh is None else mesh.size
-    local = pages_per_shard(paged_cfg.num_pages, n) if n > 1 else None
+    pool = None if plan is None else plan.mesh.pool_shards
+    local = (None if pool is None else
+             pages_per_shard(paged_cfg.num_pages, pool.size))
+    channels = _state_channels(cfg, plan)
     return [layers.init_paged_attn_cache(cfg, paged_cfg, dtype, device, local)
             if kind == "attn"
-            else _MIXERS[kind][2](cfg, paged_cfg.max_batch + 1, device)
+            else _MIXERS[kind][2](cfg, paged_cfg.max_batch + 1, device, channels)
             for kind in kinds]
+
+
+def span_ends(ids):
+    """``ids`` [B, S] naming each token's span (-1 padding) → a bool mask of
+    the last token of each span: the rows whose logits the engine samples."""
+    nxt = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -1)], dim=1)
+    return (ids >= 0) & (ids != nxt)
 
 
 def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
@@ -445,7 +517,8 @@ def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
     tokens/segment_ids/positions [B, S] (prompts packed along S, -1 = pad,
     per-prompt positions from 0); dest [B, S] flat page-pool token slots
     (``BlockTables.prefill_dest``). Fills the pools in place. Returns
-    (logits [B, S, Vpad], caches); the engine reads each prompt's last row.
+    (logits [N, Vpad], caches): the rows that end a segment, the rows the
+    engine samples, in row-major order (each prompt's last token).
     state_slots [B, S] (recurrent archs): each token's decode slot, -1 for
     padding; recurrent layers reset their scan at every span start and
     scatter span-end state into the slot's row. Prefill spans start at
@@ -456,11 +529,11 @@ def paged_prefill(cfg, params: LM, ctx: Ctx, tokens, segment_ids, positions,
         paged.update(state_slots=state_slots, state_local=positions)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
                    positions=positions, segment_ids=segment_ids,
-                   paged=paged)[:2]
+                   paged=paged, rows=span_ends(segment_ids))[:2]
 
 
 def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
-                        token_tables, token_kv_len, caches, state_slots=None,
+                        token_tables, token_kv_len, caches, state_slots,
                         state_local=None):
     """Chunked / suffix packed prefill: prompt spans whose earlier tokens
     already live in pages (prefix-cache hits, earlier chunks).
@@ -470,17 +543,19 @@ def paged_chunk_prefill(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
     token_tables [B, S, T] each token's block-table row; token_kv_len
     [B, S] = position + 1 for real tokens, 0 for padding. Each layer
     scatters the span's K/V first, then every token attends through its own
-    table row. Returns (logits [B, S, Vpad], caches). state_slots /
-    state_local [B, S] (recurrent archs): each token's decode slot (-1
-    padding) and offset in its span; a span whose global start (position -
-    local) is past 0 resumes the slot's stored state.
+    table row. state_slots [B, S]: each token's decode slot (-1 padding);
+    state_local [B, S] (recurrent archs): each token's offset in its span;
+    a span whose global start (position - local) is past 0 resumes the
+    slot's stored state. Returns (logits [N, Vpad], caches): the rows that
+    end a span of ``state_slots``, in row-major order.
     """
     paged = {"dest": dest, "token_tables": token_tables,
              "token_kv_len": token_kv_len}
-    if state_slots is not None:
+    if state_local is not None:
         paged.update(state_slots=state_slots, state_local=state_local)
     return forward(cfg, params, ctx, tokens=tokens, caches=caches,
-                   positions=positions, paged=paged)[:2]
+                   positions=positions, paged=paged,
+                   rows=span_ends(state_slots))[:2]
 
 
 def paged_verify_step(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
@@ -491,8 +566,10 @@ def paged_verify_step(cfg, params: LM, ctx: Ctx, tokens, positions, dest,
     ``[B = max_batch, W = k + 1]`` rows. Rejected drafts' K/V stay at
     positions ``>= kv_len``, which every read gates out, until the next
     verify rewrites them. Returns (logits [B, W, Vpad], caches)."""
-    return paged_chunk_prefill(cfg, params, ctx, tokens, positions, dest,
-                               token_tables, token_kv_len, caches)
+    paged = {"dest": dest, "token_tables": token_tables,
+             "token_kv_len": token_kv_len}
+    return forward(cfg, params, ctx, tokens=tokens, caches=caches,
+                   positions=positions, paged=paged)[:2]
 
 
 def paged_decode_step(cfg, params: LM, ctx: Ctx, token, caches, block_tables,

@@ -88,13 +88,14 @@ def init_mamba(gen: torch.Generator, cfg, dtype, keep=None) -> Mamba:
                         draws(), keep)
 
 
-def init_mamba_cache(cfg, batch: int, device):
+def init_mamba_cache(cfg, batch: int, device, channels=None):
     """Zero state rows: ``h [batch, Di, N]`` and ``conv [batch, K-1, Di]``,
-    f32."""
+    f32 (``channels`` in place of Di: a mesh rank's share of them)."""
     mc = cfg.mamba
-    return {"h": torch.zeros((batch, mc.d_inner, mc.ssm_state),
+    di = channels or mc.d_inner
+    return {"h": torch.zeros((batch, di, mc.ssm_state),
                              dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, mc.conv_kernel - 1, mc.d_inner),
+            "conv": torch.zeros((batch, mc.conv_kernel - 1, di),
                                 dtype=torch.float32, device=device)}
 
 
@@ -182,8 +183,8 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
     decode updates rows [:B] where ``paged["kv_len"] > 0``, so masked and
     inactive slots keep their state (as ``rglru.apply_rglru``).
 
-    On a training mesh (``ctx.plan``; no cache) whose ``model`` axis splits
-    the channels: ``in_proj`` column-parallel on this rank's channels of
+    On a mesh (``ctx.plan``) whose ``model`` axis splits the channels (the
+    state rows then hold the rank's channels): ``in_proj`` column-parallel on this rank's channels of
     both halves (u and z), the conv, ``dt_bias``, ``A_log``, ``D`` and the
     chunked scan on them; ``w_bc`` and ``w_dt1`` its rows, their partial
     products summed over ``model`` (B, C and the dt rank are every

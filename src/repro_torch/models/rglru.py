@@ -68,9 +68,10 @@ def init_rglru(gen: torch.Generator, cfg, dtype, keep=None) -> RGLRU:
                         draws(), keep)
 
 
-def init_rglru_cache(cfg, batch: int, device):
-    """Zero state rows: ``h [batch, Dr]`` and ``conv [batch, 3, Dr]``, f32."""
-    dr = cfg.rglru.d_rnn
+def init_rglru_cache(cfg, batch: int, device, channels=None):
+    """Zero state rows: ``h [batch, Dr]`` and ``conv [batch, 3, Dr]``, f32
+    (``channels`` in place of Dr: a mesh rank's share of them)."""
+    dr = channels or cfg.rglru.d_rnn
     return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, 3, dr), dtype=torch.float32,
                                 device=device)}
@@ -220,8 +221,8 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
     decode updates rows [:B] where ``paged["kv_len"] > 0``, so masked and
     inactive slots keep their state.
 
-    On a training mesh (``ctx.plan``; no cache) whose ``model`` axis splits
-    the channels: ``wx``/``wg`` column-parallel, the conv, the gates' Λ and
+    On a mesh (``ctx.plan``) whose ``model`` axis splits the channels (the
+    state rows then hold the rank's channels): ``wx``/``wg`` column-parallel, the conv, the gates' Λ and
     the scan on this rank's channels, ``w_inp``/``w_rec`` its rows (the
     rules shard their first ``rnn`` dim only), so the gates' products are
     partial sums, summed over ``model`` and cut to its channels; ``wo``
@@ -273,8 +274,8 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
                                    is_start, inject)
             _scatter_state(hs, h, slots, is_end)
             _scatter_state(convs, _conv_state_of(lags), slots, is_end)
-        out = (h.to(x.dtype) * gate) @ p.wo
-        return out, cache
+        out = (h.to(x.dtype) * gate) @ layers.weight(ctx, p.wo, "rec:mixer.wo")
+        return (out if plan is None else plan.leave(out, split)), cache
 
     xr, new_conv = _conv1d_causal(xr, p.conv,
                                   None if cache is None else cache["conv"])

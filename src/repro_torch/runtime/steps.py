@@ -1,6 +1,7 @@
 """Train, prefill and decode steps (counterpart of ``repro.runtime.steps``):
-on one device; the train step also over a training mesh (every family;
-``distributed/parallel.py``), the paged serving steps over a pool mesh.
+on one device, or over a mesh of ranks (every family;
+``distributed/parallel.py``): the train step, and the serving steps on
+the contiguous and the paged cache under JAX's serving rules.
 
 PyTorch runs eagerly: there is no jit. The train step updates the params and
 the optimizer state in place; the serving steps run under
@@ -11,11 +12,13 @@ donate them and return new ones.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.mesh import as_train_mesh
 from repro_torch.distributed.parallel import (NamedSharding, ShardPlan,
                                              batch_shardings, shard_batch)
 from repro_torch.distributed.sharding import (ShardingRules, default_rules,
@@ -253,12 +256,47 @@ class ServeArtifacts:
     cache_init_fn() → fresh per-layer caches
     chunk_prefill_fn, verify_fn: paged only (chunked/suffix prefill,
         speculative verify)
+    init_fn(seed=0) → the model with random weights (``lm.init_params``,
+        the vocab padded to the mesh's ``model`` axis): on a mesh this
+        rank's shard, each leaf drawn whole and cut before the next
+    plan: the ``ShardPlan`` of a mesh (None on one device); its
+        ``place(params)`` cuts a model held whole to this rank's shard
     """
     prefill_fn: Any
     decode_fn: Any
     cache_init_fn: Any
     chunk_prefill_fn: Any = None
     verify_fn: Any = None
+    init_fn: Any = None
+    plan: Any = None
+
+
+def serving_plan(cfg, mesh, *, paged: bool = False) -> ShardPlan:
+    """The ``ShardPlan.serving`` of ``cfg`` on ``mesh`` (a ``TrainMesh``,
+    or a ``PoolMesh`` as the mesh ``("model",)``), the vocab padded to its
+    ``model`` axis."""
+    mesh = as_train_mesh(mesh)
+    vpad = lm.padded_vocab(cfg, vocab_pad_for(mesh))
+    shapes = {n: tuple(p.shape) for n, p in
+              lm.LM(cfg, vpad, device="meta").named_parameters()}
+    return ShardPlan.serving(cfg, mesh, shapes, lm.param_specs(cfg),
+                             paged=paged)
+
+
+def init_serve_params(cfg, plan=None, seed: int = 0, *, device="cuda"):
+    """The model with random weights (``lm.init_params``): whole on one
+    device (``plan`` None); on a mesh this rank's shard under the serving
+    ``plan``, the vocab padded to its ``model`` axis, each leaf drawn whole
+    and cut before the next is drawn (no rank holds the whole model)."""
+    if plan is None:
+        return lm.init_params(cfg, seed=seed, device=device)
+
+    def local(name, t):
+        part = plan.sharding(name).shard(t)
+        return torch.empty(part.shape, dtype=part.dtype,
+                           device=device).copy_(part)
+    return lm.init_params(cfg, seed=seed, device=device,
+                          vocab_pad_to=vocab_pad_for(plan.mesh), keep=local)
 
 
 def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
@@ -273,98 +311,123 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
 
     paged: a ``serving.PagedCacheConfig`` switches the cache to a page pool
     shared by all sequences. The signatures are then JAX's, with the caches
-    updated in place:
+    updated in place; the prefill and chunk steps return the logits of the
+    rows that end a span only (of ``segment_ids``, of ``state_slots``; N of
+    them, row-major), the rows the engine samples, where JAX returns every
+    row's:
 
       prefill_fn(params, tokens, segment_ids, positions, dest, state_slots,
-                 caches) → (logits [B,S,Vpad], caches)   # packed prompts
+                 caches) → (logits [N,Vpad], caches)     # packed prompts
       decode_fn(params, token, caches, block_tables, kv_len)
           → (logits [B,Vpad], caches)                    # B = max_batch
       chunk_prefill_fn(params, tokens, positions, dest, token_tables,
                        token_kv_len, state_slots, state_local, caches)
-          → (logits [B,S,Vpad], caches)                  # global positions
+          → (logits [N,Vpad], caches)                    # global positions
       verify_fn(params, tokens, positions, dest, token_tables, token_kv_len,
                 caches) → (logits [B,W,Vpad], caches)    # W = k + 1
 
     ``state_slots``/``state_local`` route the recurrent layers' per-slot
     state rows (hybrid archs); attention layers ignore them.
 
-    mesh: a ``distributed.mesh.PoolMesh`` shards the page pool over its ranks
-    (``paged.num_shards`` must equal its size): every rank runs the same
-    steps on its shard of the pool and replicated weights, and decode merges
-    the shards' attention partials (``distributed/paged.py``). The
-    contiguous cache takes no mesh yet.
+    mesh: a ``distributed.mesh.TrainMesh`` (or a ``PoolMesh``, the mesh
+    ``("model",)``): every rank runs the same steps on its shard of the
+    model and the caches under JAX's serving rules (``ShardPlan.serving``:
+    prefill and decode rules, the weights as decode lays them out, the
+    vocab padded to ``model``). The steps take the global inputs, and
+    return the global logits, every vocab column gathered, equal on every
+    rank. The contiguous cache holds the rank's batch rows (``batch`` must
+    split over the batch axes) and its kv heads, or its slots of every kv
+    head where the kv heads do not split (``kv_cache_seq``); the page pool
+    is sharded over ``model`` (``paged.num_shards`` must equal its size)
+    and its slots replicated over the batch axes, decode merging the
+    shards' attention partials (``distributed/paged.py``).
     """
+    plan = None
+    if mesh is not None:
+        plan = serving_plan(cfg, mesh, paged=paged is not None)
+    gather = (lambda t: t) if plan is None else plan.gather_logits
     if paged is not None:
-        if mesh is not None and paged.num_shards != mesh.size:
+        pool = None if plan is None else plan.mesh.pool
+        if pool is not None and paged.num_shards != pool.size:
             raise ValueError(
                 f"PagedCacheConfig.num_shards={paged.num_shards} must "
-                f"equal the mesh's model-axis size {mesh.size} (the "
+                f"equal the mesh's model-axis size {pool.size} (the "
                 f"allocator reserves one trash page per pool shard)")
         return _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits,
-                                  device, mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            "the contiguous cache over a mesh needs the sharding rules "
-            "(weights and activations split over ranks), not yet ported: "
-            "serve sharded with paged=")
+                                  device, plan, gather)
+    rows = (lambda t: t) if plan is None else plan.batch_part
 
     def cache_init():
         with torch.inference_mode():
-            return lm.init_cache(cfg, batch, max_len, device=device)
+            return lm.init_cache(cfg, batch, max_len, device=device, plan=plan)
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, caches, embeds=None):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk)
-        return lm.prefill(cfg, params, ctx, tokens, caches, embeds=embeds)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, plan=plan)
+        logits, caches = lm.prefill(
+            cfg, params, ctx, None if tokens is None else rows(tokens), caches,
+            embeds=None if embeds is None else rows(embeds))
+        return gather(logits), caches
 
     @torch.inference_mode()
     def decode_fn(params, token, caches, position):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits)
-        return lm.decode_step(cfg, params, ctx, token, caches, position)
+        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits,
+                  plan=plan)
+        logits, caches = lm.decode_step(cfg, params, ctx, rows(token), caches,
+                                        position)
+        return gather(logits), caches
 
     return ServeArtifacts(prefill_fn=prefill_fn, decode_fn=decode_fn,
-                          cache_init_fn=cache_init)
+                          cache_init_fn=cache_init,
+                          init_fn=functools.partial(init_serve_params, cfg,
+                                                    plan, device=device), plan=plan)
 
 
 def _paged_serve_steps(cfg, paged, impl, torch_chunk, num_splits, device,
-                       mesh):
+                       plan, gather):
     def cache_init():
         with torch.inference_mode():
-            return lm.init_paged_cache(cfg, paged, device=device, mesh=mesh)
+            return lm.init_paged_cache(cfg, paged, device=device, plan=plan)
+
+    def ctx(**kw):
+        return Ctx(impl=impl, torch_chunk=torch_chunk, plan=plan, **kw)
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, segment_ids, positions, dest, state_slots,
                    caches):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, mesh=mesh)
-        return lm.paged_prefill(cfg, params, ctx, tokens, segment_ids,
-                                positions, dest, caches, state_slots)
+        logits, caches = lm.paged_prefill(cfg, params, ctx(), tokens,
+                                          segment_ids, positions, dest,
+                                          caches, state_slots)
+        return gather(logits), caches
 
     @torch.inference_mode()
     def decode_fn(params, token, caches, block_tables, kv_len):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits,
-                  mesh=mesh)
-        return lm.paged_decode_step(cfg, params, ctx, token, caches,
-                                    block_tables, kv_len)
+        logits, caches = lm.paged_decode_step(
+            cfg, params, ctx(num_splits=num_splits), token, caches,
+            block_tables, kv_len)
+        return gather(logits), caches
 
     @torch.inference_mode()
     def chunk_prefill_fn(params, tokens, positions, dest, token_tables,
                          token_kv_len, state_slots, state_local, caches):
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, mesh=mesh)
-        return lm.paged_chunk_prefill(cfg, params, ctx, tokens, positions,
-                                      dest, token_tables, token_kv_len, caches,
-                                      state_slots, state_local)
+        logits, caches = lm.paged_chunk_prefill(
+            cfg, params, ctx(), tokens, positions, dest, token_tables,
+            token_kv_len, caches, state_slots, state_local)
+        return gather(logits), caches
 
     @torch.inference_mode()
     def verify_fn(params, tokens, positions, dest, token_tables, token_kv_len,
                   caches):
         # the latency-bound step it replaces, k + 1 tokens wide: the decode
         # step's split-KV launch parameter
-        ctx = Ctx(impl=impl, torch_chunk=torch_chunk, num_splits=num_splits,
-                  mesh=mesh)
-        return lm.paged_verify_step(cfg, params, ctx, tokens, positions, dest,
-                                    token_tables, token_kv_len, caches)
+        logits, caches = lm.paged_verify_step(
+            cfg, params, ctx(num_splits=num_splits), tokens, positions, dest,
+            token_tables, token_kv_len, caches)
+        return gather(logits), caches
 
     return ServeArtifacts(prefill_fn=prefill_fn, decode_fn=decode_fn,
                           cache_init_fn=cache_init,
                           chunk_prefill_fn=chunk_prefill_fn,
-                          verify_fn=verify_fn)
+                          verify_fn=verify_fn,
+                          init_fn=functools.partial(init_serve_params, cfg,
+                                                    plan, device=device), plan=plan)

@@ -61,10 +61,14 @@ prefill rows of ``prefill_len``, [B, k+1] verify rows — and run eagerly
 (tokens, block tables, lengths) go to the device as tensors, the pools are
 updated in place, and the logits come back to the host for greedy sampling.
 
-Distributed serving (``mesh=``, a ``distributed.mesh.PoolMesh`` with
-``PagedCacheConfig.num_shards`` = its size): every rank runs this engine
-(SPMD) on its shard of each layer's page pool and replicated weights, and
-decode merges the shards' attention partials (``distributed/paged.py``).
+Distributed serving (``mesh=``, a ``distributed.mesh.TrainMesh``, or a
+``PoolMesh`` as the mesh ``("model",)``, with ``PagedCacheConfig.num_shards``
+= its ``model`` size): every rank runs this engine (SPMD) on its shard of
+each layer's page pool (pages over ``model``) and its shard of the weights
+(JAX's serving rules, ``ShardPlan.serving``: tensor parallel over
+``model``; a model handed over whole is cut to the rank's shard), the
+slots replicated over the batch axes, and decode merges the shards'
+attention partials (``distributed/paged.py``).
 The numpy host layer is unchanged: block tables keep global page ids, and
 its decisions are replicated, since every input to them is equal on every
 rank (greedy sampling reads logits the merge made identical; faults, the
@@ -89,11 +93,11 @@ Prefix sharing and speculation are attention-only (the index certifies KV
 pages, not state; cumulative state cannot roll back) and raise on
 recurrent archs.
 
-Under a mesh the recurrent layers keep every state row on every rank, beside
-the rank's shard of the pools: each rank holds the whole model and sees the
-same tokens, so its recurrent blocks compute the same state, and the state
-hooks (admission, release, ``poison_reclaimed``) run on every rank as the
-host decisions do.  Every removal of an active sequence still records a
+Under a mesh the recurrent layers keep every state row on every rank (a
+row holds the rank's ``rnn`` channels where ``model`` splits them), beside
+the rank's shard of the pools: every rank sees the same tokens, and the
+state hooks (admission, release, ``poison_reclaimed``) run on every rank as
+the host decisions do.  Every removal of an active sequence still records a
 typed outcome.
 
 Split-count autotuning (``autotune=``): the decode and verify steps run with
@@ -119,6 +123,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.mesh import as_train_mesh
 from repro_torch.distributed.paged import (copy_pages_sharded,
                                            poison_pages_sharded)
 from repro_torch.models.layers import paged_decode_window
@@ -160,9 +165,9 @@ class ServingEngine:
                  watchdog_patience: int = 16):
         """params: the model (``models.lm.LM``) on ``device``. impl: the
         attention impl (``core.attention.IMPLS``); torch_chunk: the KV chunk
-        of ``impl="torch"``'s prefill. mesh: shard the page pool over the
-        ranks of a ``distributed.mesh.PoolMesh`` (module docstring); ``device``
-        is then this rank's. autotune: pick ``num_splits`` with the
+        of ``impl="torch"``'s prefill. mesh: serve over the ranks of a
+        ``distributed.mesh.TrainMesh`` or ``PoolMesh`` (module docstring);
+        ``device`` is then this rank's. autotune: pick ``num_splits`` with the
         ``perf/autotune.py`` planner (module docstring).
         lazy: admission policy (module docstring). reclaim: free
         fully-out-of-window pages each step — defaults to "whenever the arch
@@ -210,7 +215,8 @@ class ServingEngine:
                 "logically the way out-of-kv_len page writes can")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.mesh = mesh
+        self.mesh = None if mesh is None else as_train_mesh(mesh)
+        self.pool = None if mesh is None else self.mesh.pool_shards
         self.pcfg = paged_cfg
         self.prefill_len = prefill_len or paged_cfg.max_seq_len
         self.eos_id = eos_id                     # default for submissions
@@ -238,11 +244,11 @@ class ServingEngine:
         # with speculation on, a verify step can advance kv_len by up to
         # k + 1 tokens, so every growth pass reserves that many positions
         self._lookahead = self.speculate_k + 1
-        arts = make_serve_steps(cfg, impl=impl, paged=paged_cfg, mesh=mesh,
+        arts = make_serve_steps(cfg, impl=impl, paged=paged_cfg, mesh=self.mesh,
                                 num_splits=num_splits,
                                 torch_chunk=min(torch_chunk, self.prefill_len),
                                 device=self.device)
-        self.params = params
+        self.params = params if arts.plan is None else arts.plan.place(params)
         self.prefill_fn = arts.prefill_fn
         self.decode_fn = arts.decode_fn
         self.chunk_prefill_fn = arts.chunk_prefill_fn
@@ -295,7 +301,7 @@ class ServingEngine:
             page_size=self.pcfg.page_size,
             dtype_bytes=self.cfg.dtype.itemsize,
             window=self.window or 0,
-            shards=1 if self.mesh is None else self.mesh.size)
+            shards=1 if self.pool is None else self.pool.size)
 
     def _autotuned_splits(self) -> int:
         """The decode step's split count from the autotune planner, for
@@ -648,22 +654,21 @@ class ServingEngine:
             pos = np.zeros((1, self.prefill_len), np.int32)
             slots = np.full((1, self.prefill_len), -1, np.int32)
             off = 0
-            last_idx = []
             for i, seq in enumerate(row):
                 n = seq.request.prompt_len
                 tokens[0, off:off + n] = seq.request.tokens
                 seg[0, off:off + n] = i
                 pos[0, off:off + n] = np.arange(n)
                 slots[0, off:off + n] = seq.slot
-                last_idx.append(off + n - 1)
                 off += n
             dest = tables.prefill_dest(seg[0], [s.slot for s in row])
+            # one row of logits a prompt: its last token's
             logits, self.caches = self.prefill_fn(
                 self.params, self._dev(tokens), self._dev(seg),
                 self._dev(pos), self._dev(dest[None]), self._dev(slots),
                 self.caches)
-            logits = self._host(logits[0, :, :self.cfg.vocab_size])
-            for seq, li in zip(row, last_idx):
+            logits = self._host(logits[:, :self.cfg.vocab_size])
+            for li, seq in enumerate(row):
                 tables.kv_len[seq.slot] = seq.request.prompt_len
                 seq.prefilled = seq.request.prompt_len
                 tables.register_prefilled(seq.slot, seq.prefilled)
@@ -707,13 +712,15 @@ class ServingEngine:
                 dest[0, off:off + n] = tables.span_dest(seq.slot, a, b)
                 slots[0, off:off + n] = seq.slot
                 local[0, off:off + n] = np.arange(n)
-                marks.append((seq, b, off + n - 1))
+                marks.append((seq, b, len(marks)))
                 off += n
+            # one row of logits a span (a row holds a sequence's span
+            # once): its last token's
             logits, self.caches = self.chunk_prefill_fn(
                 self.params, self._dev(tokens), self._dev(pos),
                 self._dev(dest), self._dev(ttab), self._dev(kvl),
                 self._dev(slots), self._dev(local), self.caches)
-            logits = self._host(logits[0, :, :self.cfg.vocab_size])
+            logits = self._host(logits[:, :self.cfg.vocab_size])
             for seq, end, li in marks:
                 seq.prefilled = end
                 tables.kv_len[seq.slot] = end
@@ -904,8 +911,8 @@ class ServingEngine:
         src = self._dev(np.asarray([s for s, _ in pairs], np.int64))
         dst = self._dev(np.asarray([d for _, d in pairs], np.int64))
         with torch.inference_mode():
-            if self.mesh is not None:      # a pair may span two shards
-                copy_pages_sharded(self._pools(), src, dst, self.mesh)
+            if self.pool is not None:      # a pair may span two shards
+                copy_pages_sharded(self._pools(), src, dst, self.pool)
                 return
             for pool in self._pools():     # [Hkv, P, ps, D]
                 pool[:, dst] = pool[:, src]
@@ -918,8 +925,8 @@ class ServingEngine:
         reclamation test asserts token-identity under this hook."""
         idx = self._dev(np.asarray(sorted(set(pages) | {TRASH_PAGE}), np.int64))
         with torch.inference_mode():
-            if self.mesh is not None:      # each shard poisons what it owns
-                poison_pages_sharded(self._pools(), idx, self.mesh)
+            if self.pool is not None:      # each shard poisons what it owns
+                poison_pages_sharded(self._pools(), idx, self.pool)
                 return
             for pool in self._pools():
                 pool[:, idx] = 1e6

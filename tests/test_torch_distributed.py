@@ -55,7 +55,8 @@ from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
-from repro_torch.runtime.steps import make_serve_steps  # noqa: E402
+from repro_torch.runtime.steps import (make_serve_steps,  # noqa: E402
+                                       serving_plan)
 
 TOL = 2e-5          # the JAX suite's f32 attention tolerance
 N_RANKS = 2
@@ -217,7 +218,8 @@ def test_shard_geometry_errors_match_jax():
                                      max_pages_per_seq=4, num_pages=8,
                                      num_shards=2)
     for mesh, pages in ((None, 8), (PoolMesh(None, 0, 2), 4)):
-        pool = tlm.init_paged_cache(tcfg, pcfg, device="cpu", mesh=mesh)
+        plan = None if mesh is None else serving_plan(tcfg, mesh, paged=True)
+        pool = tlm.init_paged_cache(tcfg, pcfg, device="cpu", plan=plan)
         assert len(pool) == tcfg.num_layers
         assert pool[0]["k_pages"].shape == (tcfg.num_kv_heads, pages, 4,
                                             tcfg.head_dim)
@@ -642,6 +644,44 @@ def test_sharded_crash_snapshot_restore_resumes_token_identical(ranks):
                 np.testing.assert_array_equal(out[rid], base[rid])
 
 
+def _one_rank_engine(mesh, device, cfg, tree, mode):
+    """The engine of ``mode`` on a one-rank mesh: its tokens, merges and
+    copy-on-write pairs."""
+    (ps, n_pages, mb, mp), prefill_len, kw, rkw = _mode(mode, tserving.FaultPlan)
+    pcfg = tserving.PagedCacheConfig(page_size=ps, num_pages=n_pages,
+                                     max_batch=mb, max_pages_per_seq=mp)
+    eng = tserving.ServingEngine(cfg, pcfg, convert_params(cfg, tree,
+                                                           device=device),
+                                 impl="torch", device=device, mesh=mesh,
+                                 prefill_len=prefill_len, torch_chunk=16, **kw)
+    tpaged.merge_calls = 0
+    out, stats = eng.run(_reqs(cfg.vocab_size, _LENS, **rkw))
+    return out, tpaged.merge_calls, stats["cow_copies"]
+
+
+def test_one_rank_mesh_runs_the_sharded_path():
+    """A mesh of one rank over a process group of its own (``launch.mesh``
+    makes it so) serves through the sharded pool ops, the merges and the
+    copy-on-write collective included, and generates what the engine
+    without a mesh does."""
+    _, tcfg, _, tree = _qwen()
+    (out, merges, cow), = tmesh.run_ranks(
+        _one_rank_engine, 1, (tcfg, tree, "prefix_chunk"), backend="gloo",
+        device_type="cpu", timeout_s=600)
+    (ps, n_pages, mb, mp), prefill_len, kw, rkw = _mode("prefix_chunk",
+                                                        tserving.FaultPlan)
+    want, _ = tserving.ServingEngine(
+        tcfg, tserving.PagedCacheConfig(page_size=ps, num_pages=n_pages,
+                                        max_batch=mb, max_pages_per_seq=mp),
+        convert_params(tcfg, tree, device="cpu"), impl="torch", device="cpu",
+        prefill_len=prefill_len, torch_chunk=16, **kw).run(
+            _reqs(tcfg.vocab_size, _LENS, **rkw))
+    assert merges > 0 and cow > 0
+    assert set(out) == set(want) and want
+    for rid in want:
+        np.testing.assert_array_equal(out[rid], want[rid])
+
+
 def test_mesh_cli_runs_on_cpu(capsys):
     out, stats, ranks = tserve.main([
         "--arch", "granite_3_2b", "--smoke", "--device", "cpu", "--paged",
@@ -661,11 +701,17 @@ def test_mesh_cli_runs_on_cpu(capsys):
 
 
 def test_mesh_refuses_what_is_not_ported():
-    with pytest.raises(SystemExit, match="one axis"):
-        tserve.parse_mesh("2x2")
-    with pytest.raises(SystemExit, match="needs --paged"):
-        tserve.main(["--arch", "granite_3_2b", "--smoke", "--device", "cpu",
+    """Serving over a mesh refuses only what JAX refuses: JAX's mesh forms
+    parse, the contiguous cache takes a mesh (with or without --paged), and
+    the encoder still has no decode step; the backend checks stay."""
+    assert tserve.parse_mesh("2x2") == {"data": 2, "model": 2}
+    assert tserve.parse_mesh("1x2x2") == {"pod": 1, "data": 2, "model": 2}
+    with pytest.raises(SystemExit, match="encoder-only: no decode step"):
+        tserve.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu",
                      "--mesh", "2"])
+    with pytest.raises(SystemExit, match="N, DxM or PxDxM"):
+        tserve.main(["--arch", "granite_3_2b", "--smoke", "--device", "cpu",
+                     "--mesh", "2x2x2x2"])
     with pytest.raises(ValueError, match="--dist-backend gloo"):
         tmesh.check_backend("nccl", "cpu", 2)
     if torch.cuda.device_count() < 2:
@@ -673,5 +719,9 @@ def test_mesh_refuses_what_is_not_ported():
             tmesh.check_backend("nccl", "cuda", 2)
     tcfg = dataclasses.replace(tconfigs.smoke_config("qwen3_14b"),
                                dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="sharding rules"):
-        make_serve_steps(tcfg, device="cpu", mesh=PoolMesh(None, 0, 2))
+    # a PoolMesh is the mesh ("model",): the contiguous steps build its plan
+    # (kv heads 2 over model 2: each rank caches one)
+    arts = make_serve_steps(tcfg, device="cpu", batch=2, max_len=8,
+                            mesh=PoolMesh(None, 0, 2))
+    assert arts.plan.kv and not arts.plan.kv_seq
+    assert arts.cache_init_fn()[0]["k"].shape == (2, 1, 8, tcfg.head_dim)

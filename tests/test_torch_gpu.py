@@ -632,6 +632,90 @@ def test_flash_decode_head_dim_256_group_10(cuda, num_splits, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("hq,d", [(10, 256), (4, 64)])
+def test_flash_decode_partials_kernel_matches_plain(cuda, hq, d, num_splits,
+                                                    dtype):
+    """Row 4's shard-partials mode (one shard of a sequence-sharded cache,
+    ``kv_cache_seq``): the raw f32 (acc, m, l) against the plain version at
+    kv_len 0, inside the shard and on a full shard; m NEG_INF and l, acc 0
+    where kv_len is 0; bit-equal across launches; finalised, the contiguous
+    decode of the same slots."""
+    from repro_torch.core import online_softmax as osm
+    b, hkv, s = 4, 1 if hq == 10 else 2, 1024
+    q = _rand(cuda, (b, hq, d), dtype)
+    k = _rand(cuda, (b, hkv, s, d), dtype)
+    v = _rand(cuda, (b, hkv, s, d), dtype)
+    kv_len = torch.tensor([0, 1, 700, 1024], dtype=torch.int32, device="cuda")
+    before = kdecode.launches_partials
+    got = kdecode.flash_decode_partials(q, k, v, kv_len=kv_len,
+                                        num_splits=num_splits)
+    again = kdecode.flash_decode_partials(q, k, v, kv_len=kv_len,
+                                          num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert kdecode.launches_partials == before + 2
+    want = kdecode.flash_decode_partials(q.cpu(), k.cpu(), v.cpu(),
+                                         kv_len=kv_len.cpu(),
+                                         num_splits=num_splits)
+    acc, m, l = got
+    assert all(_err(a, b_) == 0.0 for a, b_ in zip(got, again))
+    assert bool((m[0] == osm.NEG_INF).all())
+    assert float(l[0].abs().max()) == 0.0 == float(acc[0].abs().max())
+    live = kv_len.cpu() > 0
+    tol = TOL[dtype]
+    assert _err(m.cpu()[live], want[1][live]) <= tol * max(
+        1.0, float(want[1][live].abs().max()))
+    o, _ = osm.finalize(osm.SoftmaxState(m=m, l=l, acc=acc), out_dtype=q.dtype)
+    o_ref = kdecode.flash_decode(q, k, v, kv_len=kv_len, num_splits=num_splits)
+    assert _err(o, o_ref) <= tol
+    o_plain, _ = osm.finalize(osm.SoftmaxState(m=want[1], l=want[2],
+                                               acc=want[0]), out_dtype=q.dtype)
+    assert _err(o.cpu(), o_plain) <= tol
+
+
+def _mesh_serve_rank(pool, device, shape, arch):
+    """A rank of a contiguous serving mesh on the card: its tokens and the
+    launches of the forward and of row 4 (whole and shard partials)."""
+    from repro_torch.distributed.mesh import join_train_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = join_train_mesh(shape)
+    cfg = dataclasses.replace(configs.smoke_config(arch), dtype=torch.float32)
+    arts = make_serve_steps(cfg, max_len=48, batch=4, torch_chunk=16,
+                            device=device, mesh=mesh)
+    params = arts.init_fn(0)
+    prompt = torch.arange(4 * 40, device=device).view(4, 40) % cfg.vocab_size
+    kfwd.launches = kdecode.launches = kdecode.launches_partials = 0
+    res = greedy_generate(arts, params, prompt, 8, cfg.vocab_size)
+    return {"tokens": res.tokens.cpu().numpy(),
+            "launches": (kfwd.launches, kdecode.launches,
+                         kdecode.launches_partials)}
+
+
+@pytest.mark.parametrize("arch,shape", [("granite_3_2b", {"data": 2, "model": 2}),
+                                        ("recurrentgemma_2b", {"model": 2})])
+def test_contiguous_mesh_serving_on_the_card(cuda, arch, shape):
+    """Gloo ranks sharing the card serve on the contiguous cache: tokens of
+    one card; granite decodes its heads with row 4, the hybrid's ring is
+    sharded over model (row 4's shard partials, merged)."""
+    from repro_torch.launch.mesh import run_ranks
+    size = int(np.prod(list(shape.values())))
+    ranks = run_ranks(_mesh_serve_rank, size, (shape, arch), backend="gloo",
+                      device_type="cuda", timeout_s=600)
+    cfg = dataclasses.replace(configs.smoke_config(arch), dtype=torch.float32)
+    arts = make_serve_steps(cfg, max_len=48, batch=4, torch_chunk=16,
+                            device="cuda")
+    prompt = torch.arange(4 * 40, device="cuda").view(4, 40) % cfg.vocab_size
+    want = greedy_generate(arts, arts.init_fn(0), prompt, 8, cfg.vocab_size)
+    attn = lm.block_kinds(cfg).count("attn")
+    for r in ranks:
+        np.testing.assert_array_equal(r["tokens"], want.tokens.cpu().numpy())
+        fwd, dec, part = r["launches"]
+        assert fwd == attn
+        assert (dec, part) == ((0, 7 * attn) if arch == "recurrentgemma_2b"
+                               else (7 * attn, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", list(TOKEN_ROWS) + ["decode"])
 def test_flash_paged_decode_head_dim_256_group_10(cuda, shape, dtype):
     """The paged decode at the hybrid's geometry with a window: decode rows

@@ -158,10 +158,14 @@ def test_lm_paged_steps_match_jax():
     def slots(row, a, b):
         return [tables[row][p // ps] * ps + p % ps for p in range(a, b)]
 
-    def check(step, jout, tout):
+    def check(step, jout, tout, ends=None):
+        # ends: the rows that end a span, the only rows whose logits the
+        # port's prefill and chunk steps return (JAX returns every row's)
         nonlocal jcaches, tcaches
         jl, jcaches = jout
         tl, tcaches = tout
+        if ends is not None:
+            jl = jl[0, np.asarray(ends)]
         assert tl.shape == jl.shape
         assert _err(tl, jl) < LOGIT_TOL, f"{step}: logits"
         for i, layer in enumerate(tcaches):
@@ -185,7 +189,8 @@ def test_lm_paged_steps_match_jax():
         off += n
     args = (tokens, seg, pos, dest, state_slots)
     check("prefill", jarts.prefill_fn(jparams, *map(jnp.asarray, args), jcaches),
-          tarts.prefill_fn(tparams, *map(_t, args), tcaches))
+          tarts.prefill_fn(tparams, *map(_t, args), tcaches),
+          ends=np.cumsum(lens) - 1)
 
     kv_len = np.array(list(lens) + [0], np.int32)       # slot 2 idle
     tok = r.integers(0, jcfg.vocab_size, mb).astype(np.int32)
@@ -214,7 +219,8 @@ def test_lm_paged_steps_match_jax():
     args = (tokens, pos, dest, ttab, kvl, sl, local)
     check("chunk", jarts.chunk_prefill_fn(jparams, *map(jnp.asarray, args),
                                           jcaches),
-          tarts.chunk_prefill_fn(tparams, *map(_t, args), tcaches))
+          tarts.chunk_prefill_fn(tparams, *map(_t, args), tcaches),
+          ends=[4])
 
     w = 2
     vargs = (np.zeros((mb, w), np.int32), np.zeros((mb, w), np.int32),
@@ -342,8 +348,10 @@ def _mesh_rank(mesh, device, tcfg, tree, reqs):
 
 def test_sharded_engine_matches_jax():
     """Two gloo ranks serve through ``ServingEngine(mesh=)`` in three modes:
-    every rank keeps every state row (there is no pool to shard) and emits
-    JAX's single-device tokens, with equal stats on both ranks."""
+    every rank keeps every state row, on its half of the mixer's channels
+    (the serving rules split ``rnn`` over ``model``; there is no attention
+    pool), and emits JAX's single-device tokens, with equal stats on both
+    ranks."""
     _, tcfg, _, tree, _ = _model()
     reqs = _reqs(tcfg.vocab_size)
     jout, _ = _jax_engine("eager")
@@ -355,7 +363,7 @@ def test_sharded_engine_matches_jax():
         assert r0["stats"] == r1["stats"], mode
         for r in (r0, r1):
             assert r["pools"] == 0 and r["state_free"] == pool[2]
-            assert r["state_rows"] == [(pool[2] + 1, mc.d_inner,
+            assert r["state_rows"] == [(pool[2] + 1, mc.d_inner // N_RANKS,
                                         mc.ssm_state)] * tcfg.num_layers
             assert set(r["out"]) == set(jout)
             for rid in jout:

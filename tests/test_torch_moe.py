@@ -501,10 +501,14 @@ def test_lm_paged_steps_match_jax():
     def slots(row, a, b):
         return [tables[row][p // ps] * ps + p % ps for p in range(a, b)]
 
-    def check(step, jout, tout):
+    def check(step, jout, tout, ends=None):
+        # ends: the rows that end a span, the only rows whose logits the
+        # port's prefill and chunk steps return (JAX returns every row's)
         nonlocal jcaches, tcaches
         jl, jcaches = jout
         tl, tcaches = tout
+        if ends is not None:
+            jl = jl[0, np.asarray(ends)]
         assert tl.shape == jl.shape
         assert _err(tl, jl) < LOGIT_TOL, f"{step}: logits"
         for i, layer in enumerate(tcaches):
@@ -527,7 +531,8 @@ def test_lm_paged_steps_match_jax():
     no_state = np.full((1, width), -1, np.int32)
     args = (tokens, seg, pos, dest, no_state)
     check("prefill", jarts.prefill_fn(jparams, *map(jnp.asarray, args), jcaches),
-          tarts.prefill_fn(tparams, *map(_t, args), tcaches))
+          tarts.prefill_fn(tparams, *map(_t, args), tcaches),
+          ends=np.cumsum(lens) - 1)
 
     kv_len = np.array(list(lens) + [0], np.int32)
     tok = r.integers(0, jcfg.vocab_size, mb).astype(np.int32)
@@ -548,11 +553,14 @@ def test_lm_paged_steps_match_jax():
     dest[0, :5] = slots(0, a, b)
     ttab = np.zeros((1, 8, t), np.int32)
     ttab[0, :5] = tables[0]
-    none = np.full((1, 8), -1, np.int32)
-    args = (tokens, pos, dest, ttab, kvl, none, np.zeros((1, 8), np.int32))
+    # the span's decode slot (row 0): the port's chunk step returns the
+    # logits of the rows that end a span of it
+    sl = np.where(kvl > 0, 0, -1).astype(np.int32)
+    args = (tokens, pos, dest, ttab, kvl, sl, np.zeros((1, 8), np.int32))
     check("chunk", jarts.chunk_prefill_fn(jparams, *map(jnp.asarray, args),
                                           jcaches),
-          tarts.chunk_prefill_fn(tparams, *map(_t, args), tcaches))
+          tarts.chunk_prefill_fn(tparams, *map(_t, args), tcaches),
+          ends=[4])
     kv_len[0] = b
 
     w = 3
