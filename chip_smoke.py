@@ -195,16 +195,23 @@ Phases, each of which exits non-zero on failure:
 4i. mesh serve — serving over the sharding rules (``launch/serve.py
              --mesh``: ``ShardPlan.serving``, weights tensor-parallel over
              ``model``, each rank drawing only its shard) on four gloo ranks
-             sharing the card: (a) granite-3-2b at full width and 2 layers,
-             contiguous on (data 2, model 2), batch 8 x 512 + 32; (b)
-             recurrentgemma-2b at full width and 3 layers (rec, rec, attn),
-             contiguous on (model 2), batch 4 x 3072 + 16, its one kv head
-             on ``kv_cache_seq`` (1024 of the ring's 2048 slots a rank,
-             decode through row 4's shard partials merged over ``model``);
-             each against one card's run of the same weights and prompts:
-             tokens equal up to a printed near-tie, the first logits within
-             2e-5 of max|logit| beside the cuBLASLt floor, rows 1 and 4's
-             launches a rank; (c) phase 4b's granite paged engine (5
+             sharing the card, every prefill under the prefill rules' ``seq``
+             (a rank's S / model residual rows): (a) granite-3-2b at full
+             width and 2 layers, contiguous on (data 2, model 2), batch 8 x
+             512 + 32; (b) recurrentgemma-2b at full width and 3 layers
+             (rec, rec, attn), contiguous on (model 2), batch 4 x 3072 + 16,
+             its one kv head on ``kv_cache_seq`` (1024 of the ring's 2048
+             slots a rank, decode through row 4's shard partials merged over
+             ``model``); (d) the same on (model 4), the four ranks one mesh:
+             its 10 heads do not divide 4, so the prefill runs under
+             ``seq_full`` (768 query rows a rank, every head, against the
+             gathered K/V, which fill the ring) and decode reads the ring
+             sharded four ways (512 slots a rank); each against one card's
+             run of the same weights and prompts ((d) sharing (b)'s): tokens
+             equal up to a printed near-tie, the first logits within 2e-5
+             of max|logit| beside the cuBLASLt floor, rows 1 and 4's
+             launches a rank, the residual and query rows the prefill ran;
+             (c) phase 4b's granite paged engine (5
              layers) on (data 2, model 2), weights sharded, first probing
              the backend's CUDA all_reduce and a page copy across shards,
              in two modes: eager, and a 256-token shared prefix with
@@ -297,7 +304,27 @@ Phases, each of which exits non-zero on failure:
              collectives, peak memory; then rows 1-3 on the shards of the
              ranks at data index 1 at rg's (5/1 heads a rank, G 5, D 256,
              window 2048) and deepseek's (8/8 heads a rank, D 128) training
-             shapes with their offsets (``mesh_offsets_check``);
+             shapes with their offsets (``mesh_offsets_check``); 5g's and
+             5h's ranks run under ``seq`` (1024 or 1536 residual rows a
+             rank, printed);
+5i. mesh ctx — context parallelism in training: recurrentgemma-2b as 5h
+             trains it (3 layers, 2 x 3072, full width, f32, remat,
+             dropout 0.1) on 4 gloo ranks sharing the card over (model 4)
+             (``--only-5i`` builds the kernels and runs this phase alone):
+             the 10 q heads do not divide 4, so attention runs under
+             ``seq_full``, every head on a rank's 768 query rows against
+             the whole sequence's K/V cut to the rows' end; its ranks run
+             in 5h's launch on 5h's rank-0 reference of rg (the same state
+             and batch): the step-0 loss (1e-5),
+             every gradient leaf (2e-5 of its max) beside the cuBLASLt
+             floor, 2 steps' losses (1e-4), each rank's launches of rows
+             1-3 and the query rows each launch saw, its residual rows,
+             step times, collectives and peak memory; then rows 1-3 on the
+             four query shards at that shape against the full call (o and
+             lse bit for bit, dQ within its atomics' rounding, the shards'
+             dK/dV summed within ``BWD_TOL``) and the last shard's times
+             beside SDPA with the lower-right causal window as a mask (two
+             more rows in phase 6);
 6. times   — each kernel at its path's shapes beside its plain version, one
              PyTorch library call computing the same function
              (``scaled_dot_product_attention`` forward, or its whole
@@ -505,6 +532,13 @@ MESH_FAMILIES = {"recurrentgemma_2b": (3, 2, 3072),
                  "deepseek_moe_16b": (2, 2, 2048),
                  "falcon_mamba_7b": (2, 2, 2048)}
 MESH_FAMILY_STEPS = 2
+# phase 5i, context parallelism in training: recurrentgemma-2b as phase 5h
+# trains it (MESH_FAMILIES: 3 layers, 2 x 3072, f32, remat, dropout 0.1) on
+# 4 gloo ranks sharing the card over (model 4): its 10 q heads do not
+# divide 4, so the rules' seq_full splits attention's query rows, 768 a
+# rank, every head a rank against the whole sequence's K/V
+MESH_CTX_SHAPE = {"model": 4}
+MESH_CTX_ARCH = "recurrentgemma_2b"
 # rows 1-3 on the shards of data index 1 at each family's training shape:
 # (b, hq, hkv, s, d, window, batch rows)
 MESH_FAMILY_SHARDS = {
@@ -523,9 +557,16 @@ MESH_FAMILY_SHARDS = {
 # kv head takes kv_cache_seq, 1024 slots a rank. Then phase 4b's granite
 # paged engine (PAGED_LAYERS) on (data 2, model 2) in MESH_PAGED_MODES, its
 # weights sharded (phase 4c's granite arm, folded in here)
+# (d) recurrentgemma-2b as (b) on (model 4), the four ranks one mesh: its 10
+# heads do not divide 4, so the prefill runs under seq_full (768 query rows
+# a rank) and decode reads the ring sharded four ways, 512 slots a rank.
+# arm -> (arch, layers, batch, prompt, new tokens, mesh)
 MESH_SERVE_SHAPE = {"data": 2, "model": 2}
-MESH_SERVE = {"granite_3_2b": (2, 8, 512, 32, MESH_SERVE_SHAPE),
-              "recurrentgemma_2b": (3, 4, 3072, 16, {"model": 2})}
+MESH_SERVE = {"granite_3_2b": ("granite_3_2b", 2, 8, 512, 32, MESH_SERVE_SHAPE),
+              "recurrentgemma_2b": ("recurrentgemma_2b", 3, 4, 3072, 16,
+                                    {"model": 2}),
+              "recurrentgemma_2b model 4": ("recurrentgemma_2b", 3, 4, 3072,
+                                            16, {"model": 4})}
 # the first step's logits of a mesh against one card, of max|logit|: the
 # kernels' f32 tolerance
 MESH_SERVE_LOGIT_TOL = 2e-5
@@ -557,6 +598,9 @@ def main(argv=None) -> None:
                     help="granite's depth in phase 5g")
     ap.add_argument("--only-5g", action="store_true",
                     help="build the kernels, run phase 5g alone and print no "
+                         "result line")
+    ap.add_argument("--only-5i", action="store_true",
+                    help="build the kernels, run phase 5i alone and print no "
                          "result line")
     ap.add_argument("--only-4i", action="store_true",
                     help="build the kernels, run row 4's shard-partials "
@@ -618,6 +662,10 @@ def main(argv=None) -> None:
     if args.only_5g:
         mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)
         clock(f"phase 5g at {args.mesh_layers} layers, alone")
+        return
+    if args.only_5i:
+        mesh_ctx_phase(torch, kfwd, kbwd, smi)
+        clock("phase 5i, alone")
         return
     if args.only_4i:
         errs = shard_partials_kernel_phase(torch, kdecode)
@@ -688,8 +736,11 @@ def main(argv=None) -> None:
     clock("phase 5f (llava-next-34b training)")
     mesh_train = mesh_train_phase(torch, kfwd, kbwd, smi, args.mesh_layers)  # 5g
     clock("phase 5g (granite-3-2b over a mesh)")
-    mesh_families = mesh_families_phase(torch, kfwd, kbwd, smi)         # 5h
-    clock("phase 5h (the hybrid, MoE and ssm families over a mesh)")
+    mesh_families, ctx_group = mesh_families_phase(torch, kfwd, kbwd, smi)  # 5h
+    clock("phase 5h (the hybrid, MoE and ssm families over a mesh, and 5i's "
+          "ranks)")
+    mesh_ctx = mesh_ctx_phase(torch, kfwd, kbwd, smi, ctx_group)        # 5i
+    clock("phase 5i (context parallelism in training)")
 
     # ---------------- phase 6: times ----------------
     rows = times_phase(torch, kfwd, kdecode, launches, errs)
@@ -707,6 +758,7 @@ def main(argv=None) -> None:
     rows += moe_times_phase(torch, kfwd, kbwd, kdecode, moe_serve, moe_train)
     rows += frontend_times_phase(torch, kfwd, kbwd, kdecode, vlm_serve,
                                  enc_train, vlm_train)
+    rows += mesh_ctx["rows"]
     for row in rows:           # phase 4i's launches a rank of rows 1 and 4
         if row["name"] in ("flash_fwd", "flash_decode"):
             row.setdefault("launches_by_path", {})["mesh_serve_by_rank"] = \
@@ -718,6 +770,8 @@ def main(argv=None) -> None:
             row["launches_by_path"]["mesh_families_by_rank"] = {
                 arch: [r[row["name"]] for r in group]
                 for arch, group in mesh_families.items() if group[0][row["name"]]}
+            row["launches_by_path"]["mesh_ctx_by_rank"] = [
+                r[row["name"]] for r in mesh_ctx["ranks"]]
     clock("phase 6 (times)")
     print(json.dumps({"planner": plans}))
     print(json.dumps({"kernels": rows}))
@@ -2550,20 +2604,21 @@ def _near_ties(np, out, ref_out, ref_margin, where: str, label: str):
     return same, ties
 
 
-def _mesh_serve_arm(torch, mesh, device, arch):
-    """One rank's share of phase 4i's contiguous arm of ``arch``
+def _mesh_serve_arm(torch, mesh, device, arm):
+    """One rank's share of phase 4i's contiguous arm ``arm``
     (``MESH_SERVE``): its shard of the weights (drawn leaf by leaf), the
     prefill and the greedy decode steps, timed apart, with the collectives'
-    host seconds, the launches of rows 1 and 4 and the peak memory. Returns
-    numpy and floats (no tensors)."""
+    host seconds, the launches of rows 1 and 4, the rows the prefill ran
+    (residual and query) and the peak memory. Returns numpy and floats (no
+    tensors)."""
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import paged as dpaged
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
     from repro_torch.runtime.steps import make_serve_steps
 
-    layers, batch, prompt_len, gen_len, _ = MESH_SERVE[arch]
-    cfg = _mesh_serve_cfg(torch, arch)
+    _, layers, batch, prompt_len, gen_len, _ = MESH_SERVE[arm]
+    cfg = _mesh_serve_cfg(torch, arm)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     arts = make_serve_steps(cfg, max_len=prompt_len + gen_len, batch=batch,
@@ -2585,10 +2640,12 @@ def _mesh_serve_arm(torch, mesh, device, arch):
     C.stats.update(calls=0, bytes=0, seconds=0.0)
     dpaged.merge_calls, dpaged.merge_s = 0, 0.0
     torch.cuda.synchronize(device)
+    arts.plan.rows_log = []
     t0 = time.perf_counter()
     logits, caches = arts.prefill_fn(params, prompt, caches)
     torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
+    rows = _logged_rows(arts.plan)
     prefill_coll = (C.stats["seconds"], C.stats["bytes"])
     first = logits.float().cpu().numpy()
     toks = [logits[:, :cfg.vocab_size].argmax(-1)]
@@ -2611,16 +2668,17 @@ def _mesh_serve_arm(torch, mesh, device, arch):
                          "flash_decode": kdecode.launches,
                          "flash_decode_partials": kdecode.launches_partials},
             "kv_seq": arts.plan.kv_seq, "shards": shards, "slots": slots,
+            "rows": rows,
             "wq": tuple(next(p.shape for n, p in params.named_parameters()
                              if n.endswith("mixer.wq"))),
             "params": sum(p.numel() for p in params.parameters()),
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
 
 
-def _mesh_serve_cfg(torch, arch):
+def _mesh_serve_cfg(torch, arm):
     from repro_torch import configs
-    return dataclasses.replace(configs.get_config(arch),
-                               num_layers=MESH_SERVE[arch][0],
+    arch, layers = MESH_SERVE[arm][:2]
+    return dataclasses.replace(configs.get_config(arch), num_layers=layers,
                                dtype=torch.float32)
 
 
@@ -2633,16 +2691,17 @@ def _mesh_serve_prompt(torch, cfg, batch, prompt_len):
 def _mesh_serve_rank(pool, device, shape):
     """One rank of phase 4i: the collectives probe on its ``model`` axis,
     granite's contiguous arm on the whole mesh, recurrentgemma-2b's on its
-    data row's ``model`` axis (the ranks of data row 0; the others wait),
-    then granite's paged engine in ``MESH_PAGED_MODES`` on the whole
-    mesh."""
+    data row's ``model`` axis (the ranks of data row 0; the others wait)
+    and on the four ranks as one ``model`` axis (arm (d)), then granite's
+    paged engine in ``MESH_PAGED_MODES`` on the whole mesh."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import paged as dpaged
-    from repro_torch.distributed.mesh import as_train_mesh, join_train_mesh
+    from repro_torch.distributed.mesh import (PoolMesh, as_train_mesh,
+                                              join_train_mesh)
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
     from repro_torch.runtime.steps import init_serve_params, serving_plan
@@ -2659,6 +2718,12 @@ def _mesh_serve_rank(pool, device, shape):
         out["recurrentgemma_2b"] = _mesh_serve_arm(
             torch, as_train_mesh(mesh.pool), device, "recurrentgemma_2b")
         torch.cuda.empty_cache()
+    dist.barrier()
+    world = as_train_mesh(PoolMesh(group=mesh.group(tuple(mesh.shape)),
+                                   rank=mesh.rank, size=mesh.world))
+    out["recurrentgemma_2b model 4"] = _mesh_serve_arm(
+        torch, world, device, "recurrentgemma_2b model 4")
+    torch.cuda.empty_cache()
     dist.barrier()
     # granite's paged engine in MESH_PAGED_MODES, phase 4b's requests, on
     # this rank's shard of the weights and of the pool
@@ -2701,16 +2766,16 @@ def _mesh_serve_rank(pool, device, shape):
     return out
 
 
-def _mesh_serve_reference(torch, arch):
-    """One card's run of phase 4i's contiguous arm of ``arch``: tokens, the
+def _mesh_serve_reference(torch, arm):
+    """One card's run of phase 4i's contiguous arm ``arm``: tokens, the
     first logits, each generated token's top-2 margin and max|logit|, the
     same prefill with cuBLASLt's GEMMs (the f32 floor of another order of
     sums), and the times."""
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.runtime.steps import make_serve_steps
 
-    _, batch, prompt_len, gen_len, _ = MESH_SERVE[arch]
-    cfg = _mesh_serve_cfg(torch, arch)
+    _, _, batch, prompt_len, gen_len, _ = MESH_SERVE[arm]
+    cfg = _mesh_serve_cfg(torch, arm)
     arts = make_serve_steps(cfg, max_len=prompt_len + gen_len, batch=batch,
                             torch_chunk=prompt_len, device="cuda")
     params = arts.init_fn(0)
@@ -2760,14 +2825,18 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
 
     from repro_torch.launch.mesh import rank_device, run_ranks
 
-    refs = {}
-    for arch in MESH_SERVE:
+    refs, by_run = {}, {}
+    for arm, (arch, *run, _) in MESH_SERVE.items():
+        if tuple(run) in by_run:      # (d) serves (b)'s model and prompts
+            refs[arm] = refs[by_run[tuple(run)]]
+            continue
+        by_run[tuple(run)] = arm
         t0 = time.perf_counter()
-        refs[arch] = _mesh_serve_reference(torch, arch)
+        refs[arm] = _mesh_serve_reference(torch, arm)
         print(f"[mesh serve] {arch} on one card: prefill "
-              f"{refs[arch]['prefill_s'] * 1e3:.1f} ms, decode "
-              f"{refs[arch]['decode_s'] * 1e3:.1f} ms; cuBLASLt floor of the "
-              f"first logits {refs[arch]['floor']:.3e} of max|logit| "
+              f"{refs[arm]['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{refs[arm]['decode_s'] * 1e3:.1f} ms; cuBLASLt floor of the "
+              f"first logits {refs[arm]['floor']:.3e} of max|logit| "
               f"({time.perf_counter() - t0:.1f} s) ({smi})", flush=True)
     size = int(np.prod(list(MESH_SERVE_SHAPE.values())))
     devices = [str(rank_device(r, "cuda")) for r in range(size)]
@@ -2779,16 +2848,18 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     by_rank = {"flash_fwd": [], "flash_decode": []}
     partials = 0
-    for arch, (layers, batch, prompt_len, gen_len, shape) in MESH_SERVE.items():
-        ref = refs[arch]
-        cfg = _mesh_serve_cfg(torch, arch)
+    for arm, (arch, layers, batch, prompt_len, gen_len, shape) in MESH_SERVE.items():
+        ref = refs[arm]
+        cfg = _mesh_serve_cfg(torch, arm)
+        tp = shape["model"]
+        ctx = cfg.num_heads % tp != 0 and cfg.ctx_parallel_attn
         n_attn = sum(k == "attn" for k in
                      (cfg.block_pattern * layers)[:layers])
         steps = gen_len - 1
         for rank, res in enumerate(ranks):
-            if arch not in res:
+            if arm not in res:
                 continue
-            r = res[arch]
+            r = res[arm]
             dp = shape.get("data", 1)
             got = r["launches"]
             seq = bool(r["kv_seq"])
@@ -2799,7 +2870,9 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
             err = float(np.abs(r["first"][:, :v] - ref["first"][:, :v]).max()
                         / np.abs(ref["first"][:, :v]).max())
             print(f"[mesh serve] {arch} ({layers} layers, full width) rank "
-                  f"{rank} {res['coords']} on {shape}: prefill {batch}x"
+                  f"{rank} {res['coords']} on {shape}: prefill residual rows "
+                  f"{r['rows']['residual']}, query rows {r['rows']['query']} "
+                  f"of {prompt_len} ({'seq_full' if ctx else 'seq'}); prefill {batch}x"
                   f"{prompt_len} {r['prefill_s'] * 1e3:.1f} ms warm, the "
                   f"process's first {r['first_prefill_s'] * 1e3:.1f} ms (one "
                   f"card {ref['prefill_s'] * 1e3:.1f}), decode "
@@ -2818,10 +2891,16 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
                   f"{MESH_SERVE_LOGIT_TOL:.0e}, floor {ref['floor']:.3e}) "
                   f"({smi})", flush=True)
             if got != want:
-                fail(f"[mesh serve] {arch} rank {rank}: launches {got}, "
+                fail(f"[mesh serve] {arm} rank {rank}: launches {got}, "
                      f"expected {want}")
-            if arch == "recurrentgemma_2b" and not (seq and r["shards"] == 2):
-                fail(f"[mesh serve] {arch}: decode not on kv_cache_seq")
+            if arch == "recurrentgemma_2b" and not (seq and r["shards"] == tp):
+                fail(f"[mesh serve] {arm}: decode not on kv_cache_seq over "
+                     f"{tp} shards")
+            want_rows = {"residual": [prompt_len // tp],
+                         "query": [prompt_len // tp if ctx else prompt_len]}
+            if r["rows"] != want_rows:
+                fail(f"[mesh serve] {arm} rank {rank}: the prefill ran rows "
+                     f"{r['rows']}, not {want_rows}")
             if err > MESH_SERVE_LOGIT_TOL or not np.isfinite(r["first"][:, :v]).all():
                 fail(f"[mesh serve] {arch} rank {rank}: first logits {err:.3e} "
                      f"of max|logit|")
@@ -2834,14 +2913,14 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
                       f"{ref['tokens'][b, i]}, margin {m:.3e} of max|logit| "
                       f"{p:.3e}", flush=True)
                 if m > LOGIT_REL_TOL * p:
-                    fail(f"[mesh serve] {arch} rank {rank}: tokens differ from "
+                    fail(f"[mesh serve] {arm} rank {rank}: tokens differ from "
                          f"one card's, not at a near-tie")
             for name in by_rank:
-                by_rank[name].append({"arch": arch, "rank": rank,
+                by_rank[name].append({"arch": arm, "rank": rank,
                                       "launches": got[name]})
-            if rank == 0 and seq:
+            if rank == 0 and seq and tp == 2:
                 partials = got["flash_decode_partials"]
-        print(f"[mesh serve] {arch}: tokens of every rank equal to one card's "
+        print(f"[mesh serve] {arm}: tokens of every rank equal to one card's "
               f"(or a printed near-tie)", flush=True)
     # (c) the paged engine, each mode against phase 4b's kernel run of it
     n_layers = PAGED_LAYERS
@@ -3309,7 +3388,9 @@ def _mesh_rank(pool, device, shape, ckpt_dir, grad_dir, steps, layers):
         t0 = time.perf_counter()
         params, opt = arts.init_fn(0)
         batch = place_batch(make_batch(dc, 0), device, arts.shardings["batch"])
+        plan.rows_log = []
         loss, _, grads = arts.grad_fn(params, batch, 0)
+        out["rows"] = _logged_rows(plan)
         out["loss0"] = float(loss)
         for n, g in grads.items():
             full = arts.shardings["params"][n].gather(g)
@@ -3454,9 +3535,11 @@ def mesh_train_phase(torch, kfwd, kbwd, smi, layers=MESH_TRAIN_LAYERS):
             want = {"flash_fwd": 2 * n_attn * n_steps, "flash_bwd": n_attn * n_steps}
             got_l = {"flash_fwd": r["flash_fwd"], "flash_bwd": r["flash_bwd"]}
             per = [f"{b / 2**30:.3f}" for b in r["step_bytes"]]
+            rows = (f"residual rows {r['rows']['residual']} of {MESH_SEQ}, "
+                    f"query rows {r['rows']['query']}; " if "rows" in r else "")
             print(f"{tag} --mesh {label} rank {r['rank']} {r['coords']}: q heads "
                   f"{r['hq_local']} from {r['head_offset']}, kv heads "
-                  f"{r['kv_local']}; launches {got_l} (expected {want}); losses "
+                  f"{r['kv_local']}; {rows}launches {got_l} (expected {want}); losses "
                   f"{[round(l, 6) for _, l in r['losses']]}; step times "
                   f"{[round(x, 4) for x in r['step_s']]} s; Trainer.run "
                   f"{r['wall']:.1f} s of the rank's {r['start_s']:.1f} s"
@@ -3469,6 +3552,9 @@ def mesh_train_phase(torch, kfwd, kbwd, smi, layers=MESH_TRAIN_LAYERS):
             if got_l != want:
                 fail(f"the mesh training path did not go through the kernels on "
                      f"rank {r['rank']}: {got_l}, expected {want}")
+            if "rows" in r and r["rows"]["residual"] != [MESH_SEQ // 2]:
+                fail(f"rank {r['rank']}: residual rows {r['rows']['residual']}, "
+                     f"not seq over model 2's {MESH_SEQ // 2}")
             if any(not math.isfinite(l) for _, l in r["losses"]):
                 fail(f"rank {r['rank']}: loss {r['losses']}")
             if r["losses"] != group[0]["losses"]:
@@ -3585,9 +3671,11 @@ def _family_mesh(torch, mesh, device, arch, path):
         rec = moe_routes.RouteRecorder(
             replay=[r.to(device) for r in routes],
             part=(mesh.index(plan.batch), plan.batch_ranks))
+    plan.rows_log = []
     with rec:
         loss0, _, grads = arts.grad_fn(params, place_batch(make_batch(dc, 0),
                                                            device, sh), 0)
+    rows = _logged_rows(plan)
     errs = {}
     for n, g in grads.items():
         full = np.load(os.path.join(path, n + ".npy"), mmap_mode="r")
@@ -3600,6 +3688,7 @@ def _family_mesh(torch, mesh, device, arch, path):
     check_s = time.perf_counter() - t0
     kfwd.launches = kbwd.launches_bwd = 0
     C.stats.update(calls=0, bytes=0, seconds=0.0)
+    q_rows, restore = _spy_query_rows(kfwd, kbwd)
     losses, dts, step_bytes, step_coll = [], [], [], []
     for step in range(MESH_FAMILY_STEPS):
         mark = dict(C.stats)
@@ -3612,6 +3701,7 @@ def _family_mesh(torch, mesh, device, arch, path):
         dts.append(time.perf_counter() - t1)
         step_bytes.append(C.stats["bytes"] - mark["bytes"])
         step_coll.append(C.stats["seconds"] - mark["seconds"])
+    restore()
     out = {"rank": mesh.rank, "coords": mesh.coords, "hq_local": plan.hq_local,
            "head_offset": plan.head_offset, "kv_heads": plan.kv,
            "experts": (plan.experts_local, plan.expert_offset),
@@ -3619,6 +3709,7 @@ def _family_mesh(torch, mesh, device, arch, path):
            "decisions": rec.decisions, "losses": losses, "step_s": dts,
            "step_bytes": step_bytes, "step_coll_s": step_coll,
            "flash_fwd": kfwd.launches, "flash_bwd": kbwd.launches_bwd,
+           "q_rows": q_rows, "rows": rows, "coll": dict(C.stats),
            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
            "check_s": check_s, "seconds": time.perf_counter() - t0}
     del params, opt, arts, b, m
@@ -3626,10 +3717,43 @@ def _family_mesh(torch, mesh, device, arch, path):
     return out
 
 
-def _family_rank(pool, device, tmp):
-    """One rank of phase 5h: for each of ``MESH_FAMILIES``, rank 0's
-    single-device reference while the others wait, then this rank's part
-    of the mesh (``MESH_SHAPE``)."""
+def _logged_rows(plan):
+    """The rows a rank ran (``plan.rows_log``, then off): its residual
+    stream's between blocks and attention's query rows, each sorted."""
+    rows = {what: sorted({n for w, n in plan.rows_log if w == what})
+            for what in ("residual", "query")}
+    plan.rows_log = None
+    return rows
+
+
+def _spy_query_rows(kfwd, kbwd):
+    """Record the query rows of every launch of rows 1-3 (the wrappers
+    still count each): ({"flash_fwd": [...], "flash_bwd": [...]}, a
+    function that puts the wrappers' launchers back)."""
+    seen = {"flash_fwd": [], "flash_bwd": []}
+    fwd, bwd = kfwd._launch, kbwd.launch_bwd
+
+    def launch(q, *a, **kw):
+        seen["flash_fwd"].append(int(q.shape[2]))
+        return fwd(q, *a, **kw)
+
+    def launch_bwd(q, *a, **kw):
+        seen["flash_bwd"].append(int(q.shape[2]))
+        return bwd(q, *a, **kw)
+
+    kfwd._launch, kbwd.launch_bwd = launch, launch_bwd
+
+    def restore():
+        kfwd._launch, kbwd.launch_bwd = fwd, bwd
+    return seen, restore
+
+
+def _family_rank(pool, device, tmp, only_ctx=False):
+    """One rank of phases 5h and 5i: for each of ``MESH_FAMILIES``, rank
+    0's single-device reference while the others wait, then this rank's
+    part of the mesh (``MESH_SHAPE``) and, for ``MESH_CTX_ARCH``, of the
+    mesh ``MESH_CTX_SHAPE`` on the same reference (phase 5i, ``"ctx"``).
+    ``only_ctx``: phase 5i alone."""
     import shutil
 
     import torch
@@ -3641,13 +3765,18 @@ def _family_rank(pool, device, tmp):
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     mesh = join_train_mesh(MESH_SHAPE)
+    ctx_mesh = join_train_mesh(MESH_CTX_SHAPE)    # the world's group
     out = {"start_s": time.perf_counter() - t0}
-    for arch in MESH_FAMILIES:
+    for arch in (MESH_CTX_ARCH,) if only_ctx else MESH_FAMILIES:
         path = os.path.join(tmp, arch)
         ref = _family_reference(torch, arch, path) if mesh.rank == 0 else None
         dist.barrier()
-        out[arch] = _family_mesh(torch, mesh, device, arch, path)
-        out[arch]["ref"] = ref
+        if not only_ctx:
+            out[arch] = _family_mesh(torch, mesh, device, arch, path)
+            out[arch]["ref"] = ref
+        if arch == MESH_CTX_ARCH:
+            out["ctx"] = _family_mesh(torch, ctx_mesh, device, arch, path)
+            out["ctx"]["ref"] = ref
         dist.barrier()
         if mesh.rank == 0:
             shutil.rmtree(path)
@@ -3667,8 +3796,9 @@ def mesh_families_phase(torch, kfwd, kbwd, smi):
     rank's launches of rows 1-3 (2 x attention layers x steps forward, 1 x
     backward), equal losses on every rank within ``MESH_TRAJ_TOL`` of the
     single-device steps', step times, collectives, peak memory; then rows
-    1-3 on a rank's shard at rg's and deepseek's per-rank shapes. Returns
-    each family's ranks."""
+    1-3 on a rank's shard at rg's and deepseek's per-rank shapes. The same
+    launch runs phase 5i's ranks on rg's reference. Returns (each family's
+    ranks, phase 5i's ranks)."""
     import tempfile
 
     from repro_torch.launch.mesh import run_ranks
@@ -3682,9 +3812,11 @@ def mesh_families_phase(torch, kfwd, kbwd, smi):
     with tempfile.TemporaryDirectory() as tmp:
         ranks = run_ranks(_family_rank, 4, (tmp,), backend="gloo",
                           device_type="cuda", timeout_s=900)
+    ctx_group = [r.pop("ctx") for r in ranks]
     wall = time.perf_counter() - t0
     starts = ", ".join(f"{r['start_s']:.1f}" for r in ranks)
-    print(f"{tag} one launch of 4 ranks: {wall:.1f} s (joining the mesh "
+    print(f"{tag} one launch of 4 ranks (phase 5i's ranks in it): {wall:.1f} s "
+          f"(joining the meshes "
           f"{starts} s a rank)", flush=True)
     out = {}
     for arch, (layers, batch, seq) in MESH_FAMILIES.items():
@@ -3708,7 +3840,9 @@ def mesh_families_phase(torch, kfwd, kbwd, smi):
             print(f"{tag} {cfg.name} rank {r['rank']} {r['coords']}: q heads "
                   f"{r['hq_local']} from {r['head_offset']} (kv heads split: "
                   f"{r['kv_heads']}), experts {r['experts'][0]} from "
-                  f"{r['experts'][1]}; launches {got_l} (expected {want}); "
+                  f"{r['experts'][1]}; residual rows {r['rows']['residual']} "
+                  f"of {seq}, query rows {r['rows']['query']} (seq over model "
+                  f"2); launches {got_l} (expected {want}); "
                   f"losses {[round(x, 6) for x in r['losses']]}; step times "
                   f"{[round(x, 4) for x in r['step_s']]} s; collectives a step "
                   f"{per} GiB in {[round(x, 3) for x in r['step_coll_s']]} host "
@@ -3718,6 +3852,9 @@ def mesh_families_phase(torch, kfwd, kbwd, smi):
             if got_l != want:
                 fail(f"{cfg.name} over the mesh did not go through the kernels "
                      f"on rank {r['rank']}: {got_l}, expected {want}")
+            if r["rows"]["residual"] != [seq // MESH_SHAPE["model"]]:
+                fail(f"{cfg.name} rank {r['rank']}: residual rows "
+                     f"{r['rows']['residual']}, not seq's {seq // 2}")
             if any(not math.isfinite(x) for x in r["losses"]):
                 fail(f"{cfg.name} rank {r['rank']}: losses {r['losses']}")
             if r["losses"] != group[0]["losses"]:
@@ -3752,7 +3889,248 @@ def mesh_families_phase(torch, kfwd, kbwd, smi):
     for arch, (b, hq, hkv, s, d, window, rows) in MESH_FAMILY_SHARDS.items():
         mesh_offsets_check(torch, kfwd, kbwd, f"{tag} {arch}", b, hq, hkv, s, d,
                            window, rows)
-    return out
+    return out, ctx_group
+
+
+def mesh_ctx_phase(torch, kfwd, kbwd, smi, group=None):
+    """Phase 5i: context parallelism in training. ``MESH_CTX_ARCH``
+    (recurrentgemma-2b, 3 layers: rec, rec, attn; batch 2 x 3072, past the
+    window; full width, f32, remat, dropout 0.1, AdamW without master) on 4
+    gloo ranks sharing the card over ``MESH_CTX_SHAPE`` (model 4): its 10
+    q heads do not divide 4, so attention runs under ``seq_full``, every
+    head on a rank's 768 query rows against the whole sequence's K/V, and
+    the residual stream under ``seq`` (768 rows a rank). Rank 0's
+    single-device run of the same state first (phase 5h's reference: its
+    ranks run 5i in the same launch, ``group`` their results; without it
+    this phase launches the ranks for 5i alone); then every rank's step-0
+    gradients against it leaf by leaf, and
+    ``MESH_FAMILY_STEPS`` steps with the counters reset just before them:
+    the step-0 loss (1e-5), every gradient leaf (``MESH_LEAF_TOL`` of its
+    max) beside the cuBLASLt floor, the losses (``MESH_TRAJ_TOL``), each
+    rank's launches of rows 1-3 and the query rows each launch saw, its
+    residual rows, step times, collectives (calls, bytes, host seconds) and
+    peak memory. Then rows 1-3 on the query shards at that shape
+    (``ctx_shard_check``). Returns {"ranks", "rows": the query shard's
+    kernel rows for phase 6}."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+
+    tag = "[mesh ctx]"
+    arch = MESH_CTX_ARCH
+    layers, batch, seq = MESH_FAMILIES[arch]
+    m = MESH_CTX_SHAPE["model"]
+    cfg = _mesh_cfg(torch, layers, arch)
+    print(f"{tag} {cfg.name}: 4 gloo ranks on the card over {MESH_CTX_SHAPE} "
+          f"({cfg.num_heads} q heads over {cfg.num_kv_heads} kv head: "
+          f"seq_full)" + ("" if group is None else ", in phase 5h's launch"),
+          flush=True)
+    if group is None:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            group = [r["ctx"] for r in run_ranks(
+                _family_rank, 4, (tmp, True), backend="gloo",
+                device_type="cuda", timeout_s=900)]
+        print(f"{tag} one launch of 4 ranks: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    ref = group[0]["ref"]
+    n_attn = lm.block_kinds(cfg).count("attn")
+    want = {"flash_fwd": 2 * n_attn * MESH_FAMILY_STEPS,
+            "flash_bwd": n_attn * MESH_FAMILY_STEPS}
+    print(f"{tag} {cfg.name} ({layers} layers: {', '.join(lm.block_kinds(cfg))}; "
+          f"batch {batch} x {seq}) single device: {ref['n_params'] / 1e9:.3f} B "
+          f"params, loss {ref['loss0']:.6f} at step 0, step times "
+          f"{[round(x, 4) for x in ref['step_s']]} s, losses "
+          f"{[round(x, 6) for x in ref['losses']]}, max_memory_allocated "
+          f"{ref['peak_gib']:.2f} GiB, {ref['seconds']:.1f} s ({smi})", flush=True)
+    rows_a_rank = seq // m
+    for r in group:
+        got_l = {"flash_fwd": r["flash_fwd"], "flash_bwd": r["flash_bwd"]}
+        c = r["coll"]
+        print(f"{tag} rank {r['rank']} {r['coords']}: q heads {r['hq_local']} "
+              f"(every head: heads split {r['hq_local'] != cfg.num_heads}); "
+              f"residual rows {r['rows']['residual']}, query rows "
+              f"{r['rows']['query']} of {seq}; launches {got_l} (expected "
+              f"{want}), query rows a launch: forward "
+              f"{sorted(set(r['q_rows']['flash_fwd']))}, backward "
+              f"{sorted(set(r['q_rows']['flash_bwd']))}; losses "
+              f"{[round(x, 6) for x in r['losses']]}; step times "
+              f"{[round(x, 4) for x in r['step_s']]} s; collectives "
+              f"{c['calls']} calls, {c['bytes'] / 2**30:.3f} GiB, "
+              f"{c['seconds']:.3f} host s over the {MESH_FAMILY_STEPS} steps "
+              f"(a step {[round(b / 2**30, 3) for b in r['step_bytes']]} GiB in "
+              f"{[round(x, 3) for x in r['step_coll_s']]} host s); "
+              f"max_memory_allocated {r['peak_gib']:.2f} GiB; the check "
+              f"{r['check_s']:.1f} s of the rank's {r['seconds']:.1f} s ({smi})",
+              flush=True)
+        if got_l != want:
+            fail(f"{tag} rank {r['rank']}: the path did not go through the "
+                 f"kernels: {got_l}, expected {want}")
+        if (r["rows"] != {"residual": [rows_a_rank], "query": [rows_a_rank]}
+                or set(r["q_rows"]["flash_fwd"]) != {rows_a_rank}
+                or set(r["q_rows"]["flash_bwd"]) != {rows_a_rank}):
+            fail(f"{tag} rank {r['rank']}: rows {r['rows']}, launches' query "
+                 f"rows {r['q_rows']}, not {rows_a_rank} a rank")
+        if any(not math.isfinite(x) for x in r["losses"]):
+            fail(f"{tag} rank {r['rank']}: losses {r['losses']}")
+        if r["losses"] != group[0]["losses"]:
+            fail(f"{tag} rank {r['rank']}'s losses differ from rank 0's")
+    errs = {n: max(r["errs"][n][0] for r in group)
+            / max(max(r["errs"][n][1] for r in group), 1e-30)
+            for n in group[0]["errs"]}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"{tag} mesh against one device: worst leaves {_worst(errs)}; single "
+          f"device, cuBLASLt's GEMMs against cuBLAS's: worst leaves "
+          f"{_worst(ref['floor'])}; at the mesh's worst leaf "
+          f"{ref['floor'][worst[0]]:.3e}", flush=True)
+    traj = max(abs(a - b) / abs(b) for a, b in zip(group[0]["losses"],
+                                                 ref["losses"]))
+    for what, err, tol in [
+            ("step-0 loss", abs(group[0]["loss0"] - ref["loss0"])
+             / abs(ref["loss0"]), 1e-5),
+            (f"gradient leaves ({len(errs)}, worst {worst[0]})", worst[1],
+             MESH_LEAF_TOL),
+            (f"losses over {MESH_FAMILY_STEPS} steps", traj, MESH_TRAJ_TOL)]:
+        print(f"{tag} mesh vs single device {what}: {err:.3e} (tol {tol:.0e}) "
+              f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+        if not err <= tol:
+            fail(f"{tag} {cfg.name} over the mesh: {what} differs by {err:.3e}")
+    rows = ctx_shard_check(torch, kfwd, kbwd, tag, batch, seq, m,
+                           [r["flash_fwd"] for r in group],
+                           [r["flash_bwd"] for r in group])
+    return {"ranks": group, "rows": rows}
+
+
+def ctx_shard_check(torch, kfwd, kbwd, tag, b, s, m, fwd_launches,
+                    bwd_launches):
+    """Rows 1-3 on the query shards of phase 5i (B ``b``, 10/1 heads, S
+    ``s``, D 256, causal, window 2048, dropout 0.1, f32; shard r its rows
+    ``[r·s/m, (r+1)·s/m)`` against K/V cut to its last row): the last
+    shard's o and lse bit for bit against the full call's rows, every
+    shard's dQ within its atomics' rounding (``BWD_TOL``), the shards'
+    dK/dV summed against the full call's (``BWD_TOL`` of max |dK|, |dV|:
+    each shard's kv rows are summed apart); then the last shard's times
+    (the heaviest: every row reads the whole window) beside its plain
+    version, SDPA with the lower-right causal window as an explicit mask
+    (``is_causal`` would align it top-left when Sq < Skv) and dropout 0.1,
+    and the bound over the shard's (q, k) pairs. Returns two kernel rows
+    (forward, backward) with the launches of phase 5i's ranks."""
+    import torch.nn.functional as F
+
+    hq, hkv, d, w = 10, 1, 256, 2048
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = _fwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.float32)
+    do = _rand(torch, gen, (b, hq, s, d), torch.float32)
+    kw = dict(causal=True, window=w, dropout_rate=0.1, dropout_seed=-4242)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    n = s // m
+    dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+    dq_err, bits = 0.0, []
+    for r in range(m):
+        a, e = r * n, (r + 1) * n
+        qs, dos = q[:, :, a:e].contiguous(), do[:, :, a:e].contiguous()
+        ks, vs = k[:, :, :e].contiguous(), v[:, :, :e].contiguous()
+        os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw)
+        bits.append(torch.equal(os_, o[:, :, a:e]) and torch.equal(lses, lse[:, :, a:e]))
+        dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw)
+        dq_err = max(dq_err, _maxerr(dqs, dq[:, :, a:e])
+                     / max(1.0, float(dq.abs().max())))
+        dk_sum[:, :, :e] += dks
+        dv_sum[:, :, :e] += dvs
+    kv_err = max(_maxerr(got, want) / max(1.0, float(want.abs().max()))
+                 for got, want in ((dk_sum, dk), (dv_sum, dv)))
+    print(f"{tag} rows 1-3 on the {m} query shards (B {b}, {hq}/{hkv} heads, "
+          f"{n} of {s} rows a shard, D {d}, window {w}, dropout 0.1, f32) "
+          f"against the full call: o, lse "
+          f"{'bit for bit' if all(bits) else 'DIFFER ' + str(bits)}; dQ "
+          f"{dq_err:.3e} (tol {BWD_TOL['float32']:.0e}, atomic adds); dK, dV of "
+          f"the shards summed {kv_err:.3e} (tol {BWD_TOL['float32']:.0e})",
+          flush=True)
+    if not (all(bits) and dq_err <= BWD_TOL["float32"]
+            and kv_err <= BWD_TOL["float32"]):
+        fail(f"{tag} rows 1-3 on query shards do not give the full call's rows")
+    del dq, dk, dv, dk_sum, dv_sum, o, lse
+    # the last shard's times: rows [s - n, s) against every key, the
+    # lower-right causal window as SDPA's mask
+    a = s - n
+    qs, dos = q[:, :, a:].contiguous(), do[:, :, a:].contiguous()
+    pos_q = torch.arange(a, s, device="cuda")[:, None]
+    pos_k = torch.arange(s, device="cuda")[None, :]
+    mask = (pos_k <= pos_q) & (pos_k > pos_q - w)
+    pairs = int(mask.sum())
+    os_, lses = kfwd.flash_fwd(qs, k, v, **kw)
+    po, plse = kfwd.flash_fwd_torch(qs, k, v, **kw)
+    fwd_err = _maxerr(os_, po)
+    _hold("flash_fwd on the last query shard", torch.float32, fwd_err,
+          TOL["float32"], tag)
+    _hold("flash_fwd's lse on the last query shard", torch.float32,
+          _maxerr(lses, plse), LSE_TOL, tag)
+    delta = kbwd.row_delta(os_, dos)
+    bkw = dict(kw, scale=d ** -0.5)
+    got = kbwd.launch_bwd(qs, k, v, lses, dos, delta, **bkw)
+    plain = kbwd.flash_bwd_torch(qs, k, v, lses, dos, delta, **bkw)
+    bwd_err = max(_maxerr(g, gp) for g, gp in zip(got, plain))
+    _hold("flash_bwd on the last query shard, relative to max(1, max|plain|),",
+          torch.float32, max(_maxerr(g, gp) / max(1.0, float(gp.abs().max()))
+                             for g, gp in zip(got, plain)),
+          BWD_TOL["float32"], tag)
+    del plain, got
+    el = q.element_size()
+    shape = (f"B {b}, {hq}/{hkv} heads, query rows {a}-{s} of {s} (the last of "
+             f"{m} shards), D {d}, causal, window {w}, dropout 0.1, f32")
+    src = "src/repro_torch/kernels/csrc/"
+    fwd_row = {"name": "flash_fwd (recurrentgemma-2b query shard, seq_full)",
+               "route": "cuda", "source": src + "flash_fwd.cu",
+               "replaces": "src/repro/kernels/flash_fwd.py:46",
+               "launches": fwd_launches[-1], "launches_by_rank": fwd_launches,
+               "shape": shape, "max_abs_err": fwd_err,
+               "ms": time_ms(torch, lambda: kfwd.flash_fwd(qs, k, v, **kw), 10),
+               "plain_ms": time_ms(torch, lambda: kfwd.flash_fwd_torch(
+                   qs, k, v, **kw), 2, warmup=1),
+               **bounds(4 * b * hq * d * pairs,
+                        el * (2 * b * hq * n * d + 2 * b * hkv * s * d)
+                        + 4 * b * hq * n),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qs, k, v, attn_mask=mask, dropout_p=0.1, enable_gqa=True), 10),
+               "library_note": "sdpa with the lower-right causal window as a "
+                               "boolean mask [rows, S], dropout 0.1, GQA by "
+                               "enable_gqa"}
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qs, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         dropout_p=0.1, enable_gqa=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dos, retain_graph=True), 5)
+    del qg, kg, vg, out
+    bwd_flops = 10 * d * b * hq * pairs
+    bwd_row = {"name": "flash_bwd (recurrentgemma-2b query shard, seq_full)",
+               "route": "cuda", "source": src + "flash_bwd.cu",
+               "replaces": "src/repro/kernels/flash_bwd.py:98, "
+                           "src/repro/kernels/flash_bwd.py:164",
+               "launches": bwd_launches[-1], "launches_by_rank": bwd_launches,
+               "shape": shape, "max_abs_err": bwd_err,
+               "ms": time_ms(torch, lambda: kbwd.launch_bwd(
+                   qs, k, v, lses, dos, delta, **bkw), 10),
+               "plain_ms": time_ms(torch, lambda: kbwd.flash_bwd_torch(
+                   qs, k, v, lses, dos, delta, **bkw), 1, warmup=1),
+               **bounds(bwd_flops, el * (3 * b * hq * n * d + 4 * b * hkv * s * d)
+                        + 4 * 2 * b * hq * n),
+               "bound_ms_3xtf32": 3 * bwd_flops / PEAK_FLOPS["float32"] * 1e3,
+               "library_ms": lib_ms,
+               "library_note": "sdpa backward (dq, dk, dv) with the lower-right "
+                               "causal window as a boolean mask, dropout 0.1"}
+    for row in (fwd_row, bwd_row):
+        print(f"[times] {row['name']} ({shape}): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa with the lower-right mask "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {pairs} (q, k) pairs a head), max_abs_err "
+              f"{row['max_abs_err']:.3e}; launches a rank in phase 5i "
+              f"{row['launches_by_rank']}", flush=True)
+    del q, k, v, do, qs, dos, os_, lses, po, plse, delta, mask
+    torch.cuda.empty_cache()
+    return [fwd_row, bwd_row]
 
 
 def mesh_offsets_check(torch, kfwd, kbwd, tag, b=MESH_BATCH, hq=32, hkv=8,

@@ -55,8 +55,10 @@ class ArchConfig:
     ``sharding_profile`` ("tp_sp", or "fsdp": no tensor parallelism, batch
     and params over (data, model), taken only with ``fsdp`` as well) and
     ``ctx_parallel_attn`` (shard attention's query rows over the model axis
-    where the heads do not divide it; the port does not do that yet and
-    keeps such attention replicated). JAX's ``scan_layers`` has no
+    where the heads do not divide it: the rules' ``seq_full``, which
+    ``distributed/parallel.ShardPlan`` carries out in training and in the
+    serving prefill, each rank computing every head for its ``S / model``
+    query rows against the whole sequence's K/V). JAX's ``scan_layers`` has no
     counterpart (the port loops over its layers); ``remat`` checkpoints each
     layer in training; ``dtype`` is a torch dtype.
     """
@@ -84,7 +86,7 @@ class ArchConfig:
     fsdp: bool = False               # shard params over the data axis too (ZeRO-3)
     sharding_profile: str = "tp_sp"  # "tp_sp" or "fsdp" (no TP; with fsdp only)
     ctx_parallel_attn: bool = False  # shard attention queries over model where
-                                     # the heads do not divide it (JAX only)
+                                     # the heads do not divide it (seq_full)
     notes: str = ""
 
     def __post_init__(self):

@@ -9,20 +9,41 @@ every rank's part (:meth:`~NamedSharding.gather`, a collective).
 :class:`ShardPlan` carries the specs of ``distributed.sharding`` out in
 the layers of every family:
 
+* **sequence parallel over ``model``** (the rules' ``seq``): between the
+  blocks a rank holds rows ``[r·S/m, (r+1)·S/m)`` of the residual stream
+  (m the ``model`` axis's size, r the rank's place on it); the norms and
+  the residual adds run on those rows. :meth:`ShardPlan.seq_rows` decides
+  it per forward from S, as JAX's ``spec_for`` does: where m does not
+  divide S (a decode step's one token, say) the stream stays replicated.
+  Work split over ``model`` is entered by an all-gather along the
+  sequence (its gradient a reduce-scatter) and left by a reduce-scatter
+  along it (its gradient an all-gather), Megatron's sequence-parallel
+  pair, in place of the all-reduce pair below; work that is not split
+  and reads every row (a sequence mixer on replicated channels) gathers
+  the rows and keeps its own; per-token work that is not split (an MLP
+  whose FFN ``model`` does not divide) runs on the rank's rows.
+* **context parallel over ``model``** (the rules' ``seq_full``, set where
+  ``cfg.ctx_parallel_attn`` holds and the q heads do not divide ``model``;
+  every such config is causal): attention computes every head for the
+  rank's query rows ``[a, b)`` against K/V over the gathered sequence, cut
+  to ``[0, b)`` so that q is their suffix and the causal mask, the window,
+  the segment ids and the dropout hash see global positions (no kernel
+  change); RoPE takes the rows' global positions; ``wo`` gives the rank's
+  own residual rows with no sum over ``model``. A query shard's dK/dV are
+  partial and summed over ``model`` by the gather's reduce-scatter.
 * **tensor parallel over ``model``** (heads, kv heads, mlp, rnn and vocab
   dims sharded): ``wq/wk/wv`` column-parallel on the rank's heads, ``wo``
-  row-parallel and summed over ``model``; the MLP the same way; the
-  recurrent mixers (the RG-LRU, Mamba) on the rank's channels, their
+  row-parallel; the MLP the same way; the recurrent mixers (the RG-LRU,
+  Mamba) on the rank's channels over the whole sequence, their
   in-projections column-parallel, their out-projections row-parallel, the
   projections out of the channels into a replicated tensor (the RG-LRU's
   gates, Mamba's ``w_bc`` and ``w_dt1``) summed over ``model``; the
-  embedding looked up on the rank's vocab rows (the others give zeros) and
-  summed; ``lm_head`` column-parallel with a vocab-parallel cross-entropy
-  (a global max and sum-exp over ``model``, padded columns masked). The
-  residual stream stays replicated over ``model``: JAX's sequence-parallel
-  residuals (``seq``) and context-parallel attention (``seq_full``) change
-  its layout, not its values; they are not carried out
-  (:attr:`ShardPlan.layout_only` records them).
+  embedding looked up on the rank's vocab rows (the others give zeros)
+  and summed (reduce-scattered to the rank's rows under ``seq``);
+  ``lm_head`` column-parallel on the gathered rows with a vocab-parallel
+  cross-entropy (a global max and sum-exp over ``model``, padded columns
+  masked). Without ``seq`` split work is entered by ``copy_to`` and left
+  by ``reduce_from`` (Megatron's f / g).
 * an ``[a | b]`` leaf (the gated MLP's ``wi``, the shared experts' ``wi``,
   Mamba's ``in_proj``) splits half by half, so every rank holds the same
   slice of both halves (:meth:`ShardPlan.block`).
@@ -30,10 +51,12 @@ the layers of every family:
   columns are the rank's experts, its logits gathered over ``model``
   before the softmax, so every model rank routes alike; a rank runs its
   experts on the dispatched tokens and the combined output is summed over
-  ``model``. The tokens' groups are the global microbatch's: a rank routes
-  its own groups where they divide the batch axes (``moe_groups``), and
-  every group where one spans ranks (JAX's fallback replicates them), its
-  tokens gathered over the batch axes.
+  ``model`` (reduce-scattered along the sequence under ``seq``, whose
+  tokens are gathered before dispatch, so the groups and the capacity are
+  the single-device ones). The tokens' groups are the global microbatch's:
+  a rank routes its own groups where they divide the batch axes
+  (``moe_groups``), and every group where one spans ranks (JAX's fallback
+  replicates them), its tokens gathered over the batch axes.
 * kv heads that ``model`` does not divide, under heads that it does: the
   rules replicate ``wk/wv``, and each rank projects the kv heads its own
   q heads read (``global q head // group``), expanding them to one a q
@@ -44,6 +67,11 @@ the layers of every family:
 * weights replicated over ``model`` but used on the rank's heads only
   (``q_norm``/``k_norm``, replicated ``wk/wv``) enter through
   ``collectives.copy_to``, so their gradients are whole on every rank.
+  Every other leaf replicated over ``model`` has, under ``seq``, a partial
+  gradient (its work saw the rank's rows, or was cut to them): the norms,
+  ``final_norm``, the attention weights under ``seq_full``, the leaves of
+  work that ``model`` does not split. :meth:`ShardPlan.reduce_grads` sums
+  those over ``model`` as well as over the batch axes.
 * the batch: a rank holds rows ``[i·b, (i+1)·b)`` of every microbatch (i
   its position along the batch axes), and passes ``i·b`` and its first q
   head to the attention kernels (``batch_offset``, ``head_offset``) so
@@ -63,7 +91,10 @@ Serving (:meth:`ShardPlan.serving`, what ``repro.runtime.steps``'s
 are held once, as the decode rules lay them out (tensor parallel over
 ``model``, no FSDP: the prefill rules' ``embed: data`` of an FSDP config
 changes a weight's memory, not its values, and is recorded in
-:attr:`ShardPlan.layout_only`). The caches follow the rules too: batch
+:attr:`ShardPlan.layout_only`). The prefill runs under the prefill rules'
+``seq`` and ``seq_full`` (a packed paged prefill ``[1, T, d]`` splits its
+T rows where ``model`` divides T); decode's one token falls back to
+replicated. The caches follow the rules too: batch
 rows over the batch axes, kv heads over ``model`` where they divide it,
 else the contiguous cache's sequence over ``model`` (``kv_cache_seq``,
 :attr:`ShardPlan.kv_seq`: decode replicates q, every rank attends over its
@@ -152,10 +183,15 @@ class ShardPlan:
 
     Flags, each for the blocks that have the leaf: ``heads``/``kv`` (the
     attention's q / kv heads split over ``model``), ``rnn`` (the recurrent
-    mixer's channels), ``experts``; ``vocab``; ``kv_seq`` (serving: the
-    contiguous cache's sequence over ``model``, :meth:`serving`).
-    ``batch``: the batch axes' entry, the rules' unless given (the paged
-    engine's None)."""
+    mixer's channels), ``experts``; ``vocab``; ``seq`` (the residual
+    stream's sequence over ``model`` between the blocks, where
+    :meth:`seq_rows` finds that ``model`` divides it) and ``ctx``
+    (attention's query rows over ``model`` under ``seq``); ``kv_seq``
+    (serving: the contiguous cache's sequence over ``model``,
+    :meth:`serving`). ``batch``: the batch axes' entry, the rules' unless
+    given (the paged engine's None). ``rows_log``: None, or a list to
+    which every forward appends ``("residual", rows)`` at each block's
+    input and attention ``("query", rows)`` (the layout a rank ran)."""
 
     def __init__(self, cfg, mesh, rules, specs: Dict[str, tuple],
                  logical: Dict[str, tuple], *, batch=_UNSET):
@@ -177,8 +213,8 @@ class ShardPlan:
                                  f"over {self.batch}")
         else:
             self.batch = batch
-        self.layout_only = {a: rules.rules[a] for a in ("seq", "seq_full")
-                            if rules.rules.get(a) is not None}
+        self.layout_only = {}
+        self.rows_log = None
         self.vocab = self._spec["embed"][0] == "model"
         self.heads = self.splits("attn:mixer.wq", 1)
         self.kv = self.splits("attn:mixer.wk", 1)
@@ -228,6 +264,7 @@ class ShardPlan:
         self.kv_seq = False      # serving: the cache's sequence over model
         if "attn:mixer.wq" in self._spec:
             self._plan_heads(cfg, mesh)
+        self._plan_seq(rules)
 
     @classmethod
     def serving(cls, cfg, mesh, shapes: Dict[str, tuple],
@@ -252,13 +289,34 @@ class ShardPlan:
                                      f"prefill rules, {specs[n]} under the "
                                      f"decode rules")
                 plan.layout_only["embed"] = prefill.rules["embed"]
-        for a in ("seq", "seq_full"):
-            if prefill.rules.get(a) is not None:
-                plan.layout_only.setdefault(a, prefill.rules[a])
+        plan._plan_seq(prefill)
         plan.shapes = dict(shapes)
         plan.kv_seq = ("attn:mixer.wq" in plan._spec and not plan.kv
                        and mesh.size("model") > 1)
         return plan
+
+    def _plan_seq(self, rules) -> None:
+        """``seq`` and ``ctx`` from ``rules``' ``seq`` / ``seq_full``."""
+        cfg = self.cfg
+        tp = self.mesh.size("model") > 1
+        self.seq = tp and rules.rules.get("seq") == "model"
+        self.ctx = (self.seq and rules.rules.get("seq_full") == "model"
+                    and "attn:mixer.wq" in self._spec)
+        if self.seq and not self.vocab:
+            raise ValueError(f"{cfg.name}: seq over model with the vocab "
+                             f"replicated (embed {self._spec['embed']}): the "
+                             f"plan's head is vocab-parallel")
+        if self.ctx and (self.heads or not cfg.causal):
+            raise ValueError(f"{cfg.name}: seq_full over model with the heads "
+                             f"split ({self.heads}) or non-causal attention "
+                             f"(causal {cfg.causal})")
+
+    def seq_rows(self, s: int) -> bool:
+        """Whether a forward over ``s`` positions lays its residual stream
+        out over ``model`` (``seq``): JAX's ``spec_for`` replicates a dim
+        its axis does not divide, so ``s`` a multiple of ``model``'s
+        size."""
+        return self.seq and s % self.mesh.size("model") == 0
 
     def _plan_heads(self, cfg, mesh) -> None:
         hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -384,13 +442,52 @@ class ShardPlan:
         m = self.mesh.size("model")
         return m if self.kv_seq and cap % m == 0 else 1
 
-    def enter(self, x, split: bool):
-        """A replicated activation entering work split over ``model``."""
+    def enter(self, x, split: bool, seq: bool = False):
+        """An activation ``x [b, S, ...]`` entering work split over
+        ``model`` (``split``) or, under ``seq`` (``x`` the rank's rows),
+        work that reads every row: the rows gathered over ``model`` (the
+        gradient reduce-scattered back to the rank's), else the
+        replicated activation entered by ``copy_to``."""
+        if seq:
+            return self.gather_seq(x)
         return C.copy_to(x, self.mesh, "model") if split else x
 
-    def leave(self, x, split: bool):
-        """Partial results of work split over ``model``, summed."""
+    def leave(self, x, split: bool, seq: bool = False):
+        """Results of :meth:`enter`'s work: under ``seq`` the rank's rows
+        of them, reduce-scattered over ``model`` where the work was split
+        (partial sums), cut where it was not; else the partial results of
+        split work summed over ``model``."""
+        if seq:
+            return (C.reduce_scatter(x, 1, self.mesh, "model") if split
+                    else self.seq_part(x))
         return C.reduce_from(x, self.mesh, "model") if split else x
+
+    def seq_span(self, s: int) -> Tuple[int, int]:
+        """This rank's rows ``[a, b)`` of a sequence of ``s`` under ``seq``."""
+        n = s // self.mesh.size("model")
+        a = self.mesh.index("model") * n
+        return a, a + n
+
+    def seq_part(self, x, dim: int = 1):
+        """This rank's rows of ``x``'s whole sequence (dim ``dim``)."""
+        a, b = self.seq_span(x.shape[dim])
+        return x.narrow(dim, a, b - a)
+
+    def gather_seq(self, x, dim: int = 1):
+        """Every ``model`` rank's rows of ``x`` (dim ``dim``), in order; the
+        gradient summed over ``model`` and cut to the rank's rows."""
+        return C.gather(x.contiguous(), dim, self.mesh, "model")
+
+    def seq_last(self, x):
+        """``x [b, S/m, ...]`` (the rank's rows) → ``[b, 1, ...]``, the
+        sequence's last row, which the last ``model`` rank holds, on every
+        rank."""
+        return self.gather_seq(x[:, -1:])[:, -1:]
+
+    def log_rows(self, what: str, rows: int) -> None:
+        """Append ``(what, rows)`` to :attr:`rows_log` if it is a list."""
+        if self.rows_log is not None:
+            self.rows_log.append((what, int(rows)))
 
     def scatter(self, x):
         """Partial sums over ``model`` of a tensor whose last dim is split
@@ -430,17 +527,20 @@ class ShardPlan:
         (gathered over ``model``): every model rank routes alike."""
         return C.gather(logits, logits.dim() - 1, self.mesh, "model")
 
-    def moe_share(self, spans: bool) -> int:
+    def moe_share(self, spans: bool, seq: bool = False) -> int:
         """The ranks that compute each group's routing: the model ranks of
-        expert parallelism, and the batch ranks when a group spans them."""
-        return ((self.mesh.size("model") if self.experts else 1)
+        expert parallelism or of ``seq`` (whose leaves' gradients are
+        summed over ``model``), and the batch ranks when a group spans
+        them."""
+        return ((self.mesh.size("model") if self.experts or seq else 1)
                 * (self.batch_ranks if spans else 1))
 
-    def moe_sum(self, x):
+    def moe_sum(self, x, seq: bool = False):
         """A rank's share of an MoE term summed over the ranks that share
-        its groups (the batch axes, and ``model`` under expert
-        parallelism): the global value, its gradient the share's."""
-        axes = set(self.mesh.axes(self.batch)) | ({"model"} if self.experts else set())
+        its groups (the batch axes, and ``model`` under expert parallelism
+        or ``seq``): the global value, its gradient the share's."""
+        model = {"model"} if self.experts or seq else set()
+        axes = set(self.mesh.axes(self.batch)) | model
         return C.reduce_from(x, self.mesh, tuple(a for a in self.mesh.shape
                                                  if a in axes))
 
@@ -448,8 +548,11 @@ class ShardPlan:
         """``x`` summed over the batch axes, in place (no gradient)."""
         return C.all_reduce_(x, self.mesh, self.batch)
 
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """The embedding lookup, vocab-parallel where the vocab is sharded."""
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor,
+              seq: bool = False) -> torch.Tensor:
+        """The embedding lookup, vocab-parallel where the vocab is sharded:
+        its partial sums summed over ``model``, or under ``seq``
+        reduce-scattered to this rank's rows."""
         w = self.weight(table, "embed")
         if not self.vocab:
             return w[tokens]
@@ -457,7 +560,7 @@ class ShardPlan:
         local = tokens.long() - self.mesh.index("model") * rows
         own = (local >= 0) & (local < rows)
         x = w[local.clamp(0, rows - 1)] * own[..., None].to(w.dtype)
-        return C.reduce_from(x, self.mesh, "model")
+        return self.leave(x, True, seq)
 
     def logits(self, xn: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
         """``xn @ lm_head``: this rank's vocab columns where sharded."""
@@ -508,11 +611,17 @@ class ShardPlan:
             got.update(self.mesh.axes(entry))
         return tuple(a for a in self.mesh.shape if a in got)
 
-    def reduce_entry(self, name: str) -> Tuple[str, ...]:
-        """The batch axes a leaf is replicated over: its gradient is summed
-        over them."""
-        own = self._axes(name)
-        return tuple(a for a in self.mesh.axes(self.batch) if a not in own)
+    def reduce_entry(self, name: str, seq: bool = False) -> Tuple[str, ...]:
+        """The axes a leaf's gradient is summed over: the batch axes it is
+        replicated over and, after a forward under ``seq``, ``model`` where
+        it is replicated over ``model`` and not entered by ``copy_to``
+        (its gradient is then partial: its work saw this rank's rows)."""
+        own = set(self._axes(name))
+        axes = set(self.mesh.axes(self.batch)) - own
+        if seq and "model" not in own and \
+                _layer_key(name, self.kinds) not in self.partial:
+            axes.add("model")
+        return tuple(a for a in self.mesh.shape if a in axes)
 
     def norm_entry(self, name: str) -> Tuple[str, ...]:
         """The axes a leaf is sharded over (its sum of squares is summed
@@ -520,12 +629,14 @@ class ShardPlan:
         return self._axes(name)
 
     @torch.no_grad()
-    def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> None:
-        """Sum every gradient over the batch axes its leaf is replicated
-        over, in place, in buckets of up to :data:`BUCKET` elements."""
+    def reduce_grads(self, grads: Dict[str, torch.Tensor],
+                     seq: bool = False) -> None:
+        """Sum every gradient over the axes of :meth:`reduce_entry` (``seq``:
+        the forward ran under it, :meth:`seq_rows`), in place, in buckets of
+        up to :data:`BUCKET` elements."""
         by_entry: Dict[tuple, list] = {}
         for n in grads:
-            entry = self.reduce_entry(n)
+            entry = self.reduce_entry(n, seq)
             if self.mesh.size(entry) > 1:
                 by_entry.setdefault(entry, []).append(n)
         for entry, names in by_entry.items():
@@ -542,6 +653,26 @@ class ShardPlan:
                 for n, part in zip(chunk, flat.split(
                         [grads[n].numel() for n in chunk])):
                     grads[n] = part.view(grads[n].shape).to(grads[n].dtype)
+
+
+def layout_line(cfg, shape: Dict[str, int], s: int, *,
+                serve: bool = False) -> str:
+    """How a mesh of ``shape`` (axis → size) lays out a forward of ``s``
+    positions of ``cfg`` under ``default_rules`` (the prefill rules with
+    ``serve``), for a launcher's mesh line: ``seq over model 4; attention's
+    query rows over model 4``, or why the sequence stays replicated."""
+    import types
+    rules = default_rules(types.SimpleNamespace(shape=dict(shape)), cfg,
+                          serve=serve).rules
+    m = shape.get("model", 1)
+    if rules.get("seq") != "model" or m == 1:
+        return "the sequence replicated (no seq over model)"
+    if s % m:
+        return f"the sequence replicated ({s} rows do not split over model {m})"
+    line = f"seq over model {m}"
+    if rules.get("seq_full") == "model" and cfg.num_heads:
+        line += f"; attention's query rows over model {m}"
+    return line
 
 
 def shard_batch(batch: Dict[str, Any], shardings: Dict[str, NamedSharding],

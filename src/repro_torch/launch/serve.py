@@ -25,7 +25,12 @@ rank's batch rows (over ``pod`` and ``data``) and kv heads, or, where the
 kv heads do not divide ``model``, its slots of every kv head
 (``kv_cache_seq``: decode merges the ranks' attention partials); the page
 pool is sharded over ``model`` and the engine's slots replicated over the
-batch axes. ``--dist-backend nccl`` (the default on cuda) needs a card a
+batch axes. The prefill runs under the prefill rules: a rank's ``S /
+model`` rows of the residual stream where ``model`` divides S (the packed
+paged prefill's row of ``prefill_len`` too), and attention's query rows
+split over ``model`` where the rules set ``seq_full``; decode's one token
+stays replicated. The mesh line names the prefill's layout.
+``--dist-backend nccl`` (the default on cuda) needs a card a
 rank; ranks that share one card need ``--dist-backend gloo``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --mesh 2x2 --dist-backend gloo --batch 8 --prompt-len 512 --gen 32
@@ -87,6 +92,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.attention import IMPLS
 from repro_torch.distributed.mesh import join_train_mesh
+from repro_torch.distributed.parallel import layout_line
 from repro_torch.launch import mesh as pool_mesh
 from repro_torch.launch.train import parse_mesh
 from repro_torch.runtime.steps import (ServeArtifacts, init_serve_params,
@@ -242,7 +248,8 @@ def main(argv=None):
     else:
         ranks, backend, devices = _spawn(_contiguous_rank, shape, args, device,
                                          (cfg, args, num_splits))
-        _print_mesh(shape, backend, devices)
+        _print_mesh(shape, backend, devices,
+                    layout_line(cfg, shape, args.prompt_len, serve=True))
         r0 = ranks[0]
         for r, got in enumerate(ranks[1:], 1):
             if not np.array_equal(got["tokens"], r0["tokens"]):
@@ -303,12 +310,12 @@ def _spawn(fn, shape, args, device, fn_args):
     return ranks, backend, devices
 
 
-def _print_mesh(shape, backend: str, devices) -> None:
+def _print_mesh(shape, backend: str, devices, layout: str) -> None:
     axes = " x ".join(f"{a} {n}" for a, n in shape.items())
     where = ("on the pool axis" if list(shape) == ["model"]
              else f"over {axes} (the pool axis: model)")
     print(f"mesh: {len(devices)} ranks {where}, backend {backend}, devices "
-          f"{', '.join(devices)}")
+          f"{', '.join(devices)}; prefill: {layout}")
 
 
 def autotuned_plan(cfg, batch: int, max_len: int, device):
@@ -424,7 +431,10 @@ def serve_paged(cfg, args, device, shape=None):
     if shape:
         ranks, backend, devices = _spawn(_serve_rank, shape, args, device,
                                          (cfg, args))
-        _print_mesh(shape, backend, devices)
+        prefill_len = _paged_config(args, shape["model"])[1]
+        _print_mesh(shape, backend, devices,
+                    layout_line(cfg, shape, prefill_len, serve=True)
+                    + f" (packed rows of {prefill_len})")
         out, stats, results, splits = ranks[0]
         for r, (o, st, _, ns) in enumerate(ranks[1:], 1):
             same = set(o) == set(out) and all(np.array_equal(o[k], out[k])

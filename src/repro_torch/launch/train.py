@@ -4,8 +4,13 @@ one device, or a mesh of ranks with ``--mesh``.
 ``--mesh`` takes JAX's forms: ``N`` is the mesh ``("model",)``, ``DxM``
 ``("data", "model")`` and ``PxDxM`` ``("pod", "data", "model")``: one
 process a mesh position (``launch.mesh.run_ranks``), the data and pod axes
-data-parallel, the model axis tensor-parallel, the config's FSDP settings
-as JAX's rules take them (``distributed/sharding.py``). ``--dist-backend``:
+data-parallel, the model axis tensor-parallel and sequence-parallel (a
+rank's ``seq / model`` rows of the residual stream between blocks where
+``model`` divides ``--seq``; attention's query rows split over it too
+under ``seq_full``: a config with ``ctx_parallel_attn`` whose heads it
+does not divide), the config's FSDP settings as JAX's rules take them
+(``distributed/sharding.py``). The mesh line names the layout, e.g.
+``seq over model 4; attention's query rows over model 4``. ``--dist-backend``:
 ``nccl`` (the default on cuda) needs a card a rank; ranks that share a card,
 or run on the CPU, take ``gloo``. Every arch trains on a mesh: the hybrid's
 RG-LRU and the ssm's Mamba mixer on the rank's channels, the MoE's experts
@@ -68,6 +73,7 @@ from repro_torch import configs
 from repro_torch.core.attention import IMPLS
 from repro_torch.data import DataConfig
 from repro_torch.distributed.mesh import join_train_mesh
+from repro_torch.distributed.parallel import layout_line
 from repro_torch.launch.mesh import BACKENDS, default_backend, run_ranks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.steps import make_train_step
@@ -165,7 +171,8 @@ def main(argv=None):
         print(f"mesh: {size} ranks over "
               f"{' x '.join(f'{a} {n}' for a, n in shape.items())} "
               f"({args.dist_backend or default_backend(device_type)}, "
-              f"{device_type})", flush=True)
+              f"{device_type}); {layout_line(_config(args), shape, args.seq)}",
+              flush=True)
         ranks = run_ranks(_rank, size, (shape, args),
                           backend=args.dist_backend, device_type=device_type)
         result = dict(ranks[0], ranks=ranks)

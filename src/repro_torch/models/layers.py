@@ -40,6 +40,8 @@ class Ctx:
     bwd_acc_dtype: Any = torch.float32   # backward product rounding
     plan: Any = None                 # distributed.parallel.ShardPlan: the
                                      # params are a mesh rank's shards
+    seq: bool = False                # the residual stream holds this rank's
+                                     # rows (ShardPlan.seq_rows; lm.forward)
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +186,15 @@ def apply_mlp(p: MLP, x, ctx: Optional[Ctx] = None, key: str = "mlp."):
     ungated ``gelu(x @ wi) @ wo`` with GELU's tanh form, which is
     ``jax.nn.gelu``'s default. On a training mesh whose ``model`` axis
     splits the FFN, ``wi`` holds this rank's slice of each half and the
-    partial ``@ wo`` is summed over ``model``. ``key``: the leaves' prefix
-    in the block (``mlp.shared.`` for the MoE's shared experts)."""
+    partial ``@ wo`` is summed over ``model``: under ``ctx.seq`` the rows
+    are gathered before ``wi`` and the sum reduce-scattered to the rank's
+    rows; an FFN that ``model`` does not split runs on the rank's rows.
+    ``key``: the leaves' prefix in the block (``mlp.shared.`` for the MoE's
+    shared experts)."""
     plan = None if ctx is None else ctx.plan
     split = plan is not None and plan.splits(key + "wi", 1)
-    if plan is not None:
-        x = plan.enter(x, split)
+    if split:
+        x = plan.enter(x, True, ctx.seq)
     h = x @ weight(ctx, p.wi, key + "wi")
     if p.gated:
         g, u = h.chunk(2, dim=-1)
@@ -197,7 +202,7 @@ def apply_mlp(p: MLP, x, ctx: Optional[Ctx] = None, key: str = "mlp."):
     else:
         h = F.gelu(h, approximate="tanh")
     out = h @ weight(ctx, p.wo, key + "wo")
-    return out if plan is None else plan.leave(out, split)
+    return plan.leave(out, True, ctx.seq) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -310,12 +315,29 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
       (``spark_decode_partials``, its count of valid slots
       ``clamp(min(index + 1, cap) - r·cap/M, 0, cap/M)``) and merges the
       partials over ``model``; ``wo`` then takes the rank's heads' columns.
+    * under ``ctx.seq`` (``x`` this rank's rows of the residual stream,
+      ``positions`` and ``segment_ids`` the whole sequence's): heads split
+      over ``model`` gather the rows before ``wq/wk/wv`` and reduce-scatter
+      ``wo``'s partial sums to the rank's rows; heads that ``model`` does
+      not split, under ``plan.ctx`` (``seq_full``), compute every head for
+      the rank's query rows ``[a, b)`` (RoPE at their global positions),
+      gather K/V over ``model`` (a cache is filled from the gathered K/V)
+      and attend against K/V cut to ``[0, b)``, q their suffix, so the
+      masks and the dropout hash see global positions; ``wo`` then gives
+      the rank's rows with no sum. Without ``seq_full`` such heads run on
+      the gathered rows, replicated, and keep the rank's rows.
     """
+    plan = ctx.plan
+    # context parallel (seq_full): every head on this rank's query rows
+    rows = plan is not None and ctx.seq and plan.ctx
+    if plan is not None and not rows:
+        x = plan.enter(x, plan.heads, ctx.seq)
     b, s, _ = x.shape
     hd = cfg.head_dim
     if positions is None:
-        positions = torch.arange(s, device=x.device)
-    plan = ctx.plan
+        positions = torch.arange(s * plan.mesh.size("model") if rows else s,
+                                 device=x.device)
+    pos = plan.seq_part(positions, positions.dim() - 1) if rows else positions
     pool = cache is not None and "k_pages" in cache
     # serving on a mesh: a page pool, and a contiguous cache whose kv heads
     # do not split, hold every kv head; decode over either (and the pool's
@@ -324,8 +346,6 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     every_q = plan is not None and cache is not None and (
         (pool and (ctx.decode or "token_tables" in (paged or {})))
         or (ctx.decode and not plan.kv))
-    if plan is not None:
-        x = plan.enter(x, plan.heads)
     q = x @ weight(ctx, p.wq, "attn:mixer.wq")
     if every_kv and not plan.kv:
         k = x @ weight(ctx, p.wk, "attn:mixer.wk")
@@ -341,20 +361,26 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
     if cfg.qk_norm:
         q = rms_norm(q, weight(ctx, p.q_norm, "attn:mixer.q_norm"))
         k = rms_norm(k, weight(ctx, p.k_norm, "attn:mixer.k_norm"))
-    q = rope(q, positions).transpose(1, 2)
-    k = rope(k, positions).transpose(1, 2)
+    q = rope(q, pos).transpose(1, 2)
+    k = rope(k, pos).transpose(1, 2)
     v = v.transpose(1, 2)
+    if rows:                   # every rank's K/V rows: the whole sequence's
+        k, v = plan.gather_seq(torch.stack([k, v]), 3).unbind(0)
+    if plan is not None and not ctx.decode:
+        plan.log_rows("query", s)
 
     def project_out(o):
         """o [B, S, H·D] (every head where ``every_q``) → ``@ wo``."""
         if every_q:
             o = plan.own_heads(o)
         out = o @ weight(ctx, p.wo, "attn:mixer.wo")
-        return out if plan is None else plan.leave(out, plan.heads)
+        if plan is None or rows:
+            return out
+        return plan.leave(out, plan.heads, ctx.seq)
 
     if pool:
         o = _apply_paged(q, k, v, ctx, cfg, cache, paged, segment_ids,
-                         every_q)
+                         every_q, rows)
         return project_out(o.reshape(b, s, -1)), cache
     new_cache = None
     if ctx.decode:
@@ -389,9 +415,11 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                 raise ValueError("the contiguous cache stores no segments: "
                                  "packed prefill needs a paged cache")
             _fill_ring(cache, k, v, plan)
-            new_cache = dict(cache, index=cache["index"] + s)
+            new_cache = dict(cache, index=cache["index"] + k.shape[2])
             if every_kv:           # the kv heads this rank's q heads read
                 k, v = plan.kv_heads_of(k), plan.kv_heads_of(v)
+        if rows:                   # K/V up to the last query row: q a suffix
+            k, v, segment_ids = _kv_upto(plan, k, v, segment_ids)
         drop = 0.0 if ctx.deterministic else cfg.dropout_rate
         o = spark_attention(q, k, v, impl=ctx.impl,
                             seed=rng.int32(ctx.seed + layer_seed),
@@ -403,6 +431,17 @@ def apply_attention(p: Attention, x, ctx: Ctx, cfg, *, positions=None,
                             batch_offset=0 if plan is None else plan.batch_offset(b),
                             head_offset=0 if plan is None else plan.head_offset)
     return project_out(o.transpose(1, 2).reshape(b, s, -1)), new_cache
+
+
+def _kv_upto(plan, k, v, segment_ids):
+    """k/v [B, Hkv, S, D] and segment ids [B, S] of the whole sequence cut
+    to ``[0, b)``, b the end of this rank's query rows: the query rows are
+    then their suffix (the kernels' ``q_offset = Skv - Sq`` is the rows'
+    first position). Never cut at the front: the window and the dropout
+    hash read key positions from ``k[0]``."""
+    end = plan.seq_span(k.shape[2])[1]
+    return (k[:, :, :end], v[:, :, :end],
+            None if segment_ids is None else segment_ids[:, :end])
 
 
 def _ring_range(cache, plan):
@@ -432,7 +471,7 @@ def _fill_ring(cache, k, v, plan) -> None:
 
 
 def _apply_paged(q, k, v, ctx: Ctx, cfg, cache, paged, segment_ids,
-                 every_q: bool):
+                 every_q: bool, rows: bool = False):
     """The paged branches of :func:`apply_attention` (q [B,Hq,S,D], k/v
     [B,Hkv,S,D] after RoPE), mirroring JAX's arms. Returns the attention
     output o [B, S, Hq, D] before ``wo``; the pool is updated in place.
@@ -456,12 +495,16 @@ def _apply_paged(q, k, v, ctx: Ctx, cfg, cache, paged, segment_ids,
     and attention is local partials merged across ranks. On a serving mesh
     (``ctx.plan``) k/v hold every kv head; q holds every
     head where ``every_q`` (decode, chunk and verify rows), else this
-    rank's, and the packed prefill attends on those heads.
+    rank's, and the packed prefill attends on those heads. ``rows``
+    (``seq_full``): q holds this rank's rows of the sequence, k/v every
+    row; the scatter writes every row, and the rank's rows attend (the
+    packed prefill against K/V cut to its last row, the chunk and verify
+    rows through their own tables).
     """
     plan = ctx.plan
     pool = None if plan is None else plan.mesh.pool_shards
     b, hq, s, hd = q.shape
-    hkv = k.shape[1]
+    hkv, skv = k.shape[1], k.shape[2]
     ck, cv = cache["k_pages"], cache["v_pages"]
     window = paged_decode_window(cfg)
     if paged is None:
@@ -493,24 +536,29 @@ def _apply_paged(q, k, v, ctx: Ctx, cfg, cache, paged, segment_ids,
     else:
         if "dest" not in paged:
             raise ValueError("prefill onto a paged cache needs dest token slots")
-        dest = paged["dest"].reshape(-1)                      # [B*S]
+        dest = paged["dest"].reshape(-1)                      # [B*Skv]
         scatter = (_scatter_pages if pool is None else
                    functools.partial(dpaged.scatter_pages_sharded, mesh=pool))
-        scatter(ck, dest, k.transpose(0, 1).reshape(hkv, b * s, hd))
-        scatter(cv, dest, v.transpose(0, 1).reshape(hkv, b * s, hd))
+        scatter(ck, dest, k.transpose(0, 1).reshape(hkv, b * skv, hd))
+        scatter(cv, dest, v.transpose(0, 1).reshape(hkv, b * skv, hd))
         if "token_tables" in paged:
+            tables, kv_len = paged["token_tables"], paged["token_kv_len"]
+            if rows:
+                tables, kv_len = plan.seq_part(tables), plan.seq_part(kv_len)
             q_tok = q.transpose(1, 2).reshape(b * s, hq, hd)
             decode = (spark_paged_decode if pool is None else
                       functools.partial(dpaged.paged_decode_sharded,
                                         mesh=pool))
             o = decode(
-                q_tok, ck, cv, paged["token_tables"].reshape(b * s, -1),
-                paged["token_kv_len"].reshape(b * s), impl=ctx.impl,
+                q_tok, ck, cv, tables.reshape(b * s, -1),
+                kv_len.reshape(b * s), impl=ctx.impl,
                 window=window, num_splits=ctx.num_splits,
                 row_tokens=s).view(b, s, hq, hd)
         else:
             if plan is not None:       # the kv heads its q heads read
                 k, v = plan.kv_heads_of(k), plan.kv_heads_of(v)
+            if rows:
+                k, v, segment_ids = _kv_upto(plan, k, v, segment_ids)
             o = spark_attention(q, k, v, impl=ctx.impl, causal=cfg.causal,
                                 window=cfg.attn_window, segment_ids=segment_ids,
                                 acc_dtype=ctx.acc_dtype,

@@ -24,8 +24,14 @@ caches; the serving steps, which drop them, do not compute them.
 On a mesh (``ctx.plan``, a ``distributed.parallel.ShardPlan``) the
 parameters are the rank's shards and every layer runs its part:
 tensor-parallel over ``model`` (attention heads, MLPs, the recurrent
-mixers' channels), expert-parallel MoE layers, FSDP weights gathered
-before use, the vocab-parallel embedding, logits and cross-entropy;
+mixers' channels), sequence-parallel residuals (a rank's rows between the
+blocks where the rules' ``seq`` applies) and context-parallel attention
+(its query rows under ``seq_full``), expert-parallel MoE layers, FSDP
+weights gathered before use, the vocab-parallel embedding, logits and
+cross-entropy (the rows gathered before the head, so the cross-entropy
+is today's over every row: the vocab-parallel lse needs every vocab
+shard of a row on one rank, which the gather of ``d``-wide rows gives at
+less traffic than moving ``V / model``-wide logits);
 ``loss_fn`` then returns this rank's term of the global loss (see the
 plan), and the MoE metrics are global. Serving on a mesh
 (``ShardPlan.serving``) threads the rank's shard of every cache
@@ -304,7 +310,7 @@ def _train_block(p: Block, x, ctx: Ctx, cfg, positions, segment_ids,
 
 def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
             caches=None, positions=None, segment_ids=None, paged=None,
-            rows=None):
+            rows=None, last: bool = False):
     """tokens [B, S] int or embeds [B, S, FRONTEND_DIM] (an arch with a
     frontend; cast to the model's dtype, then ``@ frontend_proj``) →
     (logits [B, S, Vpad], new_caches or None, metrics): metrics are
@@ -317,26 +323,45 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
     paged: the routing of paged caches, passed to every layer
     (``layers.apply_attention``, ``rglru.apply_rglru``,
     ``mamba.apply_mamba``).
-    rows: a bool mask [B, S]; only these rows go through the final norm and
-    the head, and the logits are [N, Vpad], the rows in row-major order.
+    rows: a bool mask [B, S]; only these rows go through the final norm
+    (under ``seq``: after it) and the head, and the logits are [N, Vpad],
+    the rows in row-major order.
+    last: the caller reads the last position's logits only; under ``seq``
+    only that row (the last ``model`` rank's) is gathered for the head,
+    and the logits are [B, 1, Vpad].
+
+    On a mesh whose plan lays the sequence out over ``model``
+    (``ShardPlan.seq_rows`` of S) the blocks run under ``ctx.seq``: the
+    embedding (or the frontend projection) ends in this rank's rows, the
+    blocks take and give them, the final norm runs on them, and the rows
+    are gathered before the vocab-parallel head, so the logits and the
+    cross-entropy are those of every row (the loss as without ``seq``;
+    the gather sums the head's partial input gradients over ``model``).
     """
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes tokens or embeds, one of the two")
     plan = ctx.plan
+    s = (tokens if embeds is None else embeds).shape[1]
+    seq = plan is not None and plan.seq_rows(s)
+    if seq != ctx.seq:
+        ctx = dataclasses.replace(ctx, seq=seq)
     if embeds is None:
         x = params.embed[tokens] if plan is None else plan.embed(params.embed,
-                                                                 tokens)
+                                                                 tokens, seq)
     elif cfg.frontend is None:
         raise ValueError(f"{cfg.name} has no frontend: it takes tokens")
     else:
-        x = embeds.to(params.frontend_proj.dtype) @ layers.weight(
-            ctx, params.frontend_proj, "frontend_proj")
+        x = (plan.seq_part(embeds) if seq else embeds).to(
+            params.frontend_proj.dtype) @ layers.weight(
+                ctx, params.frontend_proj, "frontend_proj")
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(s, device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_caches: Optional[List[dict]] = None if caches is None else []
     layer_metrics = []
     for i, blk in enumerate(params.blocks):
+        if plan is not None:
+            plan.log_rows("residual", x.shape[1])
         if remat:
             x, m = checkpoint(_train_block, blk, x, ctx, cfg, positions,
                               segment_ids, i * 1000003, use_reentrant=False)
@@ -354,6 +379,14 @@ def forward(cfg, params: LM, ctx: Ctx, *, tokens=None, embeds=None,
         metrics = {"moe_aux": sum(m["moe_aux"] for m in layer_metrics),
                    "moe_dropped": sum(m["moe_dropped"] for m in layer_metrics)
                    / len(layer_metrics)}
+    if seq:        # the final norm on this rank's rows, then every row
+        x = layers.rms_norm(x, layers.weight(ctx, params.final_norm,
+                                             "final_norm"))
+        x = plan.seq_last(x) if last else plan.gather_seq(x)
+        if rows is not None:
+            x = x[rows]
+        return (x @ layers.weight(ctx, params.lm_head, "lm_head"), new_caches,
+                metrics)
     if rows is not None:
         x = x[rows]
     x = layers.rms_norm(x, layers.weight(ctx, params.final_norm, "final_norm"))
@@ -456,7 +489,7 @@ def prefill(cfg, params: LM, ctx: Ctx, tokens=None, caches=None, *,
     FRONTEND_DIM], filling the caches in place. Returns (last-position
     logits [B, Vpad], caches)."""
     logits, caches, _ = forward(cfg, params, ctx, tokens=tokens,
-                                embeds=embeds, caches=caches)
+                                embeds=embeds, caches=caches, last=True)
     return logits[:, -1], caches
 
 

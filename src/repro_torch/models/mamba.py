@@ -189,12 +189,18 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
     chunked scan on them; ``w_bc`` and ``w_dt1`` its rows, their partial
     products summed over ``model`` (B, C and the dt rank are every
     channel's); ``w_dt2`` column-parallel; ``out_proj`` row-parallel and
-    summed."""
-    b, s, _ = x.shape
+    summed.
+
+    Under ``ctx.seq`` (``x`` this rank's rows) the rows are gathered over
+    ``model`` before the in-projections, the conv and the scan run on the
+    rank's channels (all of them where ``model`` does not split them) over
+    the whole sequence, and the out-projection's partial sums are
+    reduce-scattered to the rank's rows (cut to them where not split)."""
     plan = ctx.plan
     split = plan is not None and plan.rnn
     if plan is not None:
-        x = plan.enter(x, split)
+        x = plan.enter(x, split, ctx.seq)
+    b, s, _ = x.shape
     u, z = (x @ layers.weight(ctx, p.in_proj, "ssm:mixer.in_proj")).chunk(2, dim=-1)
     a = -torch.exp(p.A_log)
 
@@ -255,4 +261,4 @@ def apply_mamba(p: Mamba, x, ctx: layers.Ctx, cfg, *, cache=None,
             cache["conv"].copy_(new_conv)
     out = (y.to(x.dtype) * F.silu(z)) @ layers.weight(ctx, p.out_proj,
                                                       "ssm:mixer.out_proj")
-    return (out if plan is None else plan.leave(out, split)), cache
+    return (out if plan is None else plan.leave(out, split, ctx.seq)), cache

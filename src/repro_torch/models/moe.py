@@ -143,20 +143,28 @@ def apply_moe(p: MoE, x, ctx: layers.Ctx, cfg, *, metrics: bool = True):
     as ``layers.apply_mlp``. The metrics are global: ``moe_aux`` the sum of
     every rank's share (its gradient the share's: the term enters the loss
     once), ``moe_dropped`` the global kept count over the global
-    choices."""
+    choices. Under ``ctx.seq`` (``x`` this rank's rows) the rows are
+    gathered over ``model`` before dispatch, so the groups, the capacity
+    and the routes are those without it; the combined output is
+    reduce-scattered to the rank's rows (cut to them without expert
+    parallelism, every model rank then routing alike and taking a share of
+    ``moe_aux``); the shared experts run as ``layers.apply_mlp`` under
+    ``seq``."""
     m = cfg.moe
-    b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     plan = ctx.plan
-    tokens = x.reshape(b * s, d)
+    seq = ctx.seq
+    ep = plan is not None and plan.experts
+    xs = plan.gather_seq(x) if seq else x           # every row under seq
+    b, s, d = xs.shape
+    tokens = xs.reshape(b * s, d)
     n_own = tokens.shape[0]
     n_all = n_own * (1 if plan is None else plan.batch_ranks)
     g_sz = group_size(n_all, m.group_size)
     spans = n_own % g_sz != 0          # a group spans batch ranks (a mesh)
-    ep = plan is not None and plan.experts
     if spans:
         tokens = plan.gather_batch(tokens)
-    if plan is not None:
+    if plan is not None and not seq:
         tokens = plan.enter(tokens, ep)
     n = tokens.shape[0]
     n_g = n // g_sz
@@ -188,9 +196,9 @@ def apply_moe(p: MoE, x, ctx: layers.Ctx, cfg, *, metrics: bool = True):
     out = torch.bmm(w.to(x.dtype)[:, None], yk)[:, 0]
     if spans:
         out = plan.own_rows(out, n_own)
-    if plan is not None:
-        out = plan.leave(out, ep)
     out = out.view(b, s, d)
+    if plan is not None:
+        out = plan.leave(out, ep, seq)
     if p.shared is not None:
         out = out + layers.apply_mlp(p.shared, x, ctx, "mlp.shared.")
     if not metrics:
@@ -204,7 +212,7 @@ def apply_moe(p: MoE, x, ctx: layers.Ctx, cfg, *, metrics: bool = True):
         aux = e * balance.mean()
     else:
         aux = plan.moe_sum(e * balance.sum()
-                           / (n_all // g_sz * plan.moe_share(spans)))
+                           / (n_all // g_sz * plan.moe_share(spans, seq)), seq)
         if not spans:
             kept = plan.batch_sum_(kept)
     return out, {"moe_aux": aux, "moe_dropped": 1.0 - kept / (n_all * k)}

@@ -226,12 +226,18 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
     the scan on this rank's channels, ``w_inp``/``w_rec`` its rows (the
     rules shard their first ``rnn`` dim only), so the gates' products are
     partial sums, summed over ``model`` and cut to its channels; ``wo``
-    row-parallel and summed."""
-    b, s, _ = x.shape
+    row-parallel and summed.
+
+    Under ``ctx.seq`` (``x`` this rank's rows) the rows are gathered over
+    ``model`` before the in-projections, the conv and the scan run on the
+    rank's channels (all of them where ``model`` does not split them) over
+    the whole sequence, and the out-projection's partial sums are
+    reduce-scattered to the rank's rows (cut to them where not split)."""
     plan = ctx.plan
     split = plan is not None and plan.rnn
     if plan is not None:
-        x = plan.enter(x, split)
+        x = plan.enter(x, split, ctx.seq)
+    b, s, _ = x.shape
     lam = getattr(p, "lambda")
     xr = x @ layers.weight(ctx, p.wx, "rec:mixer.wx")         # recurrence branch
     gate = F.gelu(x @ layers.weight(ctx, p.wg, "rec:mixer.wg"),
@@ -275,7 +281,7 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
             _scatter_state(hs, h, slots, is_end)
             _scatter_state(convs, _conv_state_of(lags), slots, is_end)
         out = (h.to(x.dtype) * gate) @ layers.weight(ctx, p.wo, "rec:mixer.wo")
-        return (out if plan is None else plan.leave(out, split)), cache
+        return (out if plan is None else plan.leave(out, split, ctx.seq)), cache
 
     xr, new_conv = _conv1d_causal(xr, p.conv,
                                   None if cache is None else cache["conv"])
@@ -293,4 +299,4 @@ def apply_rglru(p: RGLRU, x, ctx: layers.Ctx, cfg, *, cache=None,
             cache["h"].copy_(h[:, -1])
             cache["conv"].copy_(new_conv)
     out = (h.to(x.dtype) * gate) @ layers.weight(ctx, p.wo, "rec:mixer.wo")
-    return (out if plan is None else plan.leave(out, split)), cache
+    return (out if plan is None else plan.leave(out, split, ctx.seq)), cache

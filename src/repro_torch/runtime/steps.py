@@ -98,7 +98,9 @@ def make_train_step(cfg, *, mesh=None, opt: AdamWConfig = AdamWConfig(),
     or, with ``mesh`` (this rank's ``distributed.mesh.TrainMesh``), over a
     mesh of ranks (``default_rules(mesh, cfg)``, the vocab padded to the
     model axis; every family, its metrics global as one device reports
-    them).
+    them; the residual stream and, under ``seq_full``, attention's query
+    rows over ``model`` where it divides the batch's sequence,
+    ``ShardPlan.seq_rows``).
 
     microbatch: split the batch into rows of this size and accumulate:
     grads and loss are the means over microbatches, the other metrics those
@@ -173,7 +175,7 @@ def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
                 g.div_(n_micro)
             loss = loss / n_micro
         if plan is not None:
-            plan.reduce_grads(grads)
+            plan.reduce_grads(grads, plan.seq_rows(batch["labels"].shape[1]))
         return loss, metrics, grads
 
     def step_fn(params, opt_state, batch, step: int):
@@ -335,7 +337,11 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
     prefill and decode rules, the weights as decode lays them out, the
     vocab padded to ``model``). The steps take the global inputs, and
     return the global logits, every vocab column gathered, equal on every
-    rank. The contiguous cache holds the rank's batch rows (``batch`` must
+    rank. A prefill (and a chunk or verify step) runs under the prefill
+    rules' ``seq`` where ``model`` divides its rows, and ``seq_full``
+    where the rules set it: the caches are filled from the gathered K/V,
+    and the contiguous prefill's last-position logits come from the rank
+    that holds that row; decode's one token stays replicated. The contiguous cache holds the rank's batch rows (``batch`` must
     split over the batch axes) and its kv heads, or its slots of every kv
     head where the kv heads do not split (``kv_cache_seq``); the page pool
     is sharded over ``model`` (``paged.num_shards`` must equal its size)

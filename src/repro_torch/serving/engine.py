@@ -68,7 +68,12 @@ each layer's page pool (pages over ``model``) and its shard of the weights
 (JAX's serving rules, ``ShardPlan.serving``: tensor parallel over
 ``model``; a model handed over whole is cut to the rank's shard), the
 slots replicated over the batch axes, and decode merges the shards'
-attention partials (``distributed/paged.py``).
+attention partials (``distributed/paged.py``). A packed prefill row
+``[1, T]`` (and a chunk or verify step's rows) runs under the prefill
+rules' ``seq`` where ``model`` divides T, each rank holding T / model rows
+of the residual stream, and under ``seq_full`` where the rules set it;
+the pool sees the same scatters and reads (``self.plan`` is the rank's
+``ShardPlan``).
 The numpy host layer is unchanged: block tables keep global page ids, and
 its decisions are replicated, since every input to them is equal on every
 rank (greedy sampling reads logits the merge made identical; faults, the
@@ -248,6 +253,7 @@ class ServingEngine:
                                 num_splits=num_splits,
                                 torch_chunk=min(torch_chunk, self.prefill_len),
                                 device=self.device)
+        self.plan = arts.plan
         self.params = params if arts.plan is None else arts.plan.place(params)
         self.prefill_fn = arts.prefill_fn
         self.decode_fn = arts.decode_fn

@@ -692,11 +692,14 @@ def _mesh_serve_rank(pool, device, shape, arch):
 
 
 @pytest.mark.parametrize("arch,shape", [("granite_3_2b", {"data": 2, "model": 2}),
-                                        ("recurrentgemma_2b", {"model": 2})])
+                                        ("recurrentgemma_2b", {"model": 2}),
+                                        ("recurrentgemma_2b", {"model": 4})])
 def test_contiguous_mesh_serving_on_the_card(cuda, arch, shape):
     """Gloo ranks sharing the card serve on the contiguous cache: tokens of
     one card; granite decodes its heads with row 4, the hybrid's ring is
-    sharded over model (row 4's shard partials, merged)."""
+    sharded over model (row 4's shard partials, merged). The 40-row prompt
+    prefills under ``seq`` (20 or 10 rows a rank); on model 4 the hybrid's
+    2 heads take ``seq_full``, 10 query rows a rank."""
     from repro_torch.launch.mesh import run_ranks
     size = int(np.prod(list(shape.values())))
     ranks = run_ranks(_mesh_serve_rank, size, (shape, arch), backend="gloo",
@@ -1338,12 +1341,48 @@ def test_offsets_give_the_full_calls_masks(cuda, dtype):
     assert not torch.equal(kfwd.flash_fwd(qs, ks, vs, **kw)[0], o[sl])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s,d,window", [(10, 1, 512, 256, 256),
+                                               (6, 2, 512, 64, None)])
+def test_query_shards_give_the_full_calls_rows(cuda, dtype, hq, hkv, s, d,
+                                               window):
+    """Rows 1-3 on the query shards of context parallelism (4 shards, each
+    ``[a, b)`` against K/V cut to ``[0, b)``, q their suffix; rows a
+    multiple of the kernels' tiles, as a mesh's ``S / model`` of 768 at
+    D 256 is), dropout on: o and lse are the full call's rows bit for bit,
+    dQ within its atomic adds' rounding, and the four shards' dK/dV summed
+    are the full call's within ``BWD_TOL`` of their max."""
+    b, m = 2, 4
+    q, do = (_rand(cuda, (b, hq, s, d), dtype) for _ in range(2))
+    k, v = (_rand(cuda, (b, hkv, s, d), dtype) for _ in range(2))
+    kw = dict(causal=True, window=window, dropout_rate=0.1, dropout_seed=-77)
+    o, lse = kfwd.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = kbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device="cuda")
+    dv_sum = torch.zeros_like(dk_sum)
+    rows = s // m
+    for r in range(m):
+        a, e = r * rows, (r + 1) * rows
+        qs, dos = q[:, :, a:e].contiguous(), do[:, :, a:e].contiguous()
+        ks, vs = k[:, :, :e].contiguous(), v[:, :, :e].contiguous()
+        os_, lses = kfwd.flash_fwd(qs, ks, vs, **kw)
+        assert torch.equal(os_, o[:, :, a:e]) and torch.equal(lses, lse[:, :, a:e])
+        dqs, dks, dvs = kbwd.flash_bwd(qs, ks, vs, os_, lses, dos, **kw)
+        assert _err(dqs, dq[:, :, a:e]) <= BWD_TOL[dtype] * max(
+            1.0, float(dq.abs().max()))
+        dk_sum[:, :, :e] += dks.float()
+        dv_sum[:, :, :e] += dvs.float()
+    for got, want in ((dk_sum, dk), (dv_sum, dv)):
+        assert _err(got, want.float()) <= BWD_TOL[dtype] * max(
+            1.0, float(want.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # training over a mesh on the card
 # ---------------------------------------------------------------------------
 
-def _mesh_gpu_cfg():
-    return dataclasses.replace(configs.smoke_config("granite_3_2b"),
+def _mesh_gpu_cfg(arch="granite_3_2b"):
+    return dataclasses.replace(configs.smoke_config(arch),
                                dtype=torch.float32, dropout_rate=0.1)
 
 
@@ -1353,15 +1392,15 @@ def _mesh_gpu_batch(cfg):
                                  min_seg_len=5, max_seg_len=30), 0)
 
 
-def _mesh_gpu_rank(pool, device, shape):
-    """A rank of a (data 1, model 2) mesh on the card: the step-0 loss and
+def _mesh_gpu_rank(pool, device, shape, arch="granite_3_2b"):
+    """A rank of a mesh of ``shape`` on the card: the step-0 loss and
     gathered gradients from ``init_fn(0)`` (numpy: tensors would leave
     through the queue's shared memory after the rank has exited), and the
     kernels' launches."""
     from repro_torch.distributed.mesh import join_train_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = join_train_mesh(shape)
-    cfg = _mesh_gpu_cfg()
+    cfg = _mesh_gpu_cfg(arch)
     arts = make_train_step(cfg, mesh=mesh, opt=AdamWConfig(lr=1e-3),
                            impl="kernel", device=device)
     params, _ = arts.init_fn(0)
@@ -1392,6 +1431,31 @@ def test_two_rank_gloo_mesh_step_on_the_card(cuda):
     layers = cfg.num_layers
     for r in ranks:
         assert r["launches"] == (2 * layers, layers)
+        assert abs(r["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    for n, g in grads.items():
+        got = torch.from_numpy(ranks[0]["grads"][n])
+        assert _err(got, g.cpu()) <= 2e-5 * float(g.abs().max()), n
+
+
+def test_context_parallel_mesh_step_on_the_card(cuda):
+    """Four gloo ranks sharing the card on (model 4) train
+    recurrentgemma-2b SMOKE (2 heads: ``seq_full``, 16 of 64 query rows a
+    rank) with dropout and packing against one device on the same state:
+    the loss 1e-5 relative, every gathered gradient leaf 2e-5 of its max;
+    every rank launched rows 1-3 once a pass per attention layer."""
+    from repro_torch.launch.mesh import run_ranks
+    arch = "recurrentgemma_2b"
+    ranks = run_ranks(_mesh_gpu_rank, 4, ({"model": 4}, arch),
+                      backend="gloo", device_type="cuda", timeout_s=600)
+    cfg = _mesh_gpu_cfg(arch)
+    arts = make_train_step(cfg, opt=AdamWConfig(lr=1e-3), impl="kernel",
+                           device="cuda")
+    params = lm.init_params(cfg, seed=0, device="cuda", vocab_pad_to=4)
+    loss, _, grads = arts.grad_fn(params, place_batch(_mesh_gpu_batch(cfg),
+                                                      "cuda"), 0)
+    attn = lm.block_kinds(cfg).count("attn")
+    for r in ranks:
+        assert r["launches"] == (2 * attn, attn)
         assert abs(r["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
     for n, g in grads.items():
         got = torch.from_numpy(ranks[0]["grads"][n])

@@ -28,7 +28,13 @@ and from patch embeddings), SMOKE configs in f32:
   a prompt shorter than the ring that decode wraps and one longer;
 * the paged engine on (data 2, model 2): token for token against JAX's
   single-device engine for every family, every rank holding
-  ``1 / model`` of ``wq``.
+  ``1 / model`` of ``wq``;
+* the prefill runs under the prefill rules' ``seq`` (each rank's residual
+  rows ``S / model``, the rows of a packed paged prefill too) and, for a
+  config with ``ctx_parallel_attn`` whose q heads ``model`` does not
+  divide (``ctx``: qwen3-14b SMOKE with 3 q heads over 1 kv head), under
+  ``seq_full`` (``S / model`` query rows a rank); a prompt that ``model``
+  does not divide (``dense_odd``) falls back to replicated rows.
 """
 
 import dataclasses
@@ -70,6 +76,10 @@ MESHES = {"model2": {"model": 2}, "2x2": {"data": 2, "model": 2}}
 # name: (arch, prompt length, tokens generated, from embeds)
 CASES = {
     "dense": ("granite_3_2b", 12, 6, False),
+    # 13 rows do not split over model 2: the stream stays replicated
+    "dense_odd": ("granite_3_2b", 13, 6, False),
+    # seq_full: 3 q heads over 1 kv head do not divide model 2 (CASE_OVER)
+    "ctx": ("qwen3_14b", 12, 6, False),
     # the ring of 32 slots: a prompt shorter than it that decode wraps, and
     # one longer (the prefill's roll)
     "hybrid_short": ("recurrentgemma_2b", 20, 20, False),
@@ -80,6 +90,8 @@ CASES = {
     "vlm": ("llava_next_34b", 12, 6, False),
     "vlm_embeds": ("llava_next_34b", 12, 6, True),
 }
+#: a case's config overrides
+CASE_OVER = {"ctx": (("num_heads", 3), ("num_kv_heads", 1), ("head_dim", 16))}
 # paged engine on 2x2: arch → (page size, pages, slots, pages a sequence,
 # prefill row, engine kwargs, (prompt, new tokens) of each request)
 _LENS = ((12, 6), (7, 8), (12, 1), (7, 5))
@@ -93,17 +105,22 @@ PAGED = {
 }
 
 
-def _cfgs(arch):
+def _cfgs(arch, over=()):
     return (dataclasses.replace(jconfigs.smoke_config(arch), dtype=jnp.float32,
-                                remat=False),
-            dataclasses.replace(tconfigs.smoke_config(arch), dtype=torch.float32))
+                                remat=False, **dict(over)),
+            dataclasses.replace(tconfigs.smoke_config(arch), dtype=torch.float32,
+                                **dict(over)))
+
+
+def _case_cfgs(name):
+    return _cfgs(CASES[name][0], CASE_OVER.get(name, ()))
 
 
 @functools.lru_cache(maxsize=None)
-def _weights(arch):
-    """JAX's params of ``arch`` SMOKE, the vocab padded to 2: (JAX tree,
-    numpy tree)."""
-    jcfg, _ = _cfgs(arch)
+def _weights(arch, over=()):
+    """JAX's params of ``arch`` SMOKE (with ``over``), the vocab padded to
+    2: (JAX tree, numpy tree)."""
+    jcfg, _ = _cfgs(arch, over)
     params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(3), vocab_pad_to=VPAD)
     return params, jax.tree.map(np.asarray, params)
 
@@ -124,8 +141,8 @@ def _inputs(name):
 def _jax_run(name):
     """JAX's single-device greedy run: (tokens [B, gen], logits of each step)."""
     arch, s, gen, _ = CASES[name]
-    jcfg, _ = _cfgs(arch)
-    params, _ = _weights(arch)
+    jcfg, _ = _case_cfgs(name)
+    params, _ = _weights(arch, CASE_OVER.get(name, ()))
     prompt, embeds = _inputs(name)
     arts = j_make_serve_steps(jcfg, impl="xla", max_len=s + gen, batch=B,
                               xla_chunk=16)
@@ -149,11 +166,13 @@ def _serve(name, mesh=None, params=None):
     layer's k cache after prefill and at the end (this rank's shard), as
     numpy."""
     arch, s, gen, _ = CASES[name]
-    _, cfg = _cfgs(arch)
+    _, cfg = _case_cfgs(name)
     prompt, embeds = _inputs(name)
     arts = make_serve_steps(cfg, impl="kernel", max_len=s + gen, batch=B,
                             torch_chunk=16, device="cpu", mesh=mesh)
     caches = arts.cache_init_fn()
+    if arts.plan is not None:
+        arts.plan.rows_log = []
     attn = next((i for i, c in enumerate(caches) if "k" in c), None)
 
     def ring():
@@ -163,6 +182,11 @@ def _serve(name, mesh=None, params=None):
         params, None if embeds is not None else torch.from_numpy(prompt).long(),
         caches, embeds=None if embeds is None else torch.from_numpy(embeds))
     after_prefill = ring()
+    rows = None
+    if arts.plan is not None:
+        rows = {what: sorted({n for w, n in arts.plan.rows_log if w == what})
+                for what in ("residual", "query")}
+        arts.plan.rows_log = None
     out = [logits.numpy()]
     toks = [logits[:, :cfg.vocab_size].argmax(-1)]
     for i in range(gen - 1):
@@ -172,15 +196,16 @@ def _serve(name, mesh=None, params=None):
     return {"tokens": torch.stack(toks, 1).numpy(), "logits": out,
             "ring": (after_prefill, ring()),
             "shards": None if attn is None else caches[attn].get("shards", 1),
-            "kv_seq": None if arts.plan is None else arts.plan.kv_seq}
+            "kv_seq": None if arts.plan is None else arts.plan.kv_seq,
+            "rows": rows}
 
 
 @functools.lru_cache(maxsize=None)
 def _single(name):
     arch = CASES[name][0]
-    _, cfg = _cfgs(arch)
-    return _serve(name, params=convert_params(cfg, _weights(arch)[1],
-                                              device="cpu"))
+    _, cfg = _case_cfgs(name)
+    return _serve(name, params=convert_params(
+        cfg, _weights(arch, CASE_OVER.get(name, ()))[1], device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +214,7 @@ def _single(name):
 
 def _contiguous_job(mesh, name, tree):
     """A case on this rank's shard of the weights, converted leaf by leaf."""
-    _, cfg = _cfgs(CASES[name][0])
+    _, cfg = _case_cfgs(name)
     plan = serving_plan(cfg, mesh)
     params = convert_params(cfg, tree, device="cpu",
                             keep=lambda n, t: plan.sharding(n).shard(t).clone())
@@ -218,8 +243,10 @@ def _paged_job(mesh, arch, tree):
         cfg, tserving.PagedCacheConfig(**pool),
         convert_params(cfg, tree, device="cpu"), impl="kernel", device="cpu",
         mesh=mesh, prefill_len=prefill_len, torch_chunk=16, **kw)
+    eng.plan.rows_log = []
     out, stats = eng.run(_paged_requests(cfg.vocab_size, lens))
     return {"out": out, "stats": stats,
+            "rows": sorted({n for w, n in eng.plan.rows_log if w == "residual"}),
             "shapes": {n: tuple(p.shape) for n, p in eng.params.named_parameters()},
             "state": [tuple(c["h"].shape) for c in eng.caches if "h" in c]}
 
@@ -247,7 +274,8 @@ def ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_serve")
     out = {}
     for mesh_name, shape in MESHES.items():
-        jobs = [(name, "_contiguous_job", (name, _weights(CASES[name][0])[1]))
+        jobs = [(name, "_contiguous_job",
+                 (name, _weights(CASES[name][0], CASE_OVER.get(name, ()))[1]))
                 for name in CASES]
         if mesh_name == "2x2":
             jobs += [(f"paged_{arch}", "_paged_job", (arch, _weights(arch)[1]))
@@ -275,6 +303,36 @@ def test_mesh_serving_matches_jax_and_one_device(ranks, mesh_name, name):
         for step, (got, want) in enumerate(zip(res["logits"], jlogits)):
             err = float(np.abs(got - want).max())
             assert err < LOGIT_TOL, f"rank {r}, step {step}: {err} against JAX"
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_prefill_lays_out_the_sequence(ranks, mesh_name, name):
+    """The prefill ran the prefill rules' layout on every rank: residual
+    rows ``S / model`` between blocks (``S`` for ``dense_odd``, whose 13
+    rows do not split), attention's query rows ``S / model`` under
+    ``seq_full`` (``ctx``) and ``S`` on the rank's heads else."""
+    arch, s, _, _ = CASES[name]
+    m = MESHES[mesh_name]["model"]
+    _, cfg = _case_cfgs(name)
+    seq = s % m == 0
+    ctx = seq and cfg.ctx_parallel_attn and cfg.num_heads % m != 0
+    for r, res in enumerate(ranks[mesh_name]):
+        rows = res[name]["rows"]
+        assert rows["residual"] == [s // m if seq else s], (r, rows)
+        assert rows["query"] == ([] if not cfg.num_heads else
+                                 [s // m if ctx else s]), (r, rows)
+    assert (name == "ctx") == ctx
+
+
+@pytest.mark.parametrize("arch", list(PAGED))
+def test_paged_prefill_splits_its_rows_over_model(ranks, arch):
+    """The paged engine's packed prefill rows (``prefill_len``) split over
+    model 2 on every rank: no step ran them replicated."""
+    prefill_len = PAGED[arch][4]
+    for r, res in enumerate(ranks["2x2"]):
+        rows = res[f"paged_{arch}"]["rows"]
+        assert prefill_len // 2 in rows and prefill_len not in rows, (r, rows)
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))

@@ -112,8 +112,14 @@ CASES = {
     # heads 2 (1 a rank), kv 1 replicated; rnn 64 split; the RG-LRU's and
     # attention's mixer.wo under other specs
     "hybrid": ("recurrentgemma_2b", {}, MESH_2X2, None, 1),
-    # heads 2 on model 4 replicated (seq_full recorded), rnn still split
+    # heads 2 on model 4: seq_full, every head on a rank's 8 query rows;
+    # rnn still split
     "hybrid_model4": ("recurrentgemma_2b", {}, {"model": 4}, None, 1),
+    # a dense seq_full case: 6 q heads over 2 kv heads on model 4, qk-norm
+    "dense_ctx": ("qwen3_14b", {"num_heads": 6, "num_kv_heads": 2,
+                                "head_dim": 16}, {"model": 4}, None, 1),
+    # S 30 on model 4: seq falls back, the residual stream replicated
+    "seq_fallback": ("granite_3_2b", {}, {"model": 4}, None, 1),
     # 8 experts, 4 a rank; shared experts tensor-parallel; 2 groups, one a
     # data rank
     "moe": ("deepseek_moe_16b", {}, MESH_2X2, None, 1),
@@ -132,6 +138,18 @@ CASES = {
 }
 MOE_CASES = [n for n, c in CASES.items() if c[0] in ("deepseek_moe_16b",
                                                       "dbrx_132b")]
+#: a case's sequence length where it is not S
+CASE_SEQ = {"seq_fallback": 30}
+#: each case's rows a rank runs (JAX's layout): its residual stream's
+#: between blocks, and attention's query rows (None: no attention)
+LAYOUT = {"tp_dp": (16, 32), "microbatch": (16, 32), "fsdp": (32, 32),
+          "fsdp_profile": (32, 32), "kv_replicated": (8, 32),
+          "qk_norm": (8, 32), "vlm": (16, 32), "encoder": (16, 32),
+          "vocab_251": (16, 32), "hybrid": (16, 32), "hybrid_model4": (8, 8),
+          "dense_ctx": (8, 8), "seq_fallback": (30, 30), "moe": (16, 32),
+          "moe_one_group": (16, 32), "moe_fsdp": (16, 32),
+          "moe_fsdp_profile": (32, 32), "ssm": (16, None),
+          "tiny_2x2": (16, 32), "tiny_4": (8, 32), "tiny_1x2": (16, 32)}
 # JAX's sharded-step test's setting (tests/test_distributed.py tiny_cfg)
 TINY = dict(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2, d_ff=64,
             vocab_size=64)
@@ -161,12 +179,13 @@ def _cfgs(arch, over, dropout=0.1):
             cfg(tconfigs.smoke_config(arch), torch.float32))
 
 
-def _data(cfg, tiny=False):
+def _data(cfg, tiny=False, name=None):
     if tiny:
         return dict(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
     pack = cfg.frontend is None
-    return dict(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=2,
-                pack=pack, min_seg_len=5, max_seg_len=20, frontend=cfg.frontend)
+    return dict(vocab_size=cfg.vocab_size, seq_len=CASE_SEQ.get(name, S),
+                global_batch=B, seed=2, pack=pack, min_seg_len=5,
+                max_seg_len=20, frontend=cfg.frontend)
 
 
 def _case(name):
@@ -200,7 +219,7 @@ def _jax_run(name):
     jcfg, tcfg = _cfgs(arch, over, dropout)
     state = _jax_state(name)
     params = jax.tree.map(jnp.asarray, state["params"])
-    dc = DataConfig(**_data(tcfg, tiny))
+    dc = DataConfig(**_data(tcfg, tiny, name))
     batch = {k: jnp.asarray(v) for k, v in make_batch(dc, 0).items()}
     seed = jnp.int32(step_seed(0))
 
@@ -245,7 +264,7 @@ def _port_run(name):
     _, _, _, _, steps, _, _, tiny = _case(name)
     tcfg, arts = _port_arts(name)
     params, opt = arts.from_jax(_jax_state(name))
-    dc = DataConfig(**_data(tcfg, tiny))
+    dc = DataConfig(**_data(tcfg, tiny, name))
     with moe_routes.RouteRecorder() as rec:
         loss0, _, grads = arts.grad_fn(params, place_batch(make_batch(dc, 0), "cpu"), 0)
         grads = {n: g.numpy().copy() for n, g in grads.items()}
@@ -295,7 +314,7 @@ def _step_job(mesh, name, state, routes=None):
     _, _, _, _, steps, _, _, tiny = _case(name)
     tcfg, arts = _port_arts(name, mesh)
     params, opt = arts.from_jax(state)
-    dc = DataConfig(**_data(tcfg, tiny))
+    dc = DataConfig(**_data(tcfg, tiny, name))
     sh = arts.shardings["batch"]
     out = {}
     rec = moe_routes.RouteRecorder()
@@ -312,10 +331,14 @@ def _step_job(mesh, name, state, routes=None):
 
 
 def _steps(arts, params, opt, dc, sh, steps):
+    arts.plan.rows_log = []
     loss0, metrics, grads = arts.grad_fn(
         params, place_batch(make_batch(dc, 0), "cpu", sh), 0)
+    rows = {what: sorted({n for w, n in arts.plan.rows_log if w == what})
+            for what in ("residual", "query")}
+    arts.plan.rows_log = None
     out = {"loss0": float(loss0), "grads": _gathered(arts, grads), "losses": [],
-           "aux": {k: float(v) for k, v in metrics.items()}}
+           "aux": {k: float(v) for k, v in metrics.items()}, "rows": rows}
     for step in range(steps):
         params, opt, m = arts.step_fn(
             params, opt, place_batch(make_batch(dc, step), "cpu", sh), step)
@@ -599,6 +622,20 @@ def test_mesh_step_matches_the_port_on_one_device(four, two, name):
     step_err = max((float(np.abs(r0["first"][n] - first[n]).max()), n)
                    for n in first)
     assert step_err[0] < STEP_PARAM_REL_LR * lr, step_err
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(TINY_MESHES))
+def test_mesh_step_lays_out_the_sequence(four, two, name):
+    """Every rank's step-0 forward ran JAX's layout: its residual stream's
+    rows between blocks ``S / model`` under ``seq`` (``S`` where the rules
+    replicate it: the FSDP profile, which granite-3-2b's config names and
+    ``fsdp`` then takes, an ``S`` that ``model`` does not divide), and attention's query rows ``S / model`` under ``seq_full``
+    (every row, the rank's heads, else)."""
+    residual, query = LAYOUT[name]
+    for r, res in enumerate(_results(four, two, name)):
+        assert res["rows"]["residual"] == [residual], (r, res["rows"])
+        assert res["rows"]["query"] == ([] if query is None else [query]), \
+            (r, res["rows"])
 
 
 @pytest.mark.parametrize("name", MOE_CASES)
@@ -925,15 +962,50 @@ def test_plan_of_each_family(name, rank, want):
 
 def test_plan_keys_the_hybrids_two_wo_by_block_kind():
     """On model 4 the RG-LRU's ``wo`` (rnn 64) splits and attention's (2
-    heads) does not; the rules' ``seq_full`` is recorded, not carried
-    out."""
+    heads) does not; the rules' ``seq`` and ``seq_full`` are carried out
+    (the plan's ``seq`` and ``ctx``), so nothing is left to the layout
+    alone."""
     plan = _plan("hybrid_model4")
     kinds = tlm.block_kinds(plan.cfg)
     rec, attn = kinds.index("rec"), kinds.index("attn")
     assert plan.specs[f"blocks.{rec}.mixer.wo"] == ("model", None)
     assert plan.specs[f"blocks.{attn}.mixer.wo"] == (None, None)
-    assert plan.layout_only == {"seq": "model", "seq_full": "model"}
-    assert "seq_full" not in _plan("hybrid").layout_only
+    assert plan.layout_only == {} and plan.seq and plan.ctx
+    hybrid = _plan("hybrid")
+    assert hybrid.layout_only == {} and hybrid.seq and not hybrid.ctx
+
+
+@pytest.mark.parametrize("name,s,want", [
+    ("hybrid_model4", 32, True), ("hybrid_model4", 30, False),
+    ("hybrid_model4", 1, False), ("tp_dp", 30, True), ("tp_dp", 31, False),
+    ("fsdp_profile", 32, False), ("tiny_1x2", 2, True)])
+def test_plan_lays_the_sequence_out_where_model_divides_it(name, s, want):
+    """``seq_rows``: the residual stream over ``model`` for an ``S`` that
+    ``model`` divides, JAX's fallback (replicated) for one it does not and
+    under the FSDP profile, whose rules set no ``seq``."""
+    assert _plan(name).seq_rows(s) is want
+
+
+def test_plan_sums_the_partial_gradients_over_model_under_seq():
+    """After a forward under ``seq`` a leaf replicated over ``model``
+    (the norms; attention's weights under ``seq_full``) is summed over
+    ``model`` as well as the batch axes; a leaf split over ``model`` or
+    entered by ``copy_to`` (qk-norm under split heads) is not; without
+    ``seq`` only the batch axes remain."""
+    ctx = _plan("hybrid_model4")
+    attn = tlm.block_kinds(ctx.cfg).index("attn")
+    for leaf in ("norm1", "mixer.wq", "mixer.wo", "mixer.wk"):
+        assert ctx.reduce_entry(f"blocks.{attn}.{leaf}", True) == ("model",)
+        assert ctx.reduce_entry(f"blocks.{attn}.{leaf}") == ()
+    assert ctx.reduce_entry("blocks.0.mixer.wx", True) == ()
+    assert ctx.reduce_entry("final_norm", True) == ("model",)
+    qk = _plan("qk_norm")
+    assert qk.reduce_entry("blocks.0.mixer.q_norm", True) == ()
+    assert qk.reduce_entry("blocks.0.norm2", True) == ("model",)
+    tp = _plan("tp_dp")
+    assert tp.reduce_entry("blocks.0.norm1", True) == ("data", "model")
+    assert tp.reduce_entry("blocks.0.mixer.wq", True) == ("data",)
+    assert tp.reduce_entry("blocks.0.norm1") == ("data",)
 
 
 def test_plan_splits_in_proj_half_by_half():
@@ -1086,6 +1158,57 @@ def test_offsets_give_the_full_calls_masks_on_the_plain_versions(hq, hkv, h0, h1
     assert torch.equal(dqs, dq[sl])
     assert torch.equal(dks, dk[kl]) and torch.equal(dvs, dv[kl])
     assert not torch.equal(tfwd.flash_fwd(q[sl], k[kl], v[kl], **kw)[0], o[sl])
+
+
+@pytest.mark.parametrize("hkv,s,d,window,packed", [
+    (1, 256, 16, None, False), (2, 256, 16, 100, True), (1, 128, 256, 40, False),
+    (1, 64, 16, None, False), (2, 64, 16, 24, True)])
+def test_query_shards_give_the_full_calls_rows_on_the_plain_versions(
+        hkv, s, d, window, packed):
+    """Context parallelism on the plain versions: each of 4 shards of the
+    query rows, ``[a, b)``, against K/V (and segment ids) cut to ``[0,
+    b)``, q their suffix, with dropout, gives the full call's rows; the
+    shards' dK/dV (zero past ``b``) sum to the full call's within 1e-6 of
+    their max (f32 rounding of the sum's order). Where ``b`` is a multiple
+    of the kv tile (64, 32 at D 256; a mesh's ``S / model`` of 768 rows at
+    D 256) the plain versions fold the full call's tiles, and o, lse and dQ
+    are its rows bit for bit; where it cuts a tile (S 64: 16 rows a shard)
+    the last tile's products are shorter sums, within 1e-6 of max |o|."""
+    g = torch.Generator().manual_seed(2)
+    b, hq, m = 2, 4, 4
+    q, do = (torch.randn(b, hq, s, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=g) for _ in range(2))
+    seg = None
+    if packed:        # three segments and padding, and two
+        cut = [s * 5 // 16, s * 12 // 16, s * 15 // 16]
+        seg = torch.tensor([[0] * cut[0] + [1] * (cut[1] - cut[0])
+                             + [2] * (cut[2] - cut[1]) + [-1] * (s - cut[2]),
+                             [0] * (s * 10 // 16) + [1] * (s - s * 10 // 16)],
+                           dtype=torch.int32)
+    kw = dict(causal=True, window=window, dropout_rate=0.3, dropout_seed=99,
+              segment_ids=seg)
+    o, lse = tfwd.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = tbwd.flash_bwd(q, k, v, o, lse, do, **kw)
+    dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+    rows = s // m
+    exact = rows % tfwd.kv_tile(d) == 0
+    for r in range(m):
+        a, e = r * rows, (r + 1) * rows
+        kws = dict(kw, segment_ids=None if seg is None else seg[:, :e])
+        qs, ks, vs = q[:, :, a:e], k[:, :, :e], v[:, :, :e]
+        os_, lses = tfwd.flash_fwd(qs, ks, vs, **kws)
+        dqs, dks, dvs = tbwd.flash_bwd(qs, ks, vs, os_, lses, do[:, :, a:e], **kws)
+        for got, want in ((os_, o), (lses, lse), (dqs, dq)):
+            want = want[:, :, a:e]
+            if exact:
+                assert torch.equal(got, want), r
+            else:
+                assert float((got - want).abs().max()) <= \
+                    1e-6 * float(want.abs().max()), r
+        dk_sum[:, :, :e] += dks
+        dv_sum[:, :, :e] += dvs
+    for got, want in ((dk_sum, dk), (dv_sum, dv)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("impl", ["torch", "naive"])
