@@ -211,6 +211,15 @@ Phases, each of which exits non-zero on failure:
              equal up to a printed near-tie, the first logits within 2e-5
              of max|logit| beside the cuBLASLt floor, rows 1 and 4's
              launches a rank, the residual and query rows the prefill ran;
+             (e) llava-next-34b (an FSDP config) at full width and
+             ``MESH_FSDP_LAYERS`` layer, contiguous on (data 2, model 2),
+             batch 2 x 512 + 8, its weights held as JAX's prefill rules lay
+             them out (every embed dim over data, the rest over model, 28
+             of the 56 heads a rank: G 7) and gathered at each use: tokens,
+             first logits and launches as (a), each rank's weight bytes
+             and one decode step's collectives by kind equal to the dry
+             run's of the same cell (``launch/dryrun.trace_step`` on meta,
+             in this process);
              (c) phase 4b's granite paged engine (5
              layers) on (data 2, model 2), weights sharded, first probing
              the backend's CUDA all_reduce and a page copy across shards,
@@ -562,11 +571,19 @@ MESH_FAMILY_SHARDS = {
 # a rank) and decode reads the ring sharded four ways, 512 slots a rank.
 # arm -> (arch, layers, batch, prompt, new tokens, mesh)
 MESH_SERVE_SHAPE = {"data": 2, "model": 2}
+# (e) llava-next-34b, an FSDP config, at full width and MESH_FSDP_LAYERS
+# layer on (data 2, model 2): the weights under the prefill rules, every
+# embed dim over data (1.48 GB a rank of the 5.93 GB model), gathered at
+# each use; its bytes and a decode step's collectives held to the dry run
+MESH_FSDP_LAYERS = 1
+MESH_FSDP_ARM = "llava_next_34b fsdp"
 MESH_SERVE = {"granite_3_2b": ("granite_3_2b", 2, 8, 512, 32, MESH_SERVE_SHAPE),
               "recurrentgemma_2b": ("recurrentgemma_2b", 3, 4, 3072, 16,
                                     {"model": 2}),
               "recurrentgemma_2b model 4": ("recurrentgemma_2b", 3, 4, 3072,
-                                            16, {"model": 4})}
+                                            16, {"model": 4}),
+              MESH_FSDP_ARM: ("llava_next_34b", MESH_FSDP_LAYERS, 2, 512, 8,
+                              MESH_SERVE_SHAPE)}
 # the first step's logits of a mesh against one card, of max|logit|: the
 # kernels' f32 tolerance
 MESH_SERVE_LOGIT_TOL = 2e-5
@@ -2653,16 +2670,21 @@ def _mesh_serve_arm(torch, mesh, device, arm):
     C.stats.update(calls=0, bytes=0, seconds=0.0)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
+    decode_log = None
     for i in range(gen_len - 1):
+        C.log = [] if i == 0 else None     # the first decode step's calls
         logits, caches = arts.decode_fn(params, toks[-1], caches, prompt_len + i)
+        if i == 0:
+            decode_log = C.log
         toks.append(logits[:, :cfg.vocab_size].argmax(-1))
+    C.log = None
     torch.cuda.synchronize(device)
     decode_s = time.perf_counter() - t0
     return {"tokens": torch.stack(toks, 1).cpu().numpy(), "first": first,
             "first_prefill_s": first_s, "prefill_s": prefill_s,
             "decode_s": decode_s,
             "prefill_coll_s": prefill_coll[0], "prefill_coll_bytes": prefill_coll[1],
-            "decode_coll_s": C.stats["seconds"] + dpaged.merge_s,
+            "decode_coll_s": C.stats["seconds"],   # the merges' included
             "decode_coll_bytes": C.stats["bytes"], "merges": dpaged.merge_calls,
             "launches": {"flash_fwd": launches_prefill,
                          "flash_decode": kdecode.launches,
@@ -2672,6 +2694,9 @@ def _mesh_serve_arm(torch, mesh, device, arm):
             "wq": tuple(next(p.shape for n, p in params.named_parameters()
                              if n.endswith("mixer.wq"))),
             "params": sum(p.numel() for p in params.parameters()),
+            "held": sum(p.numel() * p.element_size() for p in params.parameters()),
+            "sharded_embed": len(arts.plan.sharded_embed()),
+            "decode_log": decode_log,
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
 
 
@@ -2692,8 +2717,9 @@ def _mesh_serve_rank(pool, device, shape):
     """One rank of phase 4i: the collectives probe on its ``model`` axis,
     granite's contiguous arm on the whole mesh, recurrentgemma-2b's on its
     data row's ``model`` axis (the ranks of data row 0; the others wait)
-    and on the four ranks as one ``model`` axis (arm (d)), then granite's
-    paged engine in ``MESH_PAGED_MODES`` on the whole mesh."""
+    and on the four ranks as one ``model`` axis (arm (d)), llava-next-34b's
+    FSDP arm (e) on the whole mesh, then granite's paged engine in
+    ``MESH_PAGED_MODES`` on the whole mesh."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2723,6 +2749,9 @@ def _mesh_serve_rank(pool, device, shape):
                                    rank=mesh.rank, size=mesh.world))
     out["recurrentgemma_2b model 4"] = _mesh_serve_arm(
         torch, world, device, "recurrentgemma_2b model 4")
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out[MESH_FSDP_ARM] = _mesh_serve_arm(torch, mesh, device, MESH_FSDP_ARM)
     torch.cuda.empty_cache()
     dist.barrier()
     # granite's paged engine in MESH_PAGED_MODES, phase 4b's requests, on
@@ -2757,13 +2786,56 @@ def _mesh_serve_rank(pool, device, shape):
                          "flash_paged_decode": kdecode.launches_paged,
                          "flash_paged_decode_partials": kdecode.launches_paged_valid},
             "merges": dpaged.merge_calls,
-            "coll_s": C.stats["seconds"] + dpaged.merge_s,
+            "coll_s": C.stats["seconds"],   # the merges' included
             "coll_bytes": C.stats["bytes"], "cow_pairs": len(pairs),
             "cow_across": sum(s // n_local != d // n_local for s, d in pairs),
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+def _mesh_fsdp_dry_check(torch, arm, rank, r, smi):
+    """Arm (e)'s rank ``rank`` against the dry run of its cell on meta
+    (``launch/dryrun.trace_step`` of the decode step, this process): the
+    weight bytes it holds and one decode step's collectives by kind must
+    be equal, and some weight must be held over data."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh import dry_train_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.perf.collective_analysis import collective_stats
+
+    _, _, batch, prompt_len, gen_len, shape = MESH_SERVE[arm]
+    cfg = _mesh_serve_cfg(torch, arm)
+    t0 = time.perf_counter()
+    dry = dryrun.trace_step(cfg, ShapeConfig(arm, prompt_len + gen_len, batch,
+                                             "decode"),
+                            dry_train_mesh(shape, rank))
+    trace_s = time.perf_counter() - t0
+    got, want = collective_stats(r["decode_log"]), collective_stats(dry["log"])
+    whole = sum(p.numel() * p.element_size() for p in
+                lm.LM(cfg, lm.padded_vocab(cfg, shape["model"]),
+                      device="meta").parameters())
+    print(f"[mesh serve] {arm} rank {rank}: weights held {r['held'] / 1e9:.4f} "
+          f"GB ({r['held']} B; the dry run {dry['held']['params']} B, traced "
+          f"on meta in {trace_s:.2f} s; the whole model {whole / 1e9:.4f} GB), "
+          f"{r['sharded_embed']} leaf kinds with embed over data; one decode "
+          f"step's collectives {got.count_by_kind}, ring bytes "
+          f"{ {k: round(v) for k, v in got.bytes_by_kind.items()} } (the dry "
+          f"run's {want.count_by_kind}, "
+          f"{ {k: round(v) for k, v in want.bytes_by_kind.items()} }) ({smi})",
+          flush=True)
+    if r["held"] != dry["held"]["params"]:
+        fail(f"[mesh serve] {arm} rank {rank}: holds {r['held']} B of weights, "
+             f"the dry run {dry['held']['params']} B")
+    if (got.count_by_kind, got.bytes_by_kind) != (want.count_by_kind,
+                                                  want.bytes_by_kind):
+        fail(f"[mesh serve] {arm} rank {rank}: a decode step's collectives "
+             f"{got.count_by_kind} {got.bytes_by_kind}, the dry run's "
+             f"{want.count_by_kind} {want.bytes_by_kind}")
+    if not r["sharded_embed"] or not r["held"] < whole / 2:
+        fail(f"[mesh serve] {arm} rank {rank}: no weight held over data")
 
 
 def _mesh_serve_reference(torch, arm):
@@ -2810,6 +2882,9 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
     host memory; with ``--dist-backend nccl`` a card a rank). (a)
     granite-3-2b contiguous on (data 2, model 2), (b) recurrentgemma-2b
     contiguous on (model 2), its ring sequence-sharded (``kv_cache_seq``),
+    (d) the same on (model 4) under ``seq_full``, (e) llava-next-34b's
+    FSDP weights on (data 2, model 2), its bytes and a decode step's
+    collectives held to the dry run's,
     each against one card's run of the same weights and prompts: tokens
     equal (or a printed near-tie), the first logits ``MESH_SERVE_LOGIT_TOL``
     of max|logit| beside the cuBLASLt floor; (c) phase 4b's granite paged
@@ -2915,6 +2990,8 @@ def mesh_serve_phase(torch, paged_tokens, backend: str, smi: str):
                 if m > LOGIT_REL_TOL * p:
                     fail(f"[mesh serve] {arm} rank {rank}: tokens differ from "
                          f"one card's, not at a near-tie")
+            if arm == MESH_FSDP_ARM:
+                _mesh_fsdp_dry_check(torch, arm, rank, r, smi)
             for name in by_rank:
                 by_rank[name].append({"arch": arm, "rank": rank,
                                       "launches": got[name]})

@@ -87,6 +87,7 @@ class ArchConfig:
     sharding_profile: str = "tp_sp"  # "tp_sp" or "fsdp" (no TP; with fsdp only)
     ctx_parallel_attn: bool = False  # shard attention queries over model where
                                      # the heads do not divide it (seq_full)
+    sub_quadratic: bool = False      # eligible for the dry run's long_500k
     notes: str = ""
 
     def __post_init__(self):
@@ -141,6 +142,22 @@ class ArchConfig:
                 + L * (att + mlp_active + d * m.num_experts + 2 * d))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run (JAX's ``ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCHS = [
     "llava_next_34b", "granite_3_2b", "qwen3_14b", "deepseek_67b",
     "deepseek_coder_33b", "hubert_xlarge", "dbrx_132b", "deepseek_moe_16b",
@@ -167,3 +184,17 @@ def get_config(name: str) -> ArchConfig:
 def smoke_config(name: str) -> ArchConfig:
     """The reduced same-family config of arch ``name`` (CPU tests)."""
     return _module(name).SMOKE
+
+
+def cells(arch: ArchConfig):
+    """The (shape → (runnable, skip reason)) map for one arch (JAX's)."""
+    out = {}
+    for sname, sh in SHAPES.items():
+        if sh.kind == "decode" and not arch.has_decode:
+            out[sname] = (False, "encoder-only: no autoregressive decode step")
+        elif sname == "long_500k" and not arch.sub_quadratic:
+            out[sname] = (False, "pure full-attention arch: 500k decode "
+                                 "assigned to SSM/hybrid archs only")
+        else:
+            out[sname] = (True, "")
+    return out

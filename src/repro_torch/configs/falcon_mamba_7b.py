@@ -12,6 +12,7 @@ CONFIG = ArchConfig(
     d_ff=0, vocab_size=65024, head_dim=0,
     block_pattern=("ssm",),
     mamba=MambaConfig(d_inner=8192, ssm_state=16, conv_kernel=4),
+    sub_quadratic=True,
     notes="mamba1 arch, attention-free [arXiv:2410.05355; unverified].",
 )
 SMOKE = dataclasses.replace(

@@ -13,6 +13,7 @@ CONFIG = ArchConfig(
     block_pattern=("rec", "rec", "attn"),  # Griffin 2:1 pattern
     rglru=RGLRUConfig(d_rnn=2560),
     ctx_parallel_attn=True,
+    sub_quadratic=True,
     notes="RG-LRU + local attn 1:2 [arXiv:2402.19427; hf].",
 )
 SMOKE = dataclasses.replace(

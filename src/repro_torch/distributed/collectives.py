@@ -31,10 +31,25 @@ entry's axes (``TrainMesh.index``).
 :data:`stats` counts the collectives of this process: calls, the bytes of
 their input tensors, and the host seconds spent in them (with gloo the
 call returns when the data has moved; with NCCL when it is enqueued).
+:data:`log`, when it is a list, gets one entry a call: its kind
+(``all-reduce``, ``all-gather``, ``reduce-scatter``), the bytes of its
+result as JAX's HLO shapes count them (the all-reduce's tensor, the
+all-gather's whole gathered tensor, the reduce-scatter's shard) and the
+size of its group, what ``perf/collective_analysis.collective_stats``
+costs. Every collective of the port's steps goes through
+:func:`all_reduce_`, :func:`gather_nograd` or
+:func:`reduce_scatter_nograd`, so the log holds all of a step's.
+
+A :class:`DryGroup` (``distributed.mesh.dry_train_mesh``, the dry run of
+``launch/dryrun.py``) stands for a process group that is not there: a
+collective on it moves nothing and leaves its output as it was made
+(of the right shape and dtype; on the ``meta`` device there are no
+values), and is still counted and logged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -45,20 +60,43 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 #: calls, input bytes and host seconds of this process's collectives
 stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
+#: None, or a list to which every collective appends ``{"kind", "bytes",
+#: "group"}`` (module docstring)
+log = None
 
-def _run(fn, x: torch.Tensor, *args, **kw) -> None:
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A process group of ``size`` ranks that is not there (module
+    docstring)."""
+    size: int
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _run(kind: str, fn, x: torch.Tensor, result: torch.Tensor, n: int,
+         *args, **kw) -> None:
+    """``fn(*args, **kw)``, a collective of ``kind`` over ``n`` ranks on
+    input ``x`` giving ``result``: counted, logged, skipped on a dry
+    group."""
+    if log is not None:
+        log.append({"kind": kind, "bytes": _nbytes(result), "group": n})
     t0 = time.perf_counter()
-    fn(*args, **kw)
+    if not isinstance(kw["group"], DryGroup):
+        fn(*args, **kw)
     stats["seconds"] += time.perf_counter() - t0
     stats["calls"] += 1
-    stats["bytes"] += x.numel() * x.element_size()
+    stats["bytes"] += _nbytes(x)
 
 
 def all_reduce_(x: torch.Tensor, mesh, entry, op: str = "sum") -> torch.Tensor:
     """All-reduce ``x`` in place over ``entry`` (no autograd); returns it."""
     group = mesh.group(entry)
     if group is not None:
-        _run(dist.all_reduce, x, x, op=_OPS[op], group=group)
+        _run("all-reduce", dist.all_reduce, x, x, mesh.size(entry), x,
+             op=_OPS[op], group=group)
     return x
 
 
@@ -100,8 +138,8 @@ def gather_nograd(x: torch.Tensor, dim: int, mesh, entry,
     split = _split(tuple(full_shape), dim, n, block)
     part = x.reshape(split[:dim + 1] + split[dim + 2:]).contiguous()
     buf = x.new_empty(n * part.numel())
-    _run(dist.all_gather_into_tensor, part, buf, part.reshape(-1),
-         group=mesh.group(entry))
+    _run("all-gather", dist.all_gather_into_tensor, part, buf, n, buf,
+         part.reshape(-1), group=mesh.group(entry))
     return buf.view(n, *part.shape).movedim(0, dim + 1).reshape(full_shape)
 
 
@@ -116,8 +154,8 @@ def reduce_scatter_nograd(y: torch.Tensor, dim: int, mesh, entry,
     split = _split(tuple(y.shape), dim, n, block)
     parts = y.reshape(split).movedim(dim + 1, 0).contiguous()
     out = y.new_empty(parts[0].numel())
-    _run(dist.reduce_scatter_tensor, parts, out, parts.reshape(-1),
-         group=mesh.group(entry))
+    _run("reduce-scatter", dist.reduce_scatter_tensor, parts, out, n, out,
+         parts.reshape(-1), group=mesh.group(entry))
     local = list(y.shape)
     local[dim] //= n
     return out.reshape(local)

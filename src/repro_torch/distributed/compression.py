@@ -9,7 +9,9 @@ one; the int8 values are summed as int32 (an int8 sum would overflow) and
 the result divided by the group's size: the mean gradient.
 
 The JAX package wires it into no step, and neither does the port. On the
-wire the values are int32 here, 4 bytes an element as f32's are.
+wire the values are int32 here, 4 bytes an element as f32's are. Both
+collectives go through ``collectives.all_reduce_``, counted and logged
+with the port's others.
 """
 
 from __future__ import annotations
@@ -19,20 +21,25 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh import PoolMesh, as_train_mesh
+
 
 def quantize_psum(g: torch.Tensor, group, error: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tensor over the ranks of ``group`` (a process group; None: the
     default one): ``(g + error)`` quantised, summed, dequantised →
     (mean gradient f32, new error f32)."""
+    n = dist.get_world_size(group)
+    axis = as_train_mesh(PoolMesh(group=group or dist.group.WORLD,
+                                  rank=dist.get_rank(group), size=n))
     gf = g.float() + error
     scale = gf.abs().max() / 127.0 + 1e-12
-    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    C.all_reduce_(scale, axis, "model", "max")
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     new_error = gf - q.float() * scale
     total = q.to(torch.int32)
-    dist.all_reduce(total, group=group)
-    n = dist.get_world_size(group)
+    C.all_reduce_(total, axis, "model")
     return total.float() * scale / n, new_error
 
 

@@ -17,6 +17,10 @@ axis a page pool is sharded over, as JAX's ``POOL_AXIS = "model"``
 (``distributed/paged.py``); its group, this rank's position on it and its
 size. :func:`as_train_mesh` takes either and gives the :class:`TrainMesh`
 (a bare :class:`PoolMesh` is the one-axis mesh ``("model",)``).
+
+:func:`dry_train_mesh` is one rank's :class:`TrainMesh` with no process
+group behind it (``launch/dryrun.py``): every slice a
+``collectives.DryGroup``, on which the collectives move nothing.
 """
 
 from __future__ import annotations
@@ -164,6 +168,37 @@ def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
     return {a: coords[a] for a in shape}
 
 
+def _slices(shape: Dict[str, int]):
+    """Every set of axes with more than one rank (k axes at a time, in
+    mesh order): ``(axes, {coords of the other axes: ranks})``."""
+    names = list(shape)
+    world = 1
+    for s in shape.values():
+        world *= s
+    everyone = [_coords(shape, r) for r in range(world)]
+    for k in range(1, len(names) + 1):
+        for sub in itertools.combinations(names, k):
+            rest = [a for a in names if a not in sub]
+            slices: Dict[tuple, list] = {}
+            for r, c in enumerate(everyone):
+                slices.setdefault(tuple(c[a] for a in rest), []).append(r)
+            if len(next(iter(slices.values()))) > 1:
+                yield sub, rest, slices
+
+
+def dry_train_mesh(shape: Dict[str, int], rank: int = 0) -> TrainMesh:
+    """Rank ``rank``'s :class:`TrainMesh` of ``shape`` with a
+    ``collectives.DryGroup`` for every slice of more than one rank, and no
+    process group (module docstring)."""
+    from repro_torch.distributed.collectives import DryGroup
+    shape = {a: int(shape[a]) for a in TRAIN_AXES if a in shape}
+    mesh = TrainMesh(shape=shape, rank=rank, coords=_coords(shape, rank),
+                     groups={})
+    for sub, _, _ in _slices(shape):
+        mesh.groups[sub] = DryGroup(mesh.size(sub))
+    return mesh
+
+
 def join_train_mesh(shape: Dict[str, int]) -> TrainMesh:
     """The :class:`TrainMesh` of ``shape`` over the initialised default
     process group (its world size must be the mesh's size): every rank
@@ -178,23 +213,14 @@ def join_train_mesh(shape: Dict[str, int]) -> TrainMesh:
         raise ValueError(f"a mesh of {shape} needs {mesh.world} ranks, the "
                          f"process group has {world}")
     mesh.coords = _coords(shape, mesh.rank)
-    names = list(shape)
-    everyone = [_coords(shape, r) for r in range(world)]
-    for k in range(1, len(names) + 1):
-        for sub in itertools.combinations(names, k):
-            if mesh.size(sub) == 1:
-                continue
-            if k == len(names):
-                mesh.groups[sub] = dist.group.WORLD
-                continue
-            rest = [a for a in names if a not in sub]
-            slices: Dict[tuple, list] = {}
-            for r, c in enumerate(everyone):
-                slices.setdefault(tuple(c[a] for a in rest), []).append(r)
-            for key in sorted(slices):
-                g = dist.new_group(slices[key])
-                if key == tuple(mesh.coords[a] for a in rest):
-                    mesh.groups[sub] = g
+    for sub, rest, slices in _slices(shape):
+        if not rest:
+            mesh.groups[sub] = dist.group.WORLD
+            continue
+        for key in sorted(slices):
+            g = dist.new_group(slices[key])
+            if key == tuple(mesh.coords[a] for a in rest):
+                mesh.groups[sub] = g
     return mesh
 
 

@@ -29,7 +29,9 @@ and :func:`poison_pages_sharded`.
 
 ``merge_calls`` / ``merge_s`` count the merges and the host seconds spent
 inside their two collectives (which includes waiting for the stream to
-reach them), the counterpart of the kernels' launch counters.
+reach them), the counterpart of the kernels' launch counters. The
+collectives go through ``collectives.all_reduce_`` over the pool axis, so
+``collectives.stats`` and ``collectives.log`` hold them too.
 """
 
 from __future__ import annotations
@@ -38,11 +40,11 @@ import time
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import online_softmax as osm
 from repro_torch.core.attention import spark_paged_decode_partials
-from repro_torch.distributed.mesh import PoolMesh
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh import PoolMesh, as_train_mesh
 
 #: merges since the last reset, and host seconds inside their collectives
 merge_calls = 0
@@ -85,12 +87,13 @@ def merge_partials(acc, m, l, mesh: PoolMesh, out_dtype=None):
     """
     global merge_calls, merge_s
     d = acc.shape[-1]
+    axis = as_train_mesh(mesh)
     m_g = m.clone()
     t0 = time.perf_counter()
-    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=mesh.group)
+    C.all_reduce_(m_g, axis, "model", "max")
     a = torch.exp(m - m_g)       # empty shards: a -> 0 (or l == 0 makes it inert)
     buf = torch.cat([acc * a[..., None], (l * a)[..., None]], dim=-1)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    C.all_reduce_(buf, axis, "model")
     merge_s += time.perf_counter() - t0
     merge_calls += 1
     state = osm.SoftmaxState(m=m_g, l=buf[..., d], acc=buf[..., :d])
@@ -179,7 +182,7 @@ def copy_pages_sharded(pools: Sequence[torch.Tensor], src, dst,
                       device=pools[0].device)
     for i, pool in enumerate(pools):
         buf[i][:, have] = pool[:, src[have] % n_local]
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    C.all_reduce_(buf, as_train_mesh(mesh), "model")
     mine = dst // n_local == mesh.rank
     for i, pool in enumerate(pools):
         pool[:, dst[mine] % n_local] = buf[i][:, mine]

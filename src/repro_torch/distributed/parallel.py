@@ -88,14 +88,20 @@ block's kind (``rec:mixer.wo``, ``attn:mixer.wo``): the hybrid's two
 Serving (:meth:`ShardPlan.serving`, what ``repro.runtime.steps``'s
 ``make_serve_steps(mesh=)`` leaves to GSPMD): JAX runs prefill under
 ``default_rules(serve=True)`` and decode under ``decode=True``. The weights
-are held once, as the decode rules lay them out (tensor parallel over
-``model``, no FSDP: the prefill rules' ``embed: data`` of an FSDP config
-changes a weight's memory, not its values, and is recorded in
-:attr:`ShardPlan.layout_only`). The prefill runs under the prefill rules'
+are held once, as the prefill rules lay them out: tensor parallel over
+``model`` and, for an FSDP config (``cfg.fsdp``), every ``embed`` dim over
+``data`` as well, a rank holding its ``1 / data`` share of it. That is
+where JAX's ``ServingEngine`` puts them (``tree_shardings`` under the
+prefill rules) and where its decode step, which has no weight shardings of
+its own, takes them from; the rules of the two steps differ in nothing else
+a weight has. So prefill and decode both gather a sharded ``embed`` dim at
+each use (:meth:`ShardPlan.weight`), as GSPMD gathers it inside JAX's
+steps. The prefill runs under the prefill rules'
 ``seq`` and ``seq_full`` (a packed paged prefill ``[1, T, d]`` splits its
 T rows where ``model`` divides T); decode's one token falls back to
 replicated. The caches follow the rules too: batch
-rows over the batch axes, kv heads over ``model`` where they divide it,
+rows over the batch axes (replicated, as ``spec_for`` falls back, where
+they do not divide the batch), kv heads over ``model`` where they divide it,
 else the contiguous cache's sequence over ``model`` (``kv_cache_seq``,
 :attr:`ShardPlan.kv_seq`: decode replicates q, every rank attends over its
 slots and the partials merge across ``model``), the recurrent state on
@@ -213,7 +219,6 @@ class ShardPlan:
                                  f"over {self.batch}")
         else:
             self.batch = batch
-        self.layout_only = {}
         self.rows_log = None
         self.vocab = self._spec["embed"][0] == "model"
         self.heads = self.splits("attn:mixer.wq", 1)
@@ -268,32 +273,46 @@ class ShardPlan:
 
     @classmethod
     def serving(cls, cfg, mesh, shapes: Dict[str, tuple],
-                logical: Dict[str, tuple], *, paged: bool = False):
+                logical: Dict[str, tuple], *, paged: bool = False,
+                rows: Optional[int] = None):
         """The plan of serving ``cfg`` on ``mesh`` (module docstring):
         ``shapes`` the full parameters' shapes (vocab padded), ``logical``
-        their logical axes. The weights take the decode rules' specs; a
-        leaf the prefill rules lay out otherwise must differ only in its
-        ``embed`` dims (recorded in :attr:`layout_only`). ``paged``: the
-        slots are replicated over the batch axes."""
+        their logical axes. The weights take the prefill rules' specs; a
+        leaf the decode rules lay out otherwise must differ only in its
+        ``embed`` dims. ``paged``: the slots are replicated over the batch
+        axes; ``rows``: the contiguous batch, replicated over the batch
+        axes where they do not divide it."""
         prefill = default_rules(mesh, cfg, serve=True)
         decode = default_rules(mesh, cfg, serve=True, decode=True)
-        specs = decode.tree_specs(shapes, logical)
-        plan = cls(cfg, mesh, decode, specs, logical,
-                   batch=None if paged else decode.rules["batch"])
-        for n, spec in prefill.tree_specs(shapes, logical).items():
-            for d, (a, b) in enumerate(zip(spec, specs[n])):
-                if a == b:
-                    continue
-                if logical[n][d] != "embed":
-                    raise ValueError(f"{cfg.name}: {n} is {spec} under the "
-                                     f"prefill rules, {specs[n]} under the "
+        specs = prefill.tree_specs(shapes, logical)
+        for n, spec in decode.tree_specs(shapes, logical).items():
+            for d, (a, b) in enumerate(zip(specs[n], spec)):
+                if a != b and logical[n][d] != "embed":
+                    raise ValueError(f"{cfg.name}: {n} is {specs[n]} under "
+                                     f"the prefill rules, {spec} under the "
                                      f"decode rules")
-                plan.layout_only["embed"] = prefill.rules["embed"]
+        batch = decode.rules["batch"]
+        if paged or (rows is not None and rows % mesh.size(batch)):
+            batch = None
+        plan = cls(cfg, mesh, decode, specs, logical, batch=batch)
         plan._plan_seq(prefill)
         plan.shapes = dict(shapes)
         plan.kv_seq = ("attn:mixer.wq" in plan._spec and not plan.kv
                        and mesh.size("model") > 1)
         return plan
+
+    def sharded_embed(self) -> Dict[str, tuple]:
+        """The leaves (by key, as ``mlp.wi``) whose ``embed`` dims are
+        sharded (over ``data`` under FSDP): key → the entries of those
+        dims. Each is gathered at every use."""
+        out = {}
+        for key, spec in self._spec.items():
+            got = tuple(spec[d] for d, name in enumerate(self._logical[key])
+                        if name == "embed" and spec[d] is not None
+                        and self.mesh.size(spec[d]) > 1)
+            if got:
+                out[key] = got
+        return out
 
     def _plan_seq(self, rules) -> None:
         """``seq`` and ``ctx`` from ``rules``' ``seq`` / ``seq_full``."""

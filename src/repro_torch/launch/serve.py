@@ -29,7 +29,11 @@ batch axes. The prefill runs under the prefill rules: a rank's ``S /
 model`` rows of the residual stream where ``model`` divides S (the packed
 paged prefill's row of ``prefill_len`` too), and attention's query rows
 split over ``model`` where the rules set ``seq_full``; decode's one token
-stays replicated. The mesh line names the prefill's layout.
+stays replicated. An FSDP config (``fsdp=True``: dbrx-132b,
+llava-next-34b, qwen3-14b, deepseek-67b, deepseek-coder-33b) holds every
+weight's ``embed`` dim over ``data`` too, as JAX's engine places it, and
+gathers it at each use. The mesh line names the prefill's layout and the
+weights held over ``data``.
 ``--dist-backend nccl`` (the default on cuda) needs a card a
 rank; ranks that share one card need ``--dist-backend gloo``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
@@ -244,13 +248,14 @@ def main(argv=None):
               f"block_kv={plan.block_kv} ({plan.source}, "
               f"predicted {plan.time_s*1e6:.1f}us/layer)")
     if shape is None:
-        res = _serve_contiguous(cfg, args, device, num_splits)
+        res = _serve_contiguous(cfg, args, device, num_splits)[0]
     else:
         ranks, backend, devices = _spawn(_contiguous_rank, shape, args, device,
                                          (cfg, args, num_splits))
-        _print_mesh(shape, backend, devices,
-                    layout_line(cfg, shape, args.prompt_len, serve=True))
         r0 = ranks[0]
+        _print_mesh(shape, backend, devices,
+                    layout_line(cfg, shape, args.prompt_len, serve=True),
+                    r0["sharded_embed"])
         for r, got in enumerate(ranks[1:], 1):
             if not np.array_equal(got["tokens"], r0["tokens"]):
                 raise RuntimeError(f"rank {r} generated other tokens than "
@@ -269,7 +274,8 @@ def main(argv=None):
 def _serve_contiguous(cfg, args, device, num_splits: int, mesh=None):
     """Prefill and greedy decode of ``--batch`` random prompts on the
     contiguous cache, on one device or on this rank of ``mesh`` (its shard
-    of the weights and the caches)."""
+    of the weights and the caches): ``(Generation, the ShardPlan or
+    None)``."""
     arts = make_serve_steps(cfg, impl=args.impl,
                             max_len=args.prompt_len + args.gen,
                             batch=args.batch, num_splits=num_splits,
@@ -279,7 +285,8 @@ def _serve_contiguous(cfg, args, device, num_splits: int, mesh=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    return greedy_generate(arts, params, prompt, args.gen, cfg.vocab_size)
+    return (greedy_generate(arts, params, prompt, args.gen, cfg.vocab_size),
+            arts.plan)
 
 
 def _share_cores(device, size: int) -> None:
@@ -290,13 +297,15 @@ def _share_cores(device, size: int) -> None:
 
 def _contiguous_rank(pool, device, shape, cfg, args, num_splits):
     """One rank of ``--mesh`` on the contiguous cache: its tokens, first
-    logits and times (numpy and floats, no tensors)."""
+    logits, times (numpy and floats, no tensors) and the leaves its plan
+    holds over ``data``."""
     _share_cores(device, pool.size)
-    res = _serve_contiguous(cfg, args, device, num_splits,
-                            join_train_mesh(shape))
+    res, plan = _serve_contiguous(cfg, args, device, num_splits,
+                                  join_train_mesh(shape))
     return {"tokens": res.tokens.cpu().numpy(),
             "first_logits": res.logits[0].float().cpu().numpy(),
-            "prefill_s": res.prefill_s, "decode_s": res.decode_s}
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "sharded_embed": list(plan.sharded_embed())}
 
 
 def _spawn(fn, shape, args, device, fn_args):
@@ -310,12 +319,22 @@ def _spawn(fn, shape, args, device, fn_args):
     return ranks, backend, devices
 
 
-def _print_mesh(shape, backend: str, devices, layout: str) -> None:
+def weights_line(held) -> str:
+    """The mesh line's note of the leaves a rank holds over ``data`` (an
+    FSDP config's ``embed`` dims, rank 0's ``ShardPlan.sharded_embed``)."""
+    if not held:
+        return "weights: no dim over data"
+    return (f"weights: the embed dims of {len(held)} leaves over data "
+            f"(FSDP, gathered at each use): {', '.join(held)}")
+
+
+def _print_mesh(shape, backend: str, devices, layout: str, held) -> None:
     axes = " x ".join(f"{a} {n}" for a, n in shape.items())
     where = ("on the pool axis" if list(shape) == ["model"]
              else f"over {axes} (the pool axis: model)")
     print(f"mesh: {len(devices)} ranks {where}, backend {backend}, devices "
-          f"{', '.join(devices)}; prefill: {layout}")
+          f"{', '.join(devices)}; prefill: {layout}; "
+          f"{weights_line(held)}")
 
 
 def autotuned_plan(cfg, batch: int, max_len: int, device):
@@ -412,10 +431,12 @@ def _run_engine(cfg, args, device, mesh=None):
 
 def _serve_rank(pool, device, shape, cfg, args):
     """One rank of ``--paged --mesh``: what rank 0 prints, from every rank
-    (the parent checks that they agree), and its decode split count."""
+    (the parent checks that they agree), its decode split count and the
+    leaves its plan holds over ``data``."""
     _share_cores(device, pool.size)
     out, stats, eng = _run_engine(cfg, args, device, join_train_mesh(shape))
-    return out, stats, eng.results, eng.num_splits
+    return (out, stats, eng.results, eng.num_splits,
+            list(eng.plan.sharded_embed()))
 
 
 def serve_paged(cfg, args, device, shape=None):
@@ -432,11 +453,11 @@ def serve_paged(cfg, args, device, shape=None):
         ranks, backend, devices = _spawn(_serve_rank, shape, args, device,
                                          (cfg, args))
         prefill_len = _paged_config(args, shape["model"])[1]
+        out, stats, results, splits, held = ranks[0]
         _print_mesh(shape, backend, devices,
                     layout_line(cfg, shape, prefill_len, serve=True)
-                    + f" (packed rows of {prefill_len})")
-        out, stats, results, splits = ranks[0]
-        for r, (o, st, _, ns) in enumerate(ranks[1:], 1):
+                    + f" (packed rows of {prefill_len})", held)
+        for r, (o, st, _, ns, _) in enumerate(ranks[1:], 1):
             same = set(o) == set(out) and all(np.array_equal(o[k], out[k])
                                               for k in out)
             if not same or st != stats or ns != splits:

@@ -1,6 +1,8 @@
-"""Measurement tools for the port's kernels on the card, and the models
-that read the card's constants (``roofline.py``, where those constants
-live, and the decode planner ``autotune.py``).
+"""Measurement tools for the port's kernels on the card, the models that
+read the card's constants (``roofline.py``, where those constants live,
+and the decode planner ``autotune.py``), and the dry run's models: JAX's
+compulsory-traffic model (``memory_model.py``) and the ring costing of a
+step's logged collectives (``collective_analysis.py``).
 
 ``HBM_BYTES_PER_S`` and ``PEAK_FLOPS`` are ``roofline``'s, under the names
 that older trees' ``perf/decode_times.py`` imports (a checkout of another

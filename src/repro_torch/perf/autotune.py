@@ -57,9 +57,8 @@ import tempfile
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+from repro_torch.perf.memory_model import BF16  # the default cache dtype
 from repro_torch.perf.roofline import HBM_BW
-
-BF16 = 2           # bytes of a bf16 element (the default cache dtype)
 
 SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32)
 

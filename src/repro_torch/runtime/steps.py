@@ -273,16 +273,17 @@ class ServeArtifacts:
     plan: Any = None
 
 
-def serving_plan(cfg, mesh, *, paged: bool = False) -> ShardPlan:
+def serving_plan(cfg, mesh, *, paged: bool = False,
+                 batch: Optional[int] = None) -> ShardPlan:
     """The ``ShardPlan.serving`` of ``cfg`` on ``mesh`` (a ``TrainMesh``,
     or a ``PoolMesh`` as the mesh ``("model",)``), the vocab padded to its
-    ``model`` axis."""
+    ``model`` axis; ``batch``: the contiguous cache's rows."""
     mesh = as_train_mesh(mesh)
     vpad = lm.padded_vocab(cfg, vocab_pad_for(mesh))
     shapes = {n: tuple(p.shape) for n, p in
               lm.LM(cfg, vpad, device="meta").named_parameters()}
     return ShardPlan.serving(cfg, mesh, shapes, lm.param_specs(cfg),
-                             paged=paged)
+                             paged=paged, rows=batch)
 
 
 def init_serve_params(cfg, plan=None, seed: int = 0, *, device="cuda"):
@@ -334,15 +335,23 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
     mesh: a ``distributed.mesh.TrainMesh`` (or a ``PoolMesh``, the mesh
     ``("model",)``): every rank runs the same steps on its shard of the
     model and the caches under JAX's serving rules (``ShardPlan.serving``:
-    prefill and decode rules, the weights as decode lays them out, the
-    vocab padded to ``model``). The steps take the global inputs, and
+    prefill and decode rules, the weights held once as the prefill rules
+    lay them out, an FSDP config's ``embed`` dims over ``data`` gathered
+    at each use by prefill and decode alike, the vocab padded to
+    ``model``). JAX's contiguous launcher lays the caller's weights out
+    under ``in_shardings`` on each prefill call and hands decode the
+    caller's layout; the port holds them once where JAX's
+    ``ServingEngine`` places them, on both caches: the same values, the
+    bytes a rank holds and the collectives that layout implies, with no
+    re-layout a call. The steps take the global inputs, and
     return the global logits, every vocab column gathered, equal on every
     rank. A prefill (and a chunk or verify step) runs under the prefill
     rules' ``seq`` where ``model`` divides its rows, and ``seq_full``
     where the rules set it: the caches are filled from the gathered K/V,
     and the contiguous prefill's last-position logits come from the rank
-    that holds that row; decode's one token stays replicated. The contiguous cache holds the rank's batch rows (``batch`` must
-    split over the batch axes) and its kv heads, or its slots of every kv
+    that holds that row; decode's one token stays replicated. The contiguous cache holds the rank's batch rows (all of them,
+    replicated, where ``batch`` does not split over the batch axes, as
+    JAX's rules fall back) and its kv heads, or its slots of every kv
     head where the kv heads do not split (``kv_cache_seq``); the page pool
     is sharded over ``model`` (``paged.num_shards`` must equal its size)
     and its slots replicated over the batch axes, decode merging the
@@ -350,7 +359,8 @@ def make_serve_steps(cfg, *, impl: str = "kernel", max_len: int = 2048,
     """
     plan = None
     if mesh is not None:
-        plan = serving_plan(cfg, mesh, paged=paged is not None)
+        plan = serving_plan(cfg, mesh, paged=paged is not None,
+                            batch=None if paged is not None else batch)
     gather = (lambda t: t) if plan is None else plan.gather_logits
     if paged is not None:
         pool = None if plan is None else plan.mesh.pool

@@ -66,7 +66,9 @@ Distributed serving (``mesh=``, a ``distributed.mesh.TrainMesh``, or a
 = its ``model`` size): every rank runs this engine (SPMD) on its shard of
 each layer's page pool (pages over ``model``) and its shard of the weights
 (JAX's serving rules, ``ShardPlan.serving``: tensor parallel over
-``model``; a model handed over whole is cut to the rank's shard), the
+``model`` and, for an FSDP config, every ``embed`` dim over ``data``,
+where JAX's engine places its weights under the prefill rules; a model
+handed over whole is cut to the rank's shard), the
 slots replicated over the batch axes, and decode merges the shards'
 attention partials (``distributed/paged.py``). A packed prefill row
 ``[1, T]`` (and a chunk or verify step's rows) runs under the prefill

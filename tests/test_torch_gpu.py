@@ -1480,3 +1480,54 @@ def test_prefetch_loader_on_the_card(cuda):
         # used at once on the current stream: the wait makes it safe
         assert int((b["tokens"].long() + 0).sum()) == int(h["tokens"][4:].sum())
         assert np.array_equal(b["labels"].cpu().numpy(), h["labels"])
+
+
+def _fsdp_serve_rank(pool, device, shape):
+    """A rank of llava-next-34b SMOKE (``fsdp=True``) served on the card:
+    the bytes of the weights it holds, and its first decode step's
+    collectives (``collectives.log``) and launches of row 4."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.mesh import join_train_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = join_train_mesh(shape)
+    cfg = dataclasses.replace(configs.smoke_config("llava_next_34b"),
+                              dtype=torch.float32, fsdp=True)
+    arts = make_serve_steps(cfg, max_len=48, batch=4, torch_chunk=16,
+                            device=device, mesh=mesh)
+    params = arts.init_fn(0)
+    prompt = torch.arange(4 * 40, device=device).view(4, 40) % cfg.vocab_size
+    logits, caches = arts.prefill_fn(params, prompt, arts.cache_init_fn())
+    kdecode.launches = 0
+    C.log = []
+    try:
+        arts.decode_fn(params, logits[:, :cfg.vocab_size].argmax(-1), caches, 40)
+        log = C.log
+    finally:
+        C.log = None
+    return {"held": sum(p.numel() * p.element_size() for p in params.parameters()),
+            "log": log, "launches": kdecode.launches}
+
+
+def test_fsdp_mesh_serving_holds_the_dry_runs_bytes(cuda):
+    """llava-next-34b SMOKE with ``fsdp=True`` on (data 2, model 2) gloo
+    ranks sharing the card: each rank holds the weight bytes the dry run
+    (``launch/dryrun.trace_step`` on meta) counts for it, a quarter of the
+    model's, and its decode step logs the dry run's collectives, call for
+    call."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh import dry_train_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_ranks
+    shape = {"data": 2, "model": 2}
+    ranks = run_ranks(_fsdp_serve_rank, 4, (shape,), backend="gloo",
+                      device_type="cuda", timeout_s=600)
+    cfg = dataclasses.replace(configs.smoke_config("llava_next_34b"),
+                              dtype=torch.float32, fsdp=True)
+    whole = sum(p.numel() * 4 for p in lm.LM(cfg, lm.padded_vocab(cfg, 2),
+                                              device="meta").parameters())
+    for rank, r in enumerate(ranks):
+        dry = dryrun.trace_step(cfg, ShapeConfig("decode", 48, 4, "decode"),
+                                dry_train_mesh(shape, rank))
+        assert r["held"] == dry["held"]["params"] < whole / 2
+        assert r["log"] == dry["log"]
+        assert r["launches"] == lm.block_kinds(cfg).count("attn")

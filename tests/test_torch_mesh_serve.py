@@ -34,7 +34,17 @@ and from patch embeddings), SMOKE configs in f32:
   config with ``ctx_parallel_attn`` whose q heads ``model`` does not
   divide (``ctx``: qwen3-14b SMOKE with 3 q heads over 1 kv head), under
   ``seq_full`` (``S / model`` query rows a rank); a prompt that ``model``
-  does not divide (``dense_odd``) falls back to replicated rows.
+  does not divide (``dense_odd``) falls back to replicated rows;
+* the five FSDP configs (dbrx-132b, llava-next-34b, qwen3-14b, deepseek-67b,
+  deepseek-coder-33b, SMOKE with ``fsdp=True``) on (data 2, model 2) only,
+  in the same spawn: each rank holds exactly the prefill rules' shard of
+  every weight (every embed dim over data) on both caches, the contiguous
+  steps are held as above, and the paged engine token for token against
+  JAX's single-device engine;
+* a contiguous batch of 3 rows, which data 2 does not divide, on (data 2,
+  model 2), dense granite-3-2b and FSDP llava-next-34b: the batch is
+  replicated (JAX's ``spec_for`` falls back), every rank holds all 3 rows
+  of the cache, and the steps are held as above.
 """
 
 import dataclasses
@@ -90,8 +100,21 @@ CASES = {
     "vlm": ("llava_next_34b", 12, 6, False),
     "vlm_embeds": ("llava_next_34b", 12, 6, True),
 }
+#: the five FSDP configs (``fsdp=True``, as their full configs), served on
+#: (data 2, model 2) only: every weight's embed dim over data
+FSDP_ARCHS = ("dbrx_132b", "llava_next_34b", "qwen3_14b", "deepseek_67b",
+              "deepseek_coder_33b")
+FSDP_CASES = {f"fsdp_{arch}": (arch, 12, 6, False) for arch in FSDP_ARCHS}
+#: a batch of 3 rows, which data 2 does not divide: replicated on 2x2
+REPLICATED_CASES = {"replicated_dense": ("granite_3_2b", 12, 6, False),
+                    "replicated_fsdp": ("llava_next_34b", 12, 6, False)}
+ALL_CASES = {**CASES, **FSDP_CASES, **REPLICATED_CASES}
 #: a case's config overrides
-CASE_OVER = {"ctx": (("num_heads", 3), ("num_kv_heads", 1), ("head_dim", 16))}
+CASE_OVER = {"ctx": (("num_heads", 3), ("num_kv_heads", 1), ("head_dim", 16)),
+             **{name: (("fsdp", True),) for name in FSDP_CASES},
+             "replicated_fsdp": (("fsdp", True),)}
+#: a case's batch, where not ``B``
+CASE_BATCH = {name: 3 for name in REPLICATED_CASES}
 # paged engine on 2x2: arch → (page size, pages, slots, pages a sequence,
 # prefill row, engine kwargs, (prompt, new tokens) of each request)
 _LENS = ((12, 6), (7, 8), (12, 1), (7, 5))
@@ -105,6 +128,10 @@ PAGED = {
 }
 
 
+def _batch(name):
+    return CASE_BATCH.get(name, B)
+
+
 def _cfgs(arch, over=()):
     return (dataclasses.replace(jconfigs.smoke_config(arch), dtype=jnp.float32,
                                 remat=False, **dict(over)),
@@ -113,7 +140,7 @@ def _cfgs(arch, over=()):
 
 
 def _case_cfgs(name):
-    return _cfgs(CASES[name][0], CASE_OVER.get(name, ()))
+    return _cfgs(ALL_CASES[name][0], CASE_OVER.get(name, ()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,11 +155,12 @@ def _weights(arch, over=()):
 @functools.lru_cache(maxsize=None)
 def _inputs(name):
     """(prompt [B, S] int32, embeds [B, S, 1024] f32 or None) of a case."""
-    arch, s, _, from_embeds = CASES[name]
+    arch, s, _, from_embeds = ALL_CASES[name]
+    b = _batch(name)
     rs = np.random.default_rng(7)
     prompt = rs.integers(0, tconfigs.smoke_config(arch).vocab_size,
-                         (B, s)).astype(np.int32)
-    embeds = (rs.standard_normal((B, s, 1024)).astype(np.float32)
+                         (b, s)).astype(np.int32)
+    embeds = (rs.standard_normal((b, s, 1024)).astype(np.float32)
               if from_embeds else None)
     return prompt, embeds
 
@@ -140,12 +168,12 @@ def _inputs(name):
 @functools.lru_cache(maxsize=None)
 def _jax_run(name):
     """JAX's single-device greedy run: (tokens [B, gen], logits of each step)."""
-    arch, s, gen, _ = CASES[name]
+    arch, s, gen, _ = ALL_CASES[name]
     jcfg, _ = _case_cfgs(name)
     params, _ = _weights(arch, CASE_OVER.get(name, ()))
     prompt, embeds = _inputs(name)
-    arts = j_make_serve_steps(jcfg, impl="xla", max_len=s + gen, batch=B,
-                              xla_chunk=16)
+    arts = j_make_serve_steps(jcfg, impl="xla", max_len=s + gen,
+                              batch=_batch(name), xla_chunk=16)
     caches = arts.cache_init_fn()
     logits, caches = arts.prefill_fn(
         params, None if embeds is not None else jnp.asarray(prompt),
@@ -165,11 +193,12 @@ def _serve(name, mesh=None, params=None):
     ``mesh``: tokens, the logits of every step, and the first attention
     layer's k cache after prefill and at the end (this rank's shard), as
     numpy."""
-    arch, s, gen, _ = CASES[name]
+    arch, s, gen, _ = ALL_CASES[name]
     _, cfg = _case_cfgs(name)
     prompt, embeds = _inputs(name)
-    arts = make_serve_steps(cfg, impl="kernel", max_len=s + gen, batch=B,
-                            torch_chunk=16, device="cpu", mesh=mesh)
+    arts = make_serve_steps(cfg, impl="kernel", max_len=s + gen,
+                            batch=_batch(name), torch_chunk=16, device="cpu",
+                            mesh=mesh)
     caches = arts.cache_init_fn()
     if arts.plan is not None:
         arts.plan.rows_log = []
@@ -197,12 +226,13 @@ def _serve(name, mesh=None, params=None):
             "ring": (after_prefill, ring()),
             "shards": None if attn is None else caches[attn].get("shards", 1),
             "kv_seq": None if arts.plan is None else arts.plan.kv_seq,
+            "batch_axes": None if arts.plan is None else arts.plan.batch,
             "rows": rows}
 
 
 @functools.lru_cache(maxsize=None)
 def _single(name):
-    arch = CASES[name][0]
+    arch = ALL_CASES[name][0]
     _, cfg = _case_cfgs(name)
     return _serve(name, params=convert_params(
         cfg, _weights(arch, CASE_OVER.get(name, ()))[1], device="cpu"))
@@ -229,15 +259,17 @@ def _paged_requests(vocab, lens):
 
 
 def _paged_pool(arch, shards):
-    ps, n_pages, mb, mp, prefill_len, kw, lens = PAGED[arch]
+    """An arch's paged run (PAGED's; granite's for an arch not there)."""
+    ps, n_pages, mb, mp, prefill_len, kw, lens = PAGED.get(
+        arch, PAGED["granite_3_2b"])
     return (dict(page_size=ps, num_pages=n_pages, max_batch=mb,
                  max_pages_per_seq=mp, num_shards=shards), prefill_len, kw, lens)
 
 
-def _paged_job(mesh, arch, tree):
+def _paged_job(mesh, arch, tree, over=()):
     """The paged engine on this rank, handed the whole model (it keeps its
-    shard)."""
-    _, cfg = _cfgs(arch)
+    shard); ``over``: config overrides."""
+    _, cfg = _cfgs(arch, over)
     pool, prefill_len, kw, lens = _paged_pool(arch, mesh.size("model"))
     eng = tserving.ServingEngine(
         cfg, tserving.PagedCacheConfig(**pool),
@@ -280,6 +312,14 @@ def ranks(tmp_path_factory):
         if mesh_name == "2x2":
             jobs += [(f"paged_{arch}", "_paged_job", (arch, _weights(arch)[1]))
                      for arch in PAGED]
+            for name, (arch, *_) in FSDP_CASES.items():
+                over = CASE_OVER[name]
+                jobs += [(name, "_contiguous_job", (name, _weights(arch, over)[1])),
+                         (f"paged_{name}", "_paged_job",
+                          (arch, _weights(arch, over)[1], over))]
+            jobs += [(name, "_contiguous_job",
+                      (name, _weights(arch, CASE_OVER.get(name, ()))[1]))
+                     for name, (arch, *_) in REPLICATED_CASES.items()]
         out[mesh_name] = _run(shape, jobs, root)
     return out
 
@@ -450,6 +490,93 @@ def test_paged_engine_on_2x2_matches_one_device(ranks, arch):
 
 
 # ---------------------------------------------------------------------------
+# the FSDP configs on (data 2, model 2): weights held as the prefill rules
+# lay them out
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_serving_matches_jax_and_one_device(ranks, name):
+    """An FSDP config served with every embed dim over data: the greedy
+    tokens of JAX's single-device steps and of the port's on one device,
+    every step's logits within ``LOGIT_TOL`` of JAX's, the first within
+    ``MESH_LOGIT_TOL`` of one device's."""
+    jtok, jlogits = _jax_run(name)
+    one = _single(name)
+    np.testing.assert_array_equal(one["tokens"], jtok)
+    for r, res in enumerate(ranks["2x2"]):
+        res = res[name]
+        np.testing.assert_array_equal(res["tokens"], jtok,
+                                      err_msg=f"rank {r} against JAX")
+        np.testing.assert_array_equal(res["tokens"], one["tokens"])
+        err = float(np.abs(res["logits"][0] - one["logits"][0]).max())
+        assert err < MESH_LOGIT_TOL, f"rank {r}: first step {err}"
+        for step, (got, want) in enumerate(zip(res["logits"], jlogits)):
+            err = float(np.abs(got - want).max())
+            assert err < LOGIT_TOL, f"rank {r}, step {step}: {err} against JAX"
+
+
+def _prefill_shards(cfg):
+    """Every parameter's shape on a rank of (data 2, model 2) under the
+    prefill rules (``default_rules(serve=True)``), the vocab padded to 2."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import axis_size, default_rules
+    from repro_torch.models import lm as tlm
+    mesh = SimpleNamespace(shape=MESHES["2x2"])
+    full = {n: tuple(p.shape) for n, p in
+            tlm.LM(cfg, tlm.padded_vocab(cfg, VPAD), device="meta")
+            .named_parameters()}
+    specs = default_rules(mesh, cfg, serve=True).tree_specs(
+        full, tlm.param_specs(cfg))
+    local = {n: tuple(d // (1 if e is None else axis_size(mesh, e))
+                      for d, e in zip(full[n], specs[n])) for n in full}
+    return full, specs, local
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_rank_holds_the_prefill_rules_shard(ranks, name):
+    """On both caches each rank holds exactly the prefill rules' shard of
+    every weight: every embed dim halved over data (its 1 / data share),
+    the TP dims over model; a quarter of the model's bytes where both
+    split."""
+    from repro_torch.models import lm as tlm
+    _, cfg = _case_cfgs(name)
+    full, specs, local = _prefill_shards(cfg)
+    logical = tlm.param_specs(cfg)
+    for n in full:
+        for d, axis in enumerate(logical[n]):
+            if axis == "embed":
+                assert specs[n][d] == "data", (n, specs[n])
+                assert local[n][d] == full[n][d] // 2
+    for r, res in enumerate(ranks["2x2"]):
+        for job in (name, f"paged_{name}"):
+            assert res[job]["shapes"] == local, (r, job)
+    held = sum(np.prod(s) for s in local.values())
+    assert held < sum(np.prod(s) for s in full.values()) / 2
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_paged_engine_on_2x2_matches_jax(ranks, name):
+    """The paged engine of an FSDP config on (data 2, model 2), its weights
+    cut to the prefill rules' shards: token for token JAX's single-device
+    engine on every rank."""
+    arch = FSDP_CASES[name][0]
+    jcfg, tcfg = _case_cfgs(name)
+    pool, prefill_len, kw, lens = _paged_pool(arch, 2)
+    want, _ = jserving.ServingEngine(
+        jcfg, jserving.PagedCacheConfig(**pool),
+        _weights(arch, CASE_OVER[name])[0], impl="xla",
+        prefill_len=prefill_len, xla_chunk=16, **kw).run(
+            _paged_requests(tcfg.vocab_size, lens))
+    for r, res in enumerate(ranks["2x2"]):
+        out = res[f"paged_{name}"]["out"]
+        assert set(out) == set(want) and want
+        for rid in want:
+            np.testing.assert_array_equal(out[rid], want[rid],
+                                          err_msg=f"rank {r}: request {rid}")
+
+
+# ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
 
@@ -464,9 +591,39 @@ def test_launcher_serves_on_a_2x2_mesh(capsys, paged):
     got = tserve.main(args + ["--mesh", "2x2", "--dist-backend", "gloo"])
     text = capsys.readouterr().out
     assert "mesh: 4 ranks over data 2 x model 2" in text
+    assert "; weights: no dim over data" in text
     if paged:
         assert set(got[0]) == set(single[0]) and len(got[0]) == 6
         for rid in single[0]:
             np.testing.assert_array_equal(got[0][rid], single[0][rid])
     else:
         np.testing.assert_array_equal(got.tokens.numpy(), single.tokens.numpy())
+
+
+# ---------------------------------------------------------------------------
+# a contiguous batch that the batch axes do not divide, on (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(REPLICATED_CASES))
+def test_replicated_batch_matches_jax_and_one_device(ranks, name):
+    """3 rows over data 2: the plan replicates the batch (no batch axes),
+    every rank holds all 3 rows of the cache and gathers no logits over
+    data; the greedy tokens of JAX's single-device steps and of the port's
+    on one device, every step's logits within ``LOGIT_TOL`` of JAX's, the
+    first within ``MESH_LOGIT_TOL`` of one device's."""
+    jtok, jlogits = _jax_run(name)
+    one = _single(name)
+    np.testing.assert_array_equal(one["tokens"], jtok)
+    assert jtok.shape[0] == 3
+    for r, res in enumerate(ranks["2x2"]):
+        res = res[name]
+        assert res["batch_axes"] is None, r
+        assert res["ring"][1].shape[0] == 3, r
+        np.testing.assert_array_equal(res["tokens"], jtok,
+                                      err_msg=f"rank {r} against JAX")
+        err = float(np.abs(res["logits"][0] - one["logits"][0]).max())
+        assert err < MESH_LOGIT_TOL, f"rank {r}: first step {err}"
+        for step, (got, want) in enumerate(zip(res["logits"], jlogits)):
+            assert got.shape == want.shape
+            err = float(np.abs(got - want).max())
+            assert err < LOGIT_TOL, f"rank {r}, step {step}: {err} against JAX"

@@ -428,6 +428,52 @@ def _reduce_scatter_job(mesh):
     return out
 
 
+#: the dry run's cell against a real rank: granite SMOKE at 2 layers, f32,
+#: one step of batch B x S
+DRY_SHAPE = ("granite_3_2b", 2)
+
+
+def _dry_cfg():
+    arch, layers = DRY_SHAPE
+    return dataclasses.replace(tconfigs.smoke_config(arch), dtype=torch.float32,
+                               num_layers=layers)
+
+
+def _held(params, grads, opt):
+    """The bytes a rank holds by family (the dry run's ``held_bytes``)."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    held = {"params": nbytes(params.parameters()),
+            "grads": nbytes(grads.values()),
+            "optimizer": nbytes([*opt.m.values(), *opt.v.values(),
+                                 *(opt.master or {}).values()])}
+    held["total"] = sum(held.values())
+    return held
+
+
+def _dryrun_job(mesh):
+    """One training step of ``_dry_cfg`` on this rank, as the launcher
+    takes it (``make_train_step``'s state, ``place_batch``, ``step_fn``,
+    ``impl="torch"``): every collective it logs, and the bytes it holds
+    (the gradients those of ``grad_fn`` on the same state)."""
+    cfg = _dry_cfg()
+    opt_cfg = AdamWConfig()
+    arts = make_train_step(cfg, mesh=mesh, impl="torch", opt=opt_cfg,
+                           device="cpu")
+    params, opt = arts.init_fn(0)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    batch = place_batch(make_batch(dc, 0), "cpu", arts.shardings["batch"])
+    _, _, grads = arts.grad_fn(params, batch, 0)
+    held = _held(params, grads, opt)
+    C.log = []
+    try:
+        arts.step_fn(params, opt, batch, 0)
+        log = C.log
+    finally:
+        C.log = None
+    return {"log": log, "held": held}
+
+
 def _rank_jobs(pool, device, shape, path):
     """Run the jobs pickled at ``path`` ((name, function name, args) each)
     on this rank's mesh, the host's cores shared out among the ranks."""
@@ -489,6 +535,7 @@ def four(ckpt_root):
                            (str(ckpt_root / f"uninterrupted_{arch}"), total, arch,
                             total)))
     two_by_two.append(("reduce_scatter", "_reduce_scatter_job", ()))
+    two_by_two.append(("dryrun", "_dryrun_job", ()))
     g, e = _quant_inputs()
     by_mesh[(("model", 4),)].append(("quant", "_quant_job", (g, e)))
     out = {}
@@ -676,6 +723,29 @@ def test_reduce_scatter_sums_and_gathers_the_gradient(four):
             ups = [np.full((3, 4), float(r + 1), np.float32) + np.arange(4.0)
                    for r in peers]
             np.testing.assert_array_equal(dx, np.concatenate(ups, axis=1))
+
+
+def test_dry_run_logs_and_holds_what_a_real_rank_does(four):
+    """``launch/dryrun.trace_step`` of each rank of the 2x2 mesh on meta
+    (a ``dry_train_mesh``, no process group) logs the collectives, call
+    for call (kind, result bytes, group), and holds the bytes, family by
+    family, of the same step on that rank of a real gloo mesh; so do
+    their counts and ring bytes by kind."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh import dry_train_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.perf.collective_analysis import collective_stats
+    shape = ShapeConfig("mesh_step", S, B, "train")
+    for rank, real in enumerate(four["dryrun"]):
+        dry = dryrun.trace_step(_dry_cfg(), shape,
+                                dry_train_mesh(MESH_2X2, rank))
+        assert dry["log"] == real["log"], rank
+        assert dry["held"] == real["held"], rank
+        got, want = collective_stats(dry["log"]), collective_stats(real["log"])
+        assert got.count_by_kind == want.count_by_kind
+        assert got.bytes_by_kind == want.bytes_by_kind
+        assert set(want.count_by_kind) == {"all-reduce", "all-gather",
+                                           "reduce-scatter"}
 
 
 def test_packed_batches_weigh_the_data_ranks_differently():
@@ -970,9 +1040,9 @@ def test_plan_keys_the_hybrids_two_wo_by_block_kind():
     rec, attn = kinds.index("rec"), kinds.index("attn")
     assert plan.specs[f"blocks.{rec}.mixer.wo"] == ("model", None)
     assert plan.specs[f"blocks.{attn}.mixer.wo"] == (None, None)
-    assert plan.layout_only == {} and plan.seq and plan.ctx
+    assert plan.sharded_embed() == {} and plan.seq and plan.ctx
     hybrid = _plan("hybrid")
-    assert hybrid.layout_only == {} and hybrid.seq and not hybrid.ctx
+    assert hybrid.sharded_embed() == {} and hybrid.seq and not hybrid.ctx
 
 
 @pytest.mark.parametrize("name,s,want", [
