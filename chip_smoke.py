@@ -2440,6 +2440,14 @@ def _dist_modes(np, cfg, n_shards: int) -> dict:
     return modes
 
 
+def _merges(tracing, t0):
+    """The cross-shard decode merges since ``t0``: their count and the host
+    seconds of their ``dist.merge`` spans (inside their collectives)."""
+    spans = tracing.spans("dist.merge", t0=t0)
+    return {"merge_calls": len(spans),
+            "merge_s": sum(s.t1 - s.t0 for s in spans)}
+
+
 def _dist_rank(mesh, device):
     """One rank of phase 4c: serve recurrentgemma-2b on this rank's shard of
     the weights and of the pool in each of its ``_dist_modes``. Returns per
@@ -2447,10 +2455,10 @@ def _dist_rank(mesh, device):
     import numpy as np
     import torch
 
-    from repro_torch.distributed import paged as dpaged
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
     from repro_torch.models import lm
+    from repro_torch.runtime import tracing
     from repro_torch.runtime.steps import init_serve_params, serving_plan
     from repro_torch.serving import ServingEngine
 
@@ -2481,7 +2489,7 @@ def _dist_rank(mesh, device):
         torch.cuda.reset_peak_memory_stats(device)
         kfwd.launches = kdecode.launches = 0
         kdecode.launches_paged = kdecode.launches_paged_valid = 0
-        dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+        t_merges = tracing.clock()
         kdecode._launch_paged_valid = spy
         try:
             out, stats = eng.run([(t, g) for t, g in reqs])
@@ -2499,7 +2507,7 @@ def _dist_rank(mesh, device):
                          "flash_decode": kdecode.launches,
                          "flash_paged_decode": kdecode.launches_paged,
                          "flash_paged_decode_partials": kdecode.launches_paged_valid},
-            "merge_calls": dpaged.merge_calls, "merge_s": dpaged.merge_s,
+            **_merges(tracing, t_merges),
             "cow_pairs": len(pairs),
             "cow_across": sum(s // n_local != d // n_local for s, d in pairs),
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
@@ -2629,9 +2637,9 @@ def _mesh_serve_arm(torch, mesh, device, arm):
     (residual and query) and the peak memory. Returns numpy and floats (no
     tensors)."""
     from repro_torch.distributed import collectives as C
-    from repro_torch.distributed import paged as dpaged
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.runtime import tracing
     from repro_torch.runtime.steps import make_serve_steps
 
     _, layers, batch, prompt_len, gen_len, _ = MESH_SERVE[arm]
@@ -2655,7 +2663,7 @@ def _mesh_serve_arm(torch, mesh, device, arm):
     slots = next(c["k"].shape[2] for c in caches if "k" in c)
     kfwd.launches = kdecode.launches = kdecode.launches_partials = 0
     C.stats.update(calls=0, bytes=0, seconds=0.0)
-    dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+    t_merges = tracing.clock()
     torch.cuda.synchronize(device)
     arts.plan.rows_log = []
     t0 = time.perf_counter()
@@ -2685,7 +2693,8 @@ def _mesh_serve_arm(torch, mesh, device, arm):
             "decode_s": decode_s,
             "prefill_coll_s": prefill_coll[0], "prefill_coll_bytes": prefill_coll[1],
             "decode_coll_s": C.stats["seconds"],   # the merges' included
-            "decode_coll_bytes": C.stats["bytes"], "merges": dpaged.merge_calls,
+            "decode_coll_bytes": C.stats["bytes"],
+            "merges": _merges(tracing, t_merges)["merge_calls"],
             "launches": {"flash_fwd": launches_prefill,
                          "flash_decode": kdecode.launches,
                          "flash_decode_partials": kdecode.launches_partials},
@@ -2725,11 +2734,11 @@ def _mesh_serve_rank(pool, device, shape):
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives as C
-    from repro_torch.distributed import paged as dpaged
     from repro_torch.distributed.mesh import (PoolMesh, as_train_mesh,
                                               join_train_mesh)
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import flash_fwd as kfwd
+    from repro_torch.runtime import tracing
     from repro_torch.runtime.steps import init_serve_params, serving_plan
     from repro_torch.serving import ServingEngine
 
@@ -2772,7 +2781,7 @@ def _mesh_serve_rank(pool, device, shape):
         torch.cuda.reset_peak_memory_stats(device)
         kfwd.launches = kdecode.launches = 0
         kdecode.launches_paged = kdecode.launches_paged_valid = 0
-        dpaged.merge_calls, dpaged.merge_s = 0, 0.0
+        t_merges = tracing.clock()
         C.stats.update(calls=0, bytes=0, seconds=0.0)
         res, stats = eng.run([(t, g) for t, g in reqs])
         torch.cuda.synchronize(device)
@@ -2785,7 +2794,7 @@ def _mesh_serve_rank(pool, device, shape):
                          "flash_decode": kdecode.launches,
                          "flash_paged_decode": kdecode.launches_paged,
                          "flash_paged_decode_partials": kdecode.launches_paged_valid},
-            "merges": dpaged.merge_calls,
+            "merges": _merges(tracing, t_merges)["merge_calls"],
             "coll_s": C.stats["seconds"],   # the merges' included
             "coll_bytes": C.stats["bytes"], "cow_pairs": len(pairs),
             "cow_across": sum(s // n_local != d // n_local for s, d in pairs),

@@ -27,16 +27,15 @@ which JAX gets from GSPMD, are here too: :func:`copy_pages_sharded`
 (copy-on-write, whose source and destination may live on different shards)
 and :func:`poison_pages_sharded`.
 
-``merge_calls`` / ``merge_s`` count the merges and the host seconds spent
-inside their two collectives (which includes waiting for the stream to
-reach them), the counterpart of the kernels' launch counters. The
-collectives go through ``collectives.all_reduce_`` over the pool axis, so
-``collectives.stats`` and ``collectives.log`` hold them too.
+Each merge is a ``dist.merge`` span (``runtime/tracing.py``) around its
+two collectives: the host seconds spent in them, which include waiting for
+the stream to reach them. The collectives go through
+``collectives.all_reduce_`` over the pool axis, so ``collectives.stats``
+and ``collectives.log`` hold them too.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
 import torch
@@ -45,10 +44,7 @@ from repro_torch.core import online_softmax as osm
 from repro_torch.core.attention import spark_paged_decode_partials
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.mesh import PoolMesh, as_train_mesh
-
-#: merges since the last reset, and host seconds inside their collectives
-merge_calls = 0
-merge_s = 0.0
+from repro_torch.runtime import tracing
 
 
 def pages_per_shard(num_pages: int, n_shards: int) -> int:
@@ -83,19 +79,16 @@ def merge_partials(acc, m, l, mesh: PoolMesh, out_dtype=None):
     m_g)``, then ``online_softmax.finalize``, so rows with no valid position
     on any shard (inactive decode slots) come out as exact zeros. NEG_INF is
     a large *finite* negative, so ``a`` stays NaN-free on empty shards.
-    Returns o [B,H,D], identical on every rank.
+    Returns o [B,H,D], identical on every rank; spanned as ``dist.merge``.
     """
-    global merge_calls, merge_s
     d = acc.shape[-1]
     axis = as_train_mesh(mesh)
     m_g = m.clone()
-    t0 = time.perf_counter()
-    C.all_reduce_(m_g, axis, "model", "max")
-    a = torch.exp(m - m_g)       # empty shards: a -> 0 (or l == 0 makes it inert)
-    buf = torch.cat([acc * a[..., None], (l * a)[..., None]], dim=-1)
-    C.all_reduce_(buf, axis, "model")
-    merge_s += time.perf_counter() - t0
-    merge_calls += 1
+    with tracing.span("dist.merge"):
+        C.all_reduce_(m_g, axis, "model", "max")
+        a = torch.exp(m - m_g)   # empty shards: a -> 0 (or l == 0 makes it inert)
+        buf = torch.cat([acc * a[..., None], (l * a)[..., None]], dim=-1)
+        C.all_reduce_(buf, axis, "model")
     state = osm.SoftmaxState(m=m_g, l=buf[..., d], acc=buf[..., :d])
     o, _ = osm.finalize(state, out_dtype=out_dtype)
     return o

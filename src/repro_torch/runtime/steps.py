@@ -30,6 +30,7 @@ from repro_torch.models.convert import convert_opt_state, convert_params
 from repro_torch.models.layers import Ctx
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.runtime import tracing
 
 
 @dataclasses.dataclass
@@ -83,11 +84,15 @@ def place_batch(batch: Dict[str, Any], device,
     """A host batch (numpy arrays from ``data.make_batch``) as tensors on
     ``device``: ids stay int32 (the kernels take int32 segment ids), floats
     (a frontend arch's ``embeds``) stay f32. With a mesh's batch
-    ``shardings``, only this rank's rows (cut on the host)."""
-    if shardings is not None:
-        return shard_batch({k: np.asarray(v) if not isinstance(v, torch.Tensor)
-                            else v for k, v in batch.items()}, shardings, device)
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+    ``shardings``, only this rank's rows (cut on the host). Spanned as
+    ``data.place``."""
+    with tracing.span("data.place"):
+        if shardings is not None:
+            return shard_batch({k: np.asarray(v) if not isinstance(
+                v, torch.Tensor) else v for k, v in batch.items()},
+                shardings, device)
+        return {k: torch.as_tensor(np.asarray(v)).to(device)
+                for k, v in batch.items()}
 
 
 def make_train_step(cfg, *, mesh=None, opt: AdamWConfig = AdamWConfig(),
@@ -137,19 +142,26 @@ def make_train_step(cfg, *, mesh=None, opt: AdamWConfig = AdamWConfig(),
 def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
               torch_chunk, device, plan):
     """(grad_fn, step_fn) of :func:`make_train_step`; ``plan``: on a mesh,
-    whose batch axes hold ``microbatch // size`` rows of each microbatch."""
-    def loss_and_grads(params, batch, seed):
+    whose batch axes hold ``microbatch // size`` rows of each microbatch.
+    Spans: ``train.step`` around ``step_fn``, and ``train.forward``,
+    ``train.backward`` (each with ``micro`` under microbatches) and
+    ``train.optimizer`` timed on the device too."""
+    timed = torch.device(device)
+
+    def loss_and_grads(params, batch, seed, **micro):
         ctx = Ctx(impl=impl, deterministic=(cfg.dropout_rate == 0.0),
                   seed=seed, torch_chunk=torch_chunk, plan=plan)
-        loss, metrics = lm.loss_fn(cfg, params, batch, ctx)
-        loss.backward()
-        grads = {}
-        for n, p in params.named_parameters():
-            # a leaf the loss does not reach (the embedding of a batch of
-            # embeds, frontend_proj of one of tokens) has a zero gradient,
-            # as in JAX
-            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
-            p.grad = None
+        with tracing.span("train.forward", device=timed, **micro):
+            loss, metrics = lm.loss_fn(cfg, params, batch, ctx)
+        with tracing.span("train.backward", device=timed, **micro):
+            loss.backward()
+            grads = {}
+            for n, p in params.named_parameters():
+                # a leaf the loss does not reach (the embedding of a batch
+                # of embeds, frontend_proj of one of tokens) has a zero
+                # gradient, as in JAX
+                grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
+                p.grad = None
         # on a mesh the loss is this rank's term; the metrics hold the total
         loss = metrics["loss"] if plan is not None else loss
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -166,7 +178,7 @@ def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
             grads, loss = {}, torch.zeros((), dtype=torch.float32, device=device)
             for i in range(n_micro):
                 mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-                l, metrics, g = loss_and_grads(params, mb, seed)
+                l, metrics, g = loss_and_grads(params, mb, seed, micro=i)
                 loss = loss + l
                 for n, gi in g.items():          # summed in f32, as JAX's scan
                     gi = gi.float()
@@ -179,12 +191,14 @@ def _step_fns(cfg, opt, impl, total_steps, warmup_steps, microbatch,
         return loss, metrics, grads
 
     def step_fn(params, opt_state, batch, step: int):
-        loss, metrics, grads = grad_fn(params, batch, step)
-        lr = cosine_schedule(step, warmup_steps, total_steps, opt.lr)
-        params, opt_state, om = adamw_update(grads, opt_state, params, opt,
-                                             plan=plan)
-        metrics = dict(metrics, **om, lr=lr, loss=loss)
-        return params, opt_state, metrics
+        with tracing.span("train.step", step=step):
+            loss, metrics, grads = grad_fn(params, batch, step)
+            lr = cosine_schedule(step, warmup_steps, total_steps, opt.lr)
+            with tracing.span("train.optimizer", device=timed):
+                params, opt_state, om = adamw_update(grads, opt_state, params,
+                                                     opt, plan=plan)
+            metrics = dict(metrics, **om, lr=lr, loss=loss)
+            return params, opt_state, metrics
 
     return grad_fn, step_fn
 

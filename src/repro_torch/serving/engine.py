@@ -134,6 +134,7 @@ from repro_torch.distributed.mesh import as_train_mesh
 from repro_torch.distributed.paged import (copy_pages_sharded,
                                            poison_pages_sharded)
 from repro_torch.models.layers import paged_decode_window
+from repro_torch.runtime import tracing
 from repro_torch.runtime.steps import make_serve_steps
 from repro_torch.serving.drafter import NgramDrafter, longest_accept
 from repro_torch.serving.faults import FaultPlan, InjectedCrash
@@ -276,6 +277,9 @@ class ServingEngine:
         self.drafted_tokens = 0                  # draft tokens sent to verify
         self.accepted_tokens = 0                 # drafts the model agreed with
         self._next_rid = 0
+        # rid → the moment its first token's logits reached the host
+        # (``tracing.clock``), whatever route gave them
+        self.first_token_at: Dict[int, float] = {}
         # -- resilience state (typed outcomes, deadlines, watchdog, faults) --
         self.deadline_ms = deadline_ms
         self.max_steps = max_steps
@@ -657,30 +661,38 @@ class ServingEngine:
         per-segment positions from zero, in-row segment-masked attention)."""
         tables = self.scheduler.tables
         for row in self._pack_rows(seqs):
-            tokens = np.zeros((1, self.prefill_len), np.int32)
-            seg = np.full((1, self.prefill_len), -1, np.int32)
-            pos = np.zeros((1, self.prefill_len), np.int32)
-            slots = np.full((1, self.prefill_len), -1, np.int32)
-            off = 0
-            for i, seq in enumerate(row):
-                n = seq.request.prompt_len
-                tokens[0, off:off + n] = seq.request.tokens
-                seg[0, off:off + n] = i
-                pos[0, off:off + n] = np.arange(n)
-                slots[0, off:off + n] = seq.slot
-                off += n
-            dest = tables.prefill_dest(seg[0], [s.slot for s in row])
-            # one row of logits a prompt: its last token's
-            logits, self.caches = self.prefill_fn(
-                self.params, self._dev(tokens), self._dev(seg),
-                self._dev(pos), self._dev(dest[None]), self._dev(slots),
-                self.caches)
-            logits = self._host(logits[:, :self.cfg.vocab_size])
-            for li, seq in enumerate(row):
-                tables.kv_len[seq.slot] = seq.request.prompt_len
-                seq.prefilled = seq.request.prompt_len
-                tables.register_prefilled(seq.slot, seq.prefilled)
-                seq.generated.append(int(logits[li].argmax()))
+            with tracing.span("serve.prefill",
+                              rids=[s.request.rid for s in row],
+                              tokens=sum(s.request.prompt_len for s in row),
+                              width=self.prefill_len):
+                with tracing.span("serve.prefill.pack"):
+                    tokens = np.zeros((1, self.prefill_len), np.int32)
+                    seg = np.full((1, self.prefill_len), -1, np.int32)
+                    pos = np.zeros((1, self.prefill_len), np.int32)
+                    slots = np.full((1, self.prefill_len), -1, np.int32)
+                    off = 0
+                    for i, seq in enumerate(row):
+                        n = seq.request.prompt_len
+                        tokens[0, off:off + n] = seq.request.tokens
+                        seg[0, off:off + n] = i
+                        pos[0, off:off + n] = np.arange(n)
+                        slots[0, off:off + n] = seq.slot
+                        off += n
+                    dest = tables.prefill_dest(seg[0], [s.slot for s in row])
+                    args = (self._dev(tokens), self._dev(seg), self._dev(pos),
+                            self._dev(dest[None]), self._dev(slots))
+                # one row of logits a prompt: its last token's
+                with tracing.span("serve.prefill.launch"):
+                    logits, self.caches = self.prefill_fn(self.params, *args,
+                                                          self.caches)
+                with tracing.span("serve.prefill.wait"):
+                    logits = self._host(logits[:, :self.cfg.vocab_size])
+                self._on_host(s.request.rid for s in row)
+                for li, seq in enumerate(row):
+                    tables.kv_len[seq.slot] = seq.request.prompt_len
+                    seq.prefilled = seq.request.prompt_len
+                    tables.register_prefilled(seq.slot, seq.prefilled)
+                    seq.generated.append(int(logits[li].argmax()))
 
     def _prefill_chunks(self, spans: List[Tuple[ActiveSeq, int, int]]):
         """Run chunked/suffix prefill spans — tokens ``[start, end)`` of
@@ -701,40 +713,51 @@ class ServingEngine:
             rows[-1].append(sp)
             used += n
         for row in rows:
-            tokens = np.zeros((1, width), np.int32)
-            pos = np.zeros((1, width), np.int32)
-            kvl = np.zeros((1, width), np.int32)   # pad rows finalize to zero
-            ttab = np.full((1, width, self.pcfg.max_pages_per_seq),
-                           TRASH_PAGE, np.int32)
-            dest = np.zeros((1, width), np.int32)  # pad → trash slot 0
-            slots = np.full((1, width), -1, np.int32)
-            local = np.zeros((1, width), np.int32)
-            off = 0
-            marks = []
-            for seq, a, b in row:
-                n = b - a
-                tokens[0, off:off + n] = seq.request.tokens[a:b]
-                pos[0, off:off + n] = np.arange(a, b)
-                kvl[0, off:off + n] = np.arange(a, b) + 1
-                ttab[0, off:off + n] = tables.tables[seq.slot]
-                dest[0, off:off + n] = tables.span_dest(seq.slot, a, b)
-                slots[0, off:off + n] = seq.slot
-                local[0, off:off + n] = np.arange(n)
-                marks.append((seq, b, len(marks)))
-                off += n
-            # one row of logits a span (a row holds a sequence's span
-            # once): its last token's
-            logits, self.caches = self.chunk_prefill_fn(
-                self.params, self._dev(tokens), self._dev(pos),
-                self._dev(dest), self._dev(ttab), self._dev(kvl),
-                self._dev(slots), self._dev(local), self.caches)
-            logits = self._host(logits[:, :self.cfg.vocab_size])
-            for seq, end, li in marks:
-                seq.prefilled = end
-                tables.kv_len[seq.slot] = end
-                tables.register_prefilled(seq.slot, end)
-                if end == seq.request.prompt_len:
-                    seq.generated.append(int(logits[li].argmax()))
+            with tracing.span("serve.prefill",
+                              rids=[seq.request.rid for seq, _, _ in row],
+                              tokens=sum(b - a for _, a, b in row),
+                              width=width):
+                with tracing.span("serve.prefill.pack"):
+                    tokens = np.zeros((1, width), np.int32)
+                    pos = np.zeros((1, width), np.int32)
+                    # pad rows finalize to zero, and write to trash slot 0
+                    kvl = np.zeros((1, width), np.int32)
+                    ttab = np.full((1, width, self.pcfg.max_pages_per_seq),
+                                   TRASH_PAGE, np.int32)
+                    dest = np.zeros((1, width), np.int32)
+                    slots = np.full((1, width), -1, np.int32)
+                    local = np.zeros((1, width), np.int32)
+                    off = 0
+                    marks = []
+                    for seq, a, b in row:
+                        n = b - a
+                        tokens[0, off:off + n] = seq.request.tokens[a:b]
+                        pos[0, off:off + n] = np.arange(a, b)
+                        kvl[0, off:off + n] = np.arange(a, b) + 1
+                        ttab[0, off:off + n] = tables.tables[seq.slot]
+                        dest[0, off:off + n] = tables.span_dest(seq.slot, a, b)
+                        slots[0, off:off + n] = seq.slot
+                        local[0, off:off + n] = np.arange(n)
+                        marks.append((seq, b, len(marks)))
+                        off += n
+                    args = (self._dev(tokens), self._dev(pos), self._dev(dest),
+                            self._dev(ttab), self._dev(kvl), self._dev(slots),
+                            self._dev(local))
+                # one row of logits a span (a row holds a sequence's span
+                # once): its last token's
+                with tracing.span("serve.prefill.launch"):
+                    logits, self.caches = self.chunk_prefill_fn(
+                        self.params, *args, self.caches)
+                with tracing.span("serve.prefill.wait"):
+                    logits = self._host(logits[:, :self.cfg.vocab_size])
+                self._on_host(seq.request.rid for seq, end, _ in marks
+                              if end == seq.request.prompt_len)
+                for seq, end, li in marks:
+                    seq.prefilled = end
+                    tables.kv_len[seq.slot] = end
+                    tables.register_prefilled(seq.slot, end)
+                    if end == seq.request.prompt_len:
+                        seq.generated.append(int(logits[li].argmax()))
 
     def _prefill_step(self) -> int:
         """Advance every mid-prompt row, spending at most ``prefill_chunk``
@@ -796,44 +819,46 @@ class ServingEngine:
         unreachable).  Returns the number of tokens emitted."""
         sched = self.scheduler
         tables = sched.tables
-        tok = np.zeros((self.pcfg.max_batch,), np.int32)
-        bt, kvl = tables.tables, tables.kv_len
-        if any(seq.prefilling for seq in sched.active.values()):
-            bt, kvl = bt.copy(), kvl.copy()
-            for slot, seq in sched.active.items():
-                if seq.prefilling:
-                    bt[slot] = TRASH_PAGE
-                    kvl[slot] = 0
-        for slot, seq in sched.active.items():
-            if seq.prefilling:
-                continue
-            assert tables.append_dest_ok(slot), \
-                f"slot {slot}: write position escaped its owned pages"
-            tok[slot] = seq.generated[-1]
-        logits, self.caches = self.decode_fn(
-            self.params, self._dev(tok), self.caches,
-            self._dev(bt), self._dev(kvl))
-        logits = self._host(logits[:, :self.cfg.vocab_size])
-        logits = self._inject_nan(logits,
-                                  [s for s, q in sched.active.items()
-                                   if not q.prefilling])
-        finite = np.isfinite(logits).all(axis=-1)
-        emitted = 0
-        bad: List[ActiveSeq] = []
-        for slot, seq in sched.active.items():
-            if seq.prefilling:
-                continue
-            if not finite[slot]:
-                bad.append(seq)
-                continue
-            tables.kv_len[slot] += 1
-            seq.generated.append(int(logits[slot].argmax()))
-            emitted += 1
-        for seq in bad:
-            self._terminate_active(
-                seq, Outcome.FAILED,
-                f"health sentinel: non-finite decode logits (slot "
-                f"{seq.slot})")
+        rows = [slot for slot, seq in sched.active.items()
+                if not seq.prefilling]
+        with tracing.span("serve.decode", rows=len(rows)):
+            with tracing.span("serve.decode.prepare"):
+                tok = np.zeros((self.pcfg.max_batch,), np.int32)
+                bt, kvl = tables.tables, tables.kv_len
+                if len(rows) < len(sched.active):
+                    bt, kvl = bt.copy(), kvl.copy()
+                    for slot, seq in sched.active.items():
+                        if seq.prefilling:
+                            bt[slot] = TRASH_PAGE
+                            kvl[slot] = 0
+                for slot in rows:
+                    assert tables.append_dest_ok(slot), \
+                        f"slot {slot}: write position escaped its owned pages"
+                    tok[slot] = sched.active[slot].generated[-1]
+                args = (self._dev(tok), self.caches, self._dev(bt),
+                        self._dev(kvl))
+            with tracing.span("serve.decode.launch"):
+                logits, self.caches = self.decode_fn(self.params, *args)
+            with tracing.span("serve.decode.wait"):
+                logits = self._host(logits[:, :self.cfg.vocab_size])
+            with tracing.span("serve.decode.sample"):
+                logits = self._inject_nan(logits, rows)
+                finite = np.isfinite(logits).all(axis=-1)
+                emitted = 0
+                bad: List[ActiveSeq] = []
+                for slot in rows:
+                    seq = sched.active[slot]
+                    if not finite[slot]:
+                        bad.append(seq)
+                        continue
+                    tables.kv_len[slot] += 1
+                    seq.generated.append(int(logits[slot].argmax()))
+                    emitted += 1
+                for seq in bad:
+                    self._terminate_active(
+                        seq, Outcome.FAILED,
+                        f"health sentinel: non-finite decode logits (slot "
+                        f"{seq.slot})")
         return emitted
 
     def _decode_spec(self) -> int:
@@ -853,59 +878,67 @@ class ServingEngine:
         sched = self.scheduler
         tables = sched.tables
         width = self.speculate_k + 1
-        tok = np.zeros((self.pcfg.max_batch, width), np.int32)
-        pos = np.zeros((self.pcfg.max_batch, width), np.int32)
-        kvl = np.zeros((self.pcfg.max_batch, width), np.int32)
-        ttab = np.full((self.pcfg.max_batch, width,
-                        self.pcfg.max_pages_per_seq), TRASH_PAGE, np.int32)
-        dest = np.zeros((self.pcfg.max_batch, width), np.int32)
-        drafts: Dict[int, np.ndarray] = {}
-        for slot, seq in sched.active.items():
-            if seq.prefilling:
-                continue
-            history = np.concatenate(
-                [seq.request.tokens, np.asarray(seq.generated, np.int32)])
-            room = seq.request.max_new_tokens - len(seq.generated)
-            draft = self.drafter.propose(history, max_tokens=room - 1)
-            m = len(draft) + 1
-            L = int(tables.kv_len[slot])
-            assert tables.append_dest_ok(slot, m), \
-                f"slot {slot}: verify write escaped its owned pages"
-            tok[slot, 0] = seq.generated[-1]
-            tok[slot, 1:m] = draft
-            pos[slot, :m] = L + np.arange(m)
-            kvl[slot, :m] = L + 1 + np.arange(m)
-            ttab[slot, :m] = tables.tables[slot]
-            dest[slot, :m] = tables.span_dest(slot, L, L + m)
-            drafts[slot] = draft
-            self.drafted_tokens += len(draft)
-        logits, self.caches = self.verify_fn(
-            self.params, self._dev(tok), self._dev(pos),
-            self._dev(dest), self._dev(ttab), self._dev(kvl),
-            self.caches)
-        logits = self._host(logits[:, :, :self.cfg.vocab_size])
-        logits = self._inject_nan(logits, list(drafts))
-        n_out = 0
-        for slot, draft in drafts.items():
-            seq = sched.active[slot]
-            if not np.isfinite(logits[slot, :len(draft) + 1]).all():
-                # health sentinel — same quarantine as plain decode; only
-                # the row's live verify positions are checked (masked tail
-                # positions legitimately carry garbage)
-                self._terminate_active(
-                    seq, Outcome.FAILED,
-                    f"health sentinel: non-finite verify logits (slot "
-                    f"{slot})")
-                continue
-            greedy = logits[slot, :len(draft) + 1].argmax(axis=-1)
-            accepted, emitted = longest_accept(draft, greedy)
-            self.accepted_tokens += accepted
-            eos = seq.request.eos_id
-            if eos is not None and eos in emitted:
-                emitted = emitted[:emitted.index(eos) + 1]
-            seq.generated.extend(emitted)
-            tables.kv_len[slot] += len(emitted)
-            n_out += len(emitted)
+        n_rows = sum(not seq.prefilling for seq in sched.active.values())
+        with tracing.span("serve.decode", rows=n_rows):
+            with tracing.span("serve.decode.prepare"):
+                tok = np.zeros((self.pcfg.max_batch, width), np.int32)
+                pos = np.zeros((self.pcfg.max_batch, width), np.int32)
+                kvl = np.zeros((self.pcfg.max_batch, width), np.int32)
+                ttab = np.full((self.pcfg.max_batch, width,
+                                self.pcfg.max_pages_per_seq), TRASH_PAGE,
+                               np.int32)
+                dest = np.zeros((self.pcfg.max_batch, width), np.int32)
+                drafts: Dict[int, np.ndarray] = {}
+                for slot, seq in sched.active.items():
+                    if seq.prefilling:
+                        continue
+                    history = np.concatenate(
+                        [seq.request.tokens,
+                         np.asarray(seq.generated, np.int32)])
+                    room = seq.request.max_new_tokens - len(seq.generated)
+                    draft = self.drafter.propose(history, max_tokens=room - 1)
+                    m = len(draft) + 1
+                    L = int(tables.kv_len[slot])
+                    assert tables.append_dest_ok(slot, m), \
+                        f"slot {slot}: verify write escaped its owned pages"
+                    tok[slot, 0] = seq.generated[-1]
+                    tok[slot, 1:m] = draft
+                    pos[slot, :m] = L + np.arange(m)
+                    kvl[slot, :m] = L + 1 + np.arange(m)
+                    ttab[slot, :m] = tables.tables[slot]
+                    dest[slot, :m] = tables.span_dest(slot, L, L + m)
+                    drafts[slot] = draft
+                    self.drafted_tokens += len(draft)
+                args = (self._dev(tok), self._dev(pos), self._dev(dest),
+                        self._dev(ttab), self._dev(kvl))
+            with tracing.span("serve.decode.launch"):
+                logits, self.caches = self.verify_fn(self.params, *args,
+                                                     self.caches)
+            with tracing.span("serve.decode.wait"):
+                logits = self._host(logits[:, :, :self.cfg.vocab_size])
+            with tracing.span("serve.decode.sample"):
+                logits = self._inject_nan(logits, list(drafts))
+                n_out = 0
+                for slot, draft in drafts.items():
+                    seq = sched.active[slot]
+                    if not np.isfinite(logits[slot, :len(draft) + 1]).all():
+                        # health sentinel — same quarantine as plain decode;
+                        # only the row's live verify positions are checked
+                        # (masked tail positions legitimately carry garbage)
+                        self._terminate_active(
+                            seq, Outcome.FAILED,
+                            f"health sentinel: non-finite verify logits (slot "
+                            f"{slot})")
+                        continue
+                    greedy = logits[slot, :len(draft) + 1].argmax(axis=-1)
+                    accepted, emitted = longest_accept(draft, greedy)
+                    self.accepted_tokens += accepted
+                    eos = seq.request.eos_id
+                    if eos is not None and eos in emitted:
+                        emitted = emitted[:emitted.index(eos) + 1]
+                    seq.generated.extend(emitted)
+                    tables.kv_len[slot] += len(emitted)
+                    n_out += len(emitted)
         return n_out
 
     def _apply_cow(self):
@@ -970,6 +1003,14 @@ class ServingEngine:
         if released and self.poison_reclaimed and self.has_state:
             self._poison_state(released)
 
+    def _on_host(self, rids) -> None:
+        """Stamp ``first_token_at`` for ``rids``, whose first token's
+        logits have just reached the host (a later stamp keeps the
+        first)."""
+        now = tracing.clock()
+        for rid in rids:
+            self.first_token_at.setdefault(rid, now)
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the engine's device (ids stay
         int32, as the kernels take them)."""
@@ -993,73 +1034,77 @@ class ServingEngine:
         before a storm can preempt it (which would re-prefill a spent
         request and overshoot its budget by one token) or a deadline can
         mislabel it ``TIMEOUT``."""
-        sched = self.scheduler
-        done = self._evict_finished()
-        if self.fault_plan is not None:
-            self._apply_faults()
-        if self._deadline_at or self._step_limit:
-            self._check_deadlines()
-        if sched.idle:
-            return
-        if self.reclaim and sched.active:
-            freed = sched.reclaim(self.window)
-            if freed and self.poison_reclaimed:
-                self._poison_pages(freed)
-        self._drain_state_releases()
-        n_pre = sched.preemptions
-        if sched.active:
-            # running rows claim write pages first — the whole verify
-            # span at once under speculation (lookahead = k + 1)
-            sched.ensure_growth(self._lookahead)
-            self._apply_cow()
-        self._drain_state_releases()   # growth-pass preemptions
-        admitted = sched.admit()
-        if admitted:
-            # newly admitted rows may need a copy-on-write before their
-            # first prefill span (a shared partial-tail block, or the
-            # re-prefilled last token of a fully matched prompt)
-            sched.ensure_growth(self._lookahead)
-            self._apply_cow()
-        progressed = self._prefill_step()
-        if progressed:
-            done += self._evict_finished()  # max_new == 1 finishes at prefill
-        if sched.active:
-            # just-prefilled rows may sit exactly on a page boundary;
-            # this pass may preempt one of them (its prefill work
-            # survives in generated_prefix and resumes later)
-            sched.ensure_growth(self._lookahead)
-            self._apply_cow()
-        emitted = 0
-        if any(not seq.prefilling for seq in sched.active.values()):
-            u = sched.tables.utilization()
-            self.util_samples.append(u["utilization"])
-            self.pool_samples.append(u["pool_fraction"])
-            emitted = (self._decode_spec() if self.speculate_k
-                       else self._decode())
-            self._steps += 1
-        if emitted or progressed or done:
-            # tokens, prefill spans, or completions: real progress — an
-            # admitted wave may finish entirely at prefill (max_new == 1),
-            # a preemption wave empties the active set to retry next
-            # iteration, and a chunked-prefill step may advance prompts
-            # without decoding; all reset the watchdog
-            self._stall = 0
-            return
-        if sched.waiting and not sched.active and not admitted \
-                and sched.preemptions == n_pre:
-            # no admission, no prefill, no preemption, nothing decodable:
-            # the waiting head can never be served — fail it with a
-            # diagnostic and keep serving the rest (the pre-resilience
-            # engine raised here, taking the whole batch down)
-            req = sched.waiting.popleft()
-            self._record_outcome(
-                req.rid, Outcome.FAILED, req.generated_prefix,
-                "scheduler stuck: nothing active yet nothing admissible — "
-                + self._stuck_diagnostic())
-            return
-        self._stall += 1
-        if self._stall > self.watchdog_patience:
-            self._watchdog_fire()
+        with tracing.span("serve.iteration"):
+            sched = self.scheduler
+            with tracing.span("serve.schedule"):
+                done = self._evict_finished()
+                if self.fault_plan is not None:
+                    self._apply_faults()
+                if self._deadline_at or self._step_limit:
+                    self._check_deadlines()
+                if sched.idle:
+                    return
+                if self.reclaim and sched.active:
+                    freed = sched.reclaim(self.window)
+                    if freed and self.poison_reclaimed:
+                        self._poison_pages(freed)
+                self._drain_state_releases()
+                n_pre = sched.preemptions
+                if sched.active:
+                    # running rows claim write pages first — the whole verify
+                    # span at once under speculation (lookahead = k + 1)
+                    sched.ensure_growth(self._lookahead)
+                    self._apply_cow()
+                self._drain_state_releases()   # growth-pass preemptions
+                admitted = sched.admit()
+                if admitted:
+                    # newly admitted rows may need a copy-on-write before their
+                    # first prefill span (a shared partial-tail block, or the
+                    # re-prefilled last token of a fully matched prompt)
+                    sched.ensure_growth(self._lookahead)
+                    self._apply_cow()
+            progressed = self._prefill_step()
+            with tracing.span("serve.schedule"):
+                if progressed:
+                    # max_new == 1 finishes at prefill
+                    done += self._evict_finished()
+                if sched.active:
+                    # just-prefilled rows may sit exactly on a page boundary;
+                    # this pass may preempt one of them (its prefill work
+                    # survives in generated_prefix and resumes later)
+                    sched.ensure_growth(self._lookahead)
+                    self._apply_cow()
+            emitted = 0
+            if any(not seq.prefilling for seq in sched.active.values()):
+                u = sched.tables.utilization()
+                self.util_samples.append(u["utilization"])
+                self.pool_samples.append(u["pool_fraction"])
+                emitted = (self._decode_spec() if self.speculate_k
+                           else self._decode())
+                self._steps += 1
+            if emitted or progressed or done:
+                # tokens, prefill spans, or completions: real progress — an
+                # admitted wave may finish entirely at prefill (max_new == 1),
+                # a preemption wave empties the active set to retry next
+                # iteration, and a chunked-prefill step may advance prompts
+                # without decoding; all reset the watchdog
+                self._stall = 0
+                return
+            if sched.waiting and not sched.active and not admitted \
+                    and sched.preemptions == n_pre:
+                # no admission, no prefill, no preemption, nothing decodable:
+                # the waiting head can never be served — fail it with a
+                # diagnostic and keep serving the rest (the pre-resilience
+                # engine raised here, taking the whole batch down)
+                req = sched.waiting.popleft()
+                self._record_outcome(
+                    req.rid, Outcome.FAILED, req.generated_prefix,
+                    "scheduler stuck: nothing active yet nothing admissible — "
+                    + self._stuck_diagnostic())
+                return
+            self._stall += 1
+            if self._stall > self.watchdog_patience:
+                self._watchdog_fire()
 
     def run(self, requests: Optional[List[Tuple[np.ndarray, int]]] = None
             ) -> Tuple[Dict[int, np.ndarray], Dict[str, object]]:

@@ -55,6 +55,7 @@ from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
+from repro_torch.runtime import tracing  # noqa: E402
 from repro_torch.runtime.steps import (make_serve_steps,  # noqa: E402
                                        serving_plan)
 
@@ -654,9 +655,9 @@ def _one_rank_engine(mesh, device, cfg, tree, mode):
                                                            device=device),
                                  impl="torch", device=device, mesh=mesh,
                                  prefill_len=prefill_len, torch_chunk=16, **kw)
-    tpaged.merge_calls = 0
+    t0 = tracing.clock()
     out, stats = eng.run(_reqs(cfg.vocab_size, _LENS, **rkw))
-    return out, tpaged.merge_calls, stats["cow_copies"]
+    return out, len(tracing.spans("dist.merge", t0=t0)), stats["cow_copies"]
 
 
 def test_one_rank_mesh_runs_the_sharded_path():
